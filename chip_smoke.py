@@ -1,6 +1,7 @@
 """Quickest proof that the PyTorch/CUDA port starts and is right on the card.
 
     python3 chip_smoke.py [--seed 0] [--requests 512] [--bursts 9]
+                          [--train-steps 3]
 
 Run from the root of a checkout on a machine with one NVIDIA H100 and the
 CUDA toolkit.  Phases, in order; any failure exits non-zero:
@@ -8,8 +9,10 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
   1. build every CUDA kernel of the port from ``src/repro_torch/csrc``
      (one ``nvcc`` per source, in parallel) and print the card's name and
      power limit;
-  2. hold each kernel against its plain PyTorch version on the card at the
-     serving slice's shapes and at one odd shape, and time both;
+  2. hold each kernel against its plain PyTorch version on the card at its
+     slice's shapes and at one odd shape, and time both, with the bound of
+     the work and, where one PyTorch call computes the same function, that
+     call's time;
   3. the serving slice at PUBMED width (W = 141,043, K = 2000): a random
      phi statistic made on the card from ``--seed``, saved as a JAX-format
      checkpoint, served by ``SlabEngine.from_checkpoint`` for
@@ -21,7 +24,17 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      p99 and step_ema;
   4. a fixed-sweep fold-in through the kernel against the plain version;
   5. the same requests served again under ``torch.profiler``: the card's
-     busy share of the wall time and the device time by kernel.
+     busy share of the wall time and the device time by kernel;
+  6. the training slice at PUBMED width (W = 141,043, K = 2000, mini-batches
+     of D = 512 documents x L = 128 sampled on the card from a random
+     model): ``--train-steps`` POBP steps of ``make_train_step`` with the
+     repo's paper-scale settings (lambda_w 0.1, 50 power topics, 200 inner
+     iterations, tolerance 0.1); the launch counts of the three training
+     kernels must match the steps and iterations run, phi_acc must hold
+     every token consumed and stay finite; one mini-batch at a reduced
+     shape through the kernels and through their plain versions must agree
+     in phi_acc and theta (relative L1 gap 1e-4); then held-out perplexity
+     after the last step, and one more step under ``torch.profiler``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -113,6 +126,28 @@ def sweep_inputs(gen, *, T, D, K, rows, frozen, empty_docs):
                 phi_rows=phi, n_guard=rows)
 
 
+def bound_ms(nbytes: float, flops: float):
+    """The least time for the work: the larger of its bytes over the card's
+    memory rate and its f32 operations over the card's f32 rate, and which
+    of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def kernel_record(name, source, replaces, err, ms, plain_ms, bound, bound_by,
+                  library_ms=None, **extra):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, **extra, "launches": None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def sweep_bound_ms(x):
     """Least time for one serving sweep on these inputs, and what bounds
     it: the larger of the bytes it must move (active tokens' mu read and
@@ -127,11 +162,8 @@ def sweep_bound_ms(x):
     act = (p != x["n_guard"]) & (p >= 0) & (p < x["phi_rows"].shape[0])
     n_act = int(act.sum())
     n_rows = int(torch.unique(p[act]).numel())
-    nbytes = 4 * (2 * n_act * K + n_rows * K + 3 * T + 2 * D * K + K + D)
-    flops = 14 * n_act * K
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(4 * (2 * n_act * K + n_rows * K + 3 * T + 2 * D * K + K
+                         + D), 14 * n_act * K)
 
 
 def check_sweep(ops, gen, *, T, D, K, rows, frozen, empty_docs, timed):
@@ -153,8 +185,7 @@ def check_sweep(ops, gen, *, T, D, K, rows, frozen, empty_docs, timed):
     want = ops.power_sweep_carry_plain(*with_fresh_mu(), **kw)
     torch.cuda.synchronize()
     err_mu = float((got[0] - want[0]).abs().max())
-    rel = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
-           for g, w in ((got[1], want[1]), (got[4], want[4]))]
+    rel = [rel_err(got[i], want[i]) for i in (1, 4)]
     print(f"[kernel] power_sweep_carry T={T} D={D} K={K} rows={rows}: "
           f"max|dmu'|={err_mu:.3e} (tol 1e-5)  rel dtheta={rel[0]:.3e}  "
           f"rel rdoc={rel[1]:.3e} (tol 1e-4)")
@@ -170,13 +201,200 @@ def check_sweep(ops, gen, *, T, D, K, rows, frozen, empty_docs, timed):
     print(f"[kernel] power_sweep_carry: {ms:.4f} ms  plain {plain_ms:.4f} ms"
           f"  bound {bound * 1e3:.2f} us ({bound_by})  library: none (no "
           f"single PyTorch call computes this sweep)")
-    return {"name": "power_sweep_carry", "route": "cuda",
-            "source": "src/repro_torch/csrc/power_sweep_carry.cu",
-            "replaces": "src/repro/kernels/power_sweep/kernel.py:363",
-            "also_replaces": "src/repro/kernels/power_sweep/kernel.py:523",
-            "launches": None, "max_abs_err": err_mu, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None}
+    return kernel_record(
+        "power_sweep_carry", "src/repro_torch/csrc/power_sweep_carry.cu",
+        "src/repro/kernels/power_sweep/kernel.py:363", err_mu, ms, plain_ms,
+        bound, bound_by,
+        also_replaces="src/repro/kernels/power_sweep/kernel.py:523")
+
+
+def doc_tokens(gen, *, D, L, ragged):
+    """doc_ids [D*L] and counts [D*L, 1] of doc-contiguous tokens; with
+    ``ragged`` the last document keeps only its first half (c = 0 after)."""
+    import torch
+
+    dev = "cuda"
+    doc_ids = torch.arange(D, device=dev, dtype=torch.int32
+                           ).repeat_interleave(L)
+    c = torch.randint(1, 4, (D * L,), generator=gen, device=dev).float()
+    if ragged:
+        pos = torch.arange(L, device=dev).repeat(D)
+        c = torch.where((doc_ids == D - 1) & (pos >= L // 2), 0.0, c)
+    return doc_ids, c.reshape(-1, 1).contiguous()
+
+
+def bp_inputs(gen, *, D, L, K, W, ragged):
+    """Inputs of one dense (t=1) sweep: random messages, theta = sum c*mu,
+    phi a random statistic plus this batch's c*mu."""
+    import torch
+
+    dev = "cuda"
+    T = D * L
+    doc_ids, counts = doc_tokens(gen, D=D, L=L, ragged=ragged)
+    word_ids = torch.randint(0, W, (T,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    mu = torch.rand((T, K), generator=gen, device=dev) + 0.01
+    mu /= mu.sum(1, keepdim=True)
+    theta = torch.zeros((D, K), device=dev).index_add_(0, doc_ids.long(),
+                                                       counts * mu)
+    phi = torch.rand((W, K), generator=gen, device=dev).index_add_(
+        0, word_ids.long(), counts * mu)
+    return [word_ids, doc_ids, counts, mu, theta, phi, phi.sum(0)]
+
+
+def check_bp_update(ops, gen, *, D, L, K, W, ragged, timed):
+    import torch
+
+    x = bp_inputs(gen, D=D, L=L, K=K, W=W, ragged=ragged)
+    kw = dict(alpha=0.1, beta=0.01, wbeta=W * 0.01)
+    got = ops.bp_update(*x, **kw)
+    want = ops.bp_update_plain(*x, **kw)
+    torch.cuda.synchronize()
+    err_mu = float((got[0] - want[0]).abs().max())
+    rel_r = rel_err(got[1], want[1])
+    print(f"[kernel] bp_update T={D * L} D={D} K={K} W={W}: max|dmu'|="
+          f"{err_mu:.3e} (tol 1e-5)  rel r={rel_r:.3e} (tol 1e-4)")
+    if not (err_mu <= 1e-5 and rel_r <= 1e-4):
+        fail(f"bp_update disagrees with its plain version at D={D} L={L} "
+             f"K={K}")
+    if not timed:
+        return None
+    ms = time_ms(lambda *a: ops.bp_update(*a, **kw), lambda: x)
+    plain_ms = time_ms(lambda *a: ops.bp_update_plain(*a, **kw), lambda: x)
+    T = D * L
+    n_words = int(torch.unique(x[0]).numel())
+    n_docs = int(torch.unique(x[1]).numel())
+    bound, bound_by = bound_ms(4 * (3 * T * K + (n_words + n_docs + 1) * K
+                                    + 3 * T), 12 * T * K)
+    print(f"[kernel] bp_update: {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+          f"{bound * 1e3:.2f} us ({bound_by})  library: none (no single "
+          f"PyTorch call computes this sweep)")
+    return kernel_record("bp_update", "src/repro_torch/csrc/bp_update.cu",
+                         "src/repro/kernels/bp_update/kernel.py:56", err_mu,
+                         ms, plain_ms, bound, bound_by)
+
+
+def carry_train_inputs(gen, *, D, L, K, P, Pk, ragged, guard_share):
+    """Inputs of one training-mode selective sweep: tokens on P power rows
+    or (a ``guard_share`` of them) the guard row P; [P+1, K] phi and mask
+    row tables with Pk topics masked per power row and the guard row 0."""
+    import torch
+
+    dev = "cuda"
+    T = D * L
+    doc_ids, counts = doc_tokens(gen, D=D, L=L, ragged=ragged)
+    p_tok = torch.randint(0, P, (T,), generator=gen, device=dev)
+    guard = torch.rand(T, generator=gen, device=dev) < guard_share
+    p_tok = torch.where(guard, P, p_tok).to(torch.int32)
+    mu = torch.rand((T, K), generator=gen, device=dev) + 0.01
+    mu /= mu.sum(1, keepdim=True)
+    theta = torch.zeros((D, K), device=dev).index_add_(0, doc_ids.long(),
+                                                       counts * mu)
+    phi_rows = torch.rand((P + 1, K), generator=gen, device=dev) * 5
+    phi_rows[P] = 0.0
+    sel_k = torch.rand((P, K), generator=gen, device=dev).argsort(dim=1)[
+        :, :Pk]
+    mask = torch.zeros((P + 1, K), device=dev)
+    mask[torch.arange(P, device=dev)[:, None], sel_k] = 1.0
+    phi_tot = phi_rows.sum(0) + 30.0
+    return [p_tok, doc_ids, counts, mu, theta, phi_tot, phi_rows, mask]
+
+
+def check_carry_train(ops, gen, *, D, L, K, P, Pk, ragged, guard_share,
+                      timed):
+    import torch
+
+    x = carry_train_inputs(gen, D=D, L=L, K=K, P=P, Pk=Pk, ragged=ragged,
+                           guard_share=guard_share)
+    kw = dict(alpha=0.1, beta=0.01, wbeta=141043 * 0.01, update_phi=True,
+              n_guard=P)
+
+    def fresh():
+        a = list(x)
+        a[3] = x[3].clone()
+        return a
+
+    got = ops.power_sweep_carry(*fresh(), **kw)
+    want = ops.power_sweep_carry_plain(*fresh(), **kw)
+    torch.cuda.synchronize()
+    err_mu = float((got[0] - want[0]).abs().max())
+    rel = [rel_err(g, w) for g, w in zip(got[1:4], want[1:4])]
+    print(f"[kernel] power_sweep_carry (training) T={D * L} D={D} K={K} "
+          f"P={P} Pk={Pk}: max|dmu'|={err_mu:.3e} (tol 1e-5)  rel dtheta="
+          f"{rel[0]:.3e}  rel d_rows={rel[1]:.3e}  rel r_rows={rel[2]:.3e} "
+          f"(tol 1e-4)")
+    if not (err_mu <= 1e-5 and max(rel) <= 1e-4):
+        fail(f"power_sweep_carry (training) disagrees with its plain version "
+             f"at D={D} L={L} K={K} P={P}")
+    if not timed:
+        return None
+    ms = time_ms(lambda *a: ops.power_sweep_carry(*a, **kw), fresh)
+    plain_ms = time_ms(lambda *a: ops.power_sweep_carry_plain(*a, **kw),
+                       fresh)
+    # what the sweep must move: each distinct power word's mask row (which
+    # topics are its) and its phi at those Pk topics; each active token's
+    # mu at its Pk topics, read and written; the [P, K] d/r rows written
+    # once; theta in and its delta out; phi_tot; the per-token ids and
+    # counts
+    T = D * L
+    p = x[0]
+    act = p < P
+    n_act = int(act.sum())
+    n_rows = int(torch.unique(p[act]).numel())
+    nbytes = 4 * (n_rows * K + n_rows * Pk + 2 * n_act * Pk + 2 * P * K
+                  + 2 * D * K + K + 3 * T)
+    bound, bound_by = bound_ms(nbytes, 30 * n_act * Pk)
+    print(f"[kernel] power_sweep_carry (training): {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  bound {bound * 1e3:.2f} us ({bound_by})  "
+          f"library: none (no single PyTorch call computes this sweep)")
+    return kernel_record(
+        "power_sweep_carry_train", "src/repro_torch/csrc/power_sweep_carry.cu",
+        "src/repro/kernels/power_sweep/kernel.py:363", err_mu, ms, plain_ms,
+        bound, bound_by,
+        also_replaces="src/repro/kernels/power_sweep/kernel.py:523")
+
+
+def check_scatter(ops, gen, *, W, K, P, Pk, dup_zero_rows, timed):
+    """The row scatter at distinct rows and topics (as top-k selects them);
+    ``dup_zero_rows`` trailing slots repeat one row with zero values."""
+    import torch
+
+    dev = "cuda"
+    mat = torch.rand((W, K), generator=gen, device=dev) * 4
+    sel_w = torch.randperm(W, generator=gen, device=dev)[:P].to(torch.int32)
+    sel_k = torch.rand((P, K), generator=gen, device=dev).argsort(dim=1)[
+        :, :Pk].to(torch.int32).contiguous()
+    vals = torch.randn((P, Pk), generator=gen, device=dev)
+    if dup_zero_rows:
+        sel_w[-dup_zero_rows:] = sel_w[-dup_zero_rows - 1]
+        vals[-dup_zero_rows - 1:] = 0.0
+    want = ops.scatter_add_rows_plain(mat.clone(), sel_w, sel_k, vals)
+    got = ops.scatter_add_rows(mat.clone(), sel_w, sel_k, vals)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"[kernel] scatter_add_rows W={W} K={K} P={P} Pk={Pk}: "
+          f"max|dmat|={err:.3e} (tol 1e-5)")
+    if not err <= 1e-5:
+        fail(f"scatter_add_rows disagrees with its plain version at W={W} "
+             f"K={K} P={P}")
+    if not timed:
+        return None
+    del want, got
+    args = lambda: (mat, sel_w, sel_k, vals)          # noqa: E731
+    rows = sel_w.long()[:, None].expand(-1, Pk)
+    cols = sel_k.long()
+    ms = time_ms(ops.scatter_add_rows, args)
+    plain_ms = time_ms(ops.scatter_add_rows_plain, args)
+    library_ms = time_ms(lambda m, w, k, v: m.index_put_((rows, cols), v,
+                                                         accumulate=True),
+                         args)
+    bound, bound_by = bound_ms(4 * (P + 4 * P * Pk), P * Pk)
+    print(f"[kernel] scatter_add_rows: {ms:.4f} ms  plain {plain_ms:.4f} ms"
+          f"  bound {bound * 1e3:.2f} us ({bound_by})  library "
+          f"(index_put_, accumulate) {library_ms:.4f} ms")
+    return kernel_record("scatter_add_rows", "src/repro_torch/csrc/power_pack.cu",
+                         "src/repro/kernels/power_pack/kernel.py:75", err, ms,
+                         plain_ms, bound, bound_by, library_ms)
 
 
 # --------------------------------------------------------------- phase 3
@@ -297,41 +515,228 @@ def serve_burst(engine, docs):
 # --------------------------------------------------------------- phase 5
 
 def profile_serve(engine, docs, card: str) -> None:
-    """Serve ``docs`` once more under ``torch.profiler`` and print the
-    card's busy share of the wall time, the top kernels by device time and
-    the top host operations by their own CPU time."""
+    """Serve ``docs`` once more under ``torch.profiler``."""
+    def serve():
+        for d in docs:
+            engine.submit(d)
+        engine.drain()
+
+    profile_run(serve, f"{len(docs)} requests", card)
+
+
+# --------------------------------------------------------------- phase 6
+
+def padded_batches(gen, phi_true, *, D, L, len_means):
+    """One [D, L] mini-batch per length mean, sampled from the model."""
+    from repro_torch.data.batching import docs_to_padded
+
+    return [docs_to_padded(sample_docs(gen, phi_true, D, (mean,)),
+                           max_len=L) for mean in len_means]
+
+
+def heldout_split(gen, phi_true, *, n_docs, mean, seed):
+    """Held-out documents from the model, split 80/20 by token."""
+    from repro_torch.data.batching import (docs_to_padded,
+                                           train_test_split_counts)
+
+    train, test = train_test_split_counts(
+        sample_docs(gen, phi_true, n_docs, (mean,)), seed)
+    return docs_to_padded(train), docs_to_padded(test)
+
+
+def train_kernels():
+    from repro_torch.core import pobp, power
+    from repro_torch.kernels.bp_update import ops as bp_ops
+    from repro_torch.kernels.power_pack import ops as pack_ops
+    from repro_torch.kernels.power_sweep import ops as sweep_ops
+
+    return {"bp_update": (bp_ops.bp_update, pobp, "bp_update",
+                          bp_ops.bp_update_plain),
+            "power_sweep_carry_train": (
+                sweep_ops.power_sweep_carry, pobp, "power_sweep_carry",
+                sweep_ops.power_sweep_carry_plain),
+            "scatter_add_rows": (pack_ops.scatter_add_rows, power,
+                                 "_scatter_add",
+                                 pack_ops.scatter_add_rows_plain)}
+
+
+def launch_counts(reset: bool = False):
+    """The main-path launch counts of the training kernels (set to 0 first
+    when ``reset``)."""
+    from repro_torch.kernels.bp_update import ops as bp_ops
+    from repro_torch.kernels.power_pack import ops as pack_ops
+    from repro_torch.kernels.power_sweep import ops as sweep_ops
+
+    if reset:
+        bp_ops.bp_update.launches = 0
+        sweep_ops.power_sweep_carry.train_launches = 0
+        pack_ops.scatter_add_rows.launches = 0
+    return {"bp_update": bp_ops.bp_update.launches,
+            "power_sweep_carry_train":
+                sweep_ops.power_sweep_carry.train_launches,
+            "scatter_add_rows": pack_ops.scatter_add_rows.launches}
+
+
+def train_slice(*, W: int, K: int, D: int, L: int, steps: int, seed: int,
+                device, len_means=(64, 128, 192), inner_iters: int = 200,
+                tol: float = 0.1, card: str = ""):
+    """``steps`` POBP steps at (W, K, D, L) on a model sampled on the
+    device, with checks (a)-(c) of the training contract.  Returns (cfg,
+    state, step, batches, held-out split, launch counts, readings)."""
     import torch
+
+    from repro_torch.core.pobp import init_train_state, make_train_step
+    from repro_torch.core.types import LDAConfig
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    phi_true, _ = model_on_device(gen, W, K, device)
+    means = [len_means[i % len(len_means)] for i in range(steps)]
+    batches = padded_batches(gen, phi_true, D=D, L=L, len_means=means)
+    heldout = heldout_split(gen, phi_true, n_docs=256, mean=128, seed=seed)
+    del phi_true
+    cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_w=0.1,
+                    lambda_k_abs=50, inner_iters=inner_iters,
+                    residual_tol=tol)
+    step, _ = make_train_step(cfg, device=device)
+    state = init_train_state(cfg, seed, device=device)
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    readings, tokens = [], 0.0
+    sync()
+    launch_counts(reset=True)                    # the main path starts here
+    for mb in batches:
+        t0 = time.time()
+        state, diag = step(state, mb.word_ids, mb.counts)
+        mean_r = float(diag["mean_r"])
+        sync()
+        wall = time.time() - t0
+        ntok = float(mb.counts.sum())
+        tokens += ntok
+        readings.append((wall, diag["iters"], ntok, mean_r))
+    launches = launch_counts()                   # ... and ends here
+
+    for i, (wall, iters, ntok, mean_r) in enumerate(readings):
+        print(f"[train] step {i + 1}: {wall * 1e3:.3f} ms  iters={iters}  "
+              f"{wall * 1e3 / iters:.3f} ms/iteration  "
+              f"{ntok / wall:.1f} tokens/s  mean_r={mean_r:.4f}  "
+              f"({ntok:.0f} tokens) [{card}]")
+    sweeps = sum(iters - 1 for _, iters, _, _ in readings)
+    want = {"bp_update": len(batches), "power_sweep_carry_train": sweeps,
+            "scatter_add_rows": sweeps}
+    print(f"[train] launches {launches} (steps={len(batches)}, selective "
+          f"sweeps={sweeps})")
+    if launches != want or readings[0][1] < 2:
+        fail(f"training kernels launched {launches}, expected {want} with "
+             f"the first step past its dense sweep")
+    mass = float(state.phi_acc.sum(dtype=torch.float64))
+    print(f"[train] phi_acc mass {mass:.3f} against {tokens:.0f} tokens "
+          f"consumed (rel {abs(mass - tokens) / tokens:.2e}, tol 1e-4)")
+    if not abs(mass - tokens) <= 1e-4 * tokens:
+        fail("phi_acc does not hold the tokens consumed")
+    lo = float(state.phi_acc.min())
+    if not (bool(torch.isfinite(state.phi_acc).all()) and lo >= -1e-3):
+        fail(f"phi_acc is not finite and non-negative (min {lo:.3e})")
+    return cfg, state, step, batches, heldout, launches, readings
+
+
+def train_kernel_vs_plain(*, seed: int, W=20000, K=256, D=64, L=64,
+                          inner_iters=8, device="cuda"):
+    """Check (d): one mini-batch from one injected init through the three
+    kernels and through their plain versions.  phi_acc and theta of the
+    step must agree to a relative L1 gap of 1e-4 (the atomics only reorder
+    sums); iterations and held-out perplexity are printed."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core.perplexity import evaluate
+    from repro_torch.core.pobp import init_train_state, make_train_step
+    from repro_torch.core.types import LDAConfig
+
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    phi_true, _ = model_on_device(gen, W, K, device)
+    (mb,) = padded_batches(gen, phi_true, D=D, L=L, len_means=(64,))
+    train, test = heldout_split(gen, phi_true, n_docs=64, mean=64,
+                                seed=seed)
+    u0 = torch.rand((D, L, K), generator=gen, device=device) * 0.99 + 0.01
+    cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_w=0.1,
+                    lambda_k_abs=50, inner_iters=inner_iters,
+                    residual_tol=0.0)
+    out = {}
+    for mode in ("kernel", "plain"):
+        patches = [] if mode == "kernel" else [
+            mock.patch.object(module, attr, plain)
+            for _, module, attr, plain in train_kernels().values()]
+        for pt in patches:
+            pt.start()
+        try:
+            step, _ = make_train_step(cfg, device=device)
+            state, diag = step(init_train_state(cfg, seed, device=device),
+                               mb.word_ids, mb.counts, u0=u0)
+        finally:
+            for pt in patches:
+                pt.stop()
+        ppl = evaluate(state.phi_acc, train, test, cfg,
+                       generator=torch.Generator(device=device
+                                                 ).manual_seed(seed + 1),
+                       device=device)
+        out[mode] = (diag["iters"], ppl, state.phi_acc, diag["theta"])
+    (it_k, ppl_k, phi_k, th_k), (it_p, ppl_p, phi_p, th_p) = \
+        out["kernel"], out["plain"]
+    gap = {name: float((k - p).abs().sum() / p.abs().sum())
+           for name, k, p in (("phi_acc", phi_k, phi_p),
+                              ("theta", th_k, th_p))}
+    print(f"[train] kernels vs plain at W={W} K={K} D={D} L={L}: rel L1 gap "
+          f"phi_acc {gap['phi_acc']:.3e}, theta {gap['theta']:.3e} (tol "
+          f"1e-4)  iters {it_k}/{it_p}  held-out ppl {ppl_k:.4f}/{ppl_p:.4f}")
+    if not max(gap.values()) <= 1e-4:
+        fail("the training step through the kernels disagrees with its plain "
+             "version")
+
+
+def profile_run(fn, label: str, card: str):
+    """Run ``fn`` once under ``torch.profiler`` and print the card's busy
+    share of the wall time (the summed time of the events that ran on the
+    card: kernels, copies, fills), the top of those by device time and the
+    top host operations by their own CPU time.  Returns what ``fn``
+    returned."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        for d in docs:
-            engine.submit(d)
-        engine.drain()
+        out = fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     dev_us, host_us = {}, {}
     for e in prof.key_averages():
-        host_us[e.key] = e.self_cpu_time_total
-        t = (getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0))
-        if t > 0:
+        if e.device_type == DeviceType.CUDA:
+            t = (getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0))
             dev_us[e.key] = dev_us.get(e.key, 0.0) + t
-    if not dev_us:
+        else:
+            host_us[e.key] = e.self_cpu_time_total
+    if not sum(dev_us.values()):
         print("[profile] device time: not measured (the profiler saw no "
               "device activity)")
-        return
+        return out
     busy = sum(dev_us.values()) / 1e6
-    print(f"[profile] {len(docs)} requests in {wall * 1e3:.3f} ms wall: "
+    print(f"[profile] {label} in {wall * 1e3:.3f} ms wall: "
           f"device busy {busy * 1e3:.3f} ms ({busy / wall:.1%}), idle "
           f"{1 - busy / wall:.1%}  [{card}]")
-    for name, t in sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]:
+    for name, t in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile]   {t / 1e3:9.3f} ms  {t / 1e6 / busy:6.1%}  "
               f"{name[:90]}")
     for name, t in sorted(host_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile] host {t / 1e3:9.3f} ms  {name[:80]}")
+    return out
 
 
 def main(argv=None) -> None:
@@ -341,6 +746,8 @@ def main(argv=None) -> None:
     ap.add_argument("--bursts", type=int, default=9,
                     help="closed-loop bursts of the requests, the first "
                          "(counted) one included")
+    ap.add_argument("--train-steps", type=int, default=3,
+                    help="POBP steps of the training slice (phase 6)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -355,11 +762,13 @@ def main(argv=None) -> None:
         fail("nvidia-smi not found")
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.bp_update import ops as bp_ops
+    from repro_torch.kernels.power_pack import ops as pack_ops
     from repro_torch.kernels.power_sweep import ops
 
     # ---- 1. build
     t0 = time.time()
-    libs = build.build_all(["power_sweep_carry"])
+    libs = build.build_all(["power_sweep_carry", "bp_update", "power_pack"])
     card = card_line()
     print(card)
     print(f"[build] {len(libs)} kernel(s) in {time.time() - t0:.1f}s")
@@ -374,6 +783,25 @@ def main(argv=None) -> None:
                       frozen=0.3, empty_docs=8, timed=True)
     check_sweep(ops, gen, T=21, D=3, K=100, rows=50, frozen=0.3,
                 empty_docs=1, timed=False)
+    # the training slice's kernels: at its shapes (T = 512 x 128 tokens,
+    # K = 2000, W = 141,043, P = 14,104 power words, Pk = 50), then at one
+    # odd shape (K not a multiple of 32, a ragged last document, tokens on
+    # the guard row, repeated zero rows)
+    train_recs = {
+        "bp_update": check_bp_update(bp_ops, gen, D=512, L=128, K=2000,
+                                     W=141043, ragged=True, timed=True),
+        "power_sweep_carry_train": check_carry_train(
+            ops, gen, D=512, L=128, K=2000, P=14104, Pk=50, ragged=True,
+            guard_share=0.3, timed=True),
+        "scatter_add_rows": check_scatter(pack_ops, gen, W=141043, K=2000,
+                                          P=14104, Pk=50, dup_zero_rows=0,
+                                          timed=True)}
+    check_bp_update(bp_ops, gen, D=3, L=7, K=100, W=50, ragged=True,
+                    timed=False)
+    check_carry_train(ops, gen, D=3, L=7, K=100, P=9, Pk=5, ragged=True,
+                      guard_share=0.3, timed=False)
+    check_scatter(pack_ops, gen, W=50, K=100, P=12, Pk=7, dup_zero_rows=3,
+                  timed=False)
 
     # ---- 3. the serving slice at PUBMED width
     from repro_torch.core import infer
@@ -439,9 +867,32 @@ def main(argv=None) -> None:
 
     # ---- 5. where the time goes: the same requests again, profiled
     profile_serve(engine, docs, card)
+    del engine, runs
+
+    # ---- 6. the training slice at PUBMED width
+    from repro_torch.core.perplexity import evaluate
+
+    cfg, state, step, batches, (train, test), train_launches, _ = \
+        train_slice(W=141043, K=2000, D=512, L=128, steps=args.train_steps,
+                    seed=args.seed, device="cuda", card=card)
+    print(f"[train] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    train_kernel_vs_plain(seed=args.seed)
+    ppl = evaluate(state.phi_acc, train, test, cfg,
+                   generator=torch.Generator(device="cuda").manual_seed(
+                       args.seed + 1), device="cuda")
+    print(f"[train] held-out perplexity after step {state.m}: {ppl:.3f} "
+          f"({test.num_docs} documents, fold-in through the serving kernel)")
+    _, diag = profile_run(
+        lambda: step(state, batches[0].word_ids, batches[0].counts),
+        "one training step (batch 1 again)", card)
+    print(f"[profile] that step ran {diag['iters']} iterations")
 
     rec["launches"] = launches
     kernels = [rec]
+    for name, r in train_recs.items():
+        r["launches"] = train_launches[name]
+        kernels.append(r)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

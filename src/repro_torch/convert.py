@@ -1,4 +1,5 @@
-"""Carry a trained phi statistic from the JAX package into the port."""
+"""Carry a trained phi statistic, or a training state, from the JAX package
+into the port."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.types import LDATrainState
 
 
 def phi_from_reference(phi_acc: Union[np.ndarray, torch.Tensor], *,
@@ -43,3 +45,18 @@ def phi_from_reference(phi_acc: Union[np.ndarray, torch.Tensor], *,
     if live_words is not None and not 0 < int(live_words) <= W:
         raise ValueError(f"live_words={live_words} outside phi's {W} rows")
     return phi_acc.to(device=dev, dtype=torch.float32).contiguous()
+
+
+def train_state_from_reference(phi_acc: np.ndarray, m: int, *, seed: int,
+                               device="cuda") -> LDATrainState:
+    """The reference's ``LDATrainState`` (``phi_acc`` [W, K] as numpy, the
+    mini-batch cursor ``m``) as the port's, to continue training there.
+
+    phi_acc passes through `phi_from_reference` (float32 or bfloat16 in,
+    float32 out).  The reference's PRNG key cannot be carried into torch:
+    the new state's generator is seeded with ``seed`` on ``device``.
+    """
+    phi = phi_from_reference(phi_acc, device=device)
+    return LDATrainState(
+        phi_acc=phi, m=int(m),
+        generator=torch.Generator(device=phi.device).manual_seed(int(seed)))

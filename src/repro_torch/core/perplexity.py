@@ -1,11 +1,21 @@
 """Phi normalization and predictive perplexity (paper Eq. 20), the
-counterpart of ``repro.core.perplexity``."""
+counterpart of ``repro.core.perplexity``.
+
+Protocol: per document, tokens are split 80/20; with phi fixed, theta is
+folded in on the 80% split and perplexity is scored on the held-out 20%.
+The fold-in is ``core.infer.fold_in_tokens``, the body serving runs, so on
+the card scoring launches the serving mode of the carry-sweep kernel.
+"""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.core.types import MiniBatch
+from repro_torch.core import infer
+from repro_torch.core.device import resolve_device
+from repro_torch.core.types import LDAConfig, MiniBatch
 
 
 def normalize_phi(phi_acc_wk: torch.Tensor, beta: float,
@@ -32,3 +42,33 @@ def predictive_perplexity(theta: torch.Tensor, phi_norm_wk: torch.Tensor,
     logp = torch.where(test.counts > 0, torch.log(p.clamp_min(1e-30)), 0.0)
     n = torch.sum(test.counts).clamp_min(1.0)
     return torch.exp(-torch.sum(test.counts * logp) / n)
+
+
+def fold_in_theta(batch: MiniBatch, phi_norm_wk: torch.Tensor,
+                  cfg: LDAConfig, iters: int = 30, residual_tol: float = 0.0,
+                  *, generator: Optional[torch.Generator] = None,
+                  mu0: Optional[torch.Tensor] = None,
+                  device="cuda") -> torch.Tensor:
+    """theta [D, K] of ``batch`` folded in with phi fixed (BP fold-in).
+
+    ``residual_tol > 0`` lets each document stop early; 0 keeps the paper's
+    fixed-sweep protocol.  ``mu0`` [D, L, K] replaces the random init drawn
+    from ``generator``."""
+    return infer.fold_in_tokens(batch, phi_norm_wk, cfg, iters=iters,
+                                residual_tol=residual_tol,
+                                generator=generator, mu0=mu0,
+                                device=device).theta
+
+
+def evaluate(phi_acc_wk: torch.Tensor, train: MiniBatch, test: MiniBatch,
+             cfg: LDAConfig, fold_iters: int = 30, *,
+             generator: Optional[torch.Generator] = None,
+             mu0: Optional[torch.Tensor] = None, device="cuda") -> float:
+    """Held-out predictive perplexity of ``phi_acc_wk`` [W, K]: normalize
+    phi, fold theta in on ``train``, score ``test`` (Eq. 20)."""
+    dev = resolve_device(device)
+    phi_norm = normalize_phi(phi_acc_wk.to(dev, torch.float32), cfg.beta)
+    theta = fold_in_theta(train, phi_norm, cfg, iters=fold_iters,
+                          generator=generator, mu0=mu0, device=dev)
+    test = MiniBatch(test.word_ids.to(dev), test.counts.to(dev))
+    return float(predictive_perplexity(theta, phi_norm, test))

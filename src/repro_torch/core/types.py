@@ -115,3 +115,22 @@ class TokenLayout:
     def to_batch_major(self, values_tk: torch.Tensor) -> torch.Tensor:
         """[T, K] token-major tensor back to the [D, L, K] batch view."""
         return values_tk.reshape(self.num_docs, self.max_len, -1)
+
+
+@dataclasses.dataclass
+class LDATrainState:
+    """State carried by the streaming POBP step (``core.pobp``) from one
+    mini-batch to the next.
+
+    phi_acc[W, K]  accumulated topic-word sufficient statistics (Eq. 11),
+                   float32, on the step's device
+    m              mini-batches consumed so far (batch m+1 is the next)
+    generator      ``torch.Generator`` on phi_acc's device; the step draws
+                   each mini-batch's random message init from it (the
+                   reference splits a PRNG key instead, so the two packages
+                   draw different numbers from one seed)
+    """
+
+    phi_acc: torch.Tensor
+    m: int
+    generator: torch.Generator

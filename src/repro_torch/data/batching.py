@@ -1,10 +1,20 @@
-"""Padded-CSR batching for serving (counterpart of the serving half of
-``repro.data.batching``): truncation, padding, slab refill buffers and
-the length-bucket ladder."""
+"""Padded-CSR batching and mini-batch streaming (counterpart of
+``repro.data.batching``): truncation, padding, slab refill buffers, the
+length-bucket ladder, prefetched mini-batch streams and the 80/20
+held-out split.
+
+Streams are built on the host (numpy, then CPU tensors) on a background
+thread, so batch construction overlaps the device's work.  One shard
+only: the leading-shard stacking of the reference comes with the
+multi-shard slice (ROADMAP Queue 1, item 5).
+"""
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import queue
+import threading
+import warnings
+from typing import Callable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -90,3 +100,133 @@ def bucket_len(n: int, buckets: Sequence[int]) -> int:
         if b >= n:
             return int(b)
     return int(buckets[-1])
+
+
+# --------------------------------------------------------------------------
+# streaming
+# --------------------------------------------------------------------------
+
+_SENTINEL = object()
+
+
+def _put_until_stopped(q: "queue.Queue", item, stop: threading.Event) -> bool:
+    """Bounded put that polls ``stop`` instead of blocking forever."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.05)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+def prefetched(gen_factory: Callable[[], Iterator], prefetch: int) -> Iterator:
+    """Run ``gen_factory()`` on a background thread with a bounded queue.
+
+    Abandoning the returned generator stops and joins the thread (its puts
+    poll a stop event); an exception in the worker is raised again in the
+    consumer.  ``prefetch <= 0`` runs the generator inline.
+    """
+    if prefetch <= 0:
+        yield from gen_factory()
+        return
+    q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+    err: List[BaseException] = []
+
+    def worker():
+        try:
+            for item in gen_factory():
+                if not _put_until_stopped(q, item, stop):
+                    return
+        except BaseException as e:  # noqa: BLE001 (raised in the consumer)
+            err.append(e)
+        finally:
+            _put_until_stopped(q, _SENTINEL, stop)
+
+    t = threading.Thread(target=worker, daemon=True,
+                         name="repro-torch-prefetch")
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _SENTINEL:
+                break
+            yield item
+        if err:
+            raise err[0]
+    finally:
+        stop.set()
+        t.join(timeout=10.0)
+        if t.is_alive():
+            warnings.warn("prefetch worker failed to stop within 10s of "
+                          "shutdown and was leaked", RuntimeWarning,
+                          stacklevel=2)
+
+
+def _check_one_shard(num_shards: int) -> None:
+    if num_shards != 1:
+        raise NotImplementedError(
+            f"num_shards={num_shards}: sharded streams come with the "
+            f"multi-shard slice (ROADMAP Queue 1, item 5)")
+
+
+def minibatch_stream(docs: Sequence[Doc], batch_docs: int,
+                     max_len: int | None = None, prefetch: int = 2
+                     ) -> Iterator[MiniBatch]:
+    """Yield MiniBatches of ``batch_docs`` documents (the last one may be
+    shorter), built on a prefetch thread."""
+    n_batches = -(-len(docs) // batch_docs)
+
+    def slices():
+        for m in range(n_batches):
+            yield docs_to_padded(docs[m * batch_docs: (m + 1) * batch_docs],
+                                 max_len)
+
+    yield from prefetched(slices, prefetch)
+
+
+def bucketed_minibatch_stream(docs: Sequence[Doc], batch_docs: int,
+                              num_shards: int = 1,
+                              len_buckets: Sequence[int] = (16, 32, 64, 128),
+                              prefetch: int = 2) -> Iterator[MiniBatch]:
+    """Shape-bucketed stream: every batch has exactly ``batch_docs``
+    documents (a short last chunk is padded with empty documents) and an L
+    snapped up to one of ``len_buckets`` (multiples of 8)."""
+    _check_one_shard(num_shards)
+    len_buckets = tuple(sorted(int(b) for b in len_buckets))
+    if any(b % 8 for b in len_buckets):
+        raise ValueError(f"len_buckets must be multiples of 8: {len_buckets}")
+    n_batches = -(-len(docs) // batch_docs)
+
+    def slices():
+        for m in range(n_batches):
+            chunk = list(docs[m * batch_docs: (m + 1) * batch_docs])
+            nat = max((len(ids) for ids, _ in chunk), default=1)
+            chunk += [(np.zeros(1, np.int32), np.zeros(1, np.float32))
+                      ] * (batch_docs - len(chunk))
+            yield docs_to_padded(chunk, max_len=bucket_len(nat, len_buckets))
+
+    yield from prefetched(slices, prefetch)
+
+
+def train_test_split_counts(docs: Sequence[Doc], seed: int,
+                            test_frac: float = 0.2
+                            ) -> Tuple[List[Doc], List[Doc]]:
+    """Per-document 80/20 split of each document's token multiset for
+    predictive perplexity (paper §4, Eq. 20): (train_docs, test_docs),
+    aligned by position.  The same numpy draws as the reference."""
+    rng = np.random.default_rng(seed)
+    train, test = [], []
+    for ids, counts in docs:
+        tr = np.zeros_like(counts)
+        te = np.zeros_like(counts)
+        for j, c in enumerate(counts):
+            k = rng.binomial(int(c), test_frac)
+            te[j] = k
+            tr[j] = c - k
+        keep_tr = tr > 0
+        keep_te = te > 0
+        train.append((ids[keep_tr], tr[keep_tr].astype(np.float32)))
+        test.append((ids[keep_te], te[keep_te].astype(np.float32)))
+    return train, test

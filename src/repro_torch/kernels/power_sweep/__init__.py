@@ -1,2 +1,2 @@
-"""Carry-resident fold-in sweep (serving mode): the CUDA kernel's wrapper
-and its plain version (``ops``)."""
+"""Carry-resident selective sweep (serving and training modes): the CUDA
+kernel's wrapper and its plain version (``ops``)."""

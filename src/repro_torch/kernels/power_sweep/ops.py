@@ -1,5 +1,5 @@
-"""The carry-resident fold-in sweep: its CUDA kernel's wrapper and its plain
-PyTorch version.
+"""The carry-resident selective sweep: its CUDA kernel's wrapper and its
+plain PyTorch version.
 
 `power_sweep_carry` is the port's counterpart of the JAX package's
 ``kernels/power_sweep/ops.py::power_sweep_carry``, without the TPU tile
@@ -9,14 +9,15 @@ CUDA tensor it launches the hand-written kernel
 launch; on a CPU tensor it runs `power_sweep_carry_plain`.
 
 The TPU side chooses between a full-K kernel and a K-blocked kernel by
-whether the row table fits VMEM (``core/sweep_dispatch.py``).  The CUDA
-kernel keeps the phi row table in HBM and reads each token's row by
-index, so there is no such choice here; the cost model for the training
-sweep belongs to the training slice.
+whether the row table fits VMEM.  The CUDA kernel keeps the row tables in
+HBM and reads each token's rows by index, so one kernel serves both; its
+only limit in K is the shared memory of its [K]-wide rows (`_warps`).
 
-The kernel ports the serving mode (``update_phi=False``).  The training
-mode (mask-row gather and the [P, K] delta/residual accumulation) exists
-here only as the plain version; on a CUDA tensor it raises.
+Both modes are ported: serving (``update_phi=False``, the fold-in of
+``core/infer.py``) and training (``update_phi=True``, the selective sweep
+of ``core/pobp.py``).  Launches are counted per mode:
+``power_sweep_carry.launches`` (serving) and
+``power_sweep_carry.train_launches`` (training).
 """
 
 from __future__ import annotations
@@ -39,6 +40,9 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [ptr] * 9 + [i32] * 5 + [f32] * 3 + [i32, ptr]
         fn.restype = ctypes.c_int
+        lib.power_sweep_carry_train.argtypes = ([ptr] * 11 + [i32] * 5
+                                                + [f32] * 3 + [i32, ptr])
+        lib.power_sweep_carry_train.restype = ctypes.c_int
         lib.power_sweep_carry_error_string.argtypes = [ctypes.c_int]
         lib.power_sweep_carry_error_string.restype = ctypes.c_char_p
         lib.power_sweep_carry_configure.argtypes = [
@@ -103,7 +107,7 @@ def power_sweep_carry_plain(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
 
 
 def _check_cuda_args(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
-                     phi_rows):
+                     phi_rows, mask_rows=None):
     T, K = mu_t.shape
     D = theta.shape[0]
     want = {"p_tok": (p_tok, torch.int32, (T,)),
@@ -113,6 +117,8 @@ def _check_cuda_args(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
             "theta": (theta, torch.float32, (D, K)),
             "phi_tot": (phi_tot, torch.float32, (K,)),
             "phi_rows": (phi_rows, torch.float32, (phi_rows.shape[0], K))}
+    if mask_rows is not None:
+        want["mask_rows"] = (mask_rows, torch.float32, tuple(phi_rows.shape))
     for name, (x, dtype, shape) in want.items():
         if x.device != mu_t.device:
             raise ValueError(f"{name} is on {x.device}, mu_t on {mu_t.device}")
@@ -156,15 +162,22 @@ def power_sweep_carry(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     p_tok [T] int32 (the row of ``phi_rows`` each token reads; ``n_guard``
     freezes it); doc_ids [T] int32, non-decreasing (tokens are
     doc-contiguous, as ``MiniBatch.token_layout`` builds them); counts_t
-    [T, 1]; mu_t [T, K]; theta [D, K]; phi_tot [K]; phi_rows [W', K] — on
-    the serving path the normalized phi with no guard row appended, and
-    ``n_guard = W'``.  Serving uses ``beta = 0``, ``phi_tot = 0`` and
-    ``wbeta = 1``.  ``mu_t`` is updated IN PLACE and returned as mu_new.
-    Returns (mu_new, theta_delta [D, K], d_rows, r_rows, rdoc [D]) as
+    [T, 1]; mu_t [T, K]; theta [D, K]; phi_tot [K].
+
+    Serving (``update_phi=False``): phi_rows [W', K] is the normalized phi
+    with no guard row appended, ``n_guard = W'``, ``mask_rows`` is ignored;
+    serving uses ``beta = 0``, ``phi_tot = 0`` and ``wbeta = 1``.
+    Training (``update_phi=True``): phi_rows and mask_rows are the [P+1, K]
+    power-word tables with the guard row last and ``n_guard = P``; mask_rows
+    holds 1.0 at each power word's power topics and 0.0 elsewhere.
+
+    ``mu_t`` is updated IN PLACE and returned as mu_new.  Returns (mu_new,
+    theta_delta [D, K], d_rows, r_rows, rdoc [D]) as
     `power_sweep_carry_plain` documents.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel, counted in ``power_sweep_carry.launches``.
+    kernel, counted in ``power_sweep_carry.launches`` (serving) or
+    ``power_sweep_carry.train_launches`` (training).
     """
     if mu_t.device.type == "cpu":
         return power_sweep_carry_plain(
@@ -174,33 +187,53 @@ def power_sweep_carry(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     if mu_t.device.type != "cuda":
         raise ValueError(f"power_sweep_carry runs on CPU or CUDA tensors, "
                          f"not {mu_t.device}")
-    if update_phi:
-        raise NotImplementedError(
-            "power_sweep_carry(update_phi=True) has no CUDA kernel yet: the "
-            "training mode is ported with the training slice (ROADMAP "
-            "Queue 2, rows 3 and 4)")
+    if update_phi and mask_rows is None:
+        raise ValueError("update_phi=True needs the mask_rows table")
     _check_cuda_args(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
-                     phi_rows)
+                     phi_rows, mask_rows if update_phi else None)
     T, K = mu_t.shape
     D = theta.shape[0]
+    n_rows = phi_rows.shape[0]
+    dev = mu_t.device
     theta_delta = torch.empty_like(theta)
-    rdoc = torch.empty((D,), dtype=torch.float32, device=mu_t.device)
     lib = _lib()
-    with torch.cuda.device(mu_t.device):
-        err = lib.power_sweep_carry_serve(
-            p_tok.data_ptr(), doc_ids.data_ptr(), counts_t.data_ptr(),
-            mu_t.data_ptr(), theta.data_ptr(), phi_tot.data_ptr(),
-            phi_rows.data_ptr(), theta_delta.data_ptr(), rdoc.data_ptr(),
-            T, D, K, phi_rows.shape[0], int(n_guard), float(alpha),
-            float(beta), float(wbeta), _warps(lib, K, mu_t.device),
-            torch.cuda.current_stream(mu_t.device).cuda_stream)
+    with torch.cuda.device(dev):
+        warps = _warps(lib, K, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if update_phi:
+            if not 0 <= n_guard < n_rows:
+                raise ValueError(f"n_guard={n_guard} must name a row of the "
+                                 f"{n_rows}-row tables (the guard row)")
+            d_rows = torch.zeros((n_guard, K), dtype=torch.float32,
+                                 device=dev)
+            r_rows = torch.zeros_like(d_rows)
+            rdoc = torch.zeros((D,), dtype=torch.float32, device=dev)
+            err = lib.power_sweep_carry_train(
+                p_tok.data_ptr(), doc_ids.data_ptr(), counts_t.data_ptr(),
+                mu_t.data_ptr(), theta.data_ptr(), phi_tot.data_ptr(),
+                phi_rows.data_ptr(), mask_rows.data_ptr(),
+                theta_delta.data_ptr(), d_rows.data_ptr(), r_rows.data_ptr(),
+                T, D, K, n_rows, int(n_guard), float(alpha), float(beta),
+                float(wbeta), warps, stream)
+        else:
+            d_rows = r_rows = mu_t.new_zeros((0, K))
+            rdoc = torch.empty((D,), dtype=torch.float32, device=dev)
+            err = lib.power_sweep_carry_serve(
+                p_tok.data_ptr(), doc_ids.data_ptr(), counts_t.data_ptr(),
+                mu_t.data_ptr(), theta.data_ptr(), phi_tot.data_ptr(),
+                phi_rows.data_ptr(), theta_delta.data_ptr(), rdoc.data_ptr(),
+                T, D, K, n_rows, int(n_guard), float(alpha), float(beta),
+                float(wbeta), warps, stream)
     if err:
         msg = lib.power_sweep_carry_error_string(err).decode()
         raise RuntimeError(f"power_sweep_carry kernel launch failed: "
                            f"CUDA error {err} ({msg})")
-    power_sweep_carry.launches += 1
-    empty = mu_t.new_zeros((0, K))
-    return mu_t, theta_delta, empty, empty, rdoc
+    if update_phi:
+        power_sweep_carry.train_launches += 1
+    else:
+        power_sweep_carry.launches += 1
+    return mu_t, theta_delta, d_rows, r_rows, rdoc
 
 
 power_sweep_carry.launches = 0
+power_sweep_carry.train_launches = 0

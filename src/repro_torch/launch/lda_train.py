@@ -1,0 +1,292 @@
+"""Streaming POBP training driver of the port (counterpart of
+``repro.launch.lda_train``): the paper's Fig. 4 outer loop on one device.
+
+The single-shard, fixed-vocabulary, float32 path of the reference driver,
+with its flag names, its synthetic stream (batch m drawn from (seed, m)
+off one fixed ground-truth topic set, L snapped to ``--len-buckets``) and
+its held-out split.  Each batch runs ``core.pobp.make_train_step``; the
+host reads the diagnostics every ``--log-every`` batches.  ``--eval-every``
+scores held-out perplexity through ``core.perplexity.evaluate``;
+``--ckpt-dir``/``--ckpt-every`` save checkpoints in the reference's format
+(``dist/checkpoint.save``), so ``launch/serve.py`` of either package can
+serve them.  ``--device`` (default ``cuda``) picks the card or, when
+asked, the CPU.
+
+  PYTHONPATH=src python -m repro_torch.launch.lda_train --minibatches 8 \\
+      --docs-per-batch 32 --vocab 300 --topics 16 --lambda-k 8 \\
+      --eval-every 4 --ckpt-dir /tmp/lda_ck --ckpt-every 4 --device cuda
+
+Every other flag of the reference driver is accepted only at the value
+that keeps its feature off, and raises naming the ROADMAP item that ports
+it; the driver does not resume from a checkpoint yet (Queue 1, item 4).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Dict
+
+import numpy as np
+
+_Q1 = "ROADMAP Queue 1, item"
+# flags of the reference driver that are not ported: the value that keeps
+# each off, and the ROADMAP item that brings it
+_UNPORTED = {
+    "shards": (1, f"{_Q1} 5 (multi-shard sync)"),
+    "backend": ("sim", f"{_Q1} 5 (shard_map) and item 7 (parameter server)"),
+    "mesh": ("single", f"{_Q1} 5 (multi-shard sync)"),
+    "mesh_shape": ("", f"{_Q1} 5 (multi-shard sync)"),
+    "dynamic_vocab": (False, f"{_Q1} 6 (dynamic vocabulary)"),
+    "vocab_growth_per_batch": (24, f"{_Q1} 6 (dynamic vocabulary)"),
+    "drift_mode": ("grow", f"{_Q1} 6 (dynamic vocabulary)"),
+    "w_cap_min": (64, f"{_Q1} 6 (dynamic vocabulary)"),
+    "w_growth": (2.0, f"{_Q1} 6 (dynamic vocabulary)"),
+    "compact_every": (0, f"{_Q1} 6 (lifecycle)"),
+    "compact_min_idle": (5, f"{_Q1} 6 (lifecycle)"),
+    "compact_mass_tol": (25.0, f"{_Q1} 6 (lifecycle)"),
+    "recycle_tol": (0.0, f"{_Q1} 6 (lifecycle)"),
+    "phi_acc_dtype": ("float32", f"{_Q1} 2c (bf16 phi_acc)"),
+    "sweep_policy": ("auto", f"{_Q1} 2b (the packed policy; every other "
+                             f"policy runs the one carry kernel)"),
+    "staleness": (0, f"{_Q1} 7 (parameter server)"),
+    "ps_servers": (4, f"{_Q1} 7 (parameter server)"),
+    "ps_latency": (0.0, f"{_Q1} 7 (parameter server)"),
+    "ps_pull_timeout": (60.0, f"{_Q1} 7 (parameter server)"),
+    "chaos_seed": (0, f"{_Q1} 7 (chaos)"),
+    "chaos_drop": (0.0, f"{_Q1} 7 (chaos)"),
+    "chaos_dup": (0.0, f"{_Q1} 7 (chaos)"),
+    "chaos_delay": (0.0, f"{_Q1} 7 (chaos)"),
+    "chaos_delay_prob": (0.0, f"{_Q1} 7 (chaos)"),
+    "chaos_crash": ("", f"{_Q1} 7 (chaos)"),
+    "chaos_restart_after": (2, f"{_Q1} 7 (chaos)"),
+    "elastic_workers": ("w0", f"{_Q1} 7 (elastic workers)"),
+    "elastic_events": ("", f"{_Q1} 7 (elastic workers)"),
+    "crash_at": (0, f"{_Q1} 4 (crash-resume)"),
+}
+# the trajectory-shaping flags the reference saves and checks on resume
+_RESUME_KEYS = ("seed", "sync", "backend", "shards", "vocab", "topics",
+                "lambda_w", "lambda_k", "inner_iters", "tol",
+                "docs_per_batch", "doc_len_means", "len_buckets", "fixed_len",
+                "dynamic_vocab", "decay")
+_PREFETCH = 2
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--minibatches", type=int, default=24)
+    ap.add_argument("--docs-per-batch", type=int, default=64)
+    ap.add_argument("--doc-len-means", default="12,24,40",
+                    help="cycled per mini-batch: a variable-length stream")
+    ap.add_argument("--len-buckets", default="16,32,48",
+                    help="L buckets (multiples of 8)")
+    ap.add_argument("--fixed-len", action="store_true",
+                    help="pad every batch to the largest bucket")
+    ap.add_argument("--vocab", type=int, default=500)
+    ap.add_argument("--topics", type=int, default=16)
+    ap.add_argument("--decay", default="1,0",
+                    help="Robbins-Monro forgetting 'tau0,kappa' on the phi "
+                         "fold; kappa=0 disables")
+    ap.add_argument("--lambda-w", type=float, default=0.1)
+    ap.add_argument("--lambda-k", type=int, default=8)
+    ap.add_argument("--inner-iters", type=int, default=12)
+    ap.add_argument("--tol", type=float, default=0.05)
+    ap.add_argument("--sync", default="power", choices=["power", "dense"])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to train on (default: cuda; pass cpu "
+                         "to run the plain versions on the host)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--eval-every", type=int, default=0)
+    ap.add_argument("--eval-docs", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=5)
+    for name, (default, item) in _UNPORTED.items():
+        flag = "--" + name.replace("_", "-")
+        if isinstance(default, bool):
+            ap.add_argument(flag, action="store_true",
+                            help=f"not ported yet ({item})")
+        else:
+            ap.add_argument(flag, type=type(default), default=default,
+                            help=f"not ported yet ({item})")
+    return ap
+
+
+def _csv_ints(s: str):
+    return tuple(int(x) for x in str(s).split(",") if str(x).strip())
+
+
+def _parse_decay(s: str):
+    parts = [p.strip() for p in str(s).split(",")]
+    if len(parts) != 2:
+        raise ValueError(f"--decay expects 'tau0,kappa', got {s!r}")
+    return float(parts[0]), float(parts[1])
+
+
+def _reject_unported(args) -> None:
+    for name, (default, item) in _UNPORTED.items():
+        value = getattr(args, name)
+        if value != default:
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')}={value!r} is not ported yet "
+                f"({item}); this driver runs one shard, a fixed vocabulary "
+                f"and a float32 phi_acc")
+
+
+def _build_cfg(args):
+    from repro_torch.core.types import LDAConfig
+
+    buckets = tuple(sorted(_csv_ints(args.len_buckets)))
+    if any(b % 8 for b in buckets):
+        raise ValueError(f"--len-buckets must be multiples of 8: {buckets}")
+    decay_tau0, decay_kappa = _parse_decay(args.decay)
+    return LDAConfig(vocab_size=args.vocab, num_topics=args.topics,
+                     lambda_w=args.lambda_w, lambda_k_abs=args.lambda_k,
+                     inner_iters=args.inner_iters, residual_tol=args.tol,
+                     decay_tau0=decay_tau0, decay_kappa=decay_kappa,
+                     init_pad_len=buckets[-1]), buckets
+
+
+def _true_phi(args):
+    """One fixed ground-truth topic set for the whole stream."""
+    return np.random.default_rng(args.seed).dirichlet(
+        np.full(args.vocab, 0.06), size=args.topics).astype(np.float32)
+
+
+def synthetic_stream(args, buckets, start_m: int = 0):
+    """The reference's resumable stream factory: batch m is drawn purely
+    from (seed, m).  Yields (MiniBatch of CPU tensors, token count)."""
+    from repro_torch.data.batching import bucket_len, docs_to_padded
+    from repro_torch.data.synthetic import lda_corpus_from_phi
+
+    phi = _true_phi(args)
+    means = _csv_ints(args.doc_len_means)
+
+    def gen():
+        for m in range(start_m, args.minibatches):
+            docs, _ = lda_corpus_from_phi(
+                args.seed * 1_000_003 + m, args.docs_per_batch, phi,
+                doc_len_mean=means[m % len(means)])
+            nat = max(len(ids) for ids, _ in docs)
+            L = buckets[-1] if args.fixed_len else bucket_len(nat, buckets)
+            mb = docs_to_padded(docs, max_len=L)
+            yield mb, float(mb.counts.sum())
+
+    return gen
+
+
+def _eval_split(args):
+    """The reference's held-out split, drawn with a seed disjoint from every
+    stream batch's."""
+    from repro_torch.data.batching import (docs_to_padded,
+                                           train_test_split_counts)
+    from repro_torch.data.synthetic import lda_corpus_from_phi
+
+    docs, _ = lda_corpus_from_phi(args.seed * 1_000_003 + 987_654_321,
+                                  args.eval_docs, _true_phi(args),
+                                  doc_len_mean=40)
+    train, test = train_test_split_counts(docs, args.seed)
+    return docs_to_padded(train), docs_to_padded(test)
+
+
+def _state_tree(state) -> Dict[str, Any]:
+    """The checkpoint payload, with the reference's keys; ``rng`` holds the
+    torch generator's state (the reference holds a PRNG key there)."""
+    return {"state": {"phi_acc": state.phi_acc, "m": np.int32(state.m),
+                      "rng": state.generator.get_state()}}
+
+
+def train_loop(args) -> Dict[str, Any]:
+    """Run the driver; returns a result dict (see the end)."""
+    import torch
+
+    from repro_torch.core import perplexity
+    from repro_torch.core.device import resolve_device
+    from repro_torch.core.pobp import (DiagBuffer, init_train_state,
+                                       make_train_step)
+    from repro_torch.data.batching import prefetched
+    from repro_torch.dist import checkpoint as ckpt
+
+    _reject_unported(args)
+    cfg, buckets = _build_cfg(args)
+    dev = resolve_device(args.device)
+    if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+        raise NotImplementedError(
+            f"{args.ckpt_dir} already holds a checkpoint: resuming is not "
+            f"ported yet ({_Q1} 4); use a fresh --ckpt-dir")
+    step, meter = make_train_step(cfg, 1, args.sync, device=dev)
+    state = init_train_state(cfg, args.seed, device=dev)
+    signature = {k: getattr(args, k) for k in _RESUME_KEYS}
+    eval_split = None
+
+    def eval_ppl() -> float:
+        nonlocal eval_split
+        if eval_split is None:
+            eval_split = _eval_split(args)
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+        return perplexity.evaluate(state.phi_acc, *eval_split, cfg,
+                                   generator=gen, device=dev)
+
+    buf = DiagBuffer(block=max(args.log_every, 64))
+    ppl_trace = []
+    tokens = 0.0
+    t0 = time.time()
+    stream = prefetched(synthetic_stream(args, buckets), _PREFETCH)
+    for m, (batch, ntok) in enumerate(stream):
+        state, diag = step(state, batch.word_ids, batch.counts)
+        buf.append(diag["mean_r"], diag["iters"])
+        tokens += ntok
+        step_no = m + 1
+        if args.log_every and step_no % args.log_every == 0:
+            dt = time.time() - t0
+            print(f"minibatch {step_no:5d}  "
+                  f"mean_r={float(diag['mean_r']):.4f}"
+                  f"  iters={int(diag['iters']):3d}"
+                  f"  tokens/s={tokens / max(dt, 1e-9):,.0f}", flush=True)
+        if args.eval_every and step_no % args.eval_every == 0:
+            ppl = eval_ppl()
+            ppl_trace.append((step_no, ppl))
+            print(f"minibatch {step_no:5d}  held-out ppl={ppl:.2f}",
+                  flush=True)
+        if args.ckpt_dir and args.ckpt_every and \
+                step_no % args.ckpt_every == 0:
+            ckpt.save(args.ckpt_dir, step_no, _state_tree(state),
+                      extra={"next_m": step_no, "run": signature})
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+
+    rows = buf.rows()
+    iters = [int(i) for _, i in rows]
+    return {
+        "first_m": 0,
+        "mean_r": [float(r) for r, _ in rows],
+        "iters": iters,
+        "len_buckets": list(buckets),
+        "tokens": tokens,
+        "wall_s": wall,
+        "tokens_per_s": tokens / max(wall, 1e-9),
+        "ppl": eval_ppl(),
+        "ppl_trace": ppl_trace,
+        "bytes_by_phase": dict(meter.bytes_by_phase),
+        "per_minibatch_bytes": (meter.per_minibatch_bytes(iters[-1])
+                                if iters else 0),
+        "phi_acc": state.phi_acc.cpu().numpy(),
+    }
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    res = train_loop(args)
+    print(f"[done] {args.minibatches - res['first_m']} minibatches  final "
+          f"mean_r={res['mean_r'][-1] if res['mean_r'] else float('nan'):.4f}"
+          f"  held-out ppl={res['ppl']:.2f}")
+    print(f"[perf] tokens/s={res['tokens_per_s']:,.0f}  "
+          f"wall={res['wall_s']:.1f}s  (buckets={res['len_buckets']})")
+    print(f"[comm] per-minibatch bytes={res['per_minibatch_bytes']:,} "
+          f"(phases: {res['bytes_by_phase']})")
+    return res
+
+
+if __name__ == "__main__":
+    main()

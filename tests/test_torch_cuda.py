@@ -1,6 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
-on the card, the wrapper's checks, and the serving engines on the card
-against the same engines on the CPU.
+on the card, the wrappers' checks, the serving engines on the card
+against the same engines on the CPU, and the training step on the card
+against the same step on the CPU.
 
 Every test here carries the ``cuda`` marker and skips without a card.
 The file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -13,8 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import pobp
 from repro_torch.core.types import LDAConfig
+from repro_torch.data.batching import docs_to_padded
 from repro_torch.data.synthetic import lda_corpus
+from repro_torch.kernels.bp_update import ops as bp_ops
+from repro_torch.kernels.power_pack import ops as pack_ops
 from repro_torch.kernels.power_sweep import ops
 from repro_torch.serve import FoldInEngine, SlabEngine
 
@@ -76,11 +81,9 @@ def test_kernel_matches_plain_version_on_card(card, D, L, K, W):
         assert torch.equal(g, r)
 
 
-def test_wrapper_checks_and_training_mode_raise_on_card(card):
+def test_wrapper_checks_on_card(card):
     args = _sweep_args(0, D=2, L=4, K=8, W=10, device="cuda")
     kw = dict(alpha=ALPHA, beta=0.0, wbeta=1.0, n_guard=10)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.power_sweep_carry(*args, update_phi=True, **kw)
     bad = list(args)
     bad[0] = args[0].long()
     with pytest.raises(ValueError, match="p_tok must be torch.int32"):
@@ -89,6 +92,169 @@ def test_wrapper_checks_and_training_mode_raise_on_card(card):
     bad[6] = args[6].cpu()
     with pytest.raises(ValueError, match="phi_rows is on cpu"):
         ops.power_sweep_carry(*bad, update_phi=False, **kw)
+    with pytest.raises(ValueError, match="mask_rows must have shape"):
+        ops.power_sweep_carry(*args[:7], torch.ones((3, 8), device="cuda"),
+                              update_phi=True, **kw)
+    bp = [x.to("cuda") for x in _bp_args(0, D=2, L=4, K=8, W=10)]
+    bad = list(bp)
+    bad[3] = bp[3].t().contiguous().t()
+    with pytest.raises(ValueError, match="mu_t must be contiguous"):
+        bp_ops.bp_update(*bad, alpha=ALPHA, beta=0.01, wbeta=0.1)
+    mat, sel_w, sel_k, vals = [x.to("cuda") for x in _pack_args(0, W=10, K=8,
+                                                                 P=3, Pk=2)]
+    with pytest.raises(ValueError, match="sel_k must be torch.int32"):
+        pack_ops.scatter_add_rows(mat, sel_w, sel_k.long(), vals)
+
+
+def _bp_args(seed, *, D, L, K, W):
+    """Dense-sweep inputs: ragged docs (c = 0 padding on word 0)."""
+    rng = np.random.default_rng(seed)
+    T = D * L
+    word_ids = rng.integers(0, W, T).astype(np.int32)
+    doc_ids = np.repeat(np.arange(D), L).astype(np.int32)
+    c = rng.integers(1, 4, T).astype(np.float32)
+    pad = np.tile(np.arange(L), D) >= np.repeat(rng.integers(1, L + 1, D), L)
+    c[pad], word_ids[pad] = 0.0, 0
+    mu = rng.random((T, K)).astype(np.float32) + 0.01
+    mu /= mu.sum(1, keepdims=True)
+    counts = c.reshape(T, 1)
+    theta = np.zeros((D, K), np.float32)
+    np.add.at(theta, doc_ids, counts * mu)
+    phi = (rng.random((W, K)) * 3).astype(np.float32)
+    np.add.at(phi, word_ids, counts * mu)
+    return [torch.from_numpy(x) for x in
+            (word_ids, doc_ids, counts, mu, theta, phi, phi.sum(0))]
+
+
+@pytest.mark.parametrize("D,L,K,W", [(4, 8, 128, 60), (3, 7, 100, 40),
+                                     (64, 128, 2000, 20000)])
+def test_bp_update_kernel_matches_plain_version_on_card(card, D, L, K, W):
+    args = [x.to("cuda") for x in _bp_args(D + K, D=D, L=L, K=K, W=W)]
+    kw = dict(alpha=ALPHA, beta=0.01, wbeta=W * 0.01)
+    before = bp_ops.bp_update.launches
+    got = bp_ops.bp_update(*args, **kw)
+    assert bp_ops.bp_update.launches == before + 1
+    want = bp_ops.bp_update_plain(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+
+
+def _train_args(seed, *, D, L, K, P, Pk):
+    """Training-mode carry inputs: tokens on power rows [0, P) or the guard
+    row P, a ragged last document, Pk masked topics per row."""
+    rng = np.random.default_rng(seed)
+    T = D * L
+    p_tok = rng.integers(0, P + 1, T).astype(np.int32)
+    doc_ids = np.repeat(np.arange(D), L).astype(np.int32)
+    counts = rng.integers(1, 4, (T, 1)).astype(np.float32)
+    counts[(doc_ids == D - 1) & (np.tile(np.arange(L), D) >= L // 2)] = 0.0
+    mu = rng.random((T, K)).astype(np.float32) + 0.01
+    mu /= mu.sum(1, keepdims=True)
+    theta = np.zeros((D, K), np.float32)
+    np.add.at(theta, doc_ids, counts * mu)
+    phi_rows = (rng.random((P + 1, K)) * 5).astype(np.float32)
+    phi_rows[P] = 0.0
+    mask = np.zeros((P + 1, K), np.float32)
+    cols = np.argsort(rng.random((P, K)), axis=1)[:, :Pk]
+    np.put_along_axis(mask[:P], cols, 1.0, axis=1)
+    phi_tot = (phi_rows.sum(0) + 30.0).astype(np.float32)
+    return [torch.from_numpy(x) for x in
+            (p_tok, doc_ids, counts, mu, theta, phi_tot, phi_rows, mask)]
+
+
+@pytest.mark.parametrize("D,L,K,P,Pk", [(6, 8, 20, 9, 5), (4, 12, 100, 7, 50),
+                                        (64, 128, 2000, 1400, 50)])
+def test_carry_training_kernel_matches_plain_version_on_card(card, D, L, K,
+                                                             P, Pk):
+    args = [x.to("cuda") for x in _train_args(D + K, D=D, L=L, K=K, P=P,
+                                              Pk=Pk)]
+    kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3, update_phi=True, n_guard=P)
+    mu0 = args[3].clone()
+    plain = list(args)
+    plain[3] = mu0.clone()
+    before = ops.power_sweep_carry.train_launches
+    got = ops.power_sweep_carry(*args, **kw)
+    assert ops.power_sweep_carry.train_launches == before + 1
+    want = ops.power_sweep_carry_plain(*plain, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    # theta_delta and the atomically summed rows: rel 1e-4 of their scale
+    for g, w in zip(got[1:4], want[1:4]):
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+    guard = args[0] == P
+    assert torch.equal(got[0][guard], mu0[guard])
+
+
+def _pack_args(seed, *, W, K, P, Pk):
+    rng = np.random.default_rng(seed)
+    mat = (rng.random((W, K)) * 4).astype(np.float32)
+    sel_w = rng.choice(W, P, replace=False).astype(np.int32)
+    sel_k = np.argsort(rng.random((P, K)), axis=1)[:, :Pk].astype(np.int32)
+    vals = rng.standard_normal((P, Pk)).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(x))
+            for x in (mat, sel_w, sel_k, vals)]
+
+
+@pytest.mark.parametrize("W,K,P,Pk", [(50, 16, 8, 4), (40, 100, 12, 50),
+                                      (20000, 2000, 2000, 50)])
+def test_scatter_add_rows_kernel_matches_plain_version_on_card(card, W, K,
+                                                               P, Pk):
+    mat, sel_w, sel_k, vals = [x.to("cuda") for x in
+                               _pack_args(W + K, W=W, K=K, P=P, Pk=Pk)]
+    want = pack_ops.scatter_add_rows_plain(mat.clone(), sel_w, sel_k, vals)
+    before = pack_ops.scatter_add_rows.launches
+    got = pack_ops.scatter_add_rows(mat, sel_w, sel_k, vals)
+    assert got is mat and pack_ops.scatter_add_rows.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)              # unique pairs: exact
+    # repeated rows with values all add
+    sel_w[1:] = sel_w[0]
+    want = pack_ops.scatter_add_rows_plain(mat.clone(), sel_w, sel_k, vals)
+    got = pack_ops.scatter_add_rows(mat, sel_w, sel_k, vals)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_train_step_on_card_matches_cpu_step(card):
+    """Three POBP steps on the card (the three kernels) and on the CPU
+    (the plain versions) from the same numpy-drawn inits."""
+    W, K = 500, 64
+    cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_k_abs=8,
+                    inner_iters=8, residual_tol=0.05)
+    _, _, true_phi = lda_corpus(4, 1, W, K)
+    rng = np.random.default_rng(0)
+    batches = []
+    for m in range(3):
+        docs, _, _ = lda_corpus(10 + m, 32, W, K, doc_len_mean=40)
+        mb = docs_to_padded(docs, max_len=32)
+        batches.append((mb, rng.uniform(0.01, 1.0, (32, 32, K)
+                                        ).astype(np.float32)))
+    res = {}
+    for device in ("cpu", "cuda"):
+        step, _ = pobp.make_train_step(cfg, device=device)
+        state = pobp.init_train_state(cfg, device=device)
+        before = (bp_ops.bp_update.launches,
+                  ops.power_sweep_carry.train_launches,
+                  pack_ops.scatter_add_rows.launches)
+        trace = []
+        for mb, u0 in batches:
+            state, diag = step(state, mb.word_ids, mb.counts,
+                               u0=torch.from_numpy(u0))
+            trace.append((diag["iters"], float(diag["mean_r"])))
+        after = (bp_ops.bp_update.launches,
+                 ops.power_sweep_carry.train_launches,
+                 pack_ops.scatter_add_rows.launches)
+        res[device] = (state.phi_acc.cpu(), trace,
+                       [a - b for a, b in zip(after, before)])
+    sweeps = sum(it - 1 for it, _ in res["cuda"][1])
+    assert res["cpu"][2] == [0, 0, 0]
+    assert res["cuda"][2] == [3, sweeps, sweeps] and sweeps > 0
+    for (it_c, r_c), (it_g, r_g) in zip(res["cpu"][1], res["cuda"][1]):
+        assert it_c == it_g
+        assert r_g == pytest.approx(r_c, rel=1e-3)
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-3,
+                               atol=1e-3)
 
 
 def _replay_numpy_init(eng, seed):

@@ -72,6 +72,28 @@ def test_default_device_raises_without_a_card(no_card):
     SlabEngine(phi, cfg, slots=2, slot_len=8, device="cpu")
 
 
+def test_training_entry_points_default_to_the_card(no_card):
+    from repro_torch import convert
+    from repro_torch.core import perplexity, pobp
+    from repro_torch.core.types import LDAConfig, MiniBatch
+
+    cfg = LDAConfig(vocab_size=20, num_topics=4)
+    mb = MiniBatch(torch.zeros((1, 8), dtype=torch.int32), torch.ones((1, 8)))
+    for build in (lambda: pobp.make_train_step(cfg),
+                  lambda: pobp.init_train_state(cfg),
+                  lambda: pobp.run_stream([mb], cfg),
+                  lambda: perplexity.evaluate(torch.ones((20, 4)), mb, mb,
+                                              cfg),
+                  lambda: convert.train_state_from_reference(
+                      np.ones((20, 4), np.float32), 0, seed=0)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            build()
+    step, _ = pobp.make_train_step(cfg, device="cpu")
+    state, diag = step(pobp.init_train_state(cfg, device="cpu"),
+                       mb.word_ids, mb.counts)
+    assert state.m == 1 and diag["iters"] >= 1
+
+
 def test_cli_default_device_raises_without_a_card(no_card, tmp_path):
     from repro_torch.dist import checkpoint as ckpt
     from repro_torch.launch import serve as serve_mod
@@ -82,3 +104,10 @@ def test_cli_default_device_raises_without_a_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="is_available"):
         serve_mod.main(["--mode", "lda", "--ckpt-dir", str(tmp_path),
                         "--requests", "2"])
+
+
+def test_train_cli_default_device_raises_without_a_card(no_card):
+    from repro_torch.launch import lda_train
+
+    with pytest.raises(RuntimeError, match="is_available"):
+        lda_train.main(["--minibatches", "1"])
