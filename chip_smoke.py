@@ -10,7 +10,7 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      (one ``nvcc`` per source, in parallel) and print the card's name and
      power limit;
   2. hold each kernel against its plain PyTorch version on the card at its
-     slice's shapes and at one odd shape, and time both, with the bound of
+     slice's shapes and at odd shapes, and time both, with the bound of
      the work and, where one PyTorch call computes the same function, that
      call's time;
   3. the serving slice at PUBMED width (W = 141,043, K = 2000): a random
@@ -34,9 +34,17 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      every token consumed and stay finite; one mini-batch at a reduced
      shape through the kernels and through their plain versions must agree
      in phi_acc and theta (relative L1 gap 1e-4); then held-out perplexity
-     after the last step, and one more step under ``torch.profiler``.
+     after the last step, and one more step under ``torch.profiler``;
+  7. the packed sweep policy on the same batches and settings: the same
+     steps with ``sweep_policy="packed"`` (the phi pack and packed-sweep
+     kernels launch once per selective iteration, the carry sweep never),
+     the same mass and finiteness checks, one profiled step; then one
+     mini-batch from one injected init through both policies with
+     tolerance 0 and 8 iterations, at a reduced shape (phi_acc and theta
+     must agree to a relative L1 gap of 1e-4) and at the full width (the
+     two formulations' ms per iteration side by side, in turns).
 
-The line before the last is the kernels' JSON record; the last line is
+Each phase prints its wall time.  The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 """
@@ -397,6 +405,143 @@ def check_scatter(ops, gen, *, W, K, P, Pk, dup_zero_rows, timed):
                          plain_ms, bound, bound_by, library_ms)
 
 
+def packed_inputs(gen, *, D, L, K, P, Pk, guard_share, empty_doc):
+    """Inputs of one packed sweep: doc-contiguous tokens with a ragged last
+    document, a ``guard_share`` of them on the guard id P (and, with
+    ``empty_doc``, all of document 0, whose counts are 0), each power row's
+    Pk distinct topics, phi_pack above each token's own count."""
+    import torch
+
+    dev = "cuda"
+    T = D * L
+    doc_ids, counts = doc_tokens(gen, D=D, L=L, ragged=True)
+    p_tok = torch.randint(0, P, (T,), generator=gen, device=dev)
+    guard = torch.rand(T, generator=gen, device=dev) < guard_share
+    if empty_doc:
+        guard |= doc_ids == 0
+        counts[doc_ids == 0] = 0.0
+    p_tok = torch.where(guard, P, p_tok).to(torch.int32)
+    mu = torch.rand((T, K), generator=gen, device=dev) + 0.01
+    mu /= mu.sum(1, keepdim=True)
+    theta = torch.zeros((D, K), device=dev).index_add_(0, doc_ids.long(),
+                                                       counts * mu)
+    sel_k = torch.rand((P, K), generator=gen, device=dev).argsort(dim=1)[
+        :, :Pk].to(torch.int32).contiguous()
+    phi_pack = torch.rand((P, Pk), generator=gen, device=dev) * 5 + 3
+    phi_tot = torch.rand(K, generator=gen, device=dev) * 50 + 30
+    return [p_tok, doc_ids, counts, mu, theta, phi_tot, phi_pack, sel_k]
+
+
+def selected_mask(mu, p_tok, sel_k, P):
+    """True at each power token's selected topics: what a sweep may change."""
+    import torch
+
+    sel = torch.zeros_like(mu, dtype=torch.bool)
+    rows = (p_tok < P).nonzero().squeeze(1)
+    sel[rows[:, None], sel_k.long()[p_tok.long()[rows]]] = True
+    return sel
+
+
+def check_packed_sweep(packed, gen, *, D, L, K, P, Pk, guard_share,
+                       empty_doc, timed):
+    """The packed sweep against its plain version: mu', theta_delta, d_pack
+    and r_pack at rel 1e-5 (max |gap| over max |plain|); every coordinate
+    outside the power tokens' selections bit for bit as it was."""
+    import torch
+
+    x = packed_inputs(gen, D=D, L=L, K=K, P=P, Pk=Pk,
+                      guard_share=guard_share, empty_doc=empty_doc)
+    kw = dict(alpha=0.1, beta=0.01, wbeta=141043 * 0.01)
+
+    def fresh():
+        a = list(x)
+        a[3] = x[3].clone()
+        return a
+
+    got = packed.power_sweep_tokens(*fresh(), **kw)
+    want = packed.power_sweep_tokens_plain(*fresh(), **kw)
+    torch.cuda.synchronize()
+    err_mu = float((got[0] - want[0]).abs().max())
+    rel = [rel_err(g, w) for g, w in zip(got, want)]
+    off = ~selected_mask(x[3], x[0], x[7], P)
+    kept = bool(torch.equal(got[0][off], x[3][off]))
+    print(f"[kernel] power_sweep_tokens T={D * L} D={D} K={K} P={P} Pk={Pk} "
+          f"guard={guard_share}: rel mu'={rel[0]:.3e}  rel dtheta="
+          f"{rel[1]:.3e}  rel d_pack={rel[2]:.3e}  rel r_pack={rel[3]:.3e} "
+          f"(tol 1e-5)  untouched bit for bit: {kept}")
+    if not (max(rel) <= 1e-5 and kept):
+        fail(f"power_sweep_tokens disagrees with its plain version at "
+             f"D={D} L={L} K={K} P={P} Pk={Pk}")
+    if not timed:
+        return None
+    ms = time_ms(lambda *a: packed.power_sweep_tokens(*a, **kw), fresh)
+    plain_ms = time_ms(lambda *a: packed.power_sweep_tokens_plain(*a, **kw),
+                       fresh)
+    # what the sweep must move: each power token's mu at its Pk topics, read
+    # and written; theta at the distinct (document, topic) pairs selected;
+    # sel_k and phi_pack of each power word present; the theta delta and
+    # the packed d/r buffers written once; the per-token ids and counts;
+    # phi_tot
+    T = D * L
+    p, doc = x[0], x[1]
+    act = p < P
+    n_act = int(act.sum())
+    n_rows = int(torch.unique(p[act]).numel())
+    pairs = doc[act].long()[:, None] * K + x[7].long()[p[act].long()]
+    n_dk = int(torch.unique(pairs).numel())
+    nbytes = 4 * (2 * n_rows * Pk + 2 * n_act * Pk + n_dk + D * K
+                  + 2 * P * Pk + 3 * T + K)
+    bound, bound_by = bound_ms(nbytes, 30 * n_act * Pk)
+    print(f"[kernel] power_sweep_tokens: {ms:.4f} ms  plain {plain_ms:.4f} "
+          f"ms  bound {bound * 1e3:.2f} us ({bound_by})  library: none (no "
+          f"single PyTorch call computes this sweep)")
+    return kernel_record(
+        "power_sweep_tokens", "src/repro_torch/csrc/power_sweep_tokens.cu",
+        "src/repro/kernels/power_sweep/kernel.py:174", err_mu, ms, plain_ms,
+        bound, bound_by)
+
+
+def check_pack_rows(pack_ops, gen, *, W, K, P, Pk, outside, timed):
+    """The phi pack against its plain version, exactly; with ``outside``,
+    a column and a row outside the matrix pack to 0."""
+    import torch
+
+    dev = "cuda"
+    mat = torch.rand((W, K), generator=gen, device=dev) * 4
+    sel_w = torch.randperm(W, generator=gen, device=dev)[:P].to(torch.int32)
+    sel_k = torch.rand((P, K), generator=gen, device=dev).argsort(dim=1)[
+        :, :Pk].to(torch.int32).contiguous()
+    if outside:
+        sel_k[0, 0] = K
+        sel_w[1] = W
+    got = pack_ops.pack_rows(mat, sel_w, sel_k)
+    want = pack_ops.pack_rows_plain(mat, sel_w, sel_k)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    zeros = not outside or (float(got[0, 0]) == 0.0
+                            and not bool(got[1].any()))
+    print(f"[kernel] pack_rows W={W} K={K} P={P} Pk={Pk}: max|dout|="
+          f"{err:.3e} (exact)" + ("  outside pairs 0: " + str(zeros)
+                                  if outside else ""))
+    if not (err == 0.0 and zeros):
+        fail(f"pack_rows disagrees with its plain version at W={W} K={K} "
+             f"P={P} Pk={Pk}")
+    if not timed:
+        return None
+    args = lambda: (mat, sel_w, sel_k)                # noqa: E731
+    rows, cols = sel_w.long()[:, None], sel_k.long()
+    ms = time_ms(pack_ops.pack_rows, args)
+    plain_ms = time_ms(pack_ops.pack_rows_plain, args)
+    library_ms = time_ms(lambda m, w, k: m[rows, cols], args)
+    bound, bound_by = bound_ms(4 * (P + 3 * P * Pk), 0)
+    print(f"[kernel] pack_rows: {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+          f"{bound * 1e3:.2f} us ({bound_by})  library (mat[sel_w[:, None], "
+          f"sel_k]) {library_ms:.4f} ms")
+    return kernel_record("pack_rows", "src/repro_torch/csrc/power_pack.cu",
+                         "src/repro/kernels/power_pack/kernel.py:50", err, ms,
+                         plain_ms, bound, bound_by, library_ms)
+
+
 # --------------------------------------------------------------- phase 3
 
 def model_on_device(gen, W: int, K: int, device):
@@ -566,37 +711,53 @@ def launch_counts(reset: bool = False):
     from repro_torch.kernels.bp_update import ops as bp_ops
     from repro_torch.kernels.power_pack import ops as pack_ops
     from repro_torch.kernels.power_sweep import ops as sweep_ops
+    from repro_torch.kernels.power_sweep import packed
 
+    counters = {"bp_update": (bp_ops.bp_update, "launches"),
+                "power_sweep_carry_train": (sweep_ops.power_sweep_carry,
+                                            "train_launches"),
+                "scatter_add_rows": (pack_ops.scatter_add_rows, "launches"),
+                "power_sweep_tokens": (packed.power_sweep_tokens,
+                                       "launches"),
+                "pack_rows": (pack_ops.pack_rows, "launches")}
     if reset:
-        bp_ops.bp_update.launches = 0
-        sweep_ops.power_sweep_carry.train_launches = 0
-        pack_ops.scatter_add_rows.launches = 0
-    return {"bp_update": bp_ops.bp_update.launches,
-            "power_sweep_carry_train":
-                sweep_ops.power_sweep_carry.train_launches,
-            "scatter_add_rows": pack_ops.scatter_add_rows.launches}
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
-def train_slice(*, W: int, K: int, D: int, L: int, steps: int, seed: int,
-                device, len_means=(64, 128, 192), inner_iters: int = 200,
-                tol: float = 0.1, card: str = ""):
-    """``steps`` POBP steps at (W, K, D, L) on a model sampled on the
-    device, with checks (a)-(c) of the training contract.  Returns (cfg,
-    state, step, batches, held-out split, launch counts, readings)."""
+def train_data(*, W: int, K: int, D: int, L: int, steps: int, seed: int,
+               device, len_means=(64, 128, 192)):
+    """The training slice's data, sampled on the device from a model drawn
+    from ``seed``: ``steps`` [D, L] mini-batches and a held-out split."""
     import torch
-
-    from repro_torch.core.pobp import init_train_state, make_train_step
-    from repro_torch.core.types import LDAConfig
 
     gen = torch.Generator(device=device).manual_seed(seed)
     phi_true, _ = model_on_device(gen, W, K, device)
     means = [len_means[i % len(len_means)] for i in range(steps)]
     batches = padded_batches(gen, phi_true, D=D, L=L, len_means=means)
     heldout = heldout_split(gen, phi_true, n_docs=256, mean=128, seed=seed)
-    del phi_true
+    return batches, heldout
+
+
+def train_slice(batches, *, W: int, K: int, seed: int, device,
+                sweep_policy: str = "auto", inner_iters: int = 200,
+                tol: float = 0.1, card: str = ""):
+    """One POBP step per mini-batch of ``batches`` at (W, K) with
+    ``sweep_policy``, with checks (a)-(c) of the training contract: the
+    kernels of that policy launched as often as its steps and selective
+    iterations (the other policy's never), phi_acc holding every token
+    consumed, finite and non-negative.  Returns (cfg, state, step, launch
+    counts, readings)."""
+    import torch
+
+    from repro_torch.core.pobp import init_train_state, make_train_step
+    from repro_torch.core.types import LDAConfig
+
+    tag = "packed" if sweep_policy == "packed" else "train"
     cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_w=0.1,
                     lambda_k_abs=50, inner_iters=inner_iters,
-                    residual_tol=tol)
+                    residual_tol=tol, sweep_policy=sweep_policy)
     step, _ = make_train_step(cfg, device=device)
     state = init_train_state(cfg, seed, device=device)
     sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
@@ -620,27 +781,66 @@ def train_slice(*, W: int, K: int, D: int, L: int, steps: int, seed: int,
     launches = launch_counts()                   # ... and ends here
 
     for i, (wall, iters, ntok, mean_r) in enumerate(readings):
-        print(f"[train] step {i + 1}: {wall * 1e3:.3f} ms  iters={iters}  "
+        print(f"[{tag}] step {i + 1}: {wall * 1e3:.3f} ms  iters={iters}  "
               f"{wall * 1e3 / iters:.3f} ms/iteration  "
               f"{ntok / wall:.1f} tokens/s  mean_r={mean_r:.4f}  "
               f"({ntok:.0f} tokens) [{card}]")
     sweeps = sum(iters - 1 for _, iters, _, _ in readings)
-    want = {"bp_update": len(batches), "power_sweep_carry_train": sweeps,
-            "scatter_add_rows": sweeps}
-    print(f"[train] launches {launches} (steps={len(batches)}, selective "
-          f"sweeps={sweeps})")
+    packed = sweep_policy == "packed"
+    want = {"bp_update": len(batches),
+            "power_sweep_carry_train": 0 if packed else sweeps,
+            "scatter_add_rows": sweeps,
+            "power_sweep_tokens": sweeps if packed else 0,
+            "pack_rows": sweeps if packed else 0}
+    print(f"[{tag}] launches {launches} (steps={len(batches)}, selective "
+          f"sweeps={sweeps}, sweep_policy={sweep_policy})")
     if launches != want or readings[0][1] < 2:
         fail(f"training kernels launched {launches}, expected {want} with "
              f"the first step past its dense sweep")
     mass = float(state.phi_acc.sum(dtype=torch.float64))
-    print(f"[train] phi_acc mass {mass:.3f} against {tokens:.0f} tokens "
+    print(f"[{tag}] phi_acc mass {mass:.3f} against {tokens:.0f} tokens "
           f"consumed (rel {abs(mass - tokens) / tokens:.2e}, tol 1e-4)")
     if not abs(mass - tokens) <= 1e-4 * tokens:
         fail("phi_acc does not hold the tokens consumed")
     lo = float(state.phi_acc.min())
     if not (bool(torch.isfinite(state.phi_acc).all()) and lo >= -1e-3):
         fail(f"phi_acc is not finite and non-negative (min {lo:.3e})")
-    return cfg, state, step, batches, heldout, launches, readings
+    return cfg, state, step, launches, readings
+
+
+def packed_vs_carry(mb, u0, *, W, K, seed, device="cuda", inner_iters=8,
+                    order=("auto", "packed", "packed", "auto")):
+    """One mini-batch ``mb`` from one injected init ``u0`` through the
+    carry (``auto``) and packed policies in the turns of ``order``, with
+    tolerance 0 and ``inner_iters`` iterations each.  Returns the relative
+    L1 gaps of phi_acc and theta between the first run of each policy, and
+    each run's (policy, wall ms, iterations)."""
+    import torch
+
+    from repro_torch.core.pobp import init_train_state, make_train_step
+    from repro_torch.core.types import LDAConfig
+
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+    first, runs = {}, []
+    for policy in order:
+        cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_w=0.1,
+                        lambda_k_abs=50, inner_iters=inner_iters,
+                        residual_tol=0.0, sweep_policy=policy)
+        step, _ = make_train_step(cfg, device=device)
+        state = init_train_state(cfg, seed, device=device)
+        sync()
+        t0 = time.time()
+        state, diag = step(state, mb.word_ids, mb.counts, u0=u0)
+        sync()
+        runs.append((policy, (time.time() - t0) * 1e3, diag["iters"]))
+        first.setdefault(policy, (state.phi_acc, diag["theta"]))
+        del state, diag
+    (phi_c, th_c), (phi_p, th_p) = first["auto"], first["packed"]
+    gap = {name: float((p - c).abs().sum() / c.abs().sum())
+           for name, p, c in (("phi_acc", phi_p, phi_c),
+                              ("theta", th_p, th_c))}
+    return gap, runs
 
 
 def train_kernel_vs_plain(*, seed: int, W=20000, K=256, D=64, L=64,
@@ -747,7 +947,7 @@ def main(argv=None) -> None:
                     help="closed-loop bursts of the requests, the first "
                          "(counted) one included")
     ap.add_argument("--train-steps", type=int, default=3,
-                    help="POBP steps of the training slice (phase 6)")
+                    help="POBP steps of the training slices (phases 6, 7)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -764,11 +964,12 @@ def main(argv=None) -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.bp_update import ops as bp_ops
     from repro_torch.kernels.power_pack import ops as pack_ops
-    from repro_torch.kernels.power_sweep import ops
+    from repro_torch.kernels.power_sweep import ops, packed
 
     # ---- 1. build
     t0 = time.time()
-    libs = build.build_all(["power_sweep_carry", "bp_update", "power_pack"])
+    libs = build.build_all(["power_sweep_carry", "bp_update", "power_pack",
+                            "power_sweep_tokens"])
     card = card_line()
     print(card)
     print(f"[build] {len(libs)} kernel(s) in {time.time() - t0:.1f}s")
@@ -778,6 +979,7 @@ def main(argv=None) -> None:
                 print(f"[build] {name}: {line.strip()}")
 
     # ---- 2. each kernel against its plain version
+    t0 = time.time()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rec = check_sweep(ops, gen, T=4096, D=64, K=2000, rows=141044,
                       frozen=0.3, empty_docs=8, timed=True)
@@ -795,17 +997,35 @@ def main(argv=None) -> None:
             guard_share=0.3, timed=True),
         "scatter_add_rows": check_scatter(pack_ops, gen, W=141043, K=2000,
                                           P=14104, Pk=50, dup_zero_rows=0,
-                                          timed=True)}
+                                          timed=True),
+        "power_sweep_tokens": check_packed_sweep(
+            packed, gen, D=512, L=128, K=2000, P=14104, Pk=50,
+            guard_share=0.3, empty_doc=False, timed=True),
+        "pack_rows": check_pack_rows(pack_ops, gen, W=141043, K=2000,
+                                     P=14104, Pk=50, outside=False,
+                                     timed=True)}
     check_bp_update(bp_ops, gen, D=3, L=7, K=100, W=50, ragged=True,
                     timed=False)
     check_carry_train(ops, gen, D=3, L=7, K=100, P=9, Pk=5, ragged=True,
                       guard_share=0.3, timed=False)
     check_scatter(pack_ops, gen, W=50, K=100, P=12, Pk=7, dup_zero_rows=3,
                   timed=False)
+    # the packed slice's kernels at odd shapes: K = 100, Pk of 1, 37 and K,
+    # a ragged last document, an empty document, an all-guard batch, and
+    # pairs outside the matrix
+    for Pk in (1, 37, 100):
+        check_packed_sweep(packed, gen, D=4, L=7, K=100, P=9, Pk=Pk,
+                           guard_share=0.3, empty_doc=True, timed=False)
+        check_pack_rows(pack_ops, gen, W=50, K=100, P=12, Pk=Pk,
+                        outside=True, timed=False)
+    check_packed_sweep(packed, gen, D=4, L=7, K=100, P=9, Pk=37,
+                       guard_share=1.0, empty_doc=True, timed=False)
+    print(f"[time] phase 2: {time.time() - t0:.1f}s")
 
     # ---- 3. the serving slice at PUBMED width
     from repro_torch.core import infer
 
+    t0 = time.time()
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     try:
@@ -869,12 +1089,19 @@ def main(argv=None) -> None:
     profile_serve(engine, docs, card)
     del engine, runs
 
+    print(f"[time] phases 3-5: {time.time() - t0:.1f}s")
+
     # ---- 6. the training slice at PUBMED width
     from repro_torch.core.perplexity import evaluate
 
-    cfg, state, step, batches, (train, test), train_launches, _ = \
-        train_slice(W=141043, K=2000, D=512, L=128, steps=args.train_steps,
-                    seed=args.seed, device="cuda", card=card)
+    t0 = time.time()
+    W, K, D, L = 141043, 2000, 512, 128
+    batches, (train, test) = train_data(W=W, K=K, D=D, L=L,
+                                        steps=args.train_steps,
+                                        seed=args.seed, device="cuda")
+    print(f"[time] training data sampled in {time.time() - t0:.1f}s")
+    cfg, state, step, train_launches, carry_readings = train_slice(
+        batches, W=W, K=K, seed=args.seed, device="cuda", card=card)
     print(f"[train] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
     train_kernel_vs_plain(seed=args.seed)
@@ -883,15 +1110,60 @@ def main(argv=None) -> None:
                        args.seed + 1), device="cuda")
     print(f"[train] held-out perplexity after step {state.m}: {ppl:.3f} "
           f"({test.num_docs} documents, fold-in through the serving kernel)")
-    _, diag = profile_run(
+    diag = profile_run(
         lambda: step(state, batches[0].word_ids, batches[0].counts),
-        "one training step (batch 1 again)", card)
+        "one training step (batch 1 again)", card)[1]
     print(f"[profile] that step ran {diag['iters']} iterations")
+    del state, step, diag        # phase 7 reads its own peak memory
+    print(f"[time] phase 6: {time.time() - t0:.1f}s")
+
+    # ---- 7. the packed sweep policy on the same batches and settings
+    t0 = time.time()
+    _, state, step, packed_launches, packed_readings = train_slice(
+        batches, W=W, K=K, seed=args.seed, device="cuda",
+        sweep_policy="packed", card=card)
+    print(f"[packed] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    for i, (c, pk) in enumerate(zip(carry_readings, packed_readings)):
+        print(f"[packed] step {i + 1} ms/iteration: carry "
+              f"{c[0] * 1e3 / c[1]:.3f} ({c[1]} iterations), packed "
+              f"{pk[0] * 1e3 / pk[1]:.3f} ({pk[1]} iterations)")
+    diag = profile_run(
+        lambda: step(state, batches[0].word_ids, batches[0].counts),
+        "one packed training step (batch 1 again)", card)[1]
+    print(f"[profile] that step ran {diag['iters']} iterations")
+    del state, step, diag
+    # packed against carry: one mini-batch, one init, tolerance 0, 8
+    # iterations; gated at a reduced shape, timed in turns at full width
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 11)
+    Wr, Kr, Dr, Lr = 20000, 256, 64, 64
+    phi_true, _ = model_on_device(gen, Wr, Kr, "cuda")
+    (mb,) = padded_batches(gen, phi_true, D=Dr, L=Lr, len_means=(64,))
+    u0 = torch.rand((Dr, Lr, Kr), generator=gen, device="cuda") * 0.99 + 0.01
+    gap, _ = packed_vs_carry(mb, u0, W=Wr, K=Kr, seed=args.seed,
+                             order=("auto", "packed"))
+    print(f"[packed] packed vs carry at W={Wr} K={Kr} D={Dr} L={Lr}, 8 "
+          f"iterations from one init: rel L1 gap phi_acc "
+          f"{gap['phi_acc']:.3e}, theta {gap['theta']:.3e} (tol 1e-4)")
+    if not max(gap.values()) <= 1e-4:
+        fail("the packed and carry policies disagree")
+    mb = batches[1 % len(batches)]
+    u0 = torch.rand((D, L, K), generator=gen, device="cuda") * 0.99 + 0.01
+    gap, runs = packed_vs_carry(mb, u0, W=W, K=K, seed=args.seed)
+    print(f"[packed] packed vs carry at W={W} K={K} D={D} L={L} (batch 2), 8 "
+          f"iterations from one init: rel L1 gap phi_acc "
+          f"{gap['phi_acc']:.3e}, theta {gap['theta']:.3e} (not gated); "
+          + ", ".join(f"{pol} {ms:.3f} ms = {ms / it:.3f} ms/iteration"
+                      for pol, ms, it in runs) + f"  [{card}]")
+    del u0, mb
+    print(f"[time] phase 7: {time.time() - t0:.1f}s")
 
     rec["launches"] = launches
     kernels = [rec]
     for name, r in train_recs.items():
-        r["launches"] = train_launches[name]
+        r["launches"] = (packed_launches if name in ("power_sweep_tokens",
+                                                     "pack_rows")
+                         else train_launches)[name]
         kernels.append(r)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,11 @@ Kernels, chosen by the device of the tensors (a CUDA tensor launches the
 hand-written kernel, a CPU tensor runs its plain version):
 
   - the dense sweep: ``kernels/bp_update`` (``bp_update``);
-  - the selective sweep: the training mode of ``kernels/power_sweep``
-    (``power_sweep_carry``), fed [P+1, K] phi and mask row tables;
+  - the selective sweep, by ``cfg.sweep_policy`` (``core/sweep_dispatch``):
+    the training mode of ``kernels/power_sweep`` (``power_sweep_carry``),
+    fed [P+1, K] phi and mask row tables, or, for ``packed``, the phi pack
+    of ``kernels/power_pack`` (``pack_rows``, through ``core.power``) and
+    the packed sweep ``kernels/power_sweep/packed`` (``power_sweep_tokens``);
   - the phi fold of each selective iteration: ``kernels/power_pack``
     (``scatter_add_rows``, through ``core.power``).
 
@@ -37,11 +40,13 @@ from repro_torch.core import power as pw
 from repro_torch.core.device import resolve_device
 from repro_torch.core.residuals import (mean_residual, packed_rw_delta,
                                         token_scatter_wk)
+from repro_torch.core.sweep_dispatch import resolve_sweep_policy
 from repro_torch.core.sync import CommMeter, LocalReducer
 from repro_torch.core.types import (LDAConfig, LDATrainState, MiniBatch,
                                     TokenLayout)
 from repro_torch.kernels.bp_update.ops import bp_update
 from repro_torch.kernels.power_sweep.ops import power_sweep_carry
+from repro_torch.kernels.power_sweep.packed import power_sweep_tokens
 
 SYNC_MODES = ("power", "dense")
 
@@ -82,17 +87,31 @@ def dense_sweep(batch: MiniBatch, mu: torch.Tensor, phi_eff_wk: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def selective_sweep_tokens(layout: TokenLayout, mu_t, theta, phi_eff_wk,
-                           phi_tot, sel_w, sel_k, cfg: LDAConfig):
-    """One selective sweep at the (power word, power topic) coordinates:
-    the training mode of ``power_sweep_carry`` over [P+1, K] phi and mask
-    row tables (guard row last), the reference's
-    ``_selective_sweep_carry_pallas``.
+                           phi_tot, sel_w, sel_k, cfg: LDAConfig,
+                           policy: Optional[str] = None):
+    """One selective sweep at the (power word, power topic) coordinates,
+    in the formulation ``policy`` names (default: ``cfg.sweep_policy``
+    resolved by ``resolve_sweep_policy``), as the reference's
+    ``selective_sweep_tokens_pallas`` dispatches: ``packed`` runs
+    `_selective_sweep_packed`, every other policy `_selective_sweep_carry`.
+    The two compute the same sweep within float associativity.
 
     mu_t [T, K] token-major messages, updated IN PLACE; theta [D, K] the
     doc-topic statistic of mu_t; phi_eff_wk [W, K]; phi_tot [K]; sel_w
     [P]; sel_k [P, Pk].  Returns (mu_t, theta_new, d_pack [P, Pk],
     r_pack [P, Pk]).
     """
+    policy = policy or resolve_sweep_policy(cfg)
+    fn = (_selective_sweep_packed if policy == "packed"
+          else _selective_sweep_carry)
+    return fn(layout, mu_t, theta, phi_eff_wk, phi_tot, sel_w, sel_k, cfg)
+
+
+def _selective_sweep_carry(layout: TokenLayout, mu_t, theta, phi_eff_wk,
+                           phi_tot, sel_w, sel_k, cfg: LDAConfig):
+    """The carry formulation: the training mode of ``power_sweep_carry``
+    over [P+1, K] phi and mask row tables (guard row last), the reference's
+    ``_selective_sweep_carry_pallas``."""
     P, _ = sel_k.shape
     K = mu_t.shape[1]
     dev = mu_t.device
@@ -109,6 +128,26 @@ def selective_sweep_tokens(layout: TokenLayout, mu_t, theta, phi_eff_wk,
     idx = sel_k.long()
     return mu_t, theta + theta_delta, d_rows.gather(1, idx), \
         r_rows.gather(1, idx)
+
+
+def _selective_sweep_packed(layout: TokenLayout, mu_t, theta, phi_eff_wk,
+                            phi_tot, sel_w, sel_k, cfg: LDAConfig):
+    """The packed-stream formulation, the reference's packed path
+    (``selective_sweep_tokens_pallas`` with policy ``packed``): the [P, Pk]
+    phi pack (``pack_rows``), then ``power_sweep_tokens``, which gathers,
+    updates and stores back at the selected coordinates only.  Its plain
+    version sums the packed buffers as the reference's jnp
+    ``_selective_sweep_packed`` does: a one-hot contraction while
+    T * P <= ``cfg.onehot_crossover``, a row ``index_add_`` past it."""
+    P = sel_k.shape[0]
+    p_tok = pw.token_power_rows(layout.word_ids, sel_w, cfg.vocab_size)
+    phi_pack = pw.pack_rows(phi_eff_wk, sel_w, sel_k)
+    mu_t, theta_delta, d_pack, r_pack = power_sweep_tokens(
+        p_tok, layout.doc_ids, layout.counts, mu_t, theta, phi_tot, phi_pack,
+        sel_k, alpha=cfg.alpha, beta=cfg.beta,
+        wbeta=cfg.vocab_size * cfg.beta,
+        onehot=layout.num_slots * P <= cfg.onehot_crossover)
+    return mu_t, theta + theta_delta, d_pack, r_pack
 
 
 # --------------------------------------------------------------------------
@@ -177,6 +216,7 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
     K = phi_acc_wk.shape[1]
     P, Pk = cfg.num_power_words, min(cfg.num_power_topics, K)
     _check_ported(cfg)
+    policy = resolve_sweep_policy(cfg)
     layout = batch.token_layout()
     c3 = batch.counts[..., None]
 
@@ -210,7 +250,8 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
             sel_w = pw.select_power_words(r_w, P)
             sel_k = pw.select_power_topics(r_glob, sel_w, Pk)
             mu_t, theta, d_pack, r_pack = selective_sweep_tokens(
-                layout, mu_t, theta, phi_eff, phi_tot, sel_w, sel_k, cfg)
+                layout, mu_t, theta, phi_eff, phi_tot, sel_w, sel_k, cfg,
+                policy)
             # lines 23-24: sync only the power submatrices
             d_pack = reducer.psum(d_pack, "power")
             r_pack = reducer.psum(r_pack, "power")
@@ -289,9 +330,9 @@ def _decay_factor(cfg: LDAConfig, m: int) -> Optional[float]:
 
 def _check_ported(cfg: LDAConfig, num_shards: int = 1,
                   reducer=None) -> None:
-    """Raise for what the port does not run yet.  Every ``sweep_policy``
-    but ``packed`` runs the one carry kernel: on Hopper its row tables stay
-    in HBM, so the reference's full-K and K-blocked variants are one."""
+    """Raise for what the port does not run yet, and (``ValueError``) for
+    an unknown ``sweep_policy``."""
+    resolve_sweep_policy(cfg)
     if num_shards != 1 or reducer is not None:
         raise NotImplementedError(
             f"num_shards={num_shards}, reducer={reducer!r}: multi-shard sync "
@@ -302,11 +343,6 @@ def _check_ported(cfg: LDAConfig, num_shards: int = 1,
             f"phi_acc_dtype={cfg.phi_acc_dtype!r}: compressed accumulators "
             f"with stochastic rounding are not ported yet (ROADMAP Queue 1, "
             f"item 2c)")
-    if cfg.sweep_policy == "packed":
-        raise NotImplementedError(
-            "sweep_policy='packed' is not ported yet: its kernels "
-            "(power_sweep_tokens, pack_rows_pallas) and cost model come with "
-            "the packed-policy slice (ROADMAP Queue 1, item 2b)")
 
 
 def init_train_state(cfg: LDAConfig, seed: int = 0,

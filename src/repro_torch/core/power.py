@@ -5,8 +5,9 @@ packed gather and scatters of the sparse sync: the counterpart of
 Every sync-side matrix is [W, K] (rows are words), so power-word selection
 is a row pick and power-topic selection a per-row column pick.  The
 scatters update their matrix IN PLACE, where the reference returns a new
-array; `scatter_add_rows` runs the hand-written CUDA kernel on a CUDA
-tensor (``kernels/power_pack``).
+array.  `pack_rows` and `scatter_add_rows` run the hand-written CUDA
+kernels on a CUDA tensor (``kernels/power_pack``), their plain versions on
+a CPU tensor.
 
 Top-k ties: ``torch.topk`` does not promise ``lax.top_k``'s tie order.
 Ties arise at zero residual (words or topics no token touched); which of
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.power_pack.ops import pack_rows as _pack
 from repro_torch.kernels.power_pack.ops import scatter_add_rows as _scatter_add
 
 
@@ -57,8 +59,9 @@ def token_power_rows(word_ids_t: torch.Tensor, sel_w: torch.Tensor,
 
 def pack_rows(mat_wk: torch.Tensor, word_idx: torch.Tensor,
               topic_idx: torch.Tensor) -> torch.Tensor:
-    """The [P, Pk] power submatrix ``mat[word_idx[p], topic_idx[p, j]]``."""
-    return mat_wk[word_idx.long()[:, None], topic_idx.long()]
+    """The [P, Pk] power submatrix ``mat[word_idx[p], topic_idx[p, j]]``
+    (the phi pack of the packed sweep), a new tensor."""
+    return _pack(mat_wk, word_idx, topic_idx)
 
 
 def scatter_add_rows(mat_wk: torch.Tensor, word_idx: torch.Tensor,

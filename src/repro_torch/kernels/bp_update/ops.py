@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, check_args
 
 _SOURCE = "bp_update"
 
@@ -59,16 +59,7 @@ def _check_cuda_args(word_ids, doc_ids, counts_t, mu_t, theta, phi_wk,
             "theta": (theta, torch.float32, (theta.shape[0], K)),
             "phi_wk": (phi_wk, torch.float32, (phi_wk.shape[0], K)),
             "phi_tot": (phi_tot, torch.float32, (K,))}
-    for name, (x, dtype, shape) in want.items():
-        if x.device != mu_t.device:
-            raise ValueError(f"{name} is on {x.device}, mu_t on {mu_t.device}")
-        if x.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, "
-                             f"got {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_args("mu_t", want)
 
 
 def bp_update(word_ids, doc_ids, counts_t, mu_t, theta, phi_wk, phi_tot, *,

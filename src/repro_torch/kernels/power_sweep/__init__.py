@@ -1,2 +1,3 @@
-"""Carry-resident selective sweep (serving and training modes): the CUDA
-kernel's wrapper and its plain version (``ops``)."""
+"""The selective sweeps: the carry-resident sweep in serving and training
+modes (``ops``) and the packed-stream sweep (``packed``), each a CUDA
+kernel's wrapper beside its plain version."""

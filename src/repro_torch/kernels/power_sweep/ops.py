@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, check_args
 
 _SOURCE = "power_sweep_carry"
 _MAX_WARPS = 8
@@ -119,16 +119,7 @@ def _check_cuda_args(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
             "phi_rows": (phi_rows, torch.float32, (phi_rows.shape[0], K))}
     if mask_rows is not None:
         want["mask_rows"] = (mask_rows, torch.float32, tuple(phi_rows.shape))
-    for name, (x, dtype, shape) in want.items():
-        if x.device != mu_t.device:
-            raise ValueError(f"{name} is on {x.device}, mu_t on {mu_t.device}")
-        if x.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, "
-                             f"got {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_args("mu_t", want)
     if T * K >= 2 ** 31 or phi_rows.shape[0] >= 2 ** 31:
         raise ValueError(f"T*K={T * K} exceeds the kernel's int32 indexing")
 

@@ -16,9 +16,17 @@ asked, the CPU.
       --docs-per-batch 32 --vocab 300 --topics 16 --lambda-k 8 \\
       --eval-every 4 --ckpt-dir /tmp/lda_ck --ckpt-every 4 --device cuda
 
-Every other flag of the reference driver is accepted only at the value
-that keeps its feature off, and raises naming the ROADMAP item that ports
-it; the driver does not resume from a checkpoint yet (Queue 1, item 4).
+``--sweep-policy`` picks the selective sweep's formulation
+(``core/sweep_dispatch``): ``packed`` runs the phi pack and packed-sweep
+kernels, every other policy the carry kernel; ``--onehot-crossover`` sets
+where the packed sweep's plain version (the CPU path) turns from a one-hot
+contraction to a row ``index_add_``; ``--prefetch`` is the depth of the
+host thread that draws the stream ahead.
+
+Every other flag of the reference driver is accepted only at its
+reference default, and any other value raises naming the ROADMAP item
+that ports it; the driver does not resume from a checkpoint yet (Queue 1,
+item 4).
 """
 
 from __future__ import annotations
@@ -47,8 +55,10 @@ _UNPORTED = {
     "compact_mass_tol": (25.0, f"{_Q1} 6 (lifecycle)"),
     "recycle_tol": (0.0, f"{_Q1} 6 (lifecycle)"),
     "phi_acc_dtype": ("float32", f"{_Q1} 2c (bf16 phi_acc)"),
-    "sweep_policy": ("auto", f"{_Q1} 2b (the packed policy; every other "
-                             f"policy runs the one carry kernel)"),
+    "sync_dtype": ("float32", f"{_Q1} 2c (bf16 sync payloads)"),
+    "impl": ("jnp", f"{_Q1} 4 (the port picks its kernels by the "
+                    f"tensors' device: --device)"),
+    "warmup_buckets": (True, f"{_Q1} 4 (per-shape warm-up)"),
     "staleness": (0, f"{_Q1} 7 (parameter server)"),
     "ps_servers": (4, f"{_Q1} 7 (parameter server)"),
     "ps_latency": (0.0, f"{_Q1} 7 (parameter server)"),
@@ -69,7 +79,6 @@ _RESUME_KEYS = ("seed", "sync", "backend", "shards", "vocab", "topics",
                 "lambda_w", "lambda_k", "inner_iters", "tol",
                 "docs_per_batch", "doc_len_means", "len_buckets", "fixed_len",
                 "dynamic_vocab", "decay")
-_PREFETCH = 2
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,6 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="L buckets (multiples of 8)")
     ap.add_argument("--fixed-len", action="store_true",
                     help="pad every batch to the largest bucket")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="mini-batches the host thread draws ahead "
+                         "(0: draw inline)")
     ap.add_argument("--vocab", type=int, default=500)
     ap.add_argument("--topics", type=int, default=16)
     ap.add_argument("--decay", default="1,0",
@@ -92,6 +104,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--inner-iters", type=int, default=12)
     ap.add_argument("--tol", type=float, default=0.05)
     ap.add_argument("--sync", default="power", choices=["power", "dense"])
+    ap.add_argument("--sweep-policy", default="auto",
+                    choices=["auto", "packed", "dense_layout", "kblocked"],
+                    help="selective-sweep formulation: 'packed' runs the "
+                         "phi pack and packed-sweep kernels, every other "
+                         "policy the carry kernel (one kernel serves the "
+                         "full-K and K-blocked layouts); the same math "
+                         "either way")
+    ap.add_argument("--onehot-crossover", type=int, default=8_000_000,
+                    help="T*P up to which the packed sweep's plain version "
+                         "(the CPU path) sums its [P, Pk] buffers by a "
+                         "one-hot contraction, a row index_add_ past it; "
+                         "the CUDA kernel ignores it")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default: cuda; pass cpu "
                          "to run the plain versions on the host)")
@@ -104,7 +128,9 @@ def build_parser() -> argparse.ArgumentParser:
     for name, (default, item) in _UNPORTED.items():
         flag = "--" + name.replace("_", "-")
         if isinstance(default, bool):
-            ap.add_argument(flag, action="store_true",
+            ap.add_argument(flag, default=default,
+                            action=(argparse.BooleanOptionalAction if default
+                                    else "store_true"),
                             help=f"not ported yet ({item})")
         else:
             ap.add_argument(flag, type=type(default), default=default,
@@ -130,7 +156,7 @@ def _reject_unported(args) -> None:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}={value!r} is not ported yet "
                 f"({item}); this driver runs one shard, a fixed vocabulary "
-                f"and a float32 phi_acc")
+                f"and float32 statistics")
 
 
 def _build_cfg(args):
@@ -144,6 +170,8 @@ def _build_cfg(args):
                      lambda_w=args.lambda_w, lambda_k_abs=args.lambda_k,
                      inner_iters=args.inner_iters, residual_tol=args.tol,
                      decay_tau0=decay_tau0, decay_kappa=decay_kappa,
+                     sweep_policy=args.sweep_policy,
+                     onehot_crossover=args.onehot_crossover,
                      init_pad_len=buckets[-1]), buckets
 
 
@@ -231,7 +259,7 @@ def train_loop(args) -> Dict[str, Any]:
     ppl_trace = []
     tokens = 0.0
     t0 = time.time()
-    stream = prefetched(synthetic_stream(args, buckets), _PREFETCH)
+    stream = prefetched(synthetic_stream(args, buckets), args.prefetch)
     for m, (batch, ntok) in enumerate(stream):
         state, diag = step(state, batch.word_ids, batch.counts)
         buf.append(diag["mean_r"], diag["iters"])

@@ -1,7 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
 on the card, the wrappers' checks, the serving engines on the card
-against the same engines on the CPU, and the training step on the card
-against the same step on the CPU.
+against the same engines on the CPU, and the training step (carry and
+packed sweep policies) on the card against the same step on the CPU.
 
 Every test here carries the ``cuda`` marker and skips without a card.
 The file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -20,7 +20,7 @@ from repro_torch.data.batching import docs_to_padded
 from repro_torch.data.synthetic import lda_corpus
 from repro_torch.kernels.bp_update import ops as bp_ops
 from repro_torch.kernels.power_pack import ops as pack_ops
-from repro_torch.kernels.power_sweep import ops
+from repro_torch.kernels.power_sweep import ops, packed
 from repro_torch.serve import FoldInEngine, SlabEngine
 
 pytestmark = pytest.mark.cuda
@@ -214,6 +214,154 @@ def test_scatter_add_rows_kernel_matches_plain_version_on_card(card, W, K,
     want = pack_ops.scatter_add_rows_plain(mat.clone(), sel_w, sel_k, vals)
     got = pack_ops.scatter_add_rows(mat, sel_w, sel_k, vals)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _packed_args(seed, *, D, L, K, P, Pk, guard):
+    """Packed-sweep inputs: tokens on power rows [0, P) or (a ``guard``
+    share, and the whole document 0) the guard id P, a ragged last
+    document, Pk distinct topics per power row, phi_pack above each
+    token's own count."""
+    rng = np.random.default_rng(seed)
+    T = D * L
+    p_tok = rng.integers(0, P, T).astype(np.int32)
+    doc_ids = np.repeat(np.arange(D), L).astype(np.int32)
+    p_tok[(rng.random(T) < guard) | (doc_ids == 0)] = P
+    counts = rng.integers(1, 4, (T, 1)).astype(np.float32)
+    counts[(doc_ids == D - 1) & (np.tile(np.arange(L), D) >= L // 2)] = 0.0
+    mu = rng.random((T, K)).astype(np.float32) + 0.01
+    mu /= mu.sum(1, keepdims=True)
+    theta = np.zeros((D, K), np.float32)
+    np.add.at(theta, doc_ids, counts * mu)
+    phi_tot = (rng.random(K) * 50 + 30).astype(np.float32)
+    phi_pack = (rng.random((P, Pk)) * 5 + 3).astype(np.float32)
+    sel_k = np.argsort(rng.random((P, K)), axis=1)[:, :Pk].astype(np.int32)
+    return [torch.from_numpy(np.ascontiguousarray(x)) for x in
+            (p_tok, doc_ids, counts, mu, theta, phi_tot, phi_pack, sel_k)]
+
+
+@pytest.mark.parametrize("D,L,K,P,Pk,guard", [
+    (6, 8, 20, 9, 5, 0.3), (4, 12, 100, 7, 100, 0.3),      # Pk = K
+    (3, 16, 64, 5, 37, 1.0),                              # all guard
+    (64, 128, 2000, 1400, 50, 0.3)])
+def test_power_sweep_tokens_kernel_matches_plain_version_on_card(
+        card, D, L, K, P, Pk, guard):
+    args = [x.to("cuda") for x in _packed_args(D + K + Pk, D=D, L=L, K=K, P=P,
+                                               Pk=Pk, guard=guard)]
+    kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3)
+    mu0 = args[3].clone()
+    theta0 = args[4].clone()
+    plain = list(args)
+    plain[3] = mu0.clone()
+    before = packed.power_sweep_tokens.launches
+    got = packed.power_sweep_tokens(*args, **kw)
+    assert packed.power_sweep_tokens.launches == before + 1
+    want = packed.power_sweep_tokens_plain(*plain, **kw)
+    assert packed.power_sweep_tokens.launches == before + 1
+    torch.cuda.synchronize()
+    assert got[0].data_ptr() == args[3].data_ptr()          # mu in place
+    assert torch.equal(args[4], theta0)                     # theta read only
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    # theta_delta and the atomically summed packed rows: rel 1e-5 of scale
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(
+            g, w, rtol=1e-5, atol=1e-5 * max(float(w.abs().max()), 1e-30))
+    # untouched coordinates, bit for bit
+    p_tok, sel_k = args[0].long(), args[7].long()
+    selected = torch.zeros_like(mu0, dtype=torch.bool)
+    rows = (p_tok < P).nonzero().squeeze(1)
+    selected[rows[:, None], sel_k[p_tok[rows]]] = True
+    assert torch.equal(got[0][~selected], mu0[~selected])
+    if guard == 1.0:
+        assert torch.equal(got[0], mu0) and not got[1].any()
+        assert not got[2].any() and not got[3].any()
+
+
+@pytest.mark.parametrize("W,K,P,Pk", [(50, 16, 8, 4), (40, 100, 12, 100),
+                                      (20000, 2000, 1400, 50)])
+def test_pack_rows_kernel_matches_plain_version_on_card(card, W, K, P, Pk):
+    mat, sel_w, sel_k, _ = [x.to("cuda") for x in
+                            _pack_args(W + K, W=W, K=K, P=P, Pk=Pk)]
+    if P > 4:
+        sel_k[3, 0] = K                     # a column outside mat packs to 0
+    before = pack_ops.pack_rows.launches
+    got = pack_ops.pack_rows(mat, sel_w, sel_k)
+    assert pack_ops.pack_rows.launches == before + 1
+    want = pack_ops.pack_rows_plain(mat, sel_w, sel_k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)                          # exact
+    if P > 4:
+        assert float(got[3, 0]) == 0.0
+
+
+def test_packed_wrapper_checks_on_card(card):
+    args = [x.to("cuda") for x in _packed_args(0, D=2, L=4, K=8, P=3, Pk=2,
+                                                guard=0.3)]
+    kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3)
+    bad = list(args)
+    bad[7] = args[7].long()
+    with pytest.raises(ValueError, match="sel_k must be torch.int32"):
+        packed.power_sweep_tokens(*bad, **kw)
+    bad = list(args)
+    bad[6] = args[6].cpu()
+    with pytest.raises(ValueError, match="phi_pack is on cpu"):
+        packed.power_sweep_tokens(*bad, **kw)
+    bad = list(args)
+    bad[6] = torch.ones((4, 2), device="cuda")
+    with pytest.raises(ValueError, match="phi_pack must have shape"):
+        packed.power_sweep_tokens(*bad, **kw)
+    mat, sel_w, sel_k, _ = [x.to("cuda") for x in _pack_args(0, W=10, K=8,
+                                                              P=3, Pk=2)]
+    with pytest.raises(ValueError, match="sel_w must be torch.int32"):
+        pack_ops.pack_rows(mat, sel_w.long(), sel_k)
+    with pytest.raises(ValueError, match="sel_k must be contiguous"):
+        pack_ops.pack_rows(mat, sel_w, sel_k.t().contiguous().t())
+
+
+def _numpy_batches(W, K):
+    rng = np.random.default_rng(0)
+    batches = []
+    for m in range(3):
+        docs, _, _ = lda_corpus(10 + m, 32, W, K, doc_len_mean=40)
+        mb = docs_to_padded(docs, max_len=32)
+        batches.append((mb, rng.uniform(0.01, 1.0, (32, 32, K)
+                                        ).astype(np.float32)))
+    return batches
+
+
+def test_packed_train_step_on_card_matches_cpu_step(card):
+    """Three POBP steps with ``sweep_policy="packed"`` on the card (the
+    dense sweep, the phi pack, the packed sweep and the scatter kernels)
+    and on the CPU (the plain versions) from the same numpy-drawn inits:
+    iterations equal, rel 1e-3."""
+    W, K = 500, 64
+    cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_k_abs=8,
+                    inner_iters=8, residual_tol=0.05, sweep_policy="packed")
+    counters = ((bp_ops.bp_update, "launches"),
+                (pack_ops.pack_rows, "launches"),
+                (packed.power_sweep_tokens, "launches"),
+                (pack_ops.scatter_add_rows, "launches"),
+                (ops.power_sweep_carry, "train_launches"))
+    res = {}
+    for device in ("cpu", "cuda"):
+        step, _ = pobp.make_train_step(cfg, device=device)
+        state = pobp.init_train_state(cfg, device=device)
+        before = [getattr(f, a) for f, a in counters]
+        trace = []
+        for mb, u0 in _numpy_batches(W, K):
+            state, diag = step(state, mb.word_ids, mb.counts,
+                               u0=torch.from_numpy(u0))
+            trace.append((diag["iters"], float(diag["mean_r"])))
+        res[device] = (state.phi_acc.cpu(), trace,
+                       [getattr(f, a) - b
+                        for (f, a), b in zip(counters, before)])
+    sweeps = sum(it - 1 for it, _ in res["cuda"][1])
+    assert res["cpu"][2] == [0, 0, 0, 0, 0]
+    assert res["cuda"][2] == [3, sweeps, sweeps, sweeps, 0] and sweeps > 0
+    for (it_c, r_c), (it_g, r_g) in zip(res["cpu"][1], res["cuda"][1]):
+        assert it_c == it_g
+        assert r_g == pytest.approx(r_c, rel=1e-3)
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-3,
+                               atol=1e-3)
 
 
 def test_train_step_on_card_matches_cpu_step(card):

@@ -111,3 +111,31 @@ def test_train_cli_default_device_raises_without_a_card(no_card):
 
     with pytest.raises(RuntimeError, match="is_available"):
         lda_train.main(["--minibatches", "1"])
+
+
+def test_packed_slice_modules_stand_alone(no_card):
+    """The packed-policy slice's modules are among the files checked above,
+    import nothing of JAX, and its entry points default to the card too."""
+    import sys
+
+    from repro_torch.core import pobp, sweep_dispatch
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.kernels.power_pack import ops as pack_ops
+    from repro_torch.kernels.power_sweep import packed
+
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in (sweep_dispatch, packed, pack_ops):
+        rel = str(Path(mod.__file__).resolve().relative_to(ROOT))
+        assert rel in names
+        assert not [m for m in _imported_modules(Path(mod.__file__))
+                    if _forbidden(m)]
+    assert (ROOT / "src/repro_torch/csrc/power_sweep_tokens.cu").is_file()
+    assert "triton" not in sys.modules
+    cfg = LDAConfig(vocab_size=20, num_topics=4, sweep_policy="packed")
+    with pytest.raises(RuntimeError, match="is_available"):
+        pobp.make_train_step(cfg)
+    step, _ = pobp.make_train_step(cfg, device="cpu")
+    state, diag = step(pobp.init_train_state(cfg, device="cpu"),
+                       torch.zeros((1, 8), dtype=torch.int32),
+                       torch.ones((1, 8)))
+    assert state.m == 1 and diag["iters"] >= 1

@@ -322,24 +322,26 @@ def test_pobp_minibatch_conserves_mass_and_rejects_unported_modes():
 
 
 def test_sweep_policy_resolves_to_the_carry_kernel():
-    """Every policy but ``packed`` runs the one carry formulation; the
-    packed policy raises naming its ROADMAP item."""
+    """Every policy but ``packed`` runs the one carry formulation, bit for
+    bit alike; ``packed`` runs the packed kernels' formulation, the same
+    sweep within float associativity (``tests/test_torch_packed.py`` holds
+    it against the reference)."""
     _, tb, _ = _batch(8)
     zero = torch.zeros((W, K))
     runs = []
-    for policy in ("auto", "dense_layout", "kblocked"):
+    for policy in ("auto", "dense_layout", "kblocked", "packed"):
         cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_k_abs=8,
                         inner_iters=3, residual_tol=0.0, sweep_policy=policy)
         runs.append(pobp.pobp_minibatch(
             tb, zero, float(tb.counts.sum()), 1.0, cfg,
             generator=torch.Generator().manual_seed(0)).phi_acc_new)
-    for other in runs[1:]:
+    for other in runs[1:3]:
         np.testing.assert_array_equal(other.numpy(), runs[0].numpy())
-    packed = dataclasses.replace(cfg, sweep_policy="packed")
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        pobp.make_train_step(packed, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        pobp.pobp_minibatch(tb, zero, 1.0, 1.0, packed)
+    _close(runs[3], runs[0], 1e-5, 1e-5, "packed against carry")
+    step, _ = pobp.make_train_step(cfg, device="cpu")
+    state, diag = step(pobp.init_train_state(cfg, device="cpu"),
+                       tb.word_ids, tb.counts)
+    assert diag["iters"] == 3 and state.m == 1
 
 
 # --------------------------------------------------------------- the step
@@ -555,7 +557,7 @@ def test_cli_checkpoint_restores_in_reference_and_serves_in_port(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--shards", "2"], ["--backend", "ps"], ["--dynamic-vocab"],
-    ["--phi-acc-dtype", "bfloat16"], ["--sweep-policy", "packed"],
+    ["--phi-acc-dtype", "bfloat16"], ["--impl", "pallas"],
     ["--chaos-drop", "0.1"], ["--elastic-events", "join:w1@2"],
     ["--crash-at", "2"]])
 def test_cli_rejects_unported_flags(flag):
