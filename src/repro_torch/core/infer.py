@@ -73,10 +73,9 @@ def _zero_phi_tot(K: int, device: torch.device) -> torch.Tensor:
 
 def _serve_sweep(p_tok, doc_ids, c, mu, theta, phi, cfg: LDAConfig):
     """One serving sweep: mu updated in place, returns (theta_delta, r)."""
-    _, th_delta, _, _, r_local = power_sweep_carry(
+    _, th_delta, r_local = power_sweep_carry(
         p_tok, doc_ids, c, mu, theta, _zero_phi_tot(phi.shape[1], phi.device),
-        phi, None, alpha=cfg.alpha, beta=0.0, wbeta=1.0, update_phi=False,
-        n_guard=phi.shape[0])
+        phi, alpha=cfg.alpha, beta=0.0, wbeta=1.0, n_guard=phi.shape[0])
     return th_delta, r_local
 
 

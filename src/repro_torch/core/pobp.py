@@ -14,10 +14,11 @@ hand-written kernel, a CPU tensor runs its plain version):
 
   - the dense sweep: ``kernels/bp_update`` (``bp_update``);
   - the selective sweep, by ``cfg.sweep_policy`` (``core/sweep_dispatch``):
-    the training mode of ``kernels/power_sweep`` (``power_sweep_carry``),
-    fed [P+1, K] phi and mask row tables, or, for ``packed``, the phi pack
-    of ``kernels/power_pack`` (``pack_rows``, through ``core.power``) and
-    the packed sweep ``kernels/power_sweep/packed`` (``power_sweep_tokens``);
+    the training mode of ``kernels/power_sweep``
+    (``power_sweep_carry_train``), which reads the selection and phi
+    directly, or, for ``packed``, the phi pack of ``kernels/power_pack``
+    (``pack_rows``, through ``core.power``) and the packed sweep
+    ``kernels/power_sweep/packed`` (``power_sweep_tokens``);
   - the phi fold of each selective iteration: ``kernels/power_pack``
     (``scatter_add_rows``, through ``core.power``).
 
@@ -45,7 +46,7 @@ from repro_torch.core.sync import CommMeter, LocalReducer
 from repro_torch.core.types import (LDAConfig, LDATrainState, MiniBatch,
                                     TokenLayout)
 from repro_torch.kernels.bp_update.ops import bp_update
-from repro_torch.kernels.power_sweep.ops import power_sweep_carry
+from repro_torch.kernels.power_sweep.ops import power_sweep_carry_train
 from repro_torch.kernels.power_sweep.packed import power_sweep_tokens
 
 SYNC_MODES = ("power", "dense")
@@ -109,25 +110,17 @@ def selective_sweep_tokens(layout: TokenLayout, mu_t, theta, phi_eff_wk,
 
 def _selective_sweep_carry(layout: TokenLayout, mu_t, theta, phi_eff_wk,
                            phi_tot, sel_w, sel_k, cfg: LDAConfig):
-    """The carry formulation: the training mode of ``power_sweep_carry``
-    over [P+1, K] phi and mask row tables (guard row last), the reference's
-    ``_selective_sweep_carry_pallas``."""
-    P, _ = sel_k.shape
-    K = mu_t.shape[1]
-    dev = mu_t.device
+    """The carry formulation, the reference's
+    ``_selective_sweep_carry_pallas``: the training mode of the carry sweep
+    (``power_sweep_carry_train``), which reads ``sel_w``, ``sel_k`` and phi
+    directly where the reference builds [P+1, K] phi and mask row tables
+    and reads its [P, K] delta/residual rows back at ``sel_k``."""
     p_tok = pw.token_power_rows(layout.word_ids, sel_w, cfg.vocab_size)
-    mask = torch.zeros((P + 1, K), dtype=mu_t.dtype, device=dev)
-    mask[torch.arange(P, device=dev)[:, None], sel_k.long()] = 1.0
-    phi_rows = torch.empty((P + 1, K), dtype=mu_t.dtype, device=dev)
-    torch.index_select(phi_eff_wk, 0, sel_w.long(), out=phi_rows[:P])
-    phi_rows[P] = 0.0
-    mu_t, theta_delta, d_rows, r_rows, _ = power_sweep_carry(
-        p_tok, layout.doc_ids, layout.counts, mu_t, theta, phi_tot, phi_rows,
-        mask, alpha=cfg.alpha, beta=cfg.beta,
-        wbeta=cfg.vocab_size * cfg.beta, update_phi=True, n_guard=P)
-    idx = sel_k.long()
-    return mu_t, theta + theta_delta, d_rows.gather(1, idx), \
-        r_rows.gather(1, idx)
+    mu_t, theta_delta, d_pack, r_pack = power_sweep_carry_train(
+        p_tok, layout.doc_ids, layout.counts, mu_t, theta, phi_tot,
+        phi_eff_wk, sel_w, sel_k, alpha=cfg.alpha, beta=cfg.beta,
+        wbeta=cfg.vocab_size * cfg.beta)
+    return mu_t, theta + theta_delta, d_pack, r_pack
 
 
 def _selective_sweep_packed(layout: TokenLayout, mu_t, theta, phi_eff_wk,

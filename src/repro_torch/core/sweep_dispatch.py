@@ -7,10 +7,10 @@ kernels, so the name resolves as the reference's ``impl="pallas"`` branch
 resolves it:
 
   - ``auto``, ``dense_layout`` and ``kblocked`` run the carry-resident
-    sweep (``kernels/power_sweep/ops.py::power_sweep_carry``).  On Hopper
-    its row tables stay in HBM, so the reference's full-K and K-blocked
-    variants are one kernel, and both resolve to ``dense_layout``, the
-    name of the formulation that kernel computes;
+    sweep (``kernels/power_sweep/ops.py::power_sweep_carry_train``).  On
+    Hopper it reads phi by index from HBM, so the reference's full-K and
+    K-blocked variants are one kernel, and both resolve to
+    ``dense_layout``, the name of the formulation that kernel computes;
   - ``packed`` runs the packed-stream sweep: the phi pack
     (``kernels/power_pack``) and ``kernels/power_sweep/packed.py``.
 

@@ -4,69 +4,106 @@
 // Replaces the two TPU kernels of the JAX package
 // src/repro/kernels/power_sweep/kernel.py:363 (power_sweep_carry_tokens) and
 // :523 (power_sweep_carry_kblocked_tokens), in both of their modes.  Each
-// computes one Jacobi sweep over the token-major [T, K] message carry:
+// computes one Jacobi sweep over the token-major [T, K] message carry
+// (tokens doc-contiguous, doc_ids non-decreasing), count c, document d:
 //
-//   active token t (p = p_tok[t] names a row of phi_rows, not the guard id
-//   n_guard), count c, document d:
-//     serving (update_phi=False), phi fixed, every topic updated:
-//       u_k   = (theta[d,k] - c*mu[t,k] + alpha) * (phi[p,k] + beta)
-//               / (phi_tot[k] + wbeta)
-//     training (update_phi=True), only where mask_rows[p,k] > 0 (the token's
-//     power topics), the token's own count left out of phi and phi_tot:
-//       u_k   = (theta[d,k] - c*mu[t,k] + alpha) * (phi[p,k] - c*mu[t,k] + beta)
-//               / (phi_tot[k] - c*mu[t,k] + wbeta) * mask[p,k]
-//     mu'_k  = u_k * (sum_k mu[t,k] mask) / max(sum_k u_k, 1e-30)   (masked k)
-//     cd_k   = c * (mu'_k - mu[t,k])
-//   theta_delta[d,k] = sum over the doc's tokens of cd_k
-//   serving:  rdoc[d] = sum over the doc's tokens and k of |cd_k|
-//   training: d_rows[p,k] += cd_k and r_rows[p,k] += |cd_k| (p < n_guard)
-//   frozen token (p_tok == n_guard, or an id outside [0, n_rows)):
-//     mu untouched, no row read, contributes nothing.
+//   serving (the reference's update_phi=False): phi fixed, a token is
+//   active when p = p_tok[t] is a row of phi in [0, n_rows) and not n_guard;
+//   every topic k of an active token is updated:
+//     u_k   = (theta[d,k] - c*mu[t,k] + alpha) * (phi[p,k] + beta)
+//             / (phi_tot[k] + wbeta)
+//     mu'_k = u_k * (sum_k mu[t,k]) / max(sum_k u_k, 1e-30)
+//     cd_k  = c * (mu'_k - mu[t,k])
+//     theta_delta[d,k] = sum over the doc's tokens of cd_k
+//     rdoc[d]          = sum over the doc's tokens and k of |cd_k|
 //
-// The sweep is Jacobi: every token reads theta as it was at the start of the
-// sweep; theta itself is updated by the caller (theta += theta_delta).
+//   training (the reference's update_phi=True followed by the take_along_axis
+//   of src/repro/core/pobp.py:424-425): a token is a power token when
+//   p = p_tok[t] is in [0, P); it reads its word w = sel_w[p] and its Pk
+//   topics k_j = sel_k[p, j] (distinct within a row, as top-k gives) and
+//   nothing else; the token's own count is left out of phi and phi_tot:
+//     m_j   = mu[t,k_j],  cm = c*m_j
+//     u_j   = (theta[d,k_j] - cm + alpha) * (phi[w,k_j] - cm + beta)
+//             / (phi_tot[k_j] - cm + wbeta)
+//     m'_j  = u_j * (sum_j m_j) / max(sum_j u_j, 1e-30)
+//     cd_j  = c * (m'_j - m_j);  mu[t,k_j] = m'_j
+//     theta_delta[d,k_j] += cd_j;  d_pack[p,j] += cd_j;  r_pack[p,j] += |cd_j|
+//   A guard token (any id outside [0, P)) reads and writes nothing, and mu
+//   outside each power token's Pk topics stays bit for bit as it was.
 //
-// Design.  The TPU kernels keep the row tables in VMEM and gather rows with
-// one-hot MXU contractions (K-blocked once the tables no longer fit).  Here
-// the row tables stay in HBM and each token reads its own rows by index, so
-// there is no full-K versus K-blocked choice.  One CTA per document (tokens
-// are doc-contiguous, doc_ids non-decreasing): theta[d] and phi_tot sit in
-// shared memory, read-only; each warp walks every nw-th token of the
-// document, reduces sum(u) and sum(mu) with warp shuffles, then writes mu'
-// in place and accumulates c*(mu'-mu) into its own [K] row of shared
-// memory.  The warps' rows (and serving residuals) are summed in a fixed
-// order at the end, so theta_delta and rdoc are deterministic.  In training
-// mode a power word's tokens sit in many documents, so its d_rows/r_rows
-// row sums across CTAs: those adds are atomicAdds, made only at the token's
-// masked (at most Pk) coordinates; their order varies from run to run, so
-// d_rows and r_rows are compared with tolerances, never bit for bit.  mu is
-// updated IN PLACE (each element is read and written by one lane only).
+// Both modes read theta as it was at the start of the sweep and never write
+// it; the caller forms theta + theta_delta.  mu is updated IN PLACE: every
+// element is read and written by one thread.
 //
-// Bound.  Serving, at the slab's shapes (T = 4096 tokens, D = 64 docs,
-// K = 2000, W' = 141044 rows): read mu and one phi row per active token and
-// write mu back, about 3 * 4096 * 2000 * 4 B = 98 MB, ~29 us at 3.35 TB/s;
-// the arithmetic (~14 flops per element, f32) is ~2 us at 67 TFLOP/s, so
-// the kernel is memory-bound.  Training, at the training slice's shapes
-// (T = 65536, D = 512, K = 2000, P = 14104 power words, Pk = 50): only a
-// token's <= Pk masked topics are read or changed, so the sweep must read
-// the mask row of each distinct power word (up to 113 MB) and its phi at
-// those topics, read and write each power token's mu at its Pk topics
-// (2 * 13 MB at most), and write the [P, K] d_rows/r_rows (2 * 113 MB,
-// zeroed by the caller): ~370 MB, ~0.11 ms at 3.35 TB/s, bound by bytes.
-// This kernel reads whole [K] mask rows per token rather than per word, and
-// each warp reads its token's rows twice (the second pass is meant to hit
-// L1).
+// Serving design.  Bound: at the slab's shapes (T = 4096, D = 64, K = 2000,
+// W' = 141044 rows) the sweep must read and write each active token's mu
+// row and read each distinct phi row it names, ~61 MB with the small
+// arrays, 18 us at 3.35 TB/s; ~14 f32 operations per element are ~2 us at
+// 67 TFLOP/s: bound by bytes.  So the design keeps the card's memory busy:
+//   - each slot is a cluster of kCluster = 4 CTAs (256 CTAs at D = 64 on
+//     132 SMs); rank r takes the slot's tokens t0 + r, t0 + r + 4, ...;
+//   - the CTA walks its tokens one at a time, every thread owning fixed
+//     topics (4V of them, V float4s: 256 threads x 8 at K = 2000).  A
+//     thread keeps its slice of the token's mu and phi rows in registers
+//     from the load through the sums to the write, so each row is read
+//     once; the next active token's rows are loaded while the current
+//     one's sums are reduced across the CTA (one __syncthreads a token);
+//   - 16-byte loads and stores where K % 4 == 0 and mu, theta and phi lie
+//     on 16-byte boundaries, else a scalar path in the same kernel;
+//   - each thread sums theta_delta at its own topics in registers, so no
+//     [K] row per warp is needed.  At the end each CTA puts its partial
+//     in shared memory, and CTA r of the cluster sums the four partials of
+//     its quarter of the topics in rank order through distributed shared
+//     memory (cooperative_groups::this_cluster().map_shared_rank); rank 0
+//     sums rdoc the same way.  Every sum runs in a fixed order, so mu',
+//     theta_delta and rdoc repeat bit for bit from launch to launch.
+//   Shared memory: theta[d] and phi_tot + wbeta at the owned topics, 2 x
+//   threads x 4V floats (16 KB at K = 2000); the partials reuse it.
+//   Limit: K <= kServeMaxK = 8192 (256 threads up to K = 4096, 512 above;
+//   V <= 4 keeps ~20V registers of row data a thread).
 //
-// Known limits, recorded and not fixed here: a 64-slot slab launches only
-// 64 CTAs on the card's 132 SMs; the training mode takes the [P+1, K] phi
-// and mask row tables that the JAX path rebuilds every iteration (113 MB
-// each at P = 14104) instead of reading sel_k directly.
+// Training design.  Bound: at the training slice's shapes (T = 65536 slots
+// of D = 512 documents, K = 2000, P = 14104, Pk = 50, ~70% power tokens) the
+// sweep must read sel_w, sel_k and phi at the Pk topics of each distinct
+// power word (~5.5 MB), read and write each power token's mu at its Pk
+// topics (18.4 MB), read theta at the selected (document, topic) pairs
+// (<= 4.1 MB) and write theta_delta (4.1 MB), write d_pack and r_pack
+// (5.6 MB) and read the per-token ids and counts (0.8 MB): ~38 MB, ~12 us
+// at 3.35 TB/s; ~30 f32 operations per (token, topic) are ~1 us.  Bound by
+// bytes, so the work per token is Pk elements, never K:
+//   - one CTA per document; warps take the document's tokens in rounds of
+//     one token each, lanes stride over the token's Pk topics (any Pk from
+//     1 to K), sel_k and phi are read by index, theta and phi_tot at the
+//     Pk topics from global memory (L1/L2);
+//   - d_pack and r_pack are atomicAdds into the [P, Pk] buffers (5.6 MB,
+//     L2-resident); their order varies from run to run, so they are
+//     compared with tolerances, never bit for bit;
+//   - theta_delta stays deterministic: each warp stages its token's cd_j in
+//     shared memory, and after the round's __syncthreads warp 0 adds the
+//     round's tokens into one [K] row in token order (double-buffered
+//     stage, one barrier a round).  The fold is not what bounds the kernel:
+//     a variant with a warp of its own for it ran no faster on an H100.
+//   Shared memory: 4 * (K + 2 * warps * Pk) bytes, 11.2 KB at K = 2000,
+//   Pk = 50, 8 warps; with __launch_bounds__(256, 4) (<= 64 registers) 4
+//   CTAs fit an SM, so the 512 CTAs of a training batch run in one wave.
+//   Each (token, topic) element of mu and phi lies in a 32-byte sector of
+//   its own at a random place in HBM: 8x the bytes the bound counts.
+//   Limit: K + 2 * Pk floats within the shared memory a block may opt in to
+//   (232,448 B on an H100 less 64 B static: K + 2 * Pk <= 58,096); warps =
+//   min(8, (budget / 4 - K) / (2 * Pk)).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarp = 32;
+constexpr int kCluster = 4;          // CTAs per serving slot
+constexpr int kServeMaxK = 8192;
+constexpr int kTrainMaxWarps = 8;
 
 __device__ __forceinline__ float warp_sum(float v) {
   // xor butterfly: a fixed order, every lane ends with the same sum
@@ -85,189 +122,387 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n, int
   return lo;
 }
 
-__device__ __forceinline__ float update_u(float th, float pt, float m, float c,
-                                          float ph, float alpha, float beta) {
-  return (th - c * m + alpha) * (ph + beta) / pt;
-}
+// ------------------------------------------------------------------ serving
 
-// training mode: the token's own count left out of phi and phi_tot (pt is
-// phi_tot without wbeta here)
-__device__ __forceinline__ float update_u_train(float th, float pt, float m, float c,
-                                                float ph, float alpha, float beta,
-                                                float wbeta) {
-  const float cm = c * m;
-  return (th - cm + alpha) * (ph - cm + beta) / (pt - cm + wbeta);
-}
-
-template <bool kTrain>
-__global__ void carry_sweep_kernel(
-    const int* __restrict__ p_tok, const int* __restrict__ doc_ids,
-    const float* __restrict__ counts, float* mu,
-    const float* __restrict__ theta, const float* __restrict__ phi_tot,
-    const float* __restrict__ phi_rows, const float* __restrict__ mask_rows,
-    float* __restrict__ theta_delta, float* __restrict__ rdoc,
-    float* __restrict__ d_rows, float* __restrict__ r_rows, int T, int K,
-    int n_rows, int n_guard, float alpha, float beta, float wbeta) {
-  extern __shared__ float smem[];
-  __shared__ float r_warp[32];
-  const int nw = blockDim.x / kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int d = blockIdx.x;
-  float* th_s = smem;                         // [K] theta[d]
-  float* pt_s = smem + K;                     // [K] phi_tot (+ wbeta serving)
-  float* acc = smem + (size_t)(2 + warp) * K; // [K] this warp's theta delta
-
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    th_s[k] = theta[(size_t)d * K + k];
-    pt_s[k] = kTrain ? phi_tot[k] : phi_tot[k] + wbeta;
+// the first active token among t, t + kCluster, ... below t1 (t1 if none)
+__device__ __forceinline__ int next_active(const int* __restrict__ p_tok, int t,
+                                           int t1, int n_rows, int n_guard) {
+  for (; t < t1; t += kCluster) {
+    const int p = __ldg(p_tok + t);
+    if (p != n_guard && p >= 0 && p < n_rows) return t;
   }
-  for (int i = threadIdx.x; i < nw * K; i += blockDim.x) smem[2 * K + i] = 0.f;
+  return t1;
+}
+
+// this thread's slice of a token's mu and phi rows: topics 4*(i*nt + tid) + e
+template <int V, bool kVec>
+__device__ __forceinline__ void load_slice(const float* mu_row,
+                                           const float* __restrict__ ph_row, int K,
+                                           float (&m)[4 * V], float (&ph)[4 * V]) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int k = 4 * (i * (int)blockDim.x + (int)threadIdx.x);
+    if (kVec) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      if (k < K) {
+        a = __ldcs(reinterpret_cast<const float4*>(mu_row + k));
+        b = __ldg(reinterpret_cast<const float4*>(ph_row + k));
+      }
+      m[4 * i] = a.x; m[4 * i + 1] = a.y; m[4 * i + 2] = a.z; m[4 * i + 3] = a.w;
+      ph[4 * i] = b.x; ph[4 * i + 1] = b.y; ph[4 * i + 2] = b.z; ph[4 * i + 3] = b.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        m[4 * i + e] = k + e < K ? __ldcs(mu_row + k + e) : 0.f;
+        ph[4 * i + e] = k + e < K ? __ldg(ph_row + k + e) : 0.f;
+      }
+    }
+  }
+}
+
+// sums a and b over the CTA in a fixed order; every thread gets the sums
+__device__ __forceinline__ void block_sum2(float& a, float& b, float (*red)[32]) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int nw = blockDim.x / kWarp;
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if (lane == 0) {
+    red[0][warp] = a;
+    red[1][warp] = b;
+  }
+  __syncthreads();
+  a = 0.f;
+  b = 0.f;
+  for (int w = 0; w < nw; ++w) {
+    a += red[0][w];
+    b += red[1][w];
+  }
+}
+
+template <int V, bool kVec>
+__global__ void __launch_bounds__(512) carry_serve_kernel(
+    const int* __restrict__ p_tok, const int* __restrict__ doc_ids,
+    const float* __restrict__ counts, float* mu, const float* __restrict__ theta,
+    const float* __restrict__ phi_tot, const float* __restrict__ phi,
+    float* __restrict__ theta_delta, float* __restrict__ rdoc, int T, int K,
+    int n_rows, int n_guard, float alpha, float beta, float wbeta) {
+  extern __shared__ float4 smem4[];
+  __shared__ float red[2][2][32];   // [buffer][sum][warp]
+  __shared__ float r_cta;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int span = nt * V;                    // float4s of one [>= K] row
+  float4* th_s = smem4;                       // theta[d] at the owned topics
+  float4* pt_s = smem4 + span;                // phi_tot + wbeta
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.x / kCluster;
+  const float* th_row = theta + (size_t)d * K;
+  float* th_f = reinterpret_cast<float*>(th_s);
+  float* pt_f = reinterpret_cast<float*>(pt_s);
+  for (int k = tid; k < 4 * span; k += nt) {
+    th_f[k] = k < K ? th_row[k] : 0.f;
+    pt_f[k] = k < K ? phi_tot[k] + wbeta : 1.f;
+  }
   const int t0 = lower_bound(doc_ids, T, d);
   const int t1 = lower_bound(doc_ids, T, d + 1);
   __syncthreads();
 
+  float acc[4 * V], m[4 * V], u[4 * V];
+#pragma unroll
+  for (int j = 0; j < 4 * V; ++j) acc[j] = m[j] = u[j] = 0.f;
   float r = 0.f;
-  for (int t = t0 + warp; t < t1; t += nw) {
-    const int p = p_tok[t];
-    if (p == n_guard || p < 0 || p >= n_rows) continue;
-    const float c = counts[t];
-    float* mu_t = mu + (size_t)t * K;
-    const float* ph = phi_rows + (size_t)p * K;
-    if constexpr (kTrain) {
-      const float* mask = mask_rows + (size_t)p * K;
-      float su = 0.f, sm = 0.f;
-#pragma unroll 4
-      for (int k = lane; k < K; k += kWarp) {
-        const float mk = __ldg(mask + k);
-        if (mk > 0.f) {
-          const float m = mu_t[k];
-          su += update_u_train(th_s[k], pt_s[k], m, c, __ldg(ph + k), alpha, beta,
-                               wbeta) * mk;
-          sm += m * mk;
-        }
+  int t = next_active(p_tok, t0 + rank, t1, n_rows, n_guard);
+  if (t < t1)
+    load_slice<V, kVec>(mu + (size_t)t * K, phi + (size_t)__ldg(p_tok + t) * K, K, m, u);
+  int buf = 0;
+  while (t < t1) {                            // uniform over the CTA
+    const float c = __ldg(counts + t);
+    // the next token's rows are in flight while this one is reduced
+    const int tn = next_active(p_tok, t + kCluster, t1, n_rows, n_guard);
+    float nm[4 * V], nph[4 * V];
+#pragma unroll
+    for (int j = 0; j < 4 * V; ++j) nm[j] = nph[j] = 0.f;
+    if (tn < t1)
+      load_slice<V, kVec>(mu + (size_t)tn * K, phi + (size_t)__ldg(p_tok + tn) * K, K,
+                          nm, nph);
+    float su = 0.f, sm = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float4 th4 = th_s[i * nt + tid], pt4 = pt_s[i * nt + tid];
+      const float th[4] = {th4.x, th4.y, th4.z, th4.w};
+      const float pt[4] = {pt4.x, pt4.y, pt4.z, pt4.w};
+      const int k = 4 * (i * nt + tid);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * i + e;
+        u[j] = k + e < K ? (th[e] - c * m[j] + alpha) * (u[j] + beta) / pt[e] : 0.f;
+        su += u[j];
+        sm += m[j];
       }
-      su = warp_sum(su);
-      sm = warp_sum(sm);
-      const float scale = sm / fmaxf(su, 1e-30f);
-      float* d_row = d_rows + (size_t)p * K;
-      float* r_row = r_rows + (size_t)p * K;
-      const bool fold = p < n_guard;
-#pragma unroll 4
-      for (int k = lane; k < K; k += kWarp) {
-        const float mk = __ldg(mask + k);
-        if (mk > 0.f) {
-          const float m = mu_t[k];
-          const float mn = update_u_train(th_s[k], pt_s[k], m, c, __ldg(ph + k), alpha,
-                                          beta, wbeta) * mk * scale;
-          const float cd = c * (mn - m);
-          mu_t[k] = mn;
-          acc[k] += cd;
-          if (fold) {
-            atomicAdd(d_row + k, cd);
-            atomicAdd(r_row + k, fabsf(cd));
-          }
-        }
+    }
+    block_sum2(su, sm, red[buf]);
+    buf ^= 1;                                 // the other buffer next token
+    const float scale = sm / fmaxf(su, 1e-30f);
+    float* mu_row = mu + (size_t)t * K;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int k = 4 * (i * nt + tid);
+      float mn[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * i + e;
+        mn[e] = u[j] * scale;
+        const float cd = c * (mn[e] - m[j]);
+        acc[j] += cd;
+        r += fabsf(cd);
       }
-    } else {
+      if (kVec) {
+        if (k < K)
+          __stcs(reinterpret_cast<float4*>(mu_row + k),
+                 make_float4(mn[0], mn[1], mn[2], mn[3]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k + e < K) __stcs(mu_row + k + e, mn[e]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4 * V; ++j) {
+      m[j] = nm[j];
+      u[j] = nph[j];
+    }
+    t = tn;
+  }
+
+  // this CTA's partials: theta_delta at the owned topics, and its residual
+  __syncthreads();                            // th_s is read no more
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    th_s[i * nt + tid] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                                     acc[4 * i + 3]);
+  r = warp_sum(r);
+  if (tid % kWarp == 0) red[0][0][tid / kWarp] = r;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.f;
+    for (int w = 0; w < nt / kWarp; ++w) s += red[0][0][w];
+    r_cta = s;
+  }
+  cluster.sync();                             // every partial is visible
+
+  // CTA `rank` sums its quarter of the topics over the cluster, in rank order
+  const int per = (K + kCluster - 1) / kCluster;
+  const int k_hi = min(K, (rank + 1) * per);
+  for (int k = rank * per + tid; k < k_hi; k += nt) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) s += cluster.map_shared_rank(th_f, q)[k];
+    theta_delta[(size_t)d * K + k] = s;
+  }
+  if (rank == 0 && tid == 0) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) s += *cluster.map_shared_rank(&r_cta, q);
+    rdoc[d] = s;
+  }
+  cluster.sync();                             // no CTA leaves while read
+}
+
+template <int V, bool kVec>
+cudaError_t launch_serve(int threads, int D, const int* p_tok, const int* doc_ids,
+                         const float* counts, float* mu, const float* theta,
+                         const float* phi_tot, const float* phi, float* theta_delta,
+                         float* rdoc, int T, int K, int n_rows, int n_guard,
+                         float alpha, float beta, float wbeta, cudaStream_t stream) {
+  const int smem = 2 * threads * V * (int)sizeof(float4);
+  auto kernel = carry_serve_kernel<V, kVec>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(D * kCluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, p_tok, doc_ids, counts, mu, theta, phi_tot,
+                            phi, theta_delta, rdoc, T, K, n_rows, n_guard, alpha,
+                            beta, wbeta);
+}
+
+template <bool kVec>
+cudaError_t dispatch_serve(int D, const int* p_tok, const int* doc_ids,
+                           const float* counts, float* mu, const float* theta,
+                           const float* phi_tot, const float* phi, float* theta_delta,
+                           float* rdoc, int T, int K, int n_rows, int n_guard,
+                           float alpha, float beta, float wbeta, cudaStream_t stream) {
+  if (K <= 1024)
+    return launch_serve<1, kVec>(256, D, p_tok, doc_ids, counts, mu, theta, phi_tot, phi,
+                                 theta_delta, rdoc, T, K, n_rows, n_guard, alpha, beta,
+                                 wbeta, stream);
+  if (K <= 2048)
+    return launch_serve<2, kVec>(256, D, p_tok, doc_ids, counts, mu, theta, phi_tot, phi,
+                                 theta_delta, rdoc, T, K, n_rows, n_guard, alpha, beta,
+                                 wbeta, stream);
+  return launch_serve<4, kVec>(K <= 4096 ? 256 : 512, D, p_tok, doc_ids, counts, mu,
+                               theta, phi_tot, phi, theta_delta, rdoc, T, K, n_rows,
+                               n_guard, alpha, beta, wbeta, stream);
+}
+
+// ----------------------------------------------------------------- training
+
+__device__ __forceinline__ float update_u(float th, float pt, float m, float c, float ph,
+                                          float alpha, float beta, float wbeta) {
+  const float cm = c * m;
+  return (th - cm + alpha) * (ph - cm + beta) / (pt - cm + wbeta);
+}
+
+__global__ void __launch_bounds__(kTrainMaxWarps * kWarp, 4) carry_train_kernel(
+    const int* __restrict__ p_tok, const int* __restrict__ doc_ids,
+    const float* __restrict__ counts, float* mu, const float* __restrict__ theta,
+    const float* __restrict__ phi_tot, const float* __restrict__ phi,
+    const int* __restrict__ sel_w, const int* __restrict__ sel_k,
+    float* __restrict__ theta_delta, float* __restrict__ d_pack,
+    float* __restrict__ r_pack, int T, int K, int P, int Pk, float alpha, float beta,
+    float wbeta) {
+  extern __shared__ float smem[];
+  __shared__ int stage_p[2][kTrainMaxWarps];  // each warp's row this round, -1 none
+  const int nw = blockDim.x / kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int d = blockIdx.x;
+  float* acc = smem;                          // [K] theta_delta[d]
+  float* stage = smem + K;                    // [2][nw][Pk] the rounds' cd
+  for (int k = threadIdx.x; k < K; k += blockDim.x) acc[k] = 0.f;
+  const int t0 = lower_bound(doc_ids, T, d);
+  const int t1 = lower_bound(doc_ids, T, d + 1);
+  const float* th = theta + (size_t)d * K;
+  __syncthreads();
+
+  for (int base = t0, buf = 0; base < t1; base += nw, buf ^= 1) {
+    const int t = base + warp;
+    int p = t < t1 ? __ldg(p_tok + t) : -1;
+    if (p < 0 || p >= P) p = -1;              // guard: nothing read or written
+    if (p >= 0) {
+      const float c = __ldg(counts + t);
+      const int* ks = sel_k + (size_t)p * Pk;
+      const float* ph = phi + (size_t)__ldg(sel_w + p) * K;
+      float* mu_t = mu + (size_t)t * K;
       float su = 0.f, sm = 0.f;
-#pragma unroll 4
-      for (int k = lane; k < K; k += kWarp) {
+      for (int j = lane; j < Pk; j += kWarp) {
+        const int k = __ldg(ks + j);
         const float m = mu_t[k];
-        su += update_u(th_s[k], pt_s[k], m, c, __ldg(ph + k), alpha, beta);
+        su += update_u(__ldg(th + k), __ldg(phi_tot + k), m, c, __ldg(ph + k), alpha,
+                       beta, wbeta);
         sm += m;
       }
       su = warp_sum(su);
       sm = warp_sum(sm);
-      const float scale = sm / fmaxf(su, 1e-30f);
-#pragma unroll 4
-      for (int k = lane; k < K; k += kWarp) {
+      const float denom = fmaxf(su, 1e-30f);
+      float* st = stage + (size_t)(buf * nw + warp) * Pk;
+      float* dp = d_pack + (size_t)p * Pk;
+      float* rp = r_pack + (size_t)p * Pk;
+      for (int j = lane; j < Pk; j += kWarp) {
+        const int k = __ldg(ks + j);
         const float m = mu_t[k];
-        const float mn = update_u(th_s[k], pt_s[k], m, c, __ldg(ph + k), alpha, beta) * scale;
+        const float mn = update_u(__ldg(th + k), __ldg(phi_tot + k), m, c, __ldg(ph + k),
+                                  alpha, beta, wbeta) * sm / denom;
         const float cd = c * (mn - m);
         mu_t[k] = mn;
-        acc[k] += cd;
-        r += fabsf(cd);
+        st[j] = cd;
+        atomicAdd(dp + j, cd);
+        atomicAdd(rp + j, fabsf(cd));
+      }
+    }
+    if (lane == 0) stage_p[buf][warp] = p;
+    __syncthreads();
+    // warp 0 folds the round into theta_delta in token order while the other
+    // warps start the next round in the other stage buffer
+    if (warp == 0) {
+      for (int w = 0; w < nw; ++w) {
+        const int q = stage_p[buf][w];
+        if (q < 0) continue;
+        const int* ks = sel_k + (size_t)q * Pk;
+        const float* st = stage + (size_t)(buf * nw + w) * Pk;
+        for (int j = lane; j < Pk; j += kWarp) acc[__ldg(ks + j)] += st[j];
+        __syncwarp();                         // the next token may share topics
       }
     }
   }
-  if constexpr (!kTrain) {
-    r = warp_sum(r);
-    if (lane == 0) r_warp[warp] = r;
-  }
   __syncthreads();
-
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < nw; ++w) s += smem[(size_t)(2 + w) * K + k];
-    theta_delta[(size_t)d * K + k] = s;
-  }
-  if (!kTrain && threadIdx.x == 0) {
-    float s = 0.f;
-    for (int w = 0; w < nw; ++w) s += r_warp[w];
-    rdoc[d] = s;
-  }
+  for (int k = threadIdx.x; k < K; k += blockDim.x)
+    theta_delta[(size_t)d * K + k] = acc[k];
 }
 
 }  // namespace
 
 extern "C" {
 
-// Lets both modes of the kernel use, on the current device, all the dynamic
-// shared memory a block may opt in to beside the kernel's static shared
-// memory, and stores that many bytes in *smem_bytes.  Called once per
-// device, before the first launch there.  Returns the CUDA error code (0 on
-// success).
+// Lets the training mode use, on the current device, all the dynamic shared
+// memory a block may opt in to beside its static shared memory, and stores
+// that many bytes in *smem_bytes.  Called once per device, before the first
+// training launch there.  Returns the CUDA error code (0 on success).
 int power_sweep_carry_configure(int* smem_bytes) {
   int device = 0, optin = 0;
   cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, carry_sweep_kernel<false>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, carry_train_kernel);
   if (err != cudaSuccess) return (int)err;
   *smem_bytes = optin - (int)attr.sharedSizeBytes;
-  err = cudaFuncSetAttribute(carry_sweep_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaFuncSetAttribute(
-      carry_sweep_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_bytes);
+  return (int)cudaFuncSetAttribute(carry_train_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   *smem_bytes);
 }
 
-// Launches one serving sweep on `stream`; allocates nothing.  `warps` must
-// leave (2 + warps) * K floats within what power_sweep_carry_configure
-// allowed.  Returns the CUDA error code of the launch (0 on success).
-int power_sweep_carry_serve(const int* p_tok, const int* doc_ids,
-                            const float* counts, float* mu, const float* theta,
-                            const float* phi_tot, const float* phi_rows,
-                            float* theta_delta, float* rdoc, int T, int D,
-                            int K, int n_rows, int n_guard, float alpha,
-                            float beta, float wbeta, int warps, void* stream) {
-  const int smem = (2 + warps) * K * (int)sizeof(float);
+// Launches one serving sweep on `stream`; allocates nothing.  theta_delta
+// [D, K] and rdoc [D] are written whole.  1 <= K <= kServeMaxK.  Returns the
+// CUDA error code of the launch (0 on success).
+int power_sweep_carry_serve(const int* p_tok, const int* doc_ids, const float* counts,
+                            float* mu, const float* theta, const float* phi_tot,
+                            const float* phi, float* theta_delta, float* rdoc, int T,
+                            int D, int K, int n_rows, int n_guard, float alpha,
+                            float beta, float wbeta, void* stream) {
+  if (K < 1 || K > kServeMaxK) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
   if (D > 0) {
-    carry_sweep_kernel<false><<<D, warps * kWarp, smem, (cudaStream_t)stream>>>(
-        p_tok, doc_ids, counts, mu, theta, phi_tot, phi_rows, nullptr, theta_delta,
-        rdoc, nullptr, nullptr, T, K, n_rows, n_guard, alpha, beta, wbeta);
+    const bool vec = K % 4 == 0 &&
+                     (((uintptr_t)mu | (uintptr_t)theta | (uintptr_t)phi) & 15) == 0;
+    err = (vec ? dispatch_serve<true> : dispatch_serve<false>)(
+        D, p_tok, doc_ids, counts, mu, theta, phi_tot, phi, theta_delta, rdoc, T, K,
+        n_rows, n_guard, alpha, beta, wbeta, (cudaStream_t)stream);
   }
-  return (int)cudaGetLastError();
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
-// Launches one training sweep on `stream`; allocates nothing.  d_rows and
-// r_rows are [n_guard, K] and must be zeroed by the caller (the kernel adds
-// into them).  Same `warps` contract as power_sweep_carry_serve.  Returns
-// the CUDA error code of the launch (0 on success).
-int power_sweep_carry_train(const int* p_tok, const int* doc_ids,
-                            const float* counts, float* mu, const float* theta,
-                            const float* phi_tot, const float* phi_rows,
-                            const float* mask_rows, float* theta_delta,
-                            float* d_rows, float* r_rows, int T, int D, int K,
-                            int n_rows, int n_guard, float alpha, float beta,
+// Launches one training sweep on `stream` with `warps` warps a CTA (1 to 8,
+// leaving 4 * (K + 2 * warps * Pk) bytes within what
+// power_sweep_carry_configure allowed); allocates nothing.  theta_delta
+// [D, K] is written whole; d_pack and r_pack [P, Pk] must be zeroed by the
+// caller (the kernel adds into them).  Returns the CUDA error code of the
+// launch (0 on success).
+int power_sweep_carry_train(const int* p_tok, const int* doc_ids, const float* counts,
+                            float* mu, const float* theta, const float* phi_tot,
+                            const float* phi, const int* sel_w, const int* sel_k,
+                            float* theta_delta, float* d_pack, float* r_pack, int T,
+                            int D, int K, int P, int Pk, float alpha, float beta,
                             float wbeta, int warps, void* stream) {
-  const int smem = (2 + warps) * K * (int)sizeof(float);
+  if (warps < 1 || warps > kTrainMaxWarps) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)K + 2 * (size_t)warps * Pk);
   if (D > 0) {
-    carry_sweep_kernel<true><<<D, warps * kWarp, smem, (cudaStream_t)stream>>>(
-        p_tok, doc_ids, counts, mu, theta, phi_tot, phi_rows, mask_rows, theta_delta,
-        nullptr, d_rows, r_rows, T, K, n_rows, n_guard, alpha, beta, wbeta);
+    carry_train_kernel<<<D, warps * kWarp, smem, (cudaStream_t)stream>>>(
+        p_tok, doc_ids, counts, mu, theta, phi_tot, phi, sel_w, sel_k, theta_delta,
+        d_pack, r_pack, T, K, P, Pk, alpha, beta, wbeta);
   }
   return (int)cudaGetLastError();
 }

@@ -35,15 +35,18 @@ def card():
 
 def _sweep_args(seed, *, D, L, K, W, device):
     """Serving-sweep inputs: ragged docs (c = 0 padding), 30% frozen
-    tokens, doc 1 frozen whole, one out-of-range id (treated as frozen)."""
+    tokens, doc 1 frozen whole, doc 2 (when D > 3) owning no slot, one
+    out-of-range id (treated as frozen)."""
     rng = np.random.default_rng(seed)
     T = D * L
     p_tok = rng.integers(0, W, T).astype(np.int32)
     doc_ids = np.repeat(np.arange(D), L).astype(np.int32)
+    if D > 3:
+        doc_ids[doc_ids == 2] = 1
     c = rng.integers(1, 4, T).astype(np.float32)
     c[np.tile(np.arange(L), D) >= np.repeat(rng.integers(1, L + 1, D), L)] = 0
     p_tok[(rng.random(T) < 0.3) | (doc_ids == 1)] = W
-    p_tok[0] = W + 5
+    p_tok[-1] = W + 5
     mu = rng.random((T, K)).astype(np.float32) + 0.01
     mu /= mu.sum(1, keepdims=True)
     theta = np.zeros((D, K), np.float32)
@@ -52,14 +55,20 @@ def _sweep_args(seed, *, D, L, K, W, device):
     phi /= phi.sum(0, keepdims=True)
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     return [t(p_tok), t(doc_ids), t(c.reshape(T, 1)), t(mu), t(theta),
-            torch.zeros(K, device=device), t(phi), None]
+            torch.zeros(K, device=device), t(phi)]
 
 
-@pytest.mark.parametrize("D,L,K,W", [(8, 12, 16, 150), (3, 7, 100, 50),
-                                     (16, 64, 2000, 3000)])
+@pytest.mark.parametrize("D,L,K,W", [
+    (8, 12, 16, 150), (3, 7, 100, 50), (16, 64, 2000, 3000),
+    (5, 1, 1, 20),            # one token a document, K = 1
+    (5, 3, 37, 40),           # fewer tokens than the cluster's 4 CTAs
+    (5, 4, 100, 40),          # as many
+    (5, 5, 2000, 300),        # one more
+    (4, 200, 100, 500),       # long documents
+    (4, 16, 8192, 100)])      # K at the serving limit
 def test_kernel_matches_plain_version_on_card(card, D, L, K, W):
-    kw = dict(alpha=ALPHA, beta=0.0, wbeta=1.0, update_phi=False, n_guard=W)
-    args = _sweep_args(D + K, D=D, L=L, K=K, W=W, device="cuda")
+    kw = dict(alpha=ALPHA, beta=0.0, wbeta=1.0, n_guard=W)
+    args = _sweep_args(D + K + L, D=D, L=L, K=K, W=W, device="cuda")
     mu0 = args[3].clone()
     plain_args = list(args)
     plain_args[3] = mu0.clone()
@@ -72,7 +81,11 @@ def test_kernel_matches_plain_version_on_card(card, D, L, K, W):
     assert got[0].data_ptr() == args[3].data_ptr()        # mu in place
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
-    assert float(got[4][1]) == 0.0                         # frozen doc
+    assert float(got[2][1]) == 0.0 and not got[1][1].any()   # frozen doc
+    if D > 3:
+        assert float(got[2][2]) == 0.0 and not got[1][2].any()   # no slot
+    frozen = args[0] >= W
+    assert torch.equal(got[0][frozen], mu0[frozen])
     # deterministic: a second launch on the same inputs repeats bit for bit
     again = list(args)
     again[3] = mu0.clone()
@@ -81,20 +94,58 @@ def test_kernel_matches_plain_version_on_card(card, D, L, K, W):
         assert torch.equal(g, r)
 
 
+def test_kernel_limits_on_card(card):
+    """Each mode at its stated largest K runs and agrees with its plain
+    version; one past it raises ValueError before any launch."""
+    W = 20
+    args = _sweep_args(1, D=2, L=4, K=ops.SERVE_MAX_K + 1, W=W,
+                       device="cuda")
+    before = ops.power_sweep_carry.launches
+    with pytest.raises(ValueError, match="serving kernel takes"):
+        ops.power_sweep_carry(*args, alpha=ALPHA, beta=0.0, wbeta=1.0,
+                              n_guard=W)
+    assert ops.power_sweep_carry.launches == before
+    for Pk in (1, 3):
+        K = ops.power_sweep_carry_train_max_k(Pk)
+        args = [x.to("cuda") for x in _train_args(K, D=2, L=4, K=K, P=3,
+                                                   Pk=Pk)]
+        kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3)
+        plain = list(args)
+        plain[3] = args[3].clone()
+        got = ops.power_sweep_carry_train(*args, **kw)
+        want = ops.power_sweep_carry_train_plain(*plain, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
+        args = [x.to("cuda") for x in _train_args(K, D=2, L=4, K=K + 1, P=3,
+                                                   Pk=Pk)]
+        before = ops.power_sweep_carry_train.launches
+        with pytest.raises(ValueError, match="training kernel takes"):
+            ops.power_sweep_carry_train(*args, **kw)
+        assert ops.power_sweep_carry_train.launches == before
+
+
 def test_wrapper_checks_on_card(card):
     args = _sweep_args(0, D=2, L=4, K=8, W=10, device="cuda")
     kw = dict(alpha=ALPHA, beta=0.0, wbeta=1.0, n_guard=10)
     bad = list(args)
     bad[0] = args[0].long()
     with pytest.raises(ValueError, match="p_tok must be torch.int32"):
-        ops.power_sweep_carry(*bad, update_phi=False, **kw)
+        ops.power_sweep_carry(*bad, **kw)
     bad = list(args)
     bad[6] = args[6].cpu()
     with pytest.raises(ValueError, match="phi_rows is on cpu"):
-        ops.power_sweep_carry(*bad, update_phi=False, **kw)
-    with pytest.raises(ValueError, match="mask_rows must have shape"):
-        ops.power_sweep_carry(*args[:7], torch.ones((3, 8), device="cuda"),
-                              update_phi=True, **kw)
+        ops.power_sweep_carry(*bad, **kw)
+    targs = [x.to("cuda") for x in _train_args(0, D=2, L=4, K=8, P=3, Pk=2)]
+    tkw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3)
+    bad = list(targs)
+    bad[7] = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="sel_w must have shape"):
+        ops.power_sweep_carry_train(*bad, **tkw)
+    bad = list(targs)
+    bad[8] = targs[8].long()
+    with pytest.raises(ValueError, match="sel_k must be torch.int32"):
+        ops.power_sweep_carry_train(*bad, **tkw)
     bp = [x.to("cuda") for x in _bp_args(0, D=2, L=4, K=8, W=10)]
     bad = list(bp)
     bad[3] = bp[3].t().contiguous().t()
@@ -140,51 +191,76 @@ def test_bp_update_kernel_matches_plain_version_on_card(card, D, L, K, W):
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
 
 
-def _train_args(seed, *, D, L, K, P, Pk):
-    """Training-mode carry inputs: tokens on power rows [0, P) or the guard
-    row P, a ragged last document, Pk masked topics per row."""
+def _train_args(seed, *, D, L, K, P, Pk, guard=0.5, empty_doc=False):
+    """Training-mode carry inputs: tokens on power rows [0, P) or (a
+    ``guard`` share) the guard id P, a ragged last document (with
+    ``empty_doc``, document 1 owns no slot), P distinct power words of a
+    [W, K] phi with Pk distinct topics each."""
     rng = np.random.default_rng(seed)
     T = D * L
-    p_tok = rng.integers(0, P + 1, T).astype(np.int32)
+    W = 2 * P + 1
+    p_tok = rng.integers(0, P, T).astype(np.int32)
+    p_tok[rng.random(T) < guard] = P
     doc_ids = np.repeat(np.arange(D), L).astype(np.int32)
+    if empty_doc:
+        doc_ids[doc_ids == 1] = 0
     counts = rng.integers(1, 4, (T, 1)).astype(np.float32)
     counts[(doc_ids == D - 1) & (np.tile(np.arange(L), D) >= L // 2)] = 0.0
     mu = rng.random((T, K)).astype(np.float32) + 0.01
     mu /= mu.sum(1, keepdims=True)
     theta = np.zeros((D, K), np.float32)
     np.add.at(theta, doc_ids, counts * mu)
-    phi_rows = (rng.random((P + 1, K)) * 5).astype(np.float32)
-    phi_rows[P] = 0.0
-    mask = np.zeros((P + 1, K), np.float32)
-    cols = np.argsort(rng.random((P, K)), axis=1)[:, :Pk]
-    np.put_along_axis(mask[:P], cols, 1.0, axis=1)
-    phi_tot = (phi_rows.sum(0) + 30.0).astype(np.float32)
-    return [torch.from_numpy(x) for x in
-            (p_tok, doc_ids, counts, mu, theta, phi_tot, phi_rows, mask)]
+    phi = (rng.random((W, K)) * 5).astype(np.float32)
+    sel_w = rng.choice(W, P, replace=False).astype(np.int32)
+    sel_k = np.argsort(rng.random((P, K)), axis=1)[:, :Pk].astype(np.int32)
+    phi_tot = (phi[sel_w].sum(0) + 30.0).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(x)) for x in
+            (p_tok, doc_ids, counts, mu, theta, phi_tot, phi, sel_w, sel_k)]
 
 
-@pytest.mark.parametrize("D,L,K,P,Pk", [(6, 8, 20, 9, 5), (4, 12, 100, 7, 50),
-                                        (64, 128, 2000, 1400, 50)])
-def test_carry_training_kernel_matches_plain_version_on_card(card, D, L, K,
-                                                             P, Pk):
-    args = [x.to("cuda") for x in _train_args(D + K, D=D, L=L, K=K, P=P,
-                                              Pk=Pk)]
-    kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3, update_phi=True, n_guard=P)
+@pytest.mark.parametrize("D,L,K,P,Pk,guard,empty_doc", [
+    (6, 8, 20, 9, 5, 0.5, False), (4, 12, 100, 7, 50, 0.5, False),
+    (64, 128, 2000, 1400, 50, 0.3, False),
+    (4, 6, 1, 5, 1, 0.5, False),                # K = 1
+    (5, 7, 37, 6, 37, 0.5, False),              # Pk = K = 37
+    (4, 16, 8192, 50, 50, 0.5, False),          # K = 8192
+    (6, 1, 100, 9, 5, 0.5, False),              # one token a document
+    (3, 200, 100, 20, 10, 0.3, True),           # long documents, one empty
+    (3, 8, 40, 4, 6, 1.0, False)])              # all guard tokens
+def test_carry_training_kernel_matches_plain_version_on_card(
+        card, D, L, K, P, Pk, guard, empty_doc):
+    args = [x.to("cuda") for x in _train_args(D + K + Pk, D=D, L=L, K=K,
+                                              P=P, Pk=Pk, guard=guard,
+                                              empty_doc=empty_doc)]
+    kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3)
     mu0 = args[3].clone()
     plain = list(args)
     plain[3] = mu0.clone()
-    before = ops.power_sweep_carry.train_launches
-    got = ops.power_sweep_carry(*args, **kw)
-    assert ops.power_sweep_carry.train_launches == before + 1
-    want = ops.power_sweep_carry_plain(*plain, **kw)
+    before = ops.power_sweep_carry_train.launches
+    got = ops.power_sweep_carry_train(*args, **kw)
+    assert ops.power_sweep_carry_train.launches == before + 1
+    want = ops.power_sweep_carry_train_plain(*plain, **kw)
+    assert ops.power_sweep_carry_train.launches == before + 1
     torch.cuda.synchronize()
+    assert got[0].data_ptr() == args[3].data_ptr()        # mu in place
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
-    # theta_delta and the atomically summed rows: rel 1e-4 of their scale
-    for g, w in zip(got[1:4], want[1:4]):
-        torch.testing.assert_close(g, w, rtol=1e-4,
-                                   atol=1e-4 * float(w.abs().max()))
-    guard = args[0] == P
-    assert torch.equal(got[0][guard], mu0[guard])
+    # theta_delta and the atomically summed packs: rel 1e-4 of their scale
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(
+            g, w, rtol=1e-4, atol=1e-4 * max(float(w.abs().max()), 1e-30))
+    # untouched coordinates (guard tokens, unselected topics), bit for bit
+    p_tok, sel_k = args[0].long(), args[8].long()
+    selected = torch.zeros_like(mu0, dtype=torch.bool)
+    rows = (p_tok < P).nonzero().squeeze(1)
+    selected[rows[:, None], sel_k[p_tok[rows]]] = True
+    assert torch.equal(got[0][~selected], mu0[~selected])
+    if empty_doc:
+        assert not got[1][1].any()
+    # mu' and theta_delta repeat bit for bit from launch to launch
+    again = list(args)
+    again[3] = mu0.clone()
+    rerun = ops.power_sweep_carry_train(*again, **kw)
+    assert torch.equal(rerun[0], got[0]) and torch.equal(rerun[1], got[1])
 
 
 def _pack_args(seed, *, W, K, P, Pk):
@@ -340,7 +416,7 @@ def test_packed_train_step_on_card_matches_cpu_step(card):
                 (pack_ops.pack_rows, "launches"),
                 (packed.power_sweep_tokens, "launches"),
                 (pack_ops.scatter_add_rows, "launches"),
-                (ops.power_sweep_carry, "train_launches"))
+                (ops.power_sweep_carry_train, "launches"))
     res = {}
     for device in ("cpu", "cuda"):
         step, _ = pobp.make_train_step(cfg, device=device)
@@ -383,7 +459,7 @@ def test_train_step_on_card_matches_cpu_step(card):
         step, _ = pobp.make_train_step(cfg, device=device)
         state = pobp.init_train_state(cfg, device=device)
         before = (bp_ops.bp_update.launches,
-                  ops.power_sweep_carry.train_launches,
+                  ops.power_sweep_carry_train.launches,
                   pack_ops.scatter_add_rows.launches)
         trace = []
         for mb, u0 in batches:
@@ -391,7 +467,7 @@ def test_train_step_on_card_matches_cpu_step(card):
                                u0=torch.from_numpy(u0))
             trace.append((diag["iters"], float(diag["mean_r"])))
         after = (bp_ops.bp_update.launches,
-                 ops.power_sweep_carry.train_launches,
+                 ops.power_sweep_carry_train.launches,
                  pack_ops.scatter_add_rows.launches)
         res[device] = (state.phi_acc.cpu(), trace,
                        [a - b for a, b in zip(after, before)])

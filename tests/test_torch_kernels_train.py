@@ -1,7 +1,8 @@
 """The plain versions of the training slice's three kernels held against the
 JAX package: ``bp_update`` (TPU kernel ``bp_update_tokens``), the training
-mode of ``power_sweep_carry`` (``power_sweep_carry_tokens`` and its
-K-blocked twin) and ``scatter_add_rows`` (``scatter_add_rows_pallas``).
+mode of the carry sweep, ``power_sweep_carry_train``
+(``power_sweep_carry_tokens`` and its K-blocked twin) and
+``scatter_add_rows`` (``scatter_add_rows_pallas``).
 
 On the CPU each wrapper runs its plain version; the CUDA kernels are held
 against the plain versions on the card by ``test_torch_cuda.py`` and
@@ -183,52 +184,78 @@ def test_scatter_add_rows_drops_pairs_outside_the_matrix():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def _train_case(seed, *, D, L, K, P, Pk):
-    """Training-mode carry inputs: power tokens on rows [0, P), the rest on
-    the guard row P; a ragged last document; mask rows with Pk topics."""
+def _train_case(seed, *, D, L, K, P, Pk, guard=0.5, empty_doc=False):
+    """Training-mode carry inputs: power tokens on rows [0, P), the rest
+    (a ``guard`` share) on the guard id P; a ragged last document (with
+    ``empty_doc``, document 0 has no tokens at all); P distinct power words
+    of a [W, K] phi with Pk distinct topics each."""
     rng = np.random.default_rng(seed)
     T = D * L
-    p_tok = rng.integers(0, P + 1, T).astype(np.int32)
+    W = 4 * P
+    p_tok = rng.integers(0, P, T).astype(np.int32)
+    p_tok[rng.random(T) < guard] = P
     doc_ids = np.repeat(np.arange(D), L).astype(np.int32)
+    if empty_doc:
+        doc_ids[doc_ids == 0] = 1
     counts = rng.integers(1, 4, (T, 1)).astype(np.float32)
     counts[(doc_ids == D - 1) & (np.tile(np.arange(L), D) >= L // 2)] = 0.0
     mu = rng.random((T, K)).astype(np.float32) + 0.01
     mu /= mu.sum(1, keepdims=True)
     theta = np.zeros((D, K), np.float32)
     np.add.at(theta, doc_ids, counts * mu)
-    phi_rows = (rng.random((P + 1, K)) * 5).astype(np.float32)
-    phi_rows[P] = 0.0
-    mask_rows = np.zeros((P + 1, K), np.float32)
-    for p in range(P):
-        mask_rows[p, rng.choice(K, Pk, replace=False)] = 1.0
-    phi_tot = (phi_rows.sum(0) + 30.0).astype(np.float32)
-    return p_tok, doc_ids, counts, mu, theta, phi_tot, phi_rows, mask_rows
+    phi = (rng.random((W, K)) * 5).astype(np.float32)
+    sel_w = rng.choice(W, P, replace=False).astype(np.int32)
+    sel_k = np.stack([rng.choice(K, Pk, replace=False)
+                      for _ in range(P)]).astype(np.int32)
+    phi_tot = (phi[sel_w].sum(0) + 30.0).astype(np.float32)
+    return p_tok, doc_ids, counts, mu, theta, phi_tot, phi, sel_w, sel_k
 
 
-@pytest.mark.parametrize("D,L,K,P,Pk", [(6, 8, 20, 9, 5),
-                                        (4, 12, 100, 7, 50),
-                                        (3, 16, 130, 11, 8)])
-def test_carry_training_plain_matches_kblocked_oracle(D, L, K, P, Pk):
-    case = _train_case(D + K, D=D, L=L, K=K, P=P, Pk=Pk)
+@pytest.mark.parametrize("D,L,K,P,Pk,guard,empty_doc", [
+    (6, 8, 20, 9, 5, 0.5, False),
+    (4, 12, 100, 7, 50, 0.5, False),
+    (3, 16, 130, 11, 8, 0.5, False),
+    (4, 9, 40, 6, 1, 0.5, False),               # Pk = 1
+    (3, 10, 40, 5, 40, 0.5, False),             # Pk = K
+    (3, 8, 30, 4, 6, 1.0, False),               # all guard tokens
+    (4, 8, 36, 6, 7, 0.3, True),                # an empty document
+])
+def test_carry_training_plain_matches_kblocked_oracle(D, L, K, P, Pk, guard,
+                                                      empty_doc):
+    """power_sweep_carry_train (plain on the CPU) against the reference's
+    K-blocked oracle over the [P+1, K] phi and mask tables of the same
+    selection, its [P, K] delta/residual rows read back at sel_k."""
+    case = _train_case(D + K + Pk, D=D, L=L, K=K, P=P, Pk=Pk, guard=guard,
+                       empty_doc=empty_doc)
+    p_tok, doc_ids, counts, mu0, theta, phi_tot, phi, sel_w, sel_k = case
     kw = dict(alpha=ALPHA, beta=BETA, wbeta=0.3)
-    ref = power_sweep_carry_kblocked_ref(*[jnp.asarray(x) for x in case],
-                                         update_phi=True, kb=32, **kw)
+    phi_rows = np.zeros((P + 1, K), np.float32)
+    phi_rows[:P] = phi[sel_w]
+    mask = np.zeros((P + 1, K), np.float32)
+    np.put_along_axis(mask[:P], sel_k, 1.0, axis=1)
+    ref = power_sweep_carry_kblocked_ref(
+        *[jnp.asarray(x) for x in (p_tok, doc_ids, counts, mu0, theta,
+                                   phi_tot, phi_rows, mask)],
+        update_phi=True, kb=32, **kw)
+    want = [np.asarray(ref[0]), np.asarray(ref[1])] + [
+        np.take_along_axis(np.asarray(r), sel_k, axis=1) for r in ref[2:4]]
     t = torch.from_numpy
-    mu_t = t(case[3].copy())
-    before = sweep_ops.power_sweep_carry.train_launches
-    got = sweep_ops.power_sweep_carry(
-        *[t(x) for x in case[:3]], mu_t, *[t(x) for x in case[4:]],
-        update_phi=True, n_guard=P, **kw)
-    assert sweep_ops.power_sweep_carry.train_launches == before
+    mu_t = t(mu0.copy())
+    before = sweep_ops.power_sweep_carry_train.launches
+    got = sweep_ops.power_sweep_carry_train(
+        t(p_tok), t(doc_ids), t(counts), mu_t, *[t(x) for x in case[4:]],
+        **kw)
+    assert sweep_ops.power_sweep_carry_train.launches == before
     assert got[0] is mu_t                                   # in place
-    for name, g, r in zip(("mu", "theta_delta", "d_rows", "r_rows"), got,
-                          ref):
-        np.testing.assert_allclose(g.numpy(), np.asarray(r)[:g.shape[0]],
-                                   rtol=RTOL, atol=ATOL, err_msg=name)
-    p_tok, mu0, mask = case[0], case[3], case[7]
-    guard = p_tok == P
-    np.testing.assert_array_equal(mu_t.numpy()[guard], mu0[guard])
+    for name, g, r in zip(("mu", "theta_delta", "d_pack", "r_pack"), got,
+                          want):
+        np.testing.assert_allclose(g.numpy(), r, rtol=RTOL, atol=ATOL,
+                                   err_msg=name)
+    guard_tok = p_tok == P
+    np.testing.assert_array_equal(mu_t.numpy()[guard_tok], mu0[guard_tok])
     off = mask[p_tok] == 0                     # unselected coordinates
     np.testing.assert_array_equal(mu_t.numpy()[off], mu0[off])
     # mass-conserving renorm: each token's mu still sums to 1
     np.testing.assert_allclose(mu_t.numpy().sum(1), 1.0, rtol=1e-5)
+    if empty_doc:
+        assert not got[1].numpy()[0].any()

@@ -225,10 +225,11 @@ def _carry_ref_sweep(layout, *arrays_and_cfg):
 @pytest.mark.parametrize("formulation", ["dense_layout", "packed",
                                          "carry_ref"])
 def test_selective_sweep_matches_reference_formulations(formulation):
-    """The port's sweep (the carry formulation; on the CPU the kernel's
-    plain version over the row tables) against the reference's two jnp
-    formulations and, through the same row tables, its carry kernel's
-    jnp oracle: the same math."""
+    """The port's sweep (the carry formulation: on the CPU the plain
+    version of ``power_sweep_carry_train``, which reads sel_w and sel_k
+    directly) against the reference's two jnp formulations and its carry
+    kernel's jnp oracle over the [P+1, K] row tables it builds: the same
+    math."""
     jcfg, cfg, jb, tb, arrays = _selective_inputs(7)
     jl = jb.token_layout()
     if formulation == "carry_ref":
