@@ -12,7 +12,12 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
   2. hold each kernel against its plain PyTorch version on the card at its
      slice's shapes and at odd shapes, and time both, with the bound of
      the work and, where one PyTorch call computes the same function, that
-     call's time;
+     call's time: the serving sweep on both of its paths (the register
+     path to K = 2048, the K-blocked path past it: K = 2049, 8192, 8193,
+     10,000, 20,001; timed at K = 10,000 at the slab's shapes); the
+     packed sweep repeating bit for bit, and timed again with
+     Zipf-like rows and one very long row; the phi pack timed in turns
+     with its library call, which it may not exceed;
   3. the serving slice at PUBMED width (W = 141,043, K = 2000): a random
      phi statistic made on the card from ``--seed``, saved as a JAX-format
      checkpoint, served by ``SlabEngine.from_checkpoint`` for
@@ -22,6 +27,8 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      the same requests again, closed loop, until ``--bursts`` bursts are
      served in all, and the median and range of each burst's docs/s, p50,
      p99 and step_ema;
+     then 64 requests at K = 10,000 (W cut to 20,000) from a checkpoint
+     the port wrote, through the K-blocked path, with the same checks;
   4. a fixed-sweep fold-in through the kernel against the plain version;
   5. the same requests served again under ``torch.profiler``: the card's
      busy share of the wall time and the device time by kernel;
@@ -33,18 +40,23 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      kernels must match the steps and iterations run, phi_acc must hold
      every token consumed and stay finite; one mini-batch at a reduced
      shape through the kernels and through their plain versions must agree
-     in phi_acc and theta (relative L1 gap 1e-4); then held-out perplexity
-     after the last step, and one more step under ``torch.profiler``;
+     in phi_acc and theta (relative L1 gap 1e-4); one step with the
+     Robbins-Monro decay on at that shape, whose byte meter must bill the
+     decay pass (W * K * 4 bytes); then held-out perplexity after the last
+     step, and one more step under ``torch.profiler``;
   7. the packed sweep policy on the same batches and settings: the same
      steps with ``sweep_policy="packed"`` (the phi pack and packed-sweep
      kernels launch once per selective iteration, the carry sweep never),
-     the same mass and finiteness checks, one profiled step; then one
+     the same mass and finiteness checks, one profiled step (with the
+     device time a launch of the pack and of the packed sweep's two
+     kernels); then one
      mini-batch from one injected init through both policies with
      tolerance 0 and 8 iterations, at a reduced shape (phi_acc and theta
      must agree to a relative L1 gap of 1e-4) and at the full width (the
      two formulations' ms per iteration side by side, in turns).
 
-Each phase prints its wall time.  The line before the last is the kernels' JSON record; the last line is
+Each phase prints its wall time.  The line before the last is the
+kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 """
@@ -79,25 +91,38 @@ def card_line() -> str:
 
 
 def time_ms(fn, make_args, reps: int = 20) -> float:
-    """Median device time of ``fn(*make_args())`` over ``reps`` runs, CUDA
-    events around each call, L2 flushed before each (arguments are made
-    outside the timed region)."""
+    """Median device time of ``fn(*make_args())`` over ``reps`` runs (see
+    `time_turns`)."""
+    return time_turns({"fn": (fn, make_args)}, reps)["fn"]
+
+
+def time_turns(fns: dict, reps: int = 20) -> dict:
+    """Median device time of each ``fn(*make_args())`` of ``fns`` (name ->
+    (fn, make_args)) over ``reps`` rounds, the entries timed in turn within
+    each round: CUDA events around each call, the L2 flushed before each
+    (arguments are made outside the timed region).  The card sleeps
+    ~0.5 ms before the start event, so the host has queued the call by the
+    time the card reaches it: the time is the card's, not the host's
+    enqueue."""
     import torch
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    fn(*make_args())                                    # warm up
-    times = []
+    for fn, make_args in fns.values():
+        fn(*make_args())                                # warm up
+    times = {name: [] for name in fns}
     for _ in range(reps):
-        args = make_args()
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(*args)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
+        for name, (fn, make_args) in fns.items():
+            args = make_args()
+            flush.zero_()
+            torch.cuda._sleep(1_000_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
 
 
 # --------------------------------------------------------------- phase 2
@@ -174,10 +199,13 @@ def sweep_bound_ms(x):
                          + D), 14 * n_act * K)
 
 
-def check_sweep(ops, gen, *, T, D, K, rows, frozen, empty_docs, timed):
+def check_sweep(ops, gen, *, T, D, K, rows, frozen, empty_docs, timed,
+                suffix=""):
     """The serving sweep against its plain version: mu' within 1e-5,
     theta_delta and rdoc within rel 1e-4; a second launch on the same
-    inputs repeats mu', theta_delta and rdoc bit for bit."""
+    inputs repeats mu', theta_delta and rdoc bit for bit.  Timed, returns
+    the kernel's record, or with ``suffix`` only its times and bound under
+    keys ending in it."""
     import torch
 
     x = sweep_inputs(gen, T=T, D=D, K=K, rows=rows, frozen=frozen,
@@ -198,7 +226,8 @@ def check_sweep(ops, gen, *, T, D, K, rows, frozen, empty_docs, timed):
     err_mu = float((got[0] - want[0]).abs().max())
     rel = [rel_err(got[i], want[i]) for i in (1, 2)]
     same = all(bool(torch.equal(g, a)) for g, a in zip(got, again))
-    print(f"[kernel] power_sweep_carry T={T} D={D} K={K} rows={rows}: "
+    print(f"[kernel] power_sweep_carry T={T} D={D} K={K} rows={rows} "
+          f"path={ops.serve_launch_plan(K).path}: "
           f"max|dmu'|={err_mu:.3e} (tol 1e-5)  rel dtheta={rel[0]:.3e}  "
           f"rel rdoc={rel[1]:.3e} (tol 1e-4)  relaunch bit for bit: {same}")
     if not (err_mu <= 1e-5 and max(rel) <= 1e-4 and same):
@@ -210,9 +239,12 @@ def check_sweep(ops, gen, *, T, D, K, rows, frozen, empty_docs, timed):
     plain_ms = time_ms(lambda *a: ops.power_sweep_carry_plain(*a, **kw),
                        with_fresh_mu)
     bound, bound_by = sweep_bound_ms(x)
-    print(f"[kernel] power_sweep_carry: {ms:.4f} ms  plain {plain_ms:.4f} ms"
-          f"  bound {bound * 1e3:.2f} us ({bound_by})  library: none (no "
-          f"single PyTorch call computes this sweep)")
+    print(f"[kernel] power_sweep_carry K={K}: {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  bound {bound * 1e3:.2f} us ({bound_by})  "
+          f"library: none (no single PyTorch call computes this sweep)")
+    if suffix:
+        return {f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                f"bound_ms{suffix}": bound}
     return kernel_record(
         "power_sweep_carry", "src/repro_torch/csrc/power_sweep_carry.cu",
         "src/repro/kernels/power_sweep/kernel.py:363", err_mu, ms, plain_ms,
@@ -432,18 +464,33 @@ def check_scatter(ops, gen, *, W, K, P, Pk, dup_zero_rows, timed):
                          plain_ms, bound, bound_by, library_ms)
 
 
-def packed_inputs(gen, *, D, L, K, P, Pk, guard_share, empty_doc):
+def packed_inputs(gen, *, D, L, K, P, Pk, guard_share, empty_doc,
+                  skewed=False):
     """Inputs of one packed sweep: doc-contiguous tokens with a ragged last
     document, a ``guard_share`` of them on the guard id P (and, with
     ``empty_doc``, all of document 0, whose counts are 0), each power row's
-    Pk distinct topics, phi_pack above each token's own count."""
+    Pk distinct topics, phi_pack above each token's own count.  Rows are
+    uniform, or with ``skewed`` drawn Zipf-like (weight 1 / rank) with each
+    document's padding slots (a random quarter to all of its length, count
+    0) on row 0, the padding word's row: one very long row, as the main
+    path has when word 0 is a power word."""
     import torch
 
     dev = "cuda"
     T = D * L
     doc_ids, counts = doc_tokens(gen, D=D, L=L, ragged=True)
-    p_tok = torch.randint(0, P, (T,), generator=gen, device=dev)
-    guard = torch.rand(T, generator=gen, device=dev) < guard_share
+    pad = torch.zeros(T, dtype=torch.bool, device=dev)
+    if skewed:
+        zipf = 1.0 / torch.arange(1, P + 1, device=dev, dtype=torch.float32)
+        p_tok = torch.multinomial(zipf, T, replacement=True, generator=gen)
+        lens = torch.randint(L // 4, L + 1, (D,), generator=gen, device=dev)
+        pad = (torch.arange(L, device=dev).repeat(D)
+               >= lens.repeat_interleave(L))
+        p_tok[pad] = 0
+        counts[pad] = 0.0
+    else:
+        p_tok = torch.randint(0, P, (T,), generator=gen, device=dev)
+    guard = (torch.rand(T, generator=gen, device=dev) < guard_share) & ~pad
     if empty_doc:
         guard |= doc_ids == 0
         counts[doc_ids == 0] = 0.0
@@ -470,38 +517,51 @@ def selected_mask(mu, p_tok, sel_k, P):
 
 
 def check_packed_sweep(packed, gen, *, D, L, K, P, Pk, guard_share,
-                       empty_doc, timed):
+                       empty_doc, timed, skewed=False):
     """The packed sweep against its plain version: mu', theta_delta, d_pack
     and r_pack at rel 1e-5 (max |gap| over max |plain|); every coordinate
-    outside the power tokens' selections bit for bit as it was."""
+    outside the power tokens' selections bit for bit as it was; a second
+    launch on the same inputs repeats all four outputs bit for bit.  The
+    kernel gets its sweep order made beforehand, as the training step makes
+    it once per mini-batch."""
     import torch
 
+    from repro_torch.core.types import sweep_order
+
     x = packed_inputs(gen, D=D, L=L, K=K, P=P, Pk=Pk,
-                      guard_share=guard_share, empty_doc=empty_doc)
+                      guard_share=guard_share, empty_doc=empty_doc,
+                      skewed=skewed)
     kw = dict(alpha=0.1, beta=0.01, wbeta=141043 * 0.01)
+    order = sweep_order(torch.where(x[0] < P, x[0], P), x[2])
 
     def fresh():
         a = list(x)
         a[3] = x[3].clone()
         return a
 
-    got = packed.power_sweep_tokens(*fresh(), **kw)
+    got = packed.power_sweep_tokens(*fresh(), **kw, order=order)
+    again = packed.power_sweep_tokens(*fresh(), **kw, order=order)
     want = packed.power_sweep_tokens_plain(*fresh(), **kw)
     torch.cuda.synchronize()
     err_mu = float((got[0] - want[0]).abs().max())
     rel = [rel_err(g, w) for g, w in zip(got, want)]
     off = ~selected_mask(x[3], x[0], x[7], P)
     kept = bool(torch.equal(got[0][off], x[3][off]))
-    print(f"[kernel] power_sweep_tokens T={D * L} D={D} K={K} P={P} Pk={Pk} "
-          f"guard={guard_share}: rel mu'={rel[0]:.3e}  rel dtheta="
+    same = all(bool(torch.equal(g, a)) for g, a in zip(got, again))
+    tag = " skewed" if skewed else ""
+    print(f"[kernel] power_sweep_tokens{tag} T={D * L} D={D} K={K} P={P} "
+          f"Pk={Pk} guard={guard_share}: rel mu'={rel[0]:.3e}  rel dtheta="
           f"{rel[1]:.3e}  rel d_pack={rel[2]:.3e}  rel r_pack={rel[3]:.3e} "
-          f"(tol 1e-5)  untouched bit for bit: {kept}")
-    if not (max(rel) <= 1e-5 and kept):
-        fail(f"power_sweep_tokens disagrees with its plain version at "
-             f"D={D} L={L} K={K} P={P} Pk={Pk}")
+          f"(tol 1e-5)  untouched bit for bit: {kept}  relaunch bit for bit: "
+          f"{same}")
+    if not (max(rel) <= 1e-5 and kept and same):
+        fail(f"power_sweep_tokens disagrees with its plain version or "
+             f"itself at D={D} L={L} K={K} P={P} Pk={Pk}")
     if not timed:
         return None
-    ms = time_ms(lambda *a: packed.power_sweep_tokens(*a, **kw), fresh)
+    del got, again, want
+    ms = time_ms(lambda *a: packed.power_sweep_tokens(*a, **kw, order=order),
+                 fresh)
     plain_ms = time_ms(lambda *a: packed.power_sweep_tokens_plain(*a, **kw),
                        fresh)
     # what the sweep must move: each power token's mu at its Pk topics, read
@@ -519,9 +579,15 @@ def check_packed_sweep(packed, gen, *, D, L, K, P, Pk, guard_share,
     nbytes = 4 * (2 * n_rows * Pk + 2 * n_act * Pk + n_dk + D * K
                   + 2 * P * Pk + 3 * T + K)
     bound, bound_by = bound_ms(nbytes, 30 * n_act * Pk)
-    print(f"[kernel] power_sweep_tokens: {ms:.4f} ms  plain {plain_ms:.4f} "
-          f"ms  bound {bound * 1e3:.2f} us ({bound_by})  library: none (no "
-          f"single PyTorch call computes this sweep)")
+    # not a bound: each (token, topic) element of the [T, K] mu is a
+    # 32-byte sector of its own, read and written
+    floor = 2 * n_act * Pk * 32 / HBM_BYTES_PER_S * 1e3
+    runs = torch.bincount(p[act & (x[2][:, 0] != 0)].long(), minlength=P)
+    print(f"[kernel] power_sweep_tokens{tag}: {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  bound {bound * 1e3:.2f} us ({bound_by})  "
+          f"sector floor {floor * 1e3:.2f} us  longest row {int(runs.max())} "
+          f"counted tokens  library: none (no single PyTorch call computes "
+          f"this sweep)")
     return kernel_record(
         "power_sweep_tokens", "src/repro_torch/csrc/power_sweep_tokens.cu",
         "src/repro/kernels/power_sweep/kernel.py:174", err_mu, ms, plain_ms,
@@ -557,13 +623,20 @@ def check_pack_rows(pack_ops, gen, *, W, K, P, Pk, outside, timed):
         return None
     args = lambda: (mat, sel_w, sel_k)                # noqa: E731
     rows, cols = sel_w.long()[:, None], sel_k.long()
-    ms = time_ms(pack_ops.pack_rows, args)
+    # kernel and library in turns, 15 timings each: the kernel's median may
+    # not exceed the library's
+    med = time_turns({"kernel": (pack_ops.pack_rows, args),
+                      "library": (lambda m, w, k: m[rows, cols], args)}, 15)
+    ms, library_ms = med["kernel"], med["library"]
     plain_ms = time_ms(pack_ops.pack_rows_plain, args)
-    library_ms = time_ms(lambda m, w, k: m[rows, cols], args)
     bound, bound_by = bound_ms(4 * (P + 3 * P * Pk), 0)
     print(f"[kernel] pack_rows: {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
           f"{bound * 1e3:.2f} us ({bound_by})  library (mat[sel_w[:, None], "
-          f"sel_k]) {library_ms:.4f} ms")
+          f"sel_k]) {library_ms:.4f} ms (medians of 15 in turns; gate: "
+          f"kernel <= library)")
+    if not ms <= library_ms:
+        fail(f"pack_rows ({ms:.4f} ms) is slower than its library call "
+             f"({library_ms:.4f} ms)")
     return kernel_record("pack_rows", "src/repro_torch/csrc/power_pack.cu",
                          "src/repro/kernels/power_pack/kernel.py:50", err, ms,
                          plain_ms, bound, bound_by, library_ms)
@@ -926,12 +999,42 @@ def train_kernel_vs_plain(*, seed: int, W=20000, K=256, D=64, L=64,
              "version")
 
 
-def profile_run(fn, label: str, card: str):
+def decay_meter_check(*, seed: int, W=20000, K=256, D=64, L=64,
+                      device="cuda"):
+    """One training step with the Robbins-Monro decay on (decay_kappa 0.5)
+    at a reduced shape: the step's byte meter must bill the decay's [W, K]
+    pass once, W * K * 4 bytes under ``decay``, and nothing else (one
+    shard)."""
+    import torch
+
+    from repro_torch.core.pobp import init_train_state, make_train_step
+    from repro_torch.core.types import LDAConfig
+
+    gen = torch.Generator(device=device).manual_seed(seed + 13)
+    phi_true, _ = model_on_device(gen, W, K, device)
+    (mb,) = padded_batches(gen, phi_true, D=D, L=L, len_means=(64,))
+    cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_w=0.1,
+                    lambda_k_abs=50, inner_iters=8, residual_tol=0.1,
+                    decay_kappa=0.5)
+    step, meter = make_train_step(cfg, device=device)
+    state, diag = step(init_train_state(cfg, seed, device=device),
+                       mb.word_ids, mb.counts)
+    by = meter.bytes_by_phase
+    per = meter.per_minibatch_bytes(diag["iters"])
+    print(f"[train] decay_kappa=0.5 at W={W} K={K}: meter {by}, "
+          f"per-minibatch {per:,} bytes (want decay = W*K*4 = {W * K * 4:,})"
+          f"  iters {diag['iters']}")
+    if by != {"decay": W * K * 4} or per != W * K * 4:
+        fail("the decay pass is not billed once per mini-batch")
+
+
+def profile_run(fn, label: str, card: str, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the card's busy
     share of the wall time (the summed time of the events that ran on the
-    card: kernels, copies, fills), the top of those by device time and the
-    top host operations by their own CPU time.  Returns what ``fn``
-    returned."""
+    card: kernels, copies, fills), the top of those by device time, the
+    device time and launches of each kernel whose name holds a string of
+    ``watch``, and the top host operations by their own CPU time.  Returns
+    what ``fn`` returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -943,12 +1046,13 @@ def profile_run(fn, label: str, card: str):
         out = fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    dev_us, host_us = {}, {}
+    dev_us, dev_n, host_us = {}, {}, {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             t = (getattr(e, "self_device_time_total", None)
                  or getattr(e, "self_cuda_time_total", 0))
             dev_us[e.key] = dev_us.get(e.key, 0.0) + t
+            dev_n[e.key] = dev_n.get(e.key, 0) + e.count
         else:
             host_us[e.key] = e.self_cpu_time_total
     if not sum(dev_us.values()):
@@ -962,6 +1066,12 @@ def profile_run(fn, label: str, card: str):
     for name, t in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile]   {t / 1e3:9.3f} ms  {t / 1e6 / busy:6.1%}  "
               f"{name[:90]}")
+    for want in watch:
+        for name, t in dev_us.items():
+            if want in name:
+                print(f"[profile] kernel {want}: {t / 1e3:.3f} ms over "
+                      f"{dev_n[name]} launches = {t / 1e3 / dev_n[name]:.4f} "
+                      f"ms a launch  [{card}]")
     for name, t in sorted(host_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile] host {t / 1e3:9.3f} ms  {name[:80]}")
     return out
@@ -1011,10 +1121,20 @@ def main(argv=None) -> None:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rec = check_sweep(ops, gen, T=4096, D=64, K=2000, rows=141044,
                       frozen=0.3, empty_docs=8, timed=True)
-    # odd shapes: the scalar path (K = 37, 1), K = 100, the limit K = 8192
-    for T, D, K in ((21, 3, 100), (21, 3, 37), (40, 5, 1), (256, 4, 8192)):
+    # odd shapes: the scalar path (K = 37, 1), K = 100, the register
+    # path's limit K = 2048, and past it the K-blocked path: one past the
+    # limit, K = 8192 and 8193, the reference's K = 10,000, an odd K far
+    # past it
+    for T, D, K in ((21, 3, 100), (21, 3, 37), (40, 5, 1), (256, 4, 2048),
+                    (256, 4, 2049), (256, 4, 8192), (256, 4, 8193),
+                    (256, 4, 10000), (96, 3, 20001)):
         check_sweep(ops, gen, T=T, D=D, K=K, rows=50, frozen=0.3,
                     empty_docs=1, timed=False)
+    # serving at K = 10,000 at the slab's shapes (W' = 141,044 rows of phi,
+    # 5.6 GB), timed with its bound and its plain version
+    rec.update(check_sweep(ops, gen, T=4096, D=64, K=10000, rows=141044,
+                           frozen=0.3, empty_docs=8, timed=True,
+                           suffix="_k10000"))
     # the training slice's kernels: at its shapes (T = 512 x 128 tokens,
     # K = 2000, W = 141,043, P = 14,104 power words, Pk = 50), then at one
     # odd shape (K not a multiple of 32, a ragged last document, tokens on
@@ -1057,6 +1177,17 @@ def main(argv=None) -> None:
                         outside=True, timed=False)
     check_packed_sweep(packed, gen, D=4, L=7, K=100, P=9, Pk=37,
                        guard_share=1.0, empty_doc=True, timed=False)
+    # Pk past 128 (the kernels' strided path), skewed rows
+    check_packed_sweep(packed, gen, D=6, L=40, K=300, P=9, Pk=200,
+                       guard_share=0.2, empty_doc=True, timed=False,
+                       skewed=True)
+    # the packed sweep at the slice's shapes with Zipf-like rows and one
+    # very long row (the padding slots on word 0's row), timed
+    skew = check_packed_sweep(packed, gen, D=512, L=128, K=2000, P=14104,
+                              Pk=50, guard_share=0.3, empty_doc=False,
+                              timed=True, skewed=True)
+    train_recs["power_sweep_tokens"].update(
+        {f"{key}_skewed": skew[key] for key in ("ms", "plain_ms", "bound_ms")})
     print(f"[time] phase 2: {time.time() - t0:.1f}s")
 
     # ---- 3. the serving slice at PUBMED width
@@ -1126,6 +1257,26 @@ def main(argv=None) -> None:
     profile_serve(engine, docs, card)
     del engine, runs
 
+    # ---- 3b. serving at K = 10,000 (the K-blocked path) from a checkpoint
+    # the port wrote; W cut to 20,000 so the checkpoint stays 0.8 GB
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt_k10000"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        eng_k, _, res_k, wall_k, launches_k, s_k = serve_slice(
+            W=20000, K=10000, requests=64, seed=args.seed, device="cuda",
+            ckpt_dir=ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    want = s_k["steps"] * eng_k.sweeps_per_step
+    print(f"[slice] K=10000 ({ops.serve_launch_plan(10000).path} path): "
+          f"{s_k['served']} requests over {s_k['steps']} slab steps at "
+          f"W={eng_k.cfg.vocab_size}: power_sweep_carry launches {launches_k} "
+          f"(steps x sweeps = {want})  {len(res_k) / wall_k:.1f} docs/s  "
+          f"p50={s_k['latency_p50_s'] * 1e3:.3f}ms  [{card}]")
+    if launches_k != want or launches_k <= 0:
+        fail(f"the K=10000 slab ran {launches_k} kernel launches, expected "
+             f"{want}")
+    del eng_k, res_k
     print(f"[time] phases 3-5: {time.time() - t0:.1f}s")
 
     # ---- 6. the training slice at PUBMED width
@@ -1142,6 +1293,7 @@ def main(argv=None) -> None:
     print(f"[train] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
     train_kernel_vs_plain(seed=args.seed)
+    decay_meter_check(seed=args.seed)
     ppl = evaluate(state.phi_acc, train, test, cfg,
                    generator=torch.Generator(device="cuda").manual_seed(
                        args.seed + 1), device="cuda")
@@ -1167,7 +1319,9 @@ def main(argv=None) -> None:
               f"{pk[0] * 1e3 / pk[1]:.3f} ({pk[1]} iterations)")
     diag = profile_run(
         lambda: step(state, batches[0].word_ids, batches[0].counts),
-        "one packed training step (batch 1 again)", card)[1]
+        "one packed training step (batch 1 again)", card,
+        watch=("pack_rows_kernel", "packed_sweep_kernel",
+               "packed_fold_kernel"))[1]
     print(f"[profile] that step ran {diag['iters']} iterations")
     del state, step, diag
     # packed against carry: one mini-batch, one init, tolerance 0, 8

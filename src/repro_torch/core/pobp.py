@@ -139,7 +139,8 @@ def _selective_sweep_packed(layout: TokenLayout, mu_t, theta, phi_eff_wk,
         p_tok, layout.doc_ids, layout.counts, mu_t, theta, phi_tot, phi_pack,
         sel_k, alpha=cfg.alpha, beta=cfg.beta,
         wbeta=cfg.vocab_size * cfg.beta,
-        onehot=layout.num_slots * P <= cfg.onehot_crossover)
+        onehot=layout.num_slots * P <= cfg.onehot_crossover,
+        order=layout.sweep_order)
     return mu_t, theta + theta_delta, d_pack, r_pack
 
 
@@ -273,7 +274,12 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
     # ---- Eq. (11): fold this batch's delta into the statistic, written
     # as the reference writes it, in phi_eff's storage ----
     phi_acc_new = phi_eff.sub_(phi_acc_wk).mul_(delta_weight)
-    phi_acc_new.add_(phi_acc_wk if decay is None else decay * phi_acc_wk)
+    if decay is None:
+        phi_acc_new.add_(phi_acc_wk)
+    else:
+        # the decay's [W, K] pass is billed once per mini-batch
+        reducer.bill(phi_acc_wk, "decay")
+        phi_acc_new.add_(decay * phi_acc_wk)
     return MinibatchResult(phi_acc_new=phi_acc_new, iters=t,
                            mean_r=mean_residual(r_w, total_tokens), mu=mu,
                            theta=theta)

@@ -35,8 +35,9 @@ class CommMeter:
     The reference records at trace time, once per compiled program; the
     port runs eagerly, so a record whose (phase, shape, dtype) was seen
     before counts once, which gives the same per-program totals.  The
-    single-shard reducer records nothing; live-W billing
-    (``bytes_by_phase_at``) comes with the multi-shard slice.
+    single-shard reducer records only what it bills (the decay pass);
+    live-W billing (``bytes_by_phase_at``) comes with the multi-shard
+    slice.
     """
 
     def __init__(self) -> None:
@@ -71,7 +72,7 @@ class CommMeter:
 
 
 class LocalReducer:
-    """N = 1 reducer: no communication, nothing recorded.  Under
+    """N = 1 reducer: no communication, so ``psum`` records nothing.  Under
     ``compress`` the payload still takes the ``sync_dtype`` cast round
     trip, so an N = 1 run is numerically the N-shard run with the same
     sync dtype."""
@@ -86,6 +87,17 @@ class LocalReducer:
         wire = wire_dtype(dtype) if dtype is not None else self.sync_dtype
         if compress and x.dtype != wire:
             return x.to(wire).to(x.dtype)
+        return x
+
+    def bill(self, x: torch.Tensor, phase: str) -> torch.Tensor:
+        """Record a local full-statistic touch without reducing, as the
+        reference's ``Reducer.bill``: the Robbins-Monro decay rescales the
+        [W, K] statistic in place, memory traffic the byte meter bills
+        once per mini-batch (``decay`` is not in ``LOOP_PHASES``).  Billed
+        at the full W: scaling to the live vocabulary (the reference's
+        ``w_rows``) comes with live-W runs (ROADMAP Queue 1, item 6).
+        Returns ``x``."""
+        self.meter.record(phase, x)
         return x
 
 

@@ -10,6 +10,7 @@ slots carry row 0 and count 0.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -93,6 +94,17 @@ class MiniBatch:
             num_docs=D, max_len=L)
 
 
+def sweep_order(keys: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """The packed sweep's token order: the tokens stably sorted by ``keys``
+    [T] (non-negative: a word id, or a row of the packed buffers), every
+    token of count 0 after every counted one.  int32 [T].  Sorted by word,
+    the counted tokens of each power row are contiguous (a row is one
+    word), and the padding slots (word 0, count 0) gather at the end."""
+    zero = (counts.reshape(-1) == 0).long()
+    return torch.argsort(keys.long() + (zero << 32), stable=True).to(
+        torch.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class TokenLayout:
     """Token-major view of a padded-CSR mini-batch.
@@ -111,6 +123,12 @@ class TokenLayout:
     @property
     def num_slots(self) -> int:
         return self.num_docs * self.max_len
+
+    @functools.cached_property
+    def sweep_order(self) -> torch.Tensor:
+        """`sweep_order` of the tokens by word, made once per mini-batch (a
+        port-only field: the packed kernel's visiting order)."""
+        return sweep_order(self.word_ids, self.counts)
 
     def to_batch_major(self, values_tk: torch.Tensor) -> torch.Tensor:
         """[T, K] token-major tensor back to the [D, L, K] batch view."""

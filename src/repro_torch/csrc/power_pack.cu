@@ -14,8 +14,17 @@
 // It is the mirror of the scatter below.  Bound, at the training slice's
 // shapes (P = 14104, Pk = 50): read sel_w, sel_k and one element of mat per
 // pair and write out, 4 * (P + 3 * P * Pk) B = 8.5 MB, ~2.5 us at
-// 3.35 TB/s, bound by bytes; each element of mat costs a whole 32-byte
-// sector in practice.
+// 3.35 TB/s, bound by bytes.  What bounds it in practice is the card's
+// rate of scattered 32-byte sectors: each pair reads a sector of its own of
+// the 1.13 GB phi, 705,200 sectors (22.6 MB) in ~0.03 ms with the L2 cold
+// (chip_smoke.py phase 2 on an H100), ~25 G sectors/s.  Variants timed in
+// turns with this kernel on an H100 (PERF.md has the numbers): the rows
+// sorted by address, the rows contiguous, and one warp per 4 rows with
+// sel_w read once a row and every load issued before any store all ran
+// within 9% of it, the warp variant no faster; so latency chains and
+// address locality are not what limits it, and the kernel stays one thread
+// per pair.  chip_smoke.py phase 2 holds it to no slower than the library
+// gather mat[sel_w[:, None], sel_k].
 //
 // scatter_add_rows replaces the TPU kernel
 // src/repro/kernels/power_pack/kernel.py:75 (scatter_add_rows_pallas): the

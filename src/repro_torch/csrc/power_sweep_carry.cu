@@ -59,8 +59,18 @@
 //     theta_delta and rdoc repeat bit for bit from launch to launch.
 //   Shared memory: theta[d] and phi_tot + wbeta at the owned topics, 2 x
 //   threads x 4V floats (16 KB at K = 2000); the partials reuse it.
-//   Limit: K <= kServeMaxK = 8192 (256 threads up to K = 4096, 512 above;
-//   V <= 4 keeps ~20V registers of row data a thread).
+//   The register path holds K <= 2 x 4 x 256 = 2048 topics (V = 1 or 2
+//   float4s a thread, 256 threads), which covers the K = 2000 cell.  Past
+//   that a K-blocked path, the two passes of TPU kernel 4, serves any K:
+//   the same clusters and token order; pass one streams the token's rows
+//   to sum u and mu, pass two streams them again (from L2) for the update;
+//   theta_delta's partials go to a [4D, K] scratch in global memory, one
+//   row a CTA, summed in rank order, so it too repeats bit for bit.  Its
+//   bound at K = 10,000 (the slab's shapes, W' = 141044 rows) is ~0.09 ms,
+//   bound by bytes.  The wrapper's serve_launch_plan(K)
+//   (kernels/power_sweep/ops.py) takes the register path up to K = 2048
+//   and the K-blocked path with 256 threads past it; chip_smoke.py phase 2
+//   times both paths at the slab's shapes (K = 2000 and 10,000).
 //
 // Training design.  Bound: at the training slice's shapes (T = 65536 slots
 // of D = 512 documents, K = 2000, P = 14104, Pk = 50, ~70% power tokens) the
@@ -102,7 +112,6 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kCluster = 4;          // CTAs per serving slot
-constexpr int kServeMaxK = 8192;
 constexpr int kTrainMaxWarps = 8;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -338,23 +347,185 @@ cudaError_t launch_serve(int threads, int D, const int* p_tok, const int* doc_id
                             beta, wbeta);
 }
 
+// The K-blocked serving path, for K past what the register path holds: the
+// two passes of TPU kernel 4 over each active token.  Pass one sums u and
+// mu over the token's whole row; pass two reads the row again (from L2),
+// writes mu' and adds c * (mu' - mu) into this CTA's own theta_delta partial
+// row in global scratch (`part`, [D * kCluster, K]).  A thread owns the same
+// topics in both passes and in the partial row, so nothing there is shared.
+// At the end CTA `rank` sums its quarter of the topics over the cluster's
+// four partial rows in rank order, and rank 0 sums rdoc through distributed
+// shared memory, as the register path does: a launch repeats bit for bit.
+__device__ __forceinline__ float serve_u(float th, float m, float c, float ph, float pt,
+                                         float alpha, float beta) {
+  return (th - c * m + alpha) * (ph + beta) / pt;
+}
+
 template <bool kVec>
-cudaError_t dispatch_serve(int D, const int* p_tok, const int* doc_ids,
-                           const float* counts, float* mu, const float* theta,
-                           const float* phi_tot, const float* phi, float* theta_delta,
-                           float* rdoc, int T, int K, int n_rows, int n_guard,
-                           float alpha, float beta, float wbeta, cudaStream_t stream) {
-  if (K <= 1024)
-    return launch_serve<1, kVec>(256, D, p_tok, doc_ids, counts, mu, theta, phi_tot, phi,
-                                 theta_delta, rdoc, T, K, n_rows, n_guard, alpha, beta,
-                                 wbeta, stream);
-  if (K <= 2048)
-    return launch_serve<2, kVec>(256, D, p_tok, doc_ids, counts, mu, theta, phi_tot, phi,
-                                 theta_delta, rdoc, T, K, n_rows, n_guard, alpha, beta,
-                                 wbeta, stream);
-  return launch_serve<4, kVec>(K <= 4096 ? 256 : 512, D, p_tok, doc_ids, counts, mu,
-                               theta, phi_tot, phi, theta_delta, rdoc, T, K, n_rows,
-                               n_guard, alpha, beta, wbeta, stream);
+__global__ void __launch_bounds__(512) carry_serve_kblocked_kernel(
+    const int* __restrict__ p_tok, const int* __restrict__ doc_ids,
+    const float* __restrict__ counts, float* mu, const float* __restrict__ theta,
+    const float* __restrict__ phi_tot, const float* __restrict__ phi,
+    float* __restrict__ theta_delta, float* __restrict__ rdoc, float* part, int T,
+    int K, int n_rows, int n_guard, float alpha, float beta, float wbeta) {
+  __shared__ float red[2][2][32];   // [buffer][sum][warp]
+  __shared__ float r_cta;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.x / kCluster;
+  const float* th_row = theta + (size_t)d * K;
+  float* acc = part + (size_t)blockIdx.x * K;  // this CTA's partial row
+  const int n4 = kVec ? K / 4 : K;            // owned units: float4s or floats
+  for (int i = tid; i < n4; i += nt) {
+    if (kVec) reinterpret_cast<float4*>(acc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    else acc[i] = 0.f;
+  }
+  const int t0 = lower_bound(doc_ids, T, d);
+  const int t1 = lower_bound(doc_ids, T, d + 1);
+  float r = 0.f;
+  int buf = 0;
+  for (int t = next_active(p_tok, t0 + rank, t1, n_rows, n_guard); t < t1;
+       t = next_active(p_tok, t + kCluster, t1, n_rows, n_guard)) {
+    const float c = __ldg(counts + t);
+    float* mu_row = mu + (size_t)t * K;
+    const float* ph_row = phi + (size_t)__ldg(p_tok + t) * K;
+    float su = 0.f, sm = 0.f;
+    // pass one: the sums over the whole row
+#pragma unroll 4
+    for (int i = tid; i < n4; i += nt) {
+      if (kVec) {
+        const float4 m = reinterpret_cast<const float4*>(mu_row)[i];
+        const float4 ph = __ldg(reinterpret_cast<const float4*>(ph_row) + i);
+        const float4 th = __ldg(reinterpret_cast<const float4*>(th_row) + i);
+        const float4 pt = __ldg(reinterpret_cast<const float4*>(phi_tot) + i);
+        su += serve_u(th.x, m.x, c, ph.x, pt.x + wbeta, alpha, beta);
+        su += serve_u(th.y, m.y, c, ph.y, pt.y + wbeta, alpha, beta);
+        su += serve_u(th.z, m.z, c, ph.z, pt.z + wbeta, alpha, beta);
+        su += serve_u(th.w, m.w, c, ph.w, pt.w + wbeta, alpha, beta);
+        sm += (m.x + m.y) + (m.z + m.w);
+      } else {
+        const float m = mu_row[i];
+        su += serve_u(__ldg(th_row + i), m, c, __ldg(ph_row + i),
+                            __ldg(phi_tot + i) + wbeta, alpha, beta);
+        sm += m;
+      }
+    }
+    block_sum2(su, sm, red[buf]);
+    buf ^= 1;                                 // the other buffer next token
+    const float scale = sm / fmaxf(su, 1e-30f);
+    // pass two: the row again, the update, theta_delta's partial
+#pragma unroll 4
+    for (int i = tid; i < n4; i += nt) {
+      if (kVec) {
+        const float4 m = reinterpret_cast<const float4*>(mu_row)[i];
+        const float4 ph = __ldg(reinterpret_cast<const float4*>(ph_row) + i);
+        const float4 th = __ldg(reinterpret_cast<const float4*>(th_row) + i);
+        const float4 pt = __ldg(reinterpret_cast<const float4*>(phi_tot) + i);
+        float4 mn, a = reinterpret_cast<float4*>(acc)[i];
+        mn.x = serve_u(th.x, m.x, c, ph.x, pt.x + wbeta, alpha, beta) * scale;
+        mn.y = serve_u(th.y, m.y, c, ph.y, pt.y + wbeta, alpha, beta) * scale;
+        mn.z = serve_u(th.z, m.z, c, ph.z, pt.z + wbeta, alpha, beta) * scale;
+        mn.w = serve_u(th.w, m.w, c, ph.w, pt.w + wbeta, alpha, beta) * scale;
+        const float4 cd = make_float4(c * (mn.x - m.x), c * (mn.y - m.y),
+                                      c * (mn.z - m.z), c * (mn.w - m.w));
+        a.x += cd.x; a.y += cd.y; a.z += cd.z; a.w += cd.w;
+        r += (fabsf(cd.x) + fabsf(cd.y)) + (fabsf(cd.z) + fabsf(cd.w));
+        reinterpret_cast<float4*>(acc)[i] = a;
+        reinterpret_cast<float4*>(mu_row)[i] = mn;
+      } else {
+        const float m = mu_row[i];
+        const float mn = serve_u(__ldg(th_row + i), m, c, __ldg(ph_row + i),
+                                       __ldg(phi_tot + i) + wbeta, alpha, beta) * scale;
+        const float cd = c * (mn - m);
+        acc[i] += cd;
+        r += fabsf(cd);
+        mu_row[i] = mn;
+      }
+    }
+  }
+
+  __syncthreads();                            // red[0] may still be read
+  r = warp_sum(r);
+  if (tid % kWarp == 0) red[0][0][tid / kWarp] = r;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.f;
+    for (int w = 0; w < nt / kWarp; ++w) s += red[0][0][w];
+    r_cta = s;
+  }
+  __threadfence();                            // the partial rows reach L2
+  cluster.sync();                             // every partial is visible
+
+  // CTA `rank` sums its quarter of the topics over the cluster, in rank order
+  const int per = (K + kCluster - 1) / kCluster;
+  const int k_hi = min(K, (rank + 1) * per);
+  const float* rows = part + (size_t)d * kCluster * K;
+  for (int k = rank * per + tid; k < k_hi; k += nt) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) s += __ldcg(rows + (size_t)q * K + k);
+    theta_delta[(size_t)d * K + k] = s;
+  }
+  if (rank == 0 && tid == 0) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) s += *cluster.map_shared_rank(&r_cta, q);
+    rdoc[d] = s;
+  }
+  cluster.sync();                             // no CTA leaves while read
+}
+
+template <bool kVec>
+cudaError_t launch_serve_kblocked(int threads, int D, const int* p_tok,
+                                  const int* doc_ids, const float* counts, float* mu,
+                                  const float* theta, const float* phi_tot,
+                                  const float* phi, float* theta_delta, float* rdoc,
+                                  float* part, int T, int K, int n_rows, int n_guard,
+                                  float alpha, float beta, float wbeta,
+                                  cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(D * kCluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, carry_serve_kblocked_kernel<kVec>, p_tok, doc_ids,
+                            counts, mu, theta, phi_tot, phi, theta_delta, rdoc, part, T,
+                            K, n_rows, n_guard, alpha, beta, wbeta);
+}
+
+// One serving launch by the caller's plan: V = 1 or 2 float4s a thread on
+// the register path (4 * V * threads >= K), V = 0 the K-blocked path.
+template <bool kVec>
+cudaError_t dispatch_serve(int V, int threads, int D, const int* p_tok,
+                           const int* doc_ids, const float* counts, float* mu,
+                           const float* theta, const float* phi_tot, const float* phi,
+                           float* theta_delta, float* rdoc, float* part, int T, int K,
+                           int n_rows, int n_guard, float alpha, float beta,
+                           float wbeta, cudaStream_t stream) {
+  switch (V) {
+    case 0:
+      return launch_serve_kblocked<kVec>(threads, D, p_tok, doc_ids, counts, mu, theta,
+                                         phi_tot, phi, theta_delta, rdoc, part, T, K,
+                                         n_rows, n_guard, alpha, beta, wbeta, stream);
+    case 1:
+      return launch_serve<1, kVec>(threads, D, p_tok, doc_ids, counts, mu, theta,
+                                   phi_tot, phi, theta_delta, rdoc, T, K, n_rows,
+                                   n_guard, alpha, beta, wbeta, stream);
+    case 2:
+      return launch_serve<2, kVec>(threads, D, p_tok, doc_ids, counts, mu, theta,
+                                   phi_tot, phi, theta_delta, rdoc, T, K, n_rows,
+                                   n_guard, alpha, beta, wbeta, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // ----------------------------------------------------------------- training
@@ -464,22 +635,29 @@ int power_sweep_carry_configure(int* smem_bytes) {
                                    *smem_bytes);
 }
 
-// Launches one serving sweep on `stream`; allocates nothing.  theta_delta
-// [D, K] and rdoc [D] are written whole.  1 <= K <= kServeMaxK.  Returns the
-// CUDA error code of the launch (0 on success).
+// Launches one serving sweep on `stream` by the caller's plan (V float4s a
+// thread on the register path, V = 1 or 2 with 4 * V * threads >= K; V = 0
+// the K-blocked path, which needs the scratch `part` of D * 4 * K floats;
+// threads 128, 256 or 512); allocates nothing.  theta_delta [D, K] and rdoc [D]
+// are written whole.  Returns the CUDA error code of the launch (0 on
+// success).
 int power_sweep_carry_serve(const int* p_tok, const int* doc_ids, const float* counts,
                             float* mu, const float* theta, const float* phi_tot,
-                            const float* phi, float* theta_delta, float* rdoc, int T,
-                            int D, int K, int n_rows, int n_guard, float alpha,
-                            float beta, float wbeta, void* stream) {
-  if (K < 1 || K > kServeMaxK) return (int)cudaErrorInvalidValue;
+                            const float* phi, float* theta_delta, float* rdoc,
+                            float* part, int T, int D, int K, int n_rows, int n_guard,
+                            float alpha, float beta, float wbeta, int V, int threads,
+                            void* stream) {
+  if (K < 1 || (threads != 128 && threads != 256 && threads != 512) ||
+      (V != 0 && (long long)4 * V * threads < K) || (V == 0 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   if (D > 0) {
-    const bool vec = K % 4 == 0 &&
-                     (((uintptr_t)mu | (uintptr_t)theta | (uintptr_t)phi) & 15) == 0;
+    const bool vec =
+        K % 4 == 0 && (((uintptr_t)mu | (uintptr_t)theta | (uintptr_t)phi |
+                        (uintptr_t)phi_tot | (uintptr_t)part) & 15) == 0;
     err = (vec ? dispatch_serve<true> : dispatch_serve<false>)(
-        D, p_tok, doc_ids, counts, mu, theta, phi_tot, phi, theta_delta, rdoc, T, K,
-        n_rows, n_guard, alpha, beta, wbeta, (cudaStream_t)stream);
+        V, threads, D, p_tok, doc_ids, counts, mu, theta, phi_tot, phi, theta_delta,
+        rdoc, part, T, K, n_rows, n_guard, alpha, beta, wbeta, (cudaStream_t)stream);
   }
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);

@@ -19,17 +19,18 @@ without the TPU tile padding:
 Which code runs is decided by the device of the tensors: on a CUDA tensor
 the hand-written kernel, raising if it cannot build or launch; on a CPU
 tensor the plain version.  The TPU side chooses between a full-K and a
-K-blocked kernel by whether its tables fit VMEM; the CUDA kernel reads rows
-by index from HBM, so one kernel serves both.  Its limits are its own:
-serving takes K <= ``SERVE_MAX_K`` (its threads keep their topics in
-registers), training K + 2 * Pk floats of shared memory
-(`power_sweep_carry_train_max_k`); past them the wrapper raises
-``ValueError``.
+K-blocked kernel by whether its tables fit VMEM; the CUDA source reads
+rows by index from HBM and has its own two serving paths: threads that keep
+their topics of a row in registers (K <= ``SERVE_REGISTER_MAX_K``), and the
+K-blocked two passes, for any K; `serve_launch_plan` picks by K.  Training
+takes K + 2 * Pk floats of shared memory (`power_sweep_carry_train_max_k`);
+past that the wrapper raises ``ValueError``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -37,7 +38,7 @@ from repro_torch.kernels import build, check_args
 from repro_torch.kernels.power_sweep.packed import power_sweep_tokens_plain
 
 _SOURCE = "power_sweep_carry"
-SERVE_MAX_K = 8192                 # kServeMaxK of the source
+SERVE_REGISTER_MAX_K = 2048        # 2 float4s a thread x 256 threads
 _MAX_TRAIN_WARPS = 8
 _smem_optin: dict[int, int] = {}   # device index -> usable shared memory
 
@@ -47,7 +48,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.power_sweep_carry_serve
     if fn.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr] * 9 + [i32] * 5 + [f32] * 3 + [ptr]
+        fn.argtypes = ([ptr] * 10 + [i32] * 5 + [f32] * 3
+                       + [i32] * 2 + [ptr])
         fn.restype = ctypes.c_int
         lib.power_sweep_carry_train.argtypes = ([ptr] * 12 + [i32] * 5
                                                 + [f32] * 3 + [i32, ptr])
@@ -67,6 +69,29 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 # ------------------------------------------------------------------ serving
+
+class ServePlan(NamedTuple):
+    """How the serving kernel runs at one K: ``path`` "registers" (each
+    thread keeps ``V`` float4s of a token's rows in registers) or
+    "kblocked" (two passes over the row, ``V`` = 0), with ``threads`` a
+    CTA."""
+    path: str
+    V: int
+    threads: int
+
+
+def serve_launch_plan(K: int) -> ServePlan:
+    """The serving kernel's path and shape at ``K`` topics: the register
+    path up to ``SERVE_REGISTER_MAX_K`` (the K = 2000 cell), the K-blocked
+    path with 256 threads past it (the K = 10,000 cell).  Every K >= 1 has
+    a plan."""
+    K = int(K)
+    if K < 1:
+        raise ValueError(f"K={K}: the serving kernel needs K >= 1")
+    if K > SERVE_REGISTER_MAX_K:
+        return ServePlan("kblocked", 0, 256)
+    return ServePlan("registers", 1 if K <= 1024 else 2, 256)
+
 
 def power_sweep_carry_plain(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
                             phi_rows, *, alpha: float, beta: float,
@@ -111,9 +136,9 @@ def power_sweep_carry(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
 
     ``mu_t`` is updated IN PLACE.  Returns (mu_t, theta_delta [D, K],
     rdoc [D]).  A CPU tensor runs the plain version; a CUDA tensor launches
-    the kernel (K <= ``SERVE_MAX_K``), counted in
-    ``power_sweep_carry.launches``.  The kernel sums in a fixed order, so a
-    launch repeats bit for bit.
+    the kernel on ``serve_launch_plan(K)`` (any K >= 1), counted in
+    ``power_sweep_carry.launches``.  The kernel sums in a fixed order on
+    either path, so a launch repeats bit for bit.
     """
     if mu_t.device.type == "cpu":
         return power_sweep_carry_plain(
@@ -132,20 +157,21 @@ def power_sweep_carry(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
                         "theta": (theta, torch.float32, (D, K)),
                         "phi_tot": (phi_tot, torch.float32, (K,)),
                         "phi_rows": (phi_rows, torch.float32, (n_rows, K))})
-    if not 1 <= K <= SERVE_MAX_K:
-        raise ValueError(f"K={K}: the serving kernel takes 1 <= K <= "
-                         f"{SERVE_MAX_K}")
+    plan = serve_launch_plan(K)
     dev = mu_t.device
     theta_delta = torch.empty_like(theta)
     rdoc = torch.empty((D,), dtype=torch.float32, device=dev)
+    part = (torch.empty((4 * D, K), dtype=torch.float32, device=dev)
+            if plan.path == "kblocked" else None)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.power_sweep_carry_serve(
             p_tok.data_ptr(), doc_ids.data_ptr(), counts_t.data_ptr(),
             mu_t.data_ptr(), theta.data_ptr(), phi_tot.data_ptr(),
             phi_rows.data_ptr(), theta_delta.data_ptr(), rdoc.data_ptr(),
-            T, D, K, n_rows, int(n_guard), float(alpha), float(beta),
-            float(wbeta), torch.cuda.current_stream(dev).cuda_stream)
+            None if part is None else part.data_ptr(), T, D, K, n_rows,
+            int(n_guard), float(alpha), float(beta), float(wbeta), plan.V,
+            plan.threads, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "power_sweep_carry kernel launch")
     power_sweep_carry.launches += 1
     return mu_t, theta_delta, rdoc

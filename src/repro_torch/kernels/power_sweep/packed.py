@@ -9,9 +9,12 @@ around it on the packed path (``core/pobp.py``: the [T, Pk] gathers of
 port's function takes the token stream, the carried messages, theta and
 the packed phi, and returns the updated messages with theta's delta and
 the packed delta/residual buffers: the kernel gathers by index and stores
-back by index, so no [T, Pk] gather or [T, K] fold-back exists outside it,
-and the TPU tile padding (a guard row in phi_pack, lanes to 128) is not
-needed.
+back by index, so no [T, K] fold-back exists outside it, and the TPU tile
+padding (a guard row in phi_pack, lanes to 128) is not needed.  It visits
+the tokens in a sweep order (`sweep_order`, once per mini-batch on the
+training path: ``TokenLayout.sweep_order``) in which each power row's
+counted tokens are contiguous, so the packed sums are segmented sums in a
+fixed order, with no atomics.
 
 On a CUDA tensor it launches the hand-written kernel
 (``csrc/power_sweep_tokens.cu``) and raises if the kernel cannot build or
@@ -24,9 +27,12 @@ import ctypes
 
 import torch
 
+from repro_torch.core.types import sweep_order
 from repro_torch.kernels import build, check_args
 
 _SOURCE = "power_sweep_tokens"
+_MAX_FOLD_WARPS = 4
+_smem_optin: dict[int, int] = {}   # device index -> shared memory a block may have
 
 
 def _lib() -> ctypes.CDLL:
@@ -34,11 +40,38 @@ def _lib() -> ctypes.CDLL:
     fn = lib.power_sweep_tokens
     if fn.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr] * 11 + [i32] * 4 + [f32] * 3 + [ptr]
+        fn.argtypes = [ptr] * 13 + [i32] * 5 + [f32] * 3 + [i32, ptr]
         fn.restype = ctypes.c_int
         lib.power_sweep_tokens_error_string.argtypes = [ctypes.c_int]
         lib.power_sweep_tokens_error_string.restype = ctypes.c_char_p
+        lib.power_sweep_tokens_smem_optin.argtypes = [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.power_sweep_tokens_smem_optin.restype = ctypes.c_int
+        lib.power_sweep_tokens_scratch_words.argtypes = [i32, i32]
+        lib.power_sweep_tokens_scratch_words.restype = ctypes.c_longlong
     return lib
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err:
+        msg = lib.power_sweep_tokens_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def _fold_warps(lib: ctypes.CDLL, device: torch.device, K: int) -> int:
+    """Warps of the theta_delta fold at K topics: each keeps a [K] row in
+    shared memory, up to 4 within what a block may opt in to."""
+    optin = _smem_optin.get(device.index)
+    if optin is None:
+        got = ctypes.c_int(0)
+        _raise_on(lib, lib.power_sweep_tokens_smem_optin(ctypes.byref(got)),
+                  f"reading the shared memory of {device}")
+        optin = _smem_optin[device.index] = got.value
+    warps = min(_MAX_FOLD_WARPS, optin // (4 * max(K, 1)))
+    if warps < 1:
+        raise ValueError(f"K={K}: the packed sweep's fold takes K <= "
+                         f"{optin // 4} on {device} (its shared memory)")
+    return warps
 
 
 def gather_selection(doc_ids, mu_t, theta, phi_tot, sel_k, p_safe):
@@ -116,25 +149,31 @@ def power_sweep_tokens_plain(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
 
 def power_sweep_tokens(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
                        phi_pack, sel_k, *, alpha: float, beta: float,
-                       wbeta: float, onehot: bool = False):
+                       wbeta: float, onehot: bool = False, order=None):
     """One packed selective sweep over the token-major messages.
 
     p_tok [T] int32: each token's row of the packed buffers, P (the guard
-    id) for a token of a word that is not a power word; doc_ids [T] int32;
+    id) for a token of a word that is not a power word; doc_ids [T] int32,
+    non-decreasing (tokens doc-contiguous);
     counts_t [T, 1]; mu_t [T, K], updated IN PLACE at the power tokens'
     selected topics only; theta [D, K], read only (every token sees it as
     it was: the sweep is Jacobi); phi_tot [K]; phi_pack [P, Pk] the packed
     effective phi (no guard row); sel_k [P, Pk] int32 each power word's
     topics, distinct within a row.  ``onehot`` picks the plain version's
     packed accumulation (the reference's ``onehot_crossover``); the kernel
-    ignores it, as the TPU kernel does.
+    ignores it, as the TPU kernel does.  ``order`` [T] int32 is the
+    kernel's sweep order (`sweep_order` of the tokens' words or rows, made
+    once per mini-batch): a permutation of the tokens in which each power
+    row's counted tokens are contiguous.  It is built from ``p_tok`` when
+    not given; the plain version does not need it.
 
     Returns (mu_t, theta_delta [D, K], d_pack [P, Pk], r_pack [P, Pk]); the
     caller forms theta + theta_delta.  A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel, counted in
-    ``power_sweep_tokens.launches``.  The kernel sums theta_delta, d_pack
-    and r_pack with atomics, so their order varies from run to run.
-    doc_ids and sel_k must be in range: the kernel reads them unchecked.
+    version; a CUDA tensor launches the kernel (two device kernels), counted
+    once in ``power_sweep_tokens.launches``.  The kernel sums in a fixed
+    order, so all four outputs repeat bit for bit from launch to launch.
+    doc_ids, sel_k and order must be in range: the kernel reads them
+    unchecked.
     """
     if mu_t.device.type == "cpu":
         return power_sweep_tokens_plain(
@@ -146,7 +185,11 @@ def power_sweep_tokens(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     T, K = mu_t.shape
     D = theta.shape[0]
     P, Pk = sel_k.shape
+    if order is None:
+        power = (p_tok >= 0) & (p_tok < P)
+        order = sweep_order(torch.where(power, p_tok, P), counts_t)
     check_args("mu_t", {"p_tok": (p_tok, torch.int32, (T,)),
+                        "order": (order, torch.int32, (T,)),
                         "doc_ids": (doc_ids, torch.int32, (T,)),
                         "counts_t": (counts_t, torch.float32, (T, 1)),
                         "mu_t": (mu_t, torch.float32, (T, K)),
@@ -157,22 +200,22 @@ def power_sweep_tokens(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     if Pk > K:
         raise ValueError(f"Pk={Pk} power topics exceed K={K}")
     dev = mu_t.device
-    theta_delta = torch.zeros_like(theta)
-    d_pack = torch.zeros((P, Pk), dtype=torch.float32, device=dev)
-    r_pack = torch.zeros_like(d_pack)
+    theta_delta = torch.empty_like(theta)
+    packs = torch.zeros((2, P, Pk), dtype=torch.float32, device=dev)
+    d_pack, r_pack = packs[0], packs[1]
     lib = _lib()
+    scratch = torch.empty(lib.power_sweep_tokens_scratch_words(T, Pk),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        warps = _fold_warps(lib, dev, K)
         err = lib.power_sweep_tokens(
-            p_tok.data_ptr(), doc_ids.data_ptr(), counts_t.data_ptr(),
-            mu_t.data_ptr(), theta.data_ptr(), phi_tot.data_ptr(),
-            phi_pack.data_ptr(), sel_k.data_ptr(), theta_delta.data_ptr(),
-            d_pack.data_ptr(), r_pack.data_ptr(), T, K, P, Pk, float(alpha),
-            float(beta), float(wbeta),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        msg = lib.power_sweep_tokens_error_string(err).decode()
-        raise RuntimeError(f"power_sweep_tokens kernel launch failed: CUDA "
-                           f"error {err} ({msg})")
+            order.data_ptr(), p_tok.data_ptr(), doc_ids.data_ptr(),
+            counts_t.data_ptr(), mu_t.data_ptr(), theta.data_ptr(),
+            phi_tot.data_ptr(), phi_pack.data_ptr(), sel_k.data_ptr(),
+            scratch.data_ptr(), theta_delta.data_ptr(), d_pack.data_ptr(),
+            r_pack.data_ptr(), T, D, K, P, Pk, float(alpha), float(beta),
+            float(wbeta), warps, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "power_sweep_tokens kernel launch")
     power_sweep_tokens.launches += 1
     return mu_t, theta_delta, d_pack, r_pack
 

@@ -65,8 +65,29 @@ def _sweep_args(seed, *, D, L, K, W, device):
     (5, 4, 100, 40),          # as many
     (5, 5, 2000, 300),        # one more
     (4, 200, 100, 500),       # long documents
-    (4, 16, 8192, 100)])      # K at the serving limit
+    (4, 16, 2048, 100),       # K at the register path's limit
+    (4, 16, 2049, 100),       # one past it: the K-blocked path
+    (4, 16, 8192, 100),
+    (4, 16, 8193, 100),
+    (4, 16, 10000, 100),      # the reference's second paper-scale K
+    (3, 8, 20001, 30)])       # odd K far past the register path
 def test_kernel_matches_plain_version_on_card(card, D, L, K, W):
+    _check_serving_on_card(D, L, K, W)
+
+
+@pytest.mark.parametrize("D,L,K,W", [
+    (5, 1, 1, 20), (5, 3, 37, 40), (3, 7, 100, 50), (16, 64, 2000, 3000),
+    (4, 16, 2048, 100)])
+def test_kblocked_serving_path_matches_plain_version_on_card(
+        card, monkeypatch, D, L, K, W):
+    """The K-blocked serving path forced where the register path would
+    run (the scalar path at K = 1 and 37, the 16-byte path elsewhere)."""
+    monkeypatch.setattr(ops, "serve_launch_plan",
+                        lambda K: ops.ServePlan("kblocked", 0, 256))
+    _check_serving_on_card(D, L, K, W)
+
+
+def _check_serving_on_card(D, L, K, W):
     kw = dict(alpha=ALPHA, beta=0.0, wbeta=1.0, n_guard=W)
     args = _sweep_args(D + K + L, D=D, L=L, K=K, W=W, device="cuda")
     mu0 = args[3].clone()
@@ -95,16 +116,13 @@ def test_kernel_matches_plain_version_on_card(card, D, L, K, W):
 
 
 def test_kernel_limits_on_card(card):
-    """Each mode at its stated largest K runs and agrees with its plain
-    version; one past it raises ValueError before any launch."""
-    W = 20
-    args = _sweep_args(1, D=2, L=4, K=ops.SERVE_MAX_K + 1, W=W,
-                       device="cuda")
-    before = ops.power_sweep_carry.launches
-    with pytest.raises(ValueError, match="serving kernel takes"):
-        ops.power_sweep_carry(*args, alpha=ALPHA, beta=0.0, wbeta=1.0,
-                              n_guard=W)
-    assert ops.power_sweep_carry.launches == before
+    """Serving has no K limit: one past the register path serves through
+    the K-blocked path and agrees with its plain version.  Training at its
+    stated largest K runs and agrees; one past it raises ValueError before
+    any launch."""
+    K = ops.SERVE_REGISTER_MAX_K + 1
+    assert ops.serve_launch_plan(K).path == "kblocked"
+    _check_serving_on_card(2, 4, K, 20)
     for Pk in (1, 3):
         K = ops.power_sweep_carry_train_max_k(Pk)
         args = [x.to("cuda") for x in _train_args(K, D=2, L=4, K=K, P=3,
@@ -292,17 +310,24 @@ def test_scatter_add_rows_kernel_matches_plain_version_on_card(card, W, K,
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-def _packed_args(seed, *, D, L, K, P, Pk, guard):
+def _packed_args(seed, *, D, L, K, P, Pk, guard, long_row=False):
     """Packed-sweep inputs: tokens on power rows [0, P) or (a ``guard``
     share, and the whole document 0) the guard id P, a ragged last
     document, Pk distinct topics per power row, phi_pack above each
-    token's own count."""
+    token's own count.  With ``long_row`` every document's second half is
+    padding on row 0 (count 0) and a third of the counted tokens is on
+    row 0 too: one run of counted tokens spanning many chunks of 32, and
+    count-0 power tokens that the sweep updates but that add nothing."""
     rng = np.random.default_rng(seed)
     T = D * L
     p_tok = rng.integers(0, P, T).astype(np.int32)
     doc_ids = np.repeat(np.arange(D), L).astype(np.int32)
-    p_tok[(rng.random(T) < guard) | (doc_ids == 0)] = P
     counts = rng.integers(1, 4, (T, 1)).astype(np.float32)
+    if long_row:
+        pad = np.tile(np.arange(L), D) >= L // 2
+        p_tok[(rng.random(T) < 0.3) | pad] = 0
+        counts[pad] = 0.0
+    p_tok[(rng.random(T) < guard) | (doc_ids == 0)] = P
     counts[(doc_ids == D - 1) & (np.tile(np.arange(L), D) >= L // 2)] = 0.0
     mu = rng.random((T, K)).astype(np.float32) + 0.01
     mu /= mu.sum(1, keepdims=True)
@@ -315,14 +340,19 @@ def _packed_args(seed, *, D, L, K, P, Pk, guard):
             (p_tok, doc_ids, counts, mu, theta, phi_tot, phi_pack, sel_k)]
 
 
-@pytest.mark.parametrize("D,L,K,P,Pk,guard", [
-    (6, 8, 20, 9, 5, 0.3), (4, 12, 100, 7, 100, 0.3),      # Pk = K
-    (3, 16, 64, 5, 37, 1.0),                              # all guard
-    (64, 128, 2000, 1400, 50, 0.3)])
+@pytest.mark.parametrize("D,L,K,P,Pk,guard,long_row", [
+    (6, 8, 20, 9, 5, 0.3, False), (4, 12, 100, 7, 100, 0.3, False),  # Pk = K
+    (3, 16, 64, 5, 37, 1.0, False),                       # all guard
+    (64, 128, 2000, 1400, 50, 0.3, False),
+    (8, 16, 40, 6, 1, 0.3, False),                        # Pk = 1
+    (16, 24, 100, 30, 37, 0.3, True),                     # Pk = 37, long row
+    (128, 128, 2000, 1400, 50, 0.3, True),                # slice's Pk, long row
+    (48, 32, 300, 20, 300, 0.2, True)])                   # Pk = K > 128
 def test_power_sweep_tokens_kernel_matches_plain_version_on_card(
-        card, D, L, K, P, Pk, guard):
+        card, D, L, K, P, Pk, guard, long_row):
     args = [x.to("cuda") for x in _packed_args(D + K + Pk, D=D, L=L, K=K, P=P,
-                                               Pk=Pk, guard=guard)]
+                                               Pk=Pk, guard=guard,
+                                               long_row=long_row)]
     kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3)
     mu0 = args[3].clone()
     theta0 = args[4].clone()
@@ -350,15 +380,24 @@ def test_power_sweep_tokens_kernel_matches_plain_version_on_card(
     if guard == 1.0:
         assert torch.equal(got[0], mu0) and not got[1].any()
         assert not got[2].any() and not got[3].any()
+    # no atomics: all four outputs repeat bit for bit from launch to launch
+    again = list(args)
+    again[3] = mu0.clone()
+    rerun = packed.power_sweep_tokens(*again, **kw)
+    for g, r in zip(got, rerun):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("W,K,P,Pk", [(50, 16, 8, 4), (40, 100, 12, 100),
-                                      (20000, 2000, 1400, 50)])
+                                      (20000, 2000, 1400, 50),
+                                      (30, 70, 11, 1), (500, 300, 97, 37)])
 def test_pack_rows_kernel_matches_plain_version_on_card(card, W, K, P, Pk):
     mat, sel_w, sel_k, _ = [x.to("cuda") for x in
                             _pack_args(W + K, W=W, K=K, P=P, Pk=Pk)]
     if P > 4:
         sel_k[3, 0] = K                     # a column outside mat packs to 0
+        sel_k[2, -1] = -1                   # so does one before column 0
+        sel_w[4] = W                        # and every pair of a row past W
     before = pack_ops.pack_rows.launches
     got = pack_ops.pack_rows(mat, sel_w, sel_k)
     assert pack_ops.pack_rows.launches == before + 1
@@ -366,7 +405,8 @@ def test_pack_rows_kernel_matches_plain_version_on_card(card, W, K, P, Pk):
     torch.cuda.synchronize()
     assert torch.equal(got, want)                          # exact
     if P > 4:
-        assert float(got[3, 0]) == 0.0
+        assert float(got[3, 0]) == 0.0 and float(got[2, -1]) == 0.0
+        assert not got[4].any()
 
 
 def test_packed_wrapper_checks_on_card(card):

@@ -244,6 +244,132 @@ def test_power_sweep_tokens_rejects_other_devices():
         pack_ops.pack_rows(t(mat).to("meta"), t(sel_w), t(sel_k))
 
 
+# --------------------------------------------------------------- the sweep order
+
+def _word_case(seed, *, word0_power):
+    """A CLI-like batch (padding slots on word 0 with count 0), its token
+    layout, and a power selection with or without word 0 in it."""
+    jb, tb, _ = _batch(seed, mean=20)
+    layout = tb.token_layout()
+    words = np.unique(np.asarray(jb.word_ids))
+    P = LDAConfig(vocab_size=W, num_topics=K).num_power_words
+    rng = np.random.default_rng(seed)
+    sel_w = rng.choice(words[words != 0], P, replace=False).astype(np.int32)
+    if word0_power:
+        sel_w[P // 2] = 0
+    p_tok = power.token_power_rows(layout.word_ids, t(sel_w), W)
+    return layout, sel_w, p_tok
+
+
+def _runs(order, p_tok, counts, P, chunk=32):
+    """The kernel's d/r partition in plain numpy: the runs of counted power
+    tokens along the order, each cut at the boundaries of the chunks of
+    ``chunk`` positions that the sweep warps take.  Returns [(row, [[token,
+    ...] per chunk the run covers])]: the kernel sums each part in token
+    order, then adds the parts in chunk order."""
+    order = np.asarray(order)
+    p = np.asarray(p_tok)[order]
+    c = np.asarray(counts).reshape(-1)[order]
+    key = np.where((p >= 0) & (p < P) & (c != 0), p, -1)
+    runs = []
+    for i in range(len(order)):
+        if key[i] < 0 or (i > 0 and key[i - 1] == key[i]):
+            continue
+        end = i
+        while end < len(order) and key[end] == key[i]:
+            end += 1
+        parts = [order[a:min(end, (a // chunk + 1) * chunk)].tolist()
+                 for a in [i] + list(range((i // chunk + 1) * chunk, end,
+                                           chunk))]
+        runs.append((int(key[i]), parts))
+    return runs
+
+
+@pytest.mark.parametrize("seed,word0_power", [(1, False), (2, True),
+                                              (3, True)])
+def test_sweep_order_matches_numpy_and_keeps_rows_contiguous(seed,
+                                                             word0_power):
+    """The layout's sweep order is numpy's stable argsort by (count == 0,
+    word); each power row's counted tokens form one run of it (word 0's
+    too, when it is a power word: its padding slots gather after every
+    counted token), and every counted power token lies in exactly one run
+    of the fold kernel's partition."""
+    layout, sel_w, p_tok = _word_case(seed, word0_power=word0_power)
+    words = layout.word_ids.numpy().astype(np.int64)
+    counts = layout.counts.numpy().reshape(-1)
+    order = layout.sweep_order
+    assert order.dtype == torch.int32 and layout.sweep_order is order
+    want = np.argsort(words + (counts == 0).astype(np.int64) * 2 ** 32,
+                      kind="stable")
+    np.testing.assert_array_equal(order.numpy(), want)
+    n_zero = int((counts == 0).sum())
+    assert n_zero > 0 and (counts[want[len(want) - n_zero:]] == 0).all()
+    P = len(sel_w)
+    runs = _runs(order, p_tok, layout.counts, P)
+    rows = [r for r, _ in runs]
+    assert len(rows) == len(set(rows))                 # one run a row
+    seen = np.concatenate([tk for _, parts in runs for tk in parts])
+    pt = p_tok.numpy()
+    counted = np.nonzero((pt < P) & (counts != 0))[0]
+    np.testing.assert_array_equal(np.sort(seen), counted)  # each once
+    np.testing.assert_array_equal(
+        np.bincount(pt[counted], minlength=P),
+        np.bincount(rows, weights=[sum(map(len, x)) for _, x in runs],
+                    minlength=P).astype(np.int64))
+    if word0_power:
+        row0 = int(np.nonzero(sel_w == 0)[0][0])
+        assert (pt[words == 0] == row0).all()
+        assert (row0 in rows) == bool(((words == 0) & (counts != 0)).any())
+
+
+@pytest.mark.parametrize("D_,L_,K_,P,Pk,guard,empty", [
+    (6, 8, 20, 9, 5, 0.3, None),
+    (4, 12, 100, 7, 37, 0.3, 1),
+    (3, 16, 30, 5, 30, 0.2, None),
+    (5, 8, 16, 4, 1, 0.3, 2),
+    (12, 40, 24, 3, 8, 0.1, None),            # runs spanning many chunks
+    (40, 20, 12, 2, 4, 0.0, 3)])             # runs of hundreds of tokens
+def test_kernel_fold_of_the_cd_stream_matches_reference_composition(
+        D_, L_, K_, P, Pk, guard, empty):
+    """The kernel's order of sums, in numpy: the [T, Pk] cd stream of the
+    plain sweep folded into theta_delta per document in token order, and
+    into d/r per run of the wrapper's default sweep order, agrees with the
+    reference's composition at rel 1e-5."""
+    case = _sweep_case(D_ * 100 + K_ + Pk + 1, D=D_, L=L_, K=K_, P=P, Pk=Pk,
+                       guard=guard, empty_doc=empty)
+    p_tok, doc_ids, counts, mu, theta, phi_tot, phi_pack, sel_k = case
+    want = _reference_composition(case, 0.3)
+    mu_t = t(mu)
+    packed.power_sweep_tokens_plain(
+        t(p_tok), t(doc_ids), t(counts), mu_t, t(theta), t(phi_tot),
+        t(phi_pack), t(sel_k), alpha=ALPHA, beta=BETA, wbeta=0.3)
+    power_tok = p_tok < P
+    rows = np.where(power_tok, p_tok, 0)
+    k_tok = sel_k[rows]
+    tok = np.arange(len(p_tok))[:, None]
+    cd = counts * (mu_t.numpy()[tok, k_tok] - mu[tok, k_tok])   # [T, Pk]
+    theta_delta = np.zeros_like(theta)
+    for tt in range(len(p_tok)):                 # token order, per document
+        if power_tok[tt] and counts[tt, 0] != 0:
+            theta_delta[doc_ids[tt], k_tok[tt]] += cd[tt]
+    keys = torch.where(t(p_tok) < P, t(p_tok), P)
+    order = packed.sweep_order(keys, t(counts))
+    d_pack = np.zeros((P, Pk), np.float32)
+    r_pack = np.zeros((P, Pk), np.float32)
+    for row, parts in _runs(order, p_tok, counts, P):
+        for part in parts:                       # chunk order
+            dp = np.zeros(Pk, np.float32)
+            rp = np.zeros(Pk, np.float32)
+            for tt in part:                      # token order in a chunk
+                dp += cd[tt]
+                rp += np.abs(cd[tt])
+            d_pack[row] += dp
+            r_pack[row] += rp
+    _close(theta + theta_delta, want[1], RTOL, ATOL, "theta")
+    _close(d_pack, want[2], RTOL, ATOL, "d_pack")
+    _close(r_pack, want[3], RTOL, ATOL, "r_pack")
+
+
 # --------------------------------------------------------------- the formulation
 
 def _cfgs(**kw):

@@ -574,3 +574,52 @@ def test_cli_runs_dense_sync_with_decay(capsys):
     out = capsys.readouterr().out
     assert "minibatch     2" in out and "[done] 2 minibatches" in out
     assert res["iters"] == [4, 4] or all(1 < i <= 4 for i in res["iters"])
+
+
+@pytest.mark.parametrize("sync", ["power", "dense"])
+def test_decay_is_billed_as_the_reference_bills_it(sync):
+    """With decay_kappa > 0 a single-shard step bills the Robbins-Monro
+    decay once per mini-batch (W * K * 4 bytes, phase ``decay``), as the
+    reference's ``Reducer.bill`` does: ``bytes_by_phase`` and
+    ``per_minibatch_bytes`` equal the reference's, the reference's draws
+    injected, over the CLI's stream."""
+    args, flags = _cli_args(decay="1,0.5", inner_iters=4)
+    jargs = jcli.default_args(**flags, shards=1)
+    cfg, buckets = cli._build_cfg(args)
+    jcfg = dataclasses.replace(jcli._build_cfg(jargs)[0],
+                               sweep_policy="dense_layout")
+    assert cfg.decay_kappa == jcfg.decay_kappa == 0.5
+    jstep, jmeter = jp.make_train_step(jcfg, 1, sync_mode=sync)
+    jstate = jp.init_train_state(jcfg, args.seed)
+    step, meter = pobp.make_train_step(cfg, sync_mode=sync, device="cpu")
+    state = pobp.init_train_state(cfg, args.seed, device="cpu")
+    key = jstate.rng
+    for mb, _ in cli.synthetic_stream(args, buckets)():
+        key, sub = jax.random.split(key)
+        Dm, Lm = mb.word_ids.shape
+        u0 = jax.random.uniform(sub, (Dm, max(cfg.init_pad_len, Lm), K),
+                                minval=0.01, maxval=1.0)
+        jstate, jdiag = jstep(jstate, jnp.asarray(mb.word_ids.numpy()),
+                              jnp.asarray(mb.counts.numpy()))
+        state, diag = step(state, mb.word_ids, mb.counts, u0=t(u0))
+        assert diag["iters"] == int(jdiag["iters"])
+    assert meter.bytes_by_phase == jmeter.bytes_by_phase == {"decay": W * K * 4}
+    for iters in (1, 4, 30):
+        assert meter.per_minibatch_bytes(iters) == \
+            jmeter.per_minibatch_bytes(iters) == W * K * 4
+    _close(state.phi_acc, jstate.phi_acc, 1e-4, 1e-4, "phi_acc")
+
+
+def test_cli_with_decay_prints_the_reference_comm_line(capsys):
+    """The two drivers, one shard, ``--decay 1,0.5``: the same ``[comm]``
+    line (the decay pass billed, nothing else crossing)."""
+    argv = ["--minibatches", "2", "--docs-per-batch", "16", "--vocab", "200",
+            "--topics", "8", "--decay", "1,0.5", "--inner-iters", "4"]
+    cli.main(argv + ["--device", "cpu"])
+    mine = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("[comm]")]
+    jcli.main(argv + ["--shards", "1"])
+    theirs = [ln for ln in capsys.readouterr().out.splitlines()
+              if ln.startswith("[comm]")]
+    assert mine == theirs == [
+        "[comm] per-minibatch bytes=6,400 (phases: {'decay': 6400})"]

@@ -70,6 +70,7 @@ def _port_serving(p_tok, doc_ids, counts, mu, theta, phi):
     (8, 12, 16, 150, None),      # the test_serve.py width
     (6, 10, 100, 40, 2),         # K not a multiple of 128, one doc frozen
     (5, 9, 130, 70, 0),          # K just past a lane tile, first doc frozen
+    (3, 4, 10000, 20, 1),        # K = 10,000: past the register path
 ])
 def test_serving_sweep_matches_reference_oracle(D, L, K, W, frozen_doc):
     case = _case(D * 1000 + K, D=D, L=L, K=K, W=W, frozen_doc=frozen_doc)
@@ -88,6 +89,24 @@ def test_serving_sweep_matches_reference_oracle(D, L, K, W, frozen_doc):
         assert not th_delta[frozen_doc].any()
     # padding tokens (c = 0) of an active doc move mu but add nothing
     assert (counts[~frozen, 0] == 0).any()
+
+
+@pytest.mark.parametrize("K,path", [
+    (1, "registers"), (37, "registers"), (2000, "registers"),
+    (2048, "registers"), (2049, "kblocked"), (4096, "kblocked"),
+    (8192, "kblocked"), (8193, "kblocked"), (10000, "kblocked"),
+    (50000, "kblocked")])
+def test_serve_launch_plan_covers_every_k(K, path):
+    """Every K has a serving path: the register path (its threads'
+    float4s cover K) up to the K = 2000 cell, the K-blocked two passes,
+    which take any K, past it; nothing raises."""
+    plan = ops.serve_launch_plan(K)
+    assert plan.path == path and plan.threads == 256
+    if path == "registers":
+        assert plan.V in (1, 2) and 4 * plan.V * plan.threads >= K
+        assert K <= ops.SERVE_REGISTER_MAX_K
+    else:
+        assert plan == ops.ServePlan("kblocked", 0, 256)
 
 
 def test_serving_sweep_updates_mu_in_place():
