@@ -17,7 +17,12 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      10,000, 20,001; timed at K = 10,000 at the slab's shapes); the
      packed sweep repeating bit for bit, and timed again with
      Zipf-like rows and one very long row; the phi pack timed in turns
-     with its library call, which it may not exceed;
+     with its library call, which it may not exceed; the row scatter
+     timed in turns with its library call, with the L2 flushed (where it
+     may not exceed it) and warm; the dense sweep on both of its paths
+     (registers to K = 2048, two passes past it: K = 100, 1999, 2000,
+     10,000), its register path timed in turns with its two-pass path at
+     the training slice's shapes, which it may not exceed;
   3. the serving slice at PUBMED width (W = 141,043, K = 2000): a random
      phi statistic made on the card from ``--seed``, saved as a JAX-format
      checkpoint, served by ``SlabEngine.from_checkpoint`` for
@@ -43,13 +48,14 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      in phi_acc and theta (relative L1 gap 1e-4); one step with the
      Robbins-Monro decay on at that shape, whose byte meter must bill the
      decay pass (W * K * 4 bytes); then held-out perplexity after the last
-     step, and one more step under ``torch.profiler``;
+     step, and one more step under ``torch.profiler`` (with the device
+     time a launch of the dense sweep, the carry sweep and the scatter);
   7. the packed sweep policy on the same batches and settings: the same
      steps with ``sweep_policy="packed"`` (the phi pack and packed-sweep
      kernels launch once per selective iteration, the carry sweep never),
      the same mass and finiteness checks, one profiled step (with the
-     device time a launch of the pack and of the packed sweep's two
-     kernels); then one
+     device time a launch of the dense sweep, the pack, the packed
+     sweep's two kernels and the scatter); then one
      mini-batch from one injected init through both policies with
      tolerance 0 and 8 iterations, at a reduced shape (phi_acc and theta
      must agree to a relative L1 gap of 1e-4) and at the full width (the
@@ -96,14 +102,15 @@ def time_ms(fn, make_args, reps: int = 20) -> float:
     return time_turns({"fn": (fn, make_args)}, reps)["fn"]
 
 
-def time_turns(fns: dict, reps: int = 20) -> dict:
+def time_turns(fns: dict, reps: int = 20, warm=None) -> dict:
     """Median device time of each ``fn(*make_args())`` of ``fns`` (name ->
     (fn, make_args)) over ``reps`` rounds, the entries timed in turn within
     each round: CUDA events around each call, the L2 flushed before each
-    (arguments are made outside the timed region).  The card sleeps
-    ~0.5 ms before the start event, so the host has queued the call by the
-    time the card reaches it: the time is the card's, not the host's
-    enqueue."""
+    (arguments are made outside the timed region) and, with ``warm``,
+    ``warm()`` run after the flush and outside the timed region, as the
+    main path runs the work before.  The card sleeps ~0.5 ms before the
+    start event, so the host has queued the call by the time the card
+    reaches it: the time is the card's, not the host's enqueue."""
     import torch
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -114,6 +121,8 @@ def time_turns(fns: dict, reps: int = 20) -> dict:
         for name, (fn, make_args) in fns.items():
             args = make_args()
             flush.zero_()
+            if warm is not None:
+                warm()
             torch.cuda._sleep(1_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -267,9 +276,11 @@ def doc_tokens(gen, *, D, L, ragged):
     return doc_ids, c.reshape(-1, 1).contiguous()
 
 
-def bp_inputs(gen, *, D, L, K, W, ragged):
+def bp_inputs(gen, *, D, L, K, W, ragged, junk_pad_mu=False):
     """Inputs of one dense (t=1) sweep: random messages, theta = sum c*mu,
-    phi a random statistic plus this batch's c*mu."""
+    phi a random statistic plus this batch's c*mu; with ``junk_pad_mu`` the
+    count-0 slots' mu is not a distribution (finite, some of it negative),
+    which the sweep must ignore."""
     import torch
 
     dev = "cuda"
@@ -279,6 +290,10 @@ def bp_inputs(gen, *, D, L, K, W, ragged):
                              dtype=torch.int32)
     mu = torch.rand((T, K), generator=gen, device=dev) + 0.01
     mu /= mu.sum(1, keepdim=True)
+    if junk_pad_mu:
+        pad = counts[:, 0] == 0
+        mu[pad] = torch.rand((int(pad.sum()), K), generator=gen,
+                             device=dev) * 7 - 2
     theta = torch.zeros((D, K), device=dev).index_add_(0, doc_ids.long(),
                                                        counts * mu)
     phi = torch.rand((W, K), generator=gen, device=dev).index_add_(
@@ -286,36 +301,79 @@ def bp_inputs(gen, *, D, L, K, W, ragged):
     return [word_ids, doc_ids, counts, mu, theta, phi, phi.sum(0)]
 
 
-def check_bp_update(ops, gen, *, D, L, K, W, ragged, timed):
+def bp_bound_ms(x):
+    """Least time for one dense sweep on these inputs, and what bounds it:
+    mu read at the counted tokens (a count-0 token's update does not
+    depend on it), mu' and r written, each distinct phi and theta row read,
+    phi_tot and the per-token ids and counts; ~12 f32 operations per
+    element."""
     import torch
 
-    x = bp_inputs(gen, D=D, L=L, K=K, W=W, ragged=ragged)
+    word_ids, doc_ids, counts, mu = x[:4]
+    T, K = mu.shape
+    n_counted = int((counts != 0).sum())
+    n_rows = (int(torch.unique(word_ids).numel())
+              + int(torch.unique(doc_ids).numel()))
+    return bound_ms(4 * ((n_counted + 2 * T) * K + (n_rows + 1) * K + 3 * T),
+                    12 * T * K)
+
+
+def check_bp_update(ops, gen, *, D, L, K, W, ragged, timed, twopass=False,
+                    junk_pad_mu=False):
+    """The dense sweep against its plain version on the path
+    ``bp_launch_plan(K)`` picks, or with ``twopass`` on the two-pass path:
+    max |dmu'| <= 1e-5, relative r <= 1e-4; a second launch repeats mu' and
+    r bit for bit.  Timed (K <= 2048), the register path and the two-pass
+    path in turns, 15 each: the register path's median may not exceed the
+    two-pass path's."""
+    from unittest import mock
+
+    import torch
+
+    x = bp_inputs(gen, D=D, L=L, K=K, W=W, ragged=ragged,
+                  junk_pad_mu=junk_pad_mu)
     kw = dict(alpha=0.1, beta=0.01, wbeta=W * 0.01)
-    got = ops.bp_update(*x, **kw)
+
+    def run_twopass(*a):
+        with mock.patch.object(ops, "bp_launch_plan",
+                               lambda K: ops.BpPlan("twopass", 256)):
+            return ops.bp_update(*a, **kw)
+
+    run = run_twopass if twopass else (lambda *a: ops.bp_update(*a, **kw))
+    path = "twopass" if twopass else ops.bp_launch_plan(K).path
+    got = run(*x)
+    again = run(*x)
     want = ops.bp_update_plain(*x, **kw)
     torch.cuda.synchronize()
     err_mu = float((got[0] - want[0]).abs().max())
     rel_r = rel_err(got[1], want[1])
-    print(f"[kernel] bp_update T={D * L} D={D} K={K} W={W}: max|dmu'|="
-          f"{err_mu:.3e} (tol 1e-5)  rel r={rel_r:.3e} (tol 1e-4)")
-    if not (err_mu <= 1e-5 and rel_r <= 1e-4):
-        fail(f"bp_update disagrees with its plain version at D={D} L={L} "
-             f"K={K}")
+    same = all(bool(torch.equal(g, a)) for g, a in zip(got, again))
+    print(f"[kernel] bp_update T={D * L} D={D} K={K} W={W} path={path}: "
+          f"max|dmu'|={err_mu:.3e} (tol 1e-5)  rel r={rel_r:.3e} (tol 1e-4)"
+          f"  relaunch bit for bit: {same}")
+    if not (err_mu <= 1e-5 and rel_r <= 1e-4 and same):
+        fail(f"bp_update disagrees with its plain version or itself at D={D} "
+             f"L={L} K={K} on the {path} path")
     if not timed:
         return None
-    ms = time_ms(lambda *a: ops.bp_update(*a, **kw), lambda: x)
+    del got, again, want
+    med = time_turns({"registers": (run, lambda: x),
+                      "twopass": (run_twopass, lambda: x)}, 15)
+    ms, twopass_ms = med["registers"], med["twopass"]
     plain_ms = time_ms(lambda *a: ops.bp_update_plain(*a, **kw), lambda: x)
-    T = D * L
-    n_words = int(torch.unique(x[0]).numel())
-    n_docs = int(torch.unique(x[1]).numel())
-    bound, bound_by = bound_ms(4 * (3 * T * K + (n_words + n_docs + 1) * K
-                                    + 3 * T), 12 * T * K)
-    print(f"[kernel] bp_update: {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-          f"{bound * 1e3:.2f} us ({bound_by})  library: none (no single "
-          f"PyTorch call computes this sweep)")
+    bound, bound_by = bp_bound_ms(x)
+    print(f"[kernel] bp_update: register path {ms:.4f} ms, two-pass path "
+          f"{twopass_ms:.4f} ms (medians of 15 in turns; gate: registers <= "
+          f"two-pass)  plain {plain_ms:.4f} ms  bound {bound * 1e3:.2f} us "
+          f"({bound_by}): {bound / ms:.1%} of it reached  library: none (no "
+          f"single PyTorch call computes this sweep)")
+    if not ms <= twopass_ms:
+        fail(f"bp_update's register path ({ms:.4f} ms) is slower than its "
+             f"two-pass path ({twopass_ms:.4f} ms)")
     return kernel_record("bp_update", "src/repro_torch/csrc/bp_update.cu",
                          "src/repro/kernels/bp_update/kernel.py:56", err_mu,
-                         ms, plain_ms, bound, bound_by)
+                         ms, plain_ms, bound, bound_by, path=path,
+                         ms_twopass=twopass_ms)
 
 
 def carry_train_inputs(gen, *, D, L, K, W, P, Pk, ragged, guard_share,
@@ -422,8 +480,13 @@ def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
 
 
 def check_scatter(ops, gen, *, W, K, P, Pk, dup_zero_rows, timed):
-    """The row scatter at distinct rows and topics (as top-k selects them);
-    ``dup_zero_rows`` trailing slots repeat one row with zero values."""
+    """The row scatter at distinct rows and topics (as top-k selects them),
+    exactly; ``dup_zero_rows`` trailing slots repeat one row with zero
+    values.  Timed, the kernel and its library call in turns, 15 each,
+    with the L2 flushed and warm (flushed, then ``pack_rows`` of the same
+    selection outside the timed region, as the iteration's pack or sweep
+    reads the same sectors on the main path): the kernel's flushed median
+    may not exceed the library's."""
     import torch
 
     dev = "cuda"
@@ -440,8 +503,8 @@ def check_scatter(ops, gen, *, W, K, P, Pk, dup_zero_rows, timed):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     print(f"[kernel] scatter_add_rows W={W} K={K} P={P} Pk={Pk}: "
-          f"max|dmat|={err:.3e} (tol 1e-5)")
-    if not err <= 1e-5:
+          f"max|dmat|={err:.3e} (exact)")
+    if not err == 0.0:
         fail(f"scatter_add_rows disagrees with its plain version at W={W} "
              f"K={K} P={P}")
     if not timed:
@@ -450,18 +513,33 @@ def check_scatter(ops, gen, *, W, K, P, Pk, dup_zero_rows, timed):
     args = lambda: (mat, sel_w, sel_k, vals)          # noqa: E731
     rows = sel_w.long()[:, None].expand(-1, Pk)
     cols = sel_k.long()
-    ms = time_ms(ops.scatter_add_rows, args)
+    fns = {"kernel": (ops.scatter_add_rows, args),
+           "library": (lambda m, w, k, v: m.index_put_((rows, cols), v,
+                                                       accumulate=True),
+                       args)}
+    flushed = time_turns(fns, 15)
+    warm = time_turns(fns, 15, warm=lambda: ops.pack_rows(mat, sel_w, sel_k))
+    ms, library_ms = flushed["kernel"], flushed["library"]
     plain_ms = time_ms(ops.scatter_add_rows_plain, args)
-    library_ms = time_ms(lambda m, w, k, v: m.index_put_((rows, cols), v,
-                                                         accumulate=True),
-                         args)
     bound, bound_by = bound_ms(4 * (P + 4 * P * Pk), P * Pk)
-    print(f"[kernel] scatter_add_rows: {ms:.4f} ms  plain {plain_ms:.4f} ms"
-          f"  bound {bound * 1e3:.2f} us ({bound_by})  library "
-          f"(index_put_, accumulate) {library_ms:.4f} ms")
+    # not a bound: the distinct 32-byte sectors the pairs touch, each read
+    # and written back
+    sectors = int(torch.unique((rows * K + cols) // 8).numel())
+    print(f"[kernel] scatter_add_rows: {ms:.4f} ms flushed, "
+          f"{warm['kernel']:.4f} ms warm  plain {plain_ms:.4f} ms  bound "
+          f"{bound * 1e3:.2f} us ({bound_by})  library (index_put_, "
+          f"accumulate) {library_ms:.4f} ms flushed, {warm['library']:.4f} ms"
+          f" warm (medians of 15 in turns; gate: kernel <= library, flushed)"
+          f"  {sectors} sectors ({sectors / P:.1f} a row): "
+          f"{sectors / ms / 1e6:.2f} G sectors/s flushed")
+    if not ms <= library_ms:
+        fail(f"scatter_add_rows ({ms:.4f} ms) is slower than its library "
+             f"call ({library_ms:.4f} ms)")
     return kernel_record("scatter_add_rows", "src/repro_torch/csrc/power_pack.cu",
                          "src/repro/kernels/power_pack/kernel.py:75", err, ms,
-                         plain_ms, bound, bound_by, library_ms)
+                         plain_ms, bound, bound_by, library_ms,
+                         ms_warm=warm["kernel"],
+                         library_ms_warm=warm["library"])
 
 
 def packed_inputs(gen, *, D, L, K, P, Pk, guard_share, empty_doc,
@@ -1032,9 +1110,10 @@ def profile_run(fn, label: str, card: str, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the card's busy
     share of the wall time (the summed time of the events that ran on the
     card: kernels, copies, fills), the top of those by device time, the
-    device time and launches of each kernel whose name holds a string of
-    ``watch``, and the top host operations by their own CPU time.  Returns
-    what ``fn`` returned."""
+    device time and launches of the kernels whose names hold each string
+    of ``watch``, and the top host operations by their own CPU time.
+    Returns what ``fn`` returned and the device ms a launch of each string
+    of ``watch`` that matched a kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1058,7 +1137,7 @@ def profile_run(fn, label: str, card: str, watch=()):
     if not sum(dev_us.values()):
         print("[profile] device time: not measured (the profiler saw no "
               "device activity)")
-        return out
+        return out, {}
     busy = sum(dev_us.values()) / 1e6
     print(f"[profile] {label} in {wall * 1e3:.3f} ms wall: "
           f"device busy {busy * 1e3:.3f} ms ({busy / wall:.1%}), idle "
@@ -1066,15 +1145,18 @@ def profile_run(fn, label: str, card: str, watch=()):
     for name, t in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile]   {t / 1e3:9.3f} ms  {t / 1e6 / busy:6.1%}  "
               f"{name[:90]}")
+    watched = {}
     for want in watch:
-        for name, t in dev_us.items():
-            if want in name:
-                print(f"[profile] kernel {want}: {t / 1e3:.3f} ms over "
-                      f"{dev_n[name]} launches = {t / 1e3 / dev_n[name]:.4f} "
-                      f"ms a launch  [{card}]")
+        hits = [name for name in dev_us if want in name]
+        if hits:
+            t = sum(dev_us[name] for name in hits) / 1e3
+            n = sum(dev_n[name] for name in hits)
+            watched[want] = t / n
+            print(f"[profile] kernel {want}: {t:.3f} ms over {n} launches = "
+                  f"{t / n:.4f} ms a launch  [{card}]")
     for name, t in sorted(host_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile] host {t / 1e3:9.3f} ms  {name[:80]}")
-    return out
+    return out, watched
 
 
 def main(argv=None) -> None:
@@ -1115,6 +1197,12 @@ def main(argv=None) -> None:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    # the dense sweep's register path is sized to run without spills
+    spills = [line for line in libs["bp_update"].with_suffix(".log")
+              .read_text().splitlines()
+              if "spill" in line and " 0 bytes spill stores" not in line]
+    if spills:
+        fail(f"bp_update spills registers: {spills}")
 
     # ---- 2. each kernel against its plain version
     t0 = time.time()
@@ -1154,8 +1242,18 @@ def main(argv=None) -> None:
         "pack_rows": check_pack_rows(pack_ops, gen, W=141043, K=2000,
                                      P=14104, Pk=50, outside=False,
                                      timed=True)}
-    check_bp_update(bp_ops, gen, D=3, L=7, K=100, W=50, ragged=True,
+    # the dense sweep on both paths: the two-pass path at K = 2000 and past
+    # the register path (K = 10,000); K = 100 and an odd K = 1999 (scalar
+    # loads) on each path, with count-0 slots whose mu is not a
+    # distribution
+    check_bp_update(bp_ops, gen, D=64, L=64, K=2000, W=20000, ragged=True,
+                    timed=False, twopass=True)
+    check_bp_update(bp_ops, gen, D=16, L=64, K=10000, W=2000, ragged=True,
                     timed=False)
+    for K in (100, 1999):
+        for twopass in (False, True):
+            check_bp_update(bp_ops, gen, D=3, L=7, K=K, W=50, ragged=True,
+                            timed=False, twopass=twopass, junk_pad_mu=True)
     # the training sweep at Pk of 2, 5 and K, an empty document, an
     # all-guard batch (at Pk = 1 the renormalization leaves mu as it was:
     # every sum is exactly 0 and both sides return rounding noise, so the
@@ -1299,10 +1397,21 @@ def main(argv=None) -> None:
                        args.seed + 1), device="cuda")
     print(f"[train] held-out perplexity after step {state.m}: {ppl:.3f} "
           f"({test.num_docs} documents, fold-in through the serving kernel)")
-    diag = profile_run(
+    (_, diag), carry_watch = profile_run(
         lambda: step(state, batches[0].word_ids, batches[0].counts),
-        "one training step (batch 1 again)", card)[1]
+        "one training step (batch 1 again)", card,
+        watch=("bp_update", "carry_train_kernel", "scatter_add_rows_kernel"))
     print(f"[profile] that step ran {diag['iters']} iterations")
+    if "bp_update" in carry_watch:
+        # the dense sweep's bound on that step's own tokens
+        lay = batches[0].token_layout()
+        bound, _ = bp_bound_ms([lay.word_ids, lay.doc_ids, lay.counts,
+                                torch.empty((lay.num_slots, K),
+                                            device="meta")])
+        ms = carry_watch["bp_update"]
+        print(f"[profile] bp_update on the main path: {ms:.4f} ms a launch, "
+              f"bound {bound:.4f} ms on its tokens ({bound / ms:.1%} of it "
+              f"reached)")
     del state, step, diag        # phase 7 reads its own peak memory
     print(f"[time] phase 6: {time.time() - t0:.1f}s")
 
@@ -1317,11 +1426,11 @@ def main(argv=None) -> None:
         print(f"[packed] step {i + 1} ms/iteration: carry "
               f"{c[0] * 1e3 / c[1]:.3f} ({c[1]} iterations), packed "
               f"{pk[0] * 1e3 / pk[1]:.3f} ({pk[1]} iterations)")
-    diag = profile_run(
+    (_, diag), packed_watch = profile_run(
         lambda: step(state, batches[0].word_ids, batches[0].counts),
         "one packed training step (batch 1 again)", card,
-        watch=("pack_rows_kernel", "packed_sweep_kernel",
-               "packed_fold_kernel"))[1]
+        watch=("bp_update", "pack_rows_kernel", "packed_sweep_kernel",
+               "packed_fold_kernel", "scatter_add_rows_kernel"))
     print(f"[profile] that step ran {diag['iters']} iterations")
     del state, step, diag
     # packed against carry: one mini-batch, one init, tolerance 0, 8
@@ -1351,10 +1460,22 @@ def main(argv=None) -> None:
 
     rec["launches"] = launches
     kernels = [rec]
+    # device ms a launch on the main path, from the profiled steps
+    main_ms = {"bp_update": carry_watch.get("bp_update"),
+               "power_sweep_carry_train": carry_watch.get(
+                   "carry_train_kernel"),
+               "scatter_add_rows": carry_watch.get("scatter_add_rows_kernel"),
+               "pack_rows": packed_watch.get("pack_rows_kernel"),
+               "power_sweep_tokens": (
+                   packed_watch["packed_sweep_kernel"]
+                   + packed_watch["packed_fold_kernel"]
+                   if {"packed_sweep_kernel", "packed_fold_kernel"}
+                   <= packed_watch.keys() else None)}
     for name, r in train_recs.items():
         r["launches"] = (packed_launches if name in ("power_sweep_tokens",
                                                      "pack_rows")
                          else train_launches)[name]
+        r["ms_main_path"] = main_ms[name]
         kernels.append(r)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -49,8 +49,21 @@
 // power topics, W = 141043, K = 2000) the function reads sel_k and vals
 // (2 * P * Pk * 4 B), sel_w (P * 4 B) and each touched element of mat, and
 // writes it back: ~11.3 MB, ~3.4 us at 3.35 TB/s.  It is bound by bytes
-// (one add per element); each touched element costs a whole 32-byte sector
-// of HBM traffic in practice, and a launch costs a few microseconds more.
+// (one add per element).  What bounds it in practice is the card's rate of
+// scattered sectors: a row's 50 random topics of 2000 fall in ~45.9
+// distinct 32-byte sectors, ~647,000 sectors in all (~20.7 MB), each read
+// and written back, in ~0.047 ms with the L2 flushed (~13.7 G sectors/s,
+// ~27 G sector moves/s, the rate pack_rows reads at) and ~0.040 ms with
+// the L2 warm (flushed, then pack_rows of the same selection, as on the
+// main path).  Variants timed in turns with this kernel on an H100
+// (PERF.md has the numbers): one warp per row with the row's topic ids
+// sorted in shared memory ran within 1.5% of it flushed and warm, the warp
+// unsorted 6% slower; the rows sorted by address ran 1% faster flushed and
+// 7% faster warm, but only with the sort made beforehand: sorting inside
+// the function took 2.5x the kernel's time.  Neither locality within a row
+// nor the atomic unit is the limit, so the kernel stays one thread per
+// pair.  chip_smoke.py phase 2 holds it to no slower than the library's
+// index_put_(accumulate=True).
 
 #include <cuda_runtime.h>
 

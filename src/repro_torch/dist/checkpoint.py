@@ -8,8 +8,12 @@ One directory per step::
                          # shape, dtype name + the extra dict
         data.npz         # raw little-endian bytes per leaf, as uint8
 
-so a checkpoint written by either package restores in the other.  Leaves
-are ordered as ``jax.tree_util`` flattens a dict of dicts: by sorted key.
+so phi and the other array leaves (``phi_acc``, ``m``) written by either
+package restore in the other.  ``state/rng`` does not cross: the port
+writes a torch generator state there, where the reference writes a JAX
+PRNG key, so a training resume across packages takes a fresh seed or
+injected inits.  Leaves are ordered as ``jax.tree_util`` flattens a dict
+of dicts: by sorted key.
 bfloat16 leaves are decoded from their raw bytes with torch, so nothing
 here needs ``ml_dtypes``.  Template-driven ``restore`` and the elastic
 row reshard come with the training slice.

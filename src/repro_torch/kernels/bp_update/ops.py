@@ -9,17 +9,23 @@ the [D, K] theta and [W, K] phi with the token-major ids, not [T, K]
 gathers, and needs no TPU lane padding.  On a CUDA tensor it launches the
 hand-written kernel (``csrc/bp_update.cu``) and raises if the kernel
 cannot build or launch; on a CPU tensor it runs `bp_update_plain`.
+
+The source has two paths: threads that keep a token's rows in registers
+and read each row once (K <= ``REGISTER_MAX_K``), and two passes over the
+row, for any K; `bp_launch_plan` picks by K.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build, check_args
 
 _SOURCE = "bp_update"
+REGISTER_MAX_K = 2048              # 4 topics a thread x 512 threads
 
 
 def _lib() -> ctypes.CDLL:
@@ -27,11 +33,33 @@ def _lib() -> ctypes.CDLL:
     fn = lib.bp_update
     if fn.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr] * 9 + [i32] * 2 + [f32] * 3 + [ptr]
+        fn.argtypes = [ptr] * 9 + [i32] * 2 + [f32] * 3 + [i32] * 2 + [ptr]
         fn.restype = ctypes.c_int
         lib.bp_update_error_string.argtypes = [ctypes.c_int]
         lib.bp_update_error_string.restype = ctypes.c_char_p
     return lib
+
+
+class BpPlan(NamedTuple):
+    """How the kernel runs at one K: ``path`` "registers" (a CTA of
+    ``threads`` threads a token, each keeping 4 topics of the token's rows
+    in registers) or "twopass" (a warp a token, 8 a CTA of ``threads``, two
+    passes over the row)."""
+    path: str
+    threads: int
+
+
+def bp_launch_plan(K: int) -> BpPlan:
+    """The kernel's path and shape at ``K`` topics: the register path up to
+    ``REGISTER_MAX_K`` (the K = 2000 cell) with the fewest warps a token
+    (1 to 16) that cover K at 4 topics a thread; the two-pass path past it
+    (the K = 10,000 cell).  Every K >= 1 has a plan."""
+    K = int(K)
+    if K < 1:
+        raise ValueError(f"K={K}: the dense sweep needs K >= 1")
+    if K > REGISTER_MAX_K:
+        return BpPlan("twopass", 256)
+    return BpPlan("registers", 32 * -(-K // 128))
 
 
 def bp_update_plain(word_ids, doc_ids, counts_t, mu_t, theta, phi_wk,
@@ -73,7 +101,8 @@ def bp_update(word_ids, doc_ids, counts_t, mu_t, theta, phi_wk, phi_tot, *,
     tensors (mu_new [T, K], r_tok [T, K]) as `bp_update_plain` documents.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel, counted in ``bp_update.launches``.
+    kernel on ``bp_launch_plan(K)``, counted in ``bp_update.launches``.
+    Either path sums in a fixed order, so a launch repeats bit for bit.
     """
     if mu_t.device.type == "cpu":
         return bp_update_plain(word_ids, doc_ids, counts_t, mu_t, theta,
@@ -85,6 +114,7 @@ def bp_update(word_ids, doc_ids, counts_t, mu_t, theta, phi_wk, phi_tot, *,
     _check_cuda_args(word_ids, doc_ids, counts_t, mu_t, theta, phi_wk,
                      phi_tot)
     T, K = mu_t.shape
+    plan = bp_launch_plan(K)
     mu_new = torch.empty_like(mu_t)
     r_tok = torch.empty_like(mu_t)
     lib = _lib()
@@ -94,6 +124,7 @@ def bp_update(word_ids, doc_ids, counts_t, mu_t, theta, phi_wk, phi_tot, *,
             mu_t.data_ptr(), theta.data_ptr(), phi_wk.data_ptr(),
             phi_tot.data_ptr(), mu_new.data_ptr(), r_tok.data_ptr(), T, K,
             float(alpha), float(beta), float(wbeta),
+            int(plan.path == "registers"), plan.threads,
             torch.cuda.current_stream(mu_t.device).cuda_stream)
     if err:
         msg = lib.bp_update_error_string(err).decode()

@@ -175,8 +175,10 @@ def test_wrapper_checks_on_card(card):
         pack_ops.scatter_add_rows(mat, sel_w, sel_k.long(), vals)
 
 
-def _bp_args(seed, *, D, L, K, W):
-    """Dense-sweep inputs: ragged docs (c = 0 padding on word 0)."""
+def _bp_args(seed, *, D, L, K, W, junk_pad_mu=False):
+    """Dense-sweep inputs: ragged docs (c = 0 padding on word 0); with
+    ``junk_pad_mu`` the padding slots' mu is not a distribution (finite,
+    some of it negative), which the sweep must ignore."""
     rng = np.random.default_rng(seed)
     T = D * L
     word_ids = rng.integers(0, W, T).astype(np.int32)
@@ -186,6 +188,8 @@ def _bp_args(seed, *, D, L, K, W):
     c[pad], word_ids[pad] = 0.0, 0
     mu = rng.random((T, K)).astype(np.float32) + 0.01
     mu /= mu.sum(1, keepdims=True)
+    if junk_pad_mu:
+        mu[pad] = (rng.random((int(pad.sum()), K)) * 7 - 2).astype(np.float32)
     counts = c.reshape(T, 1)
     theta = np.zeros((D, K), np.float32)
     np.add.at(theta, doc_ids, counts * mu)
@@ -195,10 +199,33 @@ def _bp_args(seed, *, D, L, K, W):
             (word_ids, doc_ids, counts, mu, theta, phi, phi.sum(0))]
 
 
-@pytest.mark.parametrize("D,L,K,W", [(4, 8, 128, 60), (3, 7, 100, 40),
-                                     (64, 128, 2000, 20000)])
+@pytest.mark.parametrize("D,L,K,W", [
+    (4, 8, 128, 60), (3, 7, 100, 40), (64, 128, 2000, 20000),
+    (5, 3, 1, 20),            # K = 1: one thread's scalar loads
+    (3, 7, 513, 40),          # 5 warps, the last one mostly idle
+    (3, 7, 1999, 50),         # K not a multiple of 4: scalar loads
+    (4, 16, 2048, 100),       # the register path's limit
+    (4, 16, 2049, 100),       # one past it: the two-pass path
+    (4, 16, 10000, 100)])     # the reference's second paper-scale K
 def test_bp_update_kernel_matches_plain_version_on_card(card, D, L, K, W):
-    args = [x.to("cuda") for x in _bp_args(D + K, D=D, L=L, K=K, W=W)]
+    _check_bp_update_on_card(D, L, K, W)
+
+
+@pytest.mark.parametrize("D,L,K,W", [
+    (5, 3, 1, 20), (3, 7, 100, 40), (3, 7, 1999, 50), (64, 128, 2000, 20000)])
+def test_bp_update_twopass_path_matches_plain_version_on_card(
+        card, monkeypatch, D, L, K, W):
+    """The two-pass path forced where the register path would run."""
+    monkeypatch.setattr(bp_ops, "bp_launch_plan",
+                        lambda K: bp_ops.BpPlan("twopass", 256))
+    _check_bp_update_on_card(D, L, K, W)
+
+
+def _check_bp_update_on_card(D, L, K, W):
+    """The kernel against its plain version, with count-0 slots whose mu is
+    not a distribution; a second launch repeats mu' and r bit for bit."""
+    args = [x.to("cuda") for x in _bp_args(D + K, D=D, L=L, K=K, W=W,
+                                           junk_pad_mu=True)]
     kw = dict(alpha=ALPHA, beta=0.01, wbeta=W * 0.01)
     before = bp_ops.bp_update.launches
     got = bp_ops.bp_update(*args, **kw)
@@ -207,6 +234,9 @@ def test_bp_update_kernel_matches_plain_version_on_card(card, D, L, K, W):
     torch.cuda.synchronize()
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+    rerun = bp_ops.bp_update(*args, **kw)
+    for g, r in zip(got, rerun):
+        assert torch.equal(g, r)
 
 
 def _train_args(seed, *, D, L, K, P, Pk, guard=0.5, empty_doc=False):

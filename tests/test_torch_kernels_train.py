@@ -119,6 +119,23 @@ def test_bp_update_leaves_its_inputs_and_rejects_other_devices():
         bp_ops.bp_update(*meta, alpha=ALPHA, beta=BETA, wbeta=0.1)
 
 
+@pytest.mark.parametrize("K", [1, 3, 1999, 2000, bp_ops.REGISTER_MAX_K,
+                               bp_ops.REGISTER_MAX_K + 1, 10000])
+def test_bp_launch_plan_covers_every_k(K):
+    """Every K >= 1 has a plan: the register path exactly up to its limit,
+    with the fewest warps a token that cover K at 4 topics a thread (at
+    most 16 warps), the two-pass path past it; K < 1 is refused."""
+    plan = bp_ops.bp_launch_plan(K)
+    if K <= bp_ops.REGISTER_MAX_K:
+        assert plan.path == "registers"
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= 512
+        assert 4 * plan.threads >= K > 4 * (plan.threads - 32)
+    else:
+        assert plan == bp_ops.BpPlan("twopass", 256)
+    with pytest.raises(ValueError, match="K >= 1"):
+        bp_ops.bp_launch_plan(0)
+
+
 def _pack_case(seed, *, W, K, P, Pk, dup_zero_rows=0):
     """A [W, K] matrix and a top-k-like selection: distinct rows, distinct
     topics per row; optionally the last ``dup_zero_rows`` slots all point
