@@ -22,7 +22,13 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      may not exceed it) and warm; the dense sweep on both of its paths
      (registers to K = 2048, two passes past it: K = 100, 1999, 2000,
      10,000), its register path timed in turns with its two-pass path at
-     the training slice's shapes, which it may not exceed;
+     the training slice's shapes, which it may not exceed; the carry
+     training sweep repeating all four outputs bit for bit (its d/r sums
+     run in a fixed order since the fold kernel); the two fixed-order sums
+     the port adds (the word-row scatter, bit for bit against its plain
+     version on the CPU and timed in turns with ``index_add_`` with and
+     without PyTorch's deterministic algorithms; the phi_tot refresh's
+     per-topic sum), each repeating bit for bit;
   3. the serving slice at PUBMED width (W = 141,043, K = 2000): a random
      phi statistic made on the card from ``--seed``, saved as a JAX-format
      checkpoint, served by ``SlabEngine.from_checkpoint`` for
@@ -47,19 +53,36 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      shape through the kernels and through their plain versions must agree
      in phi_acc and theta (relative L1 gap 1e-4); one step with the
      Robbins-Monro decay on at that shape, whose byte meter must bill the
-     decay pass (W * K * 4 bytes); then held-out perplexity after the last
+     decay pass (W * K * 4 bytes); one mini-batch run twice from one state
+     (the generator's state put back), equal bit for bit in phi_acc,
+     theta, mean_r and iterations; then held-out perplexity after the last
      step, and one more step under ``torch.profiler`` (with the device
-     time a launch of the dense sweep, the carry sweep and the scatter);
+     time a launch of the dense sweep, the carry sweep, the scatter and
+     the fixed-order sums);
   7. the packed sweep policy on the same batches and settings: the same
      steps with ``sweep_policy="packed"`` (the phi pack and packed-sweep
      kernels launch once per selective iteration, the carry sweep never),
-     the same mass and finiteness checks, one profiled step (with the
+     the same mass and finiteness checks, the same bit-for-bit repeat of
+     one mini-batch, one profiled step (with the
      device time a launch of the dense sweep, the pack, the packed
      sweep's two kernels and the scatter); then one
      mini-batch from one injected init through both policies with
      tolerance 0 and 8 iterations, at a reduced shape (phi_acc and theta
      must agree to a relative L1 gap of 1e-4) and at the full width (the
-     two formulations' ms per iteration side by side, in turns).
+     two formulations' ms per iteration side by side, in turns);
+  8. the training driver (``launch/lda_train.train_loop``) at PUBMED width
+     with the paper-scale settings, ``--driver-docs`` documents a
+     mini-batch drawn on the host: 4 mini-batches with a checkpoint every
+     2; the same in a fresh directory with ``--crash-at 3`` (it must end by
+     SystemExit), then again, resuming at m = 2 and ending equal to the
+     uninterrupted run bit for bit (mean_r, iterations, phi_acc); the
+     uninterrupted run with a bf16 phi_acc (bf16, finite, non-negative;
+     its mean_r gap printed; its peak device memory no higher than the
+     float32 run's), and 64 requests served in float32 from its
+     checkpoint; the uninterrupted run once more with ``--prefetch 0``
+     (no draw thread beside the steps), equal to it bit for bit.  The
+     warmed steps' walls, the checkpoints' save and restore seconds and
+     the kernels' launches net of the warm-up are printed.
 
 Each phase prints its wall time.  The line before the last is the
 kernels' JSON record; the last line is
@@ -405,13 +428,32 @@ def carry_train_inputs(gen, *, D, L, K, W, P, Pk, ragged, guard_share,
     return [p_tok, doc_ids, counts, mu, theta, phi_tot, phi, sel_w, sel_k]
 
 
+def carry_train_runs(x, W):
+    """The tokens' runs by word, as the training step makes them once per
+    mini-batch (``TokenLayout.word_runs``): a power token's word is its
+    row's ``sel_w``, a guard token's a word outside the selection."""
+    import torch
+
+    from repro_torch.core.types import token_runs
+
+    p_tok, counts, sel_w = x[0], x[2], x[7]
+    P = sel_w.shape[0]
+    chosen = torch.zeros(W, dtype=torch.bool, device=p_tok.device)
+    chosen[sel_w.long()] = True
+    other = int((~chosen).nonzero()[0])
+    words = torch.where(p_tok < P, sel_w[p_tok.clamp(max=P - 1).long()],
+                        other)
+    return token_runs(words, counts, W)
+
+
 def carry_train_bound_ms(x):
     """Least time for one training sweep on these inputs, and what bounds
     it: each distinct power word's sel_w, sel_k and phi at its Pk topics;
     each power token's mu at its Pk topics, read and written; theta at the
     distinct selected (document, topic) pairs in, theta_delta out; the
-    [P, Pk] d/r buffers written once; the per-token ids and counts; phi_tot;
-    ~30 f32 operations per (power token, topic)."""
+    [P, Pk] d/r buffers written once; the per-token ids and counts, and
+    the runs' order and two starts a power row; phi_tot; ~30 f32
+    operations per (power token, topic)."""
     import torch
 
     p_tok, doc, theta, sel_k = x[0], x[1], x[4], x[8]
@@ -424,21 +466,23 @@ def carry_train_bound_ms(x):
     pairs = doc[act].long()[:, None] * K + sel_k.long()[p_tok[act].long()]
     n_dk = int(torch.unique(pairs).numel())
     nbytes = 4 * (n_rows * (1 + 2 * Pk) + 2 * n_act * Pk + n_dk + D * K
-                  + 2 * P * Pk + 3 * T + K)
+                  + 2 * P * Pk + 3 * T + K + n_act + 2 * P)
     return bound_ms(nbytes, 30 * n_act * Pk)
 
 
 def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
                       timed, empty_doc=False):
     """The training sweep against its plain version: mu' within 1e-5,
-    theta_delta, d_pack and r_pack within rel 1e-4; mu outside the power
-    tokens' selections bit for bit as it was; a second launch repeats mu'
-    and theta_delta bit for bit."""
+    theta_delta, d_pack and r_pack within rel 1e-4 (the sums' order
+    differs); mu outside the power tokens' selections bit for bit as it
+    was; a second launch repeats all four outputs bit for bit.  The kernel
+    is given the tokens' runs by word, as the training step gives them."""
     import torch
 
     x = carry_train_inputs(gen, D=D, L=L, K=K, W=W, P=P, Pk=Pk,
                            ragged=ragged, guard_share=guard_share,
                            empty_doc=empty_doc)
+    runs = carry_train_runs(x, W)
     kw = dict(alpha=0.1, beta=0.01, wbeta=141043 * 0.01)
 
     def fresh():
@@ -446,26 +490,28 @@ def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
         a[3] = x[3].clone()
         return a
 
-    got = ops.power_sweep_carry_train(*fresh(), **kw)
-    again = ops.power_sweep_carry_train(*fresh(), **kw)
+    got = ops.power_sweep_carry_train(*fresh(), **kw, runs=runs)
+    again = ops.power_sweep_carry_train(*fresh(), **kw, runs=runs)
     want = ops.power_sweep_carry_train_plain(*fresh(), **kw)
     torch.cuda.synchronize()
     err_mu = float((got[0] - want[0]).abs().max())
     rel = [rel_err(g, w) for g, w in zip(got[1:], want[1:])]
     off = ~selected_mask(x[3], x[0], x[8], P)
     kept = bool(torch.equal(got[0][off], x[3][off]))
-    same = all(bool(torch.equal(g, a)) for g, a in zip(got[:2], again[:2]))
+    same = all(bool(torch.equal(g, a)) for g, a in zip(got, again))
     print(f"[kernel] power_sweep_carry_train T={D * L} D={D} K={K} P={P} "
           f"Pk={Pk} guard={guard_share}: max|dmu'|={err_mu:.3e} (tol 1e-5)  "
           f"rel dtheta={rel[0]:.3e}  rel d_pack={rel[1]:.3e}  rel r_pack="
           f"{rel[2]:.3e} (tol 1e-4)  untouched bit for bit: {kept}  "
-          f"relaunch bit for bit: {same}")
+          f"relaunch bit for bit (mu', dtheta, d_pack, r_pack): {same}")
     if not (err_mu <= 1e-5 and max(rel) <= 1e-4 and kept and same):
-        fail(f"power_sweep_carry_train disagrees with its plain version at "
-             f"D={D} L={L} K={K} P={P} Pk={Pk}")
+        fail(f"power_sweep_carry_train disagrees with its plain version, or "
+             f"does not repeat bit for bit, at D={D} L={L} K={K} P={P} "
+             f"Pk={Pk}")
     if not timed:
         return None
-    ms = time_ms(lambda *a: ops.power_sweep_carry_train(*a, **kw), fresh)
+    ms = time_ms(lambda *a: ops.power_sweep_carry_train(*a, **kw, runs=runs),
+                 fresh)
     plain_ms = time_ms(lambda *a: ops.power_sweep_carry_train_plain(*a, **kw),
                        fresh)
     bound, bound_by = carry_train_bound_ms(x)
@@ -540,6 +586,135 @@ def check_scatter(ops, gen, *, W, K, P, Pk, dup_zero_rows, timed):
                          plain_ms, bound, bound_by, library_ms,
                          ms_warm=warm["kernel"],
                          library_ms_warm=warm["library"])
+
+
+def det_index_add(word_ids, values, W):
+    """``index_add_`` of ``values`` rows into a new [W, K] matrix with
+    PyTorch's deterministic algorithms on for this call only (its
+    deterministic path, a sorted ``index_put_`` with accumulate)."""
+    import torch
+
+    on = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return torch.zeros((W, values.shape[1]), device=values.device
+                           ).index_add_(0, word_ids, values)
+    finally:
+        torch.use_deterministic_algorithms(on, warn_only=warn)
+
+
+def check_word_rows_sum(seg, gen, *, D, L, K, W, timed):
+    """The word scatter (``token_scatter_wk``'s kernel) on Zipf-like words,
+    each at most once a document as in a padded batch, with count-0
+    padding slots on word 0 (values c * mu): bit for bit against its
+    plain version on the CPU (both add each word's tokens in token order),
+    and repeating bit for bit.  Timed in turns (15) with the two routes of
+    the same function in PyTorch: ``index_add_`` with the deterministic
+    algorithms on for the call (its library time) and plain
+    ``index_add_``, whose atomics do not repeat."""
+    import torch
+
+    from repro_torch.core.types import token_runs
+
+    dev = "cuda"
+    T = D * L
+    _, counts = doc_tokens(gen, D=D, L=L, ragged=True)
+    zipf = 1.0 / torch.arange(1, W + 1, device=dev, dtype=torch.float32)
+    words = torch.multinomial(zipf.expand(D, W), min(L, W), generator=gen)
+    words = torch.nn.functional.pad(words, (0, L - words.shape[1])
+                                    ).reshape(-1)
+    words = torch.where(counts[:, 0] > 0, words, 0).to(torch.int32)
+    mu = torch.rand((T, K), generator=gen, device=dev)
+    values = (counts * mu).contiguous()
+    del mu
+    runs = token_runs(words, counts, W)
+    got = seg.word_rows_sum(*runs, values, W)
+    again = seg.word_rows_sum(*runs, values, W)
+    want = seg.word_rows_sum_plain(*[r.cpu() for r in runs], values.cpu(), W)
+    torch.cuda.synchronize()
+    err = float((got.cpu() - want).abs().max())
+    same = bool(torch.equal(got, again))
+    del got, again, want
+    print(f"[kernel] word_rows_sum T={T} K={K} W={W}: max|dout|={err:.3e} "
+          f"against the CPU (exact)  relaunch bit for bit: {same}")
+    if not (err == 0.0 and same):
+        fail(f"word_rows_sum disagrees with its plain version or does not "
+             f"repeat at T={T} K={K} W={W}")
+    if not timed:
+        return None
+    wl = words.long()
+    args = lambda: (*runs, values, W)                 # noqa: E731
+    lib_args = lambda: (wl, values, W)                # noqa: E731
+    turns = time_turns({
+        "kernel": (seg.word_rows_sum, args),
+        "deterministic": (det_index_add, lib_args),
+        "index_add": (lambda w, v, n: torch.zeros(
+            (n, K), device=dev).index_add_(0, w, v), lib_args)}, 15)
+    plain_ms = time_ms(seg.word_rows_sum_plain, args)
+    d1, d2 = det_index_add(wl, values, W), det_index_add(wl, values, W)
+    det_same = bool(torch.equal(d1, d2))
+    del d1, d2
+    n_c = int((counts > 0).sum())
+    bound, bound_by = bound_ms(4 * (n_c * K + W * K + n_c + W + 1), n_c * K)
+    ms, library_ms = turns["kernel"], turns["deterministic"]
+    print(f"[kernel] word_rows_sum: {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"bound {bound:.4f} ms ({bound_by}; {n_c} counted tokens)  library "
+          f"(index_add_, deterministic algorithms on) {library_ms:.4f} ms "
+          f"(repeats bit for bit: {det_same})  index_add_ (atomics) "
+          f"{turns['index_add']:.4f} ms  (medians of 15 in turns)")
+    return kernel_record(
+        "word_rows_sum", "src/repro_torch/csrc/segment_sum.cu",
+        "none (added by the port): the scatter-add of "
+        "src/repro/core/residuals.py:12 (token_scatter_wk)", err, ms,
+        plain_ms, bound, bound_by, library_ms,
+        index_add_ms=turns["index_add"])
+
+
+def check_topic_sum(seg, gen, *, P, Pk, K, timed):
+    """The phi_tot refresh's per-topic sum against a float64 sum on the
+    CPU (relative 1e-5 of the sums' scale: the kernel adds in blocks) and
+    repeating bit for bit; timed with its plain version and one library
+    call (``index_add_`` of the pairs into [K])."""
+    import torch
+
+    dev = "cuda"
+    sel_k = torch.rand((P, K), generator=gen, device=dev).argsort(dim=1)[
+        :, :Pk].to(torch.int32).contiguous()
+    vals = torch.randn((P, Pk), generator=gen, device=dev)
+    base = torch.rand(K, generator=gen, device=dev) * 1e3
+    got = seg.topic_sum(sel_k, vals, base)
+    again = seg.topic_sum(sel_k, vals, base)
+    want = base.double().cpu().index_add(
+        0, sel_k.reshape(-1).long().cpu(), vals.reshape(-1).double().cpu())
+    scale = float(base.abs().max()) + float(
+        torch.zeros(K, dtype=torch.float64).index_add(
+            0, sel_k.reshape(-1).long().cpu(),
+            vals.reshape(-1).abs().double().cpu()).max())
+    err = float((got.cpu().double() - want).abs().max())
+    same = bool(torch.equal(got, again))
+    print(f"[kernel] topic_sum P={P} Pk={Pk} K={K}: max|dout|={err:.3e} "
+          f"(tol 1e-5 x {scale:.3e})  relaunch bit for bit: {same}")
+    if not (err <= 1e-5 * scale and same):
+        fail(f"topic_sum disagrees with its plain version or does not "
+             f"repeat at P={P} Pk={Pk} K={K}")
+    if not timed:
+        return None
+    flat_k, flat_v = sel_k.reshape(-1).long(), vals.reshape(-1)
+    args = lambda: (sel_k, vals, base)                # noqa: E731
+    ms = time_ms(seg.topic_sum, args)
+    plain_ms = time_ms(seg.topic_sum_plain, args)
+    library_ms = time_ms(lambda k, v: torch.zeros(K, device=dev).index_add_(
+        0, k, v), lambda: (flat_k, flat_v))
+    bound, bound_by = bound_ms(4 * (2 * P * Pk + 2 * K), P * Pk)
+    print(f"[kernel] topic_sum: {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+          f"{bound * 1e3:.2f} us ({bound_by})  library (index_add_ into [K]) "
+          f"{library_ms:.4f} ms")
+    return kernel_record(
+        "topic_sum", "src/repro_torch/csrc/segment_sum.cu",
+        "none (added by the port): the scatter-add "
+        "src/repro/core/pobp.py:620 (phi_tot.at[sel_k].add)", err, ms,
+        plain_ms, bound, bound_by, library_ms)
 
 
 def packed_inputs(gen, *, D, L, K, P, Pk, guard_share, empty_doc,
@@ -783,7 +958,7 @@ def serve_slice(*, W: int, K: int, requests: int, seed: int, device,
     import torch
 
     from repro_torch.dist import checkpoint as ckpt
-    from repro_torch.kernels.power_sweep import ops
+    from repro_torch.kernels import launch_counts
     from repro_torch.serve import SlabEngine
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -801,9 +976,9 @@ def serve_slice(*, W: int, K: int, requests: int, seed: int, device,
         fail(f"served geometry {engine.cfg.vocab_size}x"
              f"{engine.cfg.num_topics} != {W}x{K}")
 
-    ops.power_sweep_carry.launches = 0           # the main path starts here
+    launch_counts(reset=True)                    # the main path starts here
     results, wall = serve_burst(engine, docs)
-    launches = ops.power_sweep_carry.launches    # ... and ends here
+    launches = launch_counts()["power_sweep_carry"]   # ... and ends here
 
     stats = engine.stats()
     theta = np.stack([r.theta for r in results])
@@ -868,10 +1043,11 @@ def heldout_split(gen, phi_true, *, n_docs, mean, seed):
 
 
 def train_kernels():
-    from repro_torch.core import pobp, power
+    from repro_torch.core import pobp, power, residuals
     from repro_torch.kernels.bp_update import ops as bp_ops
     from repro_torch.kernels.power_pack import ops as pack_ops
     from repro_torch.kernels.power_sweep import ops as sweep_ops
+    from repro_torch.kernels.segment_sum import ops as seg_ops
 
     return {"bp_update": (bp_ops.bp_update, pobp, "bp_update",
                           bp_ops.bp_update_plain),
@@ -881,28 +1057,11 @@ def train_kernels():
                 sweep_ops.power_sweep_carry_train_plain),
             "scatter_add_rows": (pack_ops.scatter_add_rows, power,
                                  "_scatter_add",
-                                 pack_ops.scatter_add_rows_plain)}
-
-
-def launch_counts(reset: bool = False):
-    """The main-path launch counts of the training kernels (set to 0 first
-    when ``reset``)."""
-    from repro_torch.kernels.bp_update import ops as bp_ops
-    from repro_torch.kernels.power_pack import ops as pack_ops
-    from repro_torch.kernels.power_sweep import ops as sweep_ops
-    from repro_torch.kernels.power_sweep import packed
-
-    counters = {"bp_update": (bp_ops.bp_update, "launches"),
-                "power_sweep_carry_train": (sweep_ops.power_sweep_carry_train,
-                                            "launches"),
-                "scatter_add_rows": (pack_ops.scatter_add_rows, "launches"),
-                "power_sweep_tokens": (packed.power_sweep_tokens,
-                                       "launches"),
-                "pack_rows": (pack_ops.pack_rows, "launches")}
-    if reset:
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+                                 pack_ops.scatter_add_rows_plain),
+            "word_rows_sum": (seg_ops.word_rows_sum, residuals,
+                              "word_rows_sum", seg_ops.word_rows_sum_plain),
+            "topic_sum": (seg_ops.topic_sum, pobp, "topic_sum",
+                          seg_ops.topic_sum_plain)}
 
 
 def train_data(*, W: int, K: int, D: int, L: int, steps: int, seed: int,
@@ -932,6 +1091,7 @@ def train_slice(batches, *, W: int, K: int, seed: int, device,
 
     from repro_torch.core.pobp import init_train_state, make_train_step
     from repro_torch.core.types import LDAConfig
+    from repro_torch.kernels import launch_counts
 
     tag = "packed" if sweep_policy == "packed" else "train"
     cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_w=0.1,
@@ -966,11 +1126,13 @@ def train_slice(batches, *, W: int, K: int, seed: int, device,
               f"({ntok:.0f} tokens) [{card}]")
     sweeps = sum(iters - 1 for _, iters, _, _ in readings)
     packed = sweep_policy == "packed"
-    want = {"bp_update": len(batches),
+    want = {"bp_update": len(batches), "power_sweep_carry": 0,
             "power_sweep_carry_train": 0 if packed else sweeps,
             "scatter_add_rows": sweeps,
             "power_sweep_tokens": sweeps if packed else 0,
-            "pack_rows": sweeps if packed else 0}
+            "pack_rows": sweeps if packed else 0,
+            "word_rows_sum": 3 * len(batches),
+            "topic_sum": sweeps}
     print(f"[{tag}] launches {launches} (steps={len(batches)}, selective "
           f"sweeps={sweeps}, sweep_policy={sweep_policy})")
     if launches != want or readings[0][1] < 2:
@@ -985,6 +1147,35 @@ def train_slice(batches, *, W: int, K: int, seed: int, device,
     if not (bool(torch.isfinite(state.phi_acc).all()) and lo >= -1e-3):
         fail(f"phi_acc is not finite and non-negative (min {lo:.3e})")
     return cfg, state, step, launches, readings
+
+
+def repeat_step(step, state, mb, tag: str, card: str) -> None:
+    """One mini-batch run twice from one state, the generator's state put
+    back in between: phi_acc, theta, mean_r and iterations must be equal
+    bit for bit (every sum of the step runs in a fixed order)."""
+    import torch
+
+    rng = state.generator.get_state()
+    runs = []
+    for _ in range(2):
+        state.generator.set_state(rng)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        new, diag = step(state, mb.word_ids, mb.counts)
+        mean_r = float(diag["mean_r"])
+        torch.cuda.synchronize()
+        runs.append((new.phi_acc, diag["theta"], mean_r, diag["iters"],
+                     (time.time() - t0) * 1e3))
+        del new, diag
+    (pa, ta, ra, ia, wa), (pb, tb, rb, ib, wb) = runs
+    same = {"phi_acc": bool(torch.equal(pa, pb)),
+            "theta": bool(torch.equal(ta, tb)), "mean_r": ra == rb,
+            "iters": ia == ib}
+    print(f"[{tag}] one mini-batch twice from one state (m={state.m}): "
+          f"bit for bit {same}  mean_r {ra!r} / {rb!r}  iters {ia}/{ib}  "
+          f"{wa:.3f} / {wb:.3f} ms  [{card}]")
+    if not all(same.values()):
+        fail(f"{tag}: a mini-batch run twice from one state differs")
 
 
 def packed_vs_carry(mb, u0, *, W, K, seed, device="cuda", inner_iters=8,
@@ -1024,10 +1215,11 @@ def packed_vs_carry(mb, u0, *, W, K, seed, device="cuda", inner_iters=8,
 
 def train_kernel_vs_plain(*, seed: int, W=20000, K=256, D=64, L=64,
                           inner_iters=8, device="cuda"):
-    """Check (d): one mini-batch from one injected init through the three
-    kernels and through their plain versions.  phi_acc and theta of the
-    step must agree to a relative L1 gap of 1e-4 (the atomics only reorder
-    sums); iterations and held-out perplexity are printed."""
+    """Check (d): one mini-batch from one injected init through the
+    training kernels and through their plain versions.  phi_acc and theta
+    of the step must agree to a relative L1 gap of 1e-4 (the plain
+    versions add in other orders); iterations and held-out perplexity are
+    printed."""
     from unittest import mock
 
     import torch
@@ -1106,6 +1298,221 @@ def decay_meter_check(*, seed: int, W=20000, K=256, D=64, L=64,
         fail("the decay pass is not billed once per mini-batch")
 
 
+# --------------------------------------------------------------- phase 8
+
+DRIVER_KERNELS = ("bp_update", "power_sweep_carry_train", "scatter_add_rows",
+                  "word_rows_sum", "topic_sum")
+
+
+def driver_args(ckpt_dir, *, seed: int, docs: int, extra=()):
+    """The driver's flags at PUBMED width with the paper-scale settings:
+    4 mini-batches of ``docs`` documents (length mean 128, one bucket of
+    128), a checkpoint every 2."""
+    from repro_torch.launch import lda_train
+
+    return lda_train.build_parser().parse_args([
+        "--vocab", "141043", "--topics", "2000", "--lambda-w", "0.1",
+        "--lambda-k", "50", "--inner-iters", "200", "--tol", "0.1",
+        "--docs-per-batch", str(docs), "--doc-len-means", "128",
+        "--len-buckets", "128", "--minibatches", "4", "--ckpt-every", "2",
+        "--log-every", "0", "--seed", str(seed), "--device", "cuda",
+        "--ckpt-dir", str(ckpt_dir), *extra])
+
+
+def timed_driver(args, walls: list, io: dict):
+    """``lda_train.train_loop(args)`` with each step of the run's stream
+    timed (host clock, ended by a device sync; the first step built is the
+    run's, and its last calls are the stream's) and the checkpoint saves
+    and restores timed into ``io`` (seconds)."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core import pobp
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.launch import lda_train
+
+    make, save, restore = (pobp.make_train_step, ckpt.save,
+                           ckpt.restore_latest)
+    built = []
+
+    def make_timed(*a, **kw):
+        step, meter = make(*a, **kw)
+        if built:
+            return step, meter
+        built.append(step)
+
+        def timed(*sa, **skw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = step(*sa, **skw)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            return out
+        return timed, meter
+
+    def clocked(fn, key):
+        def run(*a, **kw):
+            t0 = time.time()
+            out = fn(*a, **kw)
+            io.setdefault(key, []).append(time.time() - t0)
+            return out
+        return run
+
+    with mock.patch.object(pobp, "make_train_step", make_timed), \
+            mock.patch.object(ckpt, "save", clocked(save, "save_s")), \
+            mock.patch.object(ckpt, "restore_latest",
+                              clocked(restore, "restore_s")):
+        return lda_train.train_loop(args)
+
+
+def driver_slice(*, seed: int, docs: int, card: str):
+    """Phase 8: the training driver on the card at PUBMED width.  (a) four
+    mini-batches, a checkpoint every 2; (b) the same in a fresh directory
+    with ``--crash-at 3``, which must end by SystemExit; (c) the same
+    command again: it must resume at m = 2 and end with (a)'s mean_r,
+    iterations and phi_acc bit for bit; (d) (a) with ``--phi-acc-dtype
+    bfloat16``: its stored phi_acc bf16, finite, non-negative, its mean_r
+    gap to (a) printed (not gated), its peak device memory no higher than
+    (a)'s, then 64 requests served in float32 from its checkpoint, each
+    with a finite theta summing to 1 +- 1e-5; (e) (a) with ``--prefetch
+    0``, the batches drawn between the steps: its step walls printed
+    beside (a)'s, its result equal to (a)'s bit for bit.  Launch counts of
+    (a) net of its warm-up: every training kernel of the path launched.
+    The checkpoints live in a directory deleted at the end."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import lda_corpus_from_phi
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import lda_train
+    from repro_torch.serve import SlabEngine
+
+    root = ROOT / "build" / "chip_smoke_driver"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.time()
+        a_args = driver_args(root / "a", seed=seed, docs=docs)
+        phi_true, cdf = lda_train._true_phi(a_args)
+        print(f"[driver] ground-truth topics (141043 x 2000 Dirichlet on "
+              f"the host, and their CDFs) in {time.time() - t0:.1f}s")
+        t0 = time.time()
+        lda_corpus_from_phi(seed, docs, phi_true, doc_len_mean=128, cdf=cdf)
+        print(f"[driver] one host draw of {docs} documents in "
+              f"{time.time() - t0:.2f}s")
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        walls, io = [], {}
+        t0 = time.time()
+        res_a = timed_driver(a_args, walls, io)
+        counts = launch_counts()
+        net = {k: counts[k] - res_a["warmup_launches"].get(k, 0)
+               for k in counts}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = walls[-4:]
+        print(f"[driver] (a) 4 mini-batches in {time.time() - t0:.1f}s "
+              f"(warm-up {res_a['warmup_s']:.2f}s): mean_r "
+              f"{res_a['mean_r']}  iters {res_a['iters']}  "
+              f"{res_a['tokens']:.0f} tokens  peak device memory "
+              f"{peak:.2f} GiB  [{card}]")
+        print(f"[driver] (a) step walls (warmed): " + ", ".join(
+            f"step {i + 1} {w * 1e3:.3f} ms" for i, w in enumerate(steps))
+              + f"  [{card}]")
+        print(f"[driver] (a) launches net of the warm-up {net}; warm-up "
+              f"{res_a['warmup_launches']}")
+        if any(net[k] <= 0 for k in DRIVER_KERNELS) or \
+                net["power_sweep_tokens"] or net["pack_rows"]:
+            fail(f"the driver's run did not go through the training kernels "
+                 f"(net of its warm-up: {net})")
+
+        b_args = driver_args(root / "b", seed=seed, docs=docs,
+                             extra=("--crash-at", "3"))
+        try:
+            timed_driver(b_args, [], {})
+        except SystemExit as e:
+            print(f"[driver] (b) {e}")
+        else:
+            fail("--crash-at 3 did not end the run")
+        res_c = timed_driver(b_args, [], io)
+        same = {"first_m": res_c["first_m"] == 2,
+                "mean_r": res_c["mean_r"] == res_a["mean_r"][2:],
+                "iters": res_c["iters"] == res_a["iters"][2:],
+                "phi_acc": bool(torch.equal(res_c["phi_acc"],
+                                            res_a["phi_acc"]))}
+        print(f"[driver] (c) resumed at m={res_c['first_m']}: mean_r "
+              f"{res_c['mean_r']}  iters {res_c['iters']}; equal to (a) bit "
+              f"for bit: {same}")
+        print(f"[driver] checkpoint saves "
+              f"{', '.join(f'{x:.2f}' for x in io['save_s'])} s, the "
+              f"resume's restore {io['restore_s'][-1]:.2f} s (phi_acc "
+              f"{res_a['phi_acc'].nbytes / 1e9:.2f} GB, verified, then "
+              f"read)  [{card}]")
+        if not all(same.values()):
+            fail("the resumed run differs from the uninterrupted run")
+
+        torch.cuda.reset_peak_memory_stats()
+        d_args = driver_args(root / "d", seed=seed, docs=docs,
+                             extra=("--phi-acc-dtype", "bfloat16"))
+        res_d = timed_driver(d_args, [], {})
+        peak16 = torch.cuda.max_memory_allocated() / 2**30
+        phi16, _, step16 = ckpt.restore_phi(str(root / "d"))
+        if not (step16 == 4 and torch.equal(phi16, res_d["phi_acc"])):
+            fail("the bf16 run's last checkpoint does not hold its phi_acc")
+        gaps = [abs(x - y) for x, y in zip(res_d["mean_r"], res_a["mean_r"])]
+        print(f"[driver] (d) bfloat16 phi_acc (stored {phi16.dtype}): "
+              f"mean_r {res_d['mean_r']}  "
+              f"iters {res_d['iters']}; |mean_r - (a)| by batch "
+              f"{[f'{g:.2e}' for g in gaps]} (not gated)  peak device memory "
+              f"{peak16:.2f} GiB  [{card}]")
+        if not (phi16.dtype == torch.bfloat16
+                and bool(torch.isfinite(phi16).all())
+                and float(phi16.min()) >= 0.0):
+            fail(f"the bf16 run's phi_acc is not bf16, finite and "
+                 f"non-negative ({phi16.dtype})")
+        if peak16 > peak:
+            fail(f"the bf16 run's peak device memory {peak16:.2f} GiB "
+                 f"exceeds the float32 run's {peak:.2f} GiB")
+        del phi16, res_d
+
+        eng = SlabEngine.from_checkpoint(str(root / "d"), device="cuda")
+        docs_ = lda_corpus_from_phi(seed + 5, 64, phi_true, doc_len_mean=40,
+                                    cdf=cdf)[0]
+        for doc in docs_:
+            eng.submit(doc)
+        out = eng.drain()
+        th = np.stack([np.asarray(r.theta) for r in out])
+        ok = (len(out) == 64 and bool(np.isfinite(th).all())
+              and float(np.abs(th.sum(1) - 1).max()) <= 1e-5)
+        print(f"[driver] (d) served {len(out)} requests in "
+              f"{eng._phi.dtype} from the bf16 checkpoint: theta finite, "
+              f"sums within {float(np.abs(th.sum(1) - 1).max()):.2e} of 1 "
+              f"(tol 1e-5)")
+        if not (ok and eng._phi.dtype == torch.float32):
+            fail("serving float32 from the bf16 checkpoint failed")
+        del eng
+
+        e_walls = []
+        res_e = timed_driver(driver_args(root / "e", seed=seed, docs=docs,
+                                         extra=("--prefetch", "0")),
+                             e_walls, {})
+        same = (res_e["mean_r"] == res_a["mean_r"]
+                and res_e["iters"] == res_a["iters"]
+                and bool(torch.equal(res_e["phi_acc"], res_a["phi_acc"])))
+        print(f"[driver] (e) --prefetch 0 step walls (warmed): " + ", ".join(
+            f"step {i + 1} {w * 1e3:.3f} ms" for i, w in
+            enumerate(e_walls[-4:])) + f"  (against (a)'s "
+              f"{', '.join(f'{w * 1e3:.3f}' for w in steps)}); equal to (a) "
+              f"bit for bit: {same}  [{card}]")
+        if not same:
+            fail("the run without a draw thread differs from (a)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return net
+
+
 def profile_run(fn, label: str, card: str, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the card's busy
     share of the wall time (the summed time of the events that ran on the
@@ -1168,6 +1575,9 @@ def main(argv=None) -> None:
                          "(counted) one included")
     ap.add_argument("--train-steps", type=int, default=3,
                     help="POBP steps of the training slices (phases 6, 7)")
+    ap.add_argument("--driver-docs", type=int, default=512,
+                    help="documents a mini-batch of the driver's runs "
+                         "(phase 8), drawn on the host")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -1185,11 +1595,12 @@ def main(argv=None) -> None:
     from repro_torch.kernels.bp_update import ops as bp_ops
     from repro_torch.kernels.power_pack import ops as pack_ops
     from repro_torch.kernels.power_sweep import ops, packed
+    from repro_torch.kernels.segment_sum import ops as seg_ops
 
     # ---- 1. build
     t0 = time.time()
     libs = build.build_all(["power_sweep_carry", "bp_update", "power_pack",
-                            "power_sweep_tokens"])
+                            "power_sweep_tokens", "segment_sum"])
     card = card_line()
     print(card)
     print(f"[build] {len(libs)} kernel(s) in {time.time() - t0:.1f}s")
@@ -1241,7 +1652,17 @@ def main(argv=None) -> None:
             guard_share=0.3, empty_doc=False, timed=True),
         "pack_rows": check_pack_rows(pack_ops, gen, W=141043, K=2000,
                                      P=14104, Pk=50, outside=False,
+                                     timed=True),
+        "word_rows_sum": check_word_rows_sum(seg_ops, gen, D=512, L=128,
+                                             K=2000, W=141043, timed=True),
+        "topic_sum": check_topic_sum(seg_ops, gen, P=14104, Pk=50, K=2000,
                                      timed=True)}
+    # the fixed-order sums at odd shapes: K not a multiple of 4 (scalar
+    # loads), a vocabulary of few words, K = 10,000, Pk of 1 and K
+    for D, L, K, W in ((3, 7, 37, 5), (4, 16, 100, 3000), (8, 16, 10000, 50)):
+        check_word_rows_sum(seg_ops, gen, D=D, L=L, K=K, W=W, timed=False)
+    for P, Pk, K in ((9, 1, 100), (9, 37, 37), (300, 50, 10000)):
+        check_topic_sum(seg_ops, gen, P=P, Pk=Pk, K=K, timed=False)
     # the dense sweep on both paths: the two-pass path at K = 2000 and past
     # the register path (K = 10,000); K = 100 and an odd K = 1999 (scalar
     # loads) on each path, with count-0 slots whose mu is not a
@@ -1390,6 +1811,7 @@ def main(argv=None) -> None:
         batches, W=W, K=K, seed=args.seed, device="cuda", card=card)
     print(f"[train] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    repeat_step(step, state, batches[1 % len(batches)], "train", card)
     train_kernel_vs_plain(seed=args.seed)
     decay_meter_check(seed=args.seed)
     ppl = evaluate(state.phi_acc, train, test, cfg,
@@ -1400,7 +1822,9 @@ def main(argv=None) -> None:
     (_, diag), carry_watch = profile_run(
         lambda: step(state, batches[0].word_ids, batches[0].counts),
         "one training step (batch 1 again)", card,
-        watch=("bp_update", "carry_train_kernel", "scatter_add_rows_kernel"))
+        watch=("bp_update", "carry_train_kernel", "carry_dr_fold_kernel",
+               "scatter_add_rows_kernel", "word_rows_sum_kernel",
+               "topic_sum_partial_kernel", "topic_sum_final_kernel"))
     print(f"[profile] that step ran {diag['iters']} iterations")
     if "bp_update" in carry_watch:
         # the dense sweep's bound on that step's own tokens
@@ -1422,6 +1846,7 @@ def main(argv=None) -> None:
         sweep_policy="packed", card=card)
     print(f"[packed] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    repeat_step(step, state, batches[1 % len(batches)], "packed", card)
     for i, (c, pk) in enumerate(zip(carry_readings, packed_readings)):
         print(f"[packed] step {i + 1} ms/iteration: carry "
               f"{c[0] * 1e3 / c[1]:.3f} ({c[1]} iterations), packed "
@@ -1458,19 +1883,30 @@ def main(argv=None) -> None:
     del u0, mb
     print(f"[time] phase 7: {time.time() - t0:.1f}s")
 
+    # ---- 8. the training driver: crash-resume, bf16 phi_acc, f32 serving
+    t0 = time.time()
+    driver_slice(seed=args.seed, docs=args.driver_docs, card=card)
+    print(f"[time] phase 8: {time.time() - t0:.1f}s")
+
     rec["launches"] = launches
     kernels = [rec]
     # device ms a launch on the main path, from the profiled steps
+    def summed(watch, *names):
+        # device ms a launch of a wrapper that runs several device kernels
+        got = [watch.get(n) for n in names]
+        return None if None in got else sum(got)
+
     main_ms = {"bp_update": carry_watch.get("bp_update"),
-               "power_sweep_carry_train": carry_watch.get(
-                   "carry_train_kernel"),
+               "power_sweep_carry_train": summed(
+                   carry_watch, "carry_train_kernel", "carry_dr_fold_kernel"),
                "scatter_add_rows": carry_watch.get("scatter_add_rows_kernel"),
+               "word_rows_sum": carry_watch.get("word_rows_sum_kernel"),
+               "topic_sum": summed(carry_watch, "topic_sum_partial_kernel",
+                                   "topic_sum_final_kernel"),
                "pack_rows": packed_watch.get("pack_rows_kernel"),
-               "power_sweep_tokens": (
-                   packed_watch["packed_sweep_kernel"]
-                   + packed_watch["packed_fold_kernel"]
-                   if {"packed_sweep_kernel", "packed_fold_kernel"}
-                   <= packed_watch.keys() else None)}
+               "power_sweep_tokens": summed(
+                   packed_watch, "packed_sweep_kernel",
+                   "packed_fold_kernel")}
     for name, r in train_recs.items():
         r["launches"] = (packed_launches if name in ("power_sweep_tokens",
                                                      "pack_rows")

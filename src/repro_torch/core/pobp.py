@@ -20,13 +20,28 @@ hand-written kernel, a CPU tensor runs its plain version):
     (``pack_rows``, through ``core.power``) and the packed sweep
     ``kernels/power_sweep/packed`` (``power_sweep_tokens``);
   - the phi fold of each selective iteration: ``kernels/power_pack``
-    (``scatter_add_rows``, through ``core.power``).
+    (``scatter_add_rows``, through ``core.power``);
+  - the fixed-order sums that the reference leaves to XLA's scatter-adds:
+    the word scatter of the phi delta and residuals
+    (``kernels/segment_sum::word_rows_sum``, through
+    ``core.residuals.token_scatter_wk``) and the phi_tot refresh
+    (``kernels/segment_sum::topic_sum``).
+
+Every sum on the card runs in a fixed order (no atomics, or atomics with
+one writer an element), so a step run twice from one state repeats bit
+for bit, and a crash-resume reproduces the uninterrupted run.
+
+``cfg.phi_acc_dtype = "bfloat16"`` keeps phi_acc at half width: the
+accumulate runs in float32, every phi and residual statistic sync ships at
+bf16, and the step folds the result back by stochastic rounding
+(``core/quantize``), its dither drawn from a generator derived from the
+run's seed and the batch number, never from the run's own stream.
 
 The reference's ``lax.while_loop`` is a Python loop here: each iteration
 reads the mean residual back to the host once to decide whether to go on.
 The port updates in place where that saves a [W, K] or [T, K] copy, and
-says so per function.  One shard only: the multi-shard sync, live-W runs
-and bf16 ``phi_acc`` raise (ROADMAP Queue 1, items 5, 6 and 2c).
+says so per function.  One shard only: the multi-shard sync and live-W
+runs raise (ROADMAP Queue 1, items 5 and 6).
 """
 
 from __future__ import annotations
@@ -38,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import power as pw
+from repro_torch.core import quantize
 from repro_torch.core.device import resolve_device
 from repro_torch.core.residuals import (mean_residual, packed_rw_delta,
                                         token_scatter_wk)
@@ -48,6 +64,7 @@ from repro_torch.core.types import (LDAConfig, LDATrainState, MiniBatch,
 from repro_torch.kernels.bp_update.ops import bp_update
 from repro_torch.kernels.power_sweep.ops import power_sweep_carry_train
 from repro_torch.kernels.power_sweep.packed import power_sweep_tokens
+from repro_torch.kernels.segment_sum.ops import topic_sum
 
 SYNC_MODES = ("power", "dense")
 
@@ -80,7 +97,8 @@ def dense_sweep(batch: MiniBatch, mu: torch.Tensor, phi_eff_wk: torch.Tensor,
         _theta(batch.counts, mu), phi_eff_wk, phi_tot, alpha=cfg.alpha,
         beta=cfg.beta, wbeta=cfg.vocab_size * cfg.beta)
     return (mu_new.reshape(D, L, K),
-            token_scatter_wk(layout.word_ids, r_tok, cfg.vocab_size))
+            token_scatter_wk(layout.word_ids, r_tok, cfg.vocab_size,
+                             layout.word_runs(cfg.vocab_size)))
 
 
 # --------------------------------------------------------------------------
@@ -114,12 +132,14 @@ def _selective_sweep_carry(layout: TokenLayout, mu_t, theta, phi_eff_wk,
     ``_selective_sweep_carry_pallas``: the training mode of the carry sweep
     (``power_sweep_carry_train``), which reads ``sel_w``, ``sel_k`` and phi
     directly where the reference builds [P+1, K] phi and mask row tables
-    and reads its [P, K] delta/residual rows back at ``sel_k``."""
+    and reads its [P, K] delta/residual rows back at ``sel_k``; its d/r
+    sums add each power word's tokens in the layout's word runs."""
     p_tok = pw.token_power_rows(layout.word_ids, sel_w, cfg.vocab_size)
     mu_t, theta_delta, d_pack, r_pack = power_sweep_carry_train(
         p_tok, layout.doc_ids, layout.counts, mu_t, theta, phi_tot,
         phi_eff_wk, sel_w, sel_k, alpha=cfg.alpha, beta=cfg.beta,
-        wbeta=cfg.vocab_size * cfg.beta)
+        wbeta=cfg.vocab_size * cfg.beta,
+        runs=layout.word_runs(cfg.vocab_size))
     return mu_t, theta + theta_delta, d_pack, r_pack
 
 
@@ -186,7 +206,8 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
     """Run one mini-batch to convergence (all Fig. 4 lines).
 
     ``batch`` holds [D, L] tensors on phi_acc's device; ``phi_acc_wk``
-    [W, K] float32 is the accumulated statistic (left unchanged);
+    [W, K] float32 or bfloat16 is the accumulated statistic (left
+    unchanged; the result is float32, the caller narrows it);
     ``total_tokens`` the mini-batch's token count; ``delta_weight`` the
     Eq. 11 weight on this batch's delta; ``decay`` (or None) the
     Robbins-Monro retention on the historical statistic.  The random init
@@ -200,10 +221,6 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
             "ported yet (ROADMAP Queue 1, item 6)")
     if sync_mode not in SYNC_MODES:
         raise ValueError(f"unknown sync_mode: {sync_mode}")
-    if phi_acc_wk.dtype != torch.float32:
-        raise NotImplementedError(
-            f"phi_acc of dtype {phi_acc_wk.dtype}: compressed accumulators "
-            f"are not ported yet (ROADMAP Queue 1, item 2c)")
     reducer = data_reducer or LocalReducer()
     dev = phi_acc_wk.device
     W = cfg.vocab_size
@@ -212,22 +229,29 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
     _check_ported(cfg)
     policy = resolve_sweep_policy(cfg)
     layout = batch.token_layout()
+    runs = layout.word_runs(W)
     c3 = batch.counts[..., None]
+    # compressed-accumulator runs ship every phi/residual statistic sync at
+    # the storage width, as the reference's phi_wire does
+    phi_wire = (torch.bfloat16 if cfg.phi_acc_dtype == "bfloat16"
+                else None)
 
     # ---- lines 3-8: random init, local stats, first dense update ----
     u = _draw_u0(batch, K, cfg, generator, u0, dev)
     mu0 = u / torch.sum(u, -1, keepdim=True)
     del u
-    phi_eff = phi_acc_wk + token_scatter_wk(batch.word_ids, c3 * mu0, W)
+    phi_eff = phi_acc_wk + token_scatter_wk(batch.word_ids, c3 * mu0, W,
+                                            runs)
     phi_tot = torch.sum(phi_eff, dim=0)
     mu1, r_wk_local = dense_sweep(batch, mu0, phi_eff, phi_tot, cfg, layout)
     del mu0, phi_eff
 
     # ---- lines 9-10: dense synchronization of phi and r ----
     phi_eff = phi_acc_wk + reducer.psum(
-        token_scatter_wk(batch.word_ids, c3 * mu1, W), "dense")
+        token_scatter_wk(batch.word_ids, c3 * mu1, W, runs), "dense",
+        dtype=phi_wire)
     phi_tot = torch.sum(phi_eff, dim=0)
-    r_glob = reducer.psum(r_wk_local, "dense")
+    r_glob = reducer.psum(r_wk_local, "dense", dtype=phi_wire)
     del r_wk_local
     theta = _theta(batch.counts, mu1)
     r_w = torch.sum(r_glob, dim=1)
@@ -247,13 +271,16 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
                 layout, mu_t, theta, phi_eff, phi_tot, sel_w, sel_k, cfg,
                 policy)
             # lines 23-24: sync only the power submatrices
-            d_pack = reducer.psum(d_pack, "power")
-            r_pack = reducer.psum(r_pack, "power")
-            # packed-carry refresh, Eq. 9: O(P*Pk) updates, in place
+            d_pack = reducer.psum(d_pack, "power", dtype=phi_wire)
+            r_pack = reducer.psum(r_pack, "power", dtype=phi_wire)
+            # packed-carry refresh, Eq. 9: O(P*Pk) updates, in place.  The
+            # power words and each row's topics are distinct, so the two
+            # scatters and the r_w index_add have one writer an element:
+            # their order does not matter; phi_tot's per-topic sums do,
+            # and topic_sum takes them in a fixed order
             rw_delta = packed_rw_delta(r_glob, sel_w, sel_k, r_pack)
             pw.scatter_add_rows(phi_eff, sel_w, sel_k, d_pack)
-            phi_tot = phi_tot + torch.zeros_like(phi_tot).index_add_(
-                0, sel_k.reshape(-1).long(), d_pack.reshape(-1))
+            phi_tot = topic_sum(sel_k, d_pack, phi_tot)
             pw.scatter_set_rows(r_glob, sel_w, sel_k, r_pack)
             rw_delta = reducer.psum(rw_delta, "model_rw_loop", compress=False)
             r_w = r_w.index_add(0, sel_w.long(), rw_delta)
@@ -264,15 +291,17 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
         while go_on(t, r_w):
             mu, r_wk = dense_sweep(batch, mu, phi_eff, phi_tot, cfg, layout)
             phi_eff = phi_acc_wk + reducer.psum(
-                token_scatter_wk(batch.word_ids, c3 * mu, W), "dense_loop")
+                token_scatter_wk(batch.word_ids, c3 * mu, W, runs),
+                "dense_loop", dtype=phi_wire)
             phi_tot = torch.sum(phi_eff, dim=0)
             theta = _theta(batch.counts, mu)
-            r_w = torch.sum(reducer.psum(r_wk, "dense_loop"), dim=1)
+            r_w = torch.sum(reducer.psum(r_wk, "dense_loop", dtype=phi_wire),
+                            dim=1)
             del r_wk
             t += 1
 
     # ---- Eq. (11): fold this batch's delta into the statistic, written
-    # as the reference writes it, in phi_eff's storage ----
+    # as the reference writes it, in phi_eff's (float32) storage ----
     phi_acc_new = phi_eff.sub_(phi_acc_wk).mul_(delta_weight)
     if decay is None:
         phi_acc_new.add_(phi_acc_wk)
@@ -330,49 +359,71 @@ def _decay_factor(cfg: LDAConfig, m: int) -> Optional[float]:
 def _check_ported(cfg: LDAConfig, num_shards: int = 1,
                   reducer=None) -> None:
     """Raise for what the port does not run yet, and (``ValueError``) for
-    an unknown ``sweep_policy``."""
+    an unknown ``sweep_policy`` or ``phi_acc_dtype``."""
     resolve_sweep_policy(cfg)
+    quantize.phi_acc_dtype(cfg)
     if num_shards != 1 or reducer is not None:
         raise NotImplementedError(
             f"num_shards={num_shards}, reducer={reducer!r}: multi-shard sync "
             f"and injected reducers are not ported yet (ROADMAP Queue 1, "
             f"item 5)")
-    if cfg.phi_acc_dtype != "float32":
-        raise NotImplementedError(
-            f"phi_acc_dtype={cfg.phi_acc_dtype!r}: compressed accumulators "
-            f"with stochastic rounding are not ported yet (ROADMAP Queue 1, "
-            f"item 2c)")
 
 
 def init_train_state(cfg: LDAConfig, seed: int = 0,
                      device="cuda") -> LDATrainState:
-    """Cold-start state: phi_acc = 0 [W, K] float32 on ``device``, m = 0,
-    and a generator on that device seeded with ``seed``."""
+    """Cold-start state: phi_acc = 0 [W, K] at ``cfg.phi_acc_dtype`` on
+    ``device`` (the accumulate still runs in float32: the state only
+    stores narrow), m = 0, and a generator on that device seeded with
+    ``seed``."""
     _check_ported(cfg)
     dev = resolve_device(device)
     return LDATrainState(
         phi_acc=torch.zeros((cfg.vocab_size, cfg.num_topics),
-                            dtype=torch.float32, device=dev),
+                            dtype=quantize.phi_acc_dtype(cfg), device=dev),
         m=0, generator=torch.Generator(device=dev).manual_seed(seed))
 
 
+# tag of the stochastic-rounding generator, derived from the run's seed and
+# the batch number so the run's own stream is never consumed (the
+# reference's fold_in tag)
+_SR_FOLD = 0x5F0C4
+
+
+def _sr_generator(generator: torch.Generator, m: int) -> torch.Generator:
+    """The generator of batch ``m``'s stochastic-rounding dither: seeded
+    from ``generator.initial_seed()``, ``m`` and `_SR_FOLD`, so every f32
+    run draws the same stream whether or not a bf16 run came between, and a
+    resumed bf16 run draws what the uninterrupted one drew."""
+    seed = (generator.initial_seed() * 0x9E3779B97F4A7C15
+            + m * 0xBF58476D1CE4E5B9 + _SR_FOLD) % (1 << 63)
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
 def make_train_step(cfg: LDAConfig, num_shards: int = 1,
-                    sync_mode: str = "power", reducer=None, device="cuda"):
+                    sync_mode: str = "power", sync_dtype=torch.float32, *,
+                    reducer=None, device="cuda"):
     """The streaming step: one POBP mini-batch on one device.
 
-    Returns (step, meter) with ``step(state, word_ids, counts, *, u0=None)
-    -> (new_state, diag)``; word_ids/counts are [D, L] (moved to the
-    device), ``diag = {iters, mean_r, theta}`` with ``mean_r`` and theta
-    left on the device.  The step draws the init from ``state.generator``
-    (advancing it) unless ``u0`` [D, Lpad, K] is injected.  The new
-    state's phi_acc is a new tensor; the old one is left unchanged.
+    The reference's positional order: ``sync_dtype`` (a torch dtype or its
+    name) is the payload dtype of the compressed syncs; with one shard they
+    take its cast round trip, so an N = 1 run computes what an N-shard run
+    with that sync dtype computes.  Returns (step, meter) with
+    ``step(state, word_ids, counts, *, u0=None) -> (new_state, diag)``;
+    word_ids/counts are [D, L] (moved to the device), ``diag = {iters,
+    mean_r, theta}`` with ``mean_r`` and theta left on the device.  The
+    step draws the init from ``state.generator`` (advancing it) unless
+    ``u0`` [D, Lpad, K] is injected.  The new state's phi_acc is a new
+    tensor at ``cfg.phi_acc_dtype``, folded back from the float32
+    accumulate by stochastic rounding when that is bfloat16; the old one is
+    left unchanged.
     """
     _check_ported(cfg, num_shards, reducer)
     if sync_mode not in SYNC_MODES:
         raise ValueError(f"unknown sync_mode: {sync_mode}")
     dev = resolve_device(device)
     meter = CommMeter()
-    red = LocalReducer(meter=meter)
+    red = LocalReducer(meter=meter, sync_dtype=sync_dtype)
+    storage = quantize.phi_acc_dtype(cfg)
 
     def step(state: LDATrainState, word_ids, counts, *, u0=None):
         here = state.phi_acc.device
@@ -380,11 +431,15 @@ def make_train_step(cfg: LDAConfig, num_shards: int = 1,
             raise ValueError(f"state.phi_acc is on {state.phi_acc.device}, "
                              f"the step on {dev}")
         m = state.m + 1
-        phi, iters, mean_r, _mu, theta = pobp_shard_body(
+        phi, iters, mean_r, mu, theta = pobp_shard_body(
             word_ids.to(here, torch.int32), counts.to(here, torch.float32),
             state.phi_acc, _delta_weight(cfg, m), cfg, red,
             sync_mode=sync_mode, decay=_decay_factor(cfg, m),
             generator=state.generator, u0=u0)
+        del mu                  # freed before the rounding allocates
+        if storage != torch.float32:
+            phi = quantize.stochastic_round(
+                phi, storage, _sr_generator(state.generator, m))
         return (LDATrainState(phi_acc=phi, m=m, generator=state.generator),
                 dict(iters=iters, mean_r=mean_r, theta=theta))
 
@@ -427,7 +482,8 @@ def run_stream(stream, cfg: LDAConfig, num_shards: int = 1,
     result, with device scalars in ``rec``.  Pass ``state`` to continue a
     run.  Returns (phi_acc [W, K], history list of per-batch dicts, meter).
     """
-    step, meter = make_train_step(cfg, num_shards, sync_mode, device=device)
+    step, meter = make_train_step(cfg, num_shards, sync_mode,
+                                  device=device)
     if state is None:
         state = init_train_state(cfg, seed, device=device)
     buf = DiagBuffer()

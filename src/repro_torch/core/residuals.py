@@ -5,16 +5,31 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.segment_sum.ops import word_rows_sum
+
 
 def token_scatter_wk(word_ids: torch.Tensor, values: torch.Tensor,
-                     vocab_size: int) -> torch.Tensor:
+                     vocab_size: int, runs=None) -> torch.Tensor:
     """Sum per-token values [..., K] (any leading token shape matching
-    ``word_ids``) into a new [W, K] matrix by word id: ``index_add_``.
+    ``word_ids``) into a new [W, K] matrix by word id.
 
     Used for the phi delta (Eq. 3) and the residual matrix (Eq. 8).
-    Padding tokens carry zero values, so their word id 0 adds nothing.
+    Padding tokens carry zero values, so their word id 0 adds nothing.  On
+    a CPU tensor: ``index_add_``, which adds in token order.  On a CUDA
+    tensor, where ``index_add_`` adds with atomics in no fixed order, the
+    fixed-order kernel ``kernels/segment_sum::word_rows_sum`` over ``runs``
+    (``TokenLayout.word_runs(W)``, made once per mini-batch, required
+    there), which adds each word's tokens in token order too: the two agree
+    bit for bit.  ``runs`` leaves out the tokens of count 0, whose values
+    must then be 0 (as c * mu and c * |dmu| are).  The CPU path needs no
+    ``runs``.
     """
     K = values.shape[-1]
+    if values.device.type != "cpu":
+        if runs is None:
+            raise ValueError("token_scatter_wk needs the tokens' runs by "
+                             "word off the CPU (TokenLayout.word_runs)")
+        return word_rows_sum(*runs, values.reshape(-1, K), vocab_size)
     out = torch.zeros((vocab_size, K), dtype=values.dtype,
                       device=values.device)
     return out.index_add_(0, word_ids.reshape(-1).long(),

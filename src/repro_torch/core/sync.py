@@ -71,6 +71,9 @@ class CommMeter:
         self._sigs.clear()
 
 
+_CAST_CHUNK = 1 << 24      # elements a wire-cast pass takes at once
+
+
 class LocalReducer:
     """N = 1 reducer: no communication, so ``psum`` records nothing.  Under
     ``compress`` the payload still takes the ``sync_dtype`` cast round
@@ -85,9 +88,15 @@ class LocalReducer:
     def psum(self, x: torch.Tensor, phase: str, compress: bool = True,
              dtype=None) -> torch.Tensor:
         wire = wire_dtype(dtype) if dtype is not None else self.sync_dtype
-        if compress and x.dtype != wire:
-            return x.to(wire).to(x.dtype)
-        return x
+        if not compress or x.dtype == wire:
+            return x
+        # the round trip in passes: no full-size wire copy beside x and
+        # the result
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        for src, dst in zip(x.reshape(-1).split(_CAST_CHUNK),
+                            out.view(-1).split(_CAST_CHUNK)):
+            dst.copy_(src.to(wire))
+        return out
 
     def bill(self, x: torch.Tensor, phase: str) -> torch.Tensor:
         """Record a local full-statistic touch without reducing, as the

@@ -105,6 +105,23 @@ def sweep_order(keys: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
+def token_runs(keys: torch.Tensor, counts: torch.Tensor, num_keys: int,
+               order: Optional[torch.Tensor] = None):
+    """The counted tokens grouped by key, for the fixed-order segmented
+    sums: ``(order, starts)`` with ``order`` the `sweep_order` of ``keys``
+    [T] (given, or made here) and ``starts`` int32 [num_keys + 1], so that
+    the counted tokens of key q, in token order, are
+    ``order[starts[q]:starts[q + 1]]``.  Keys must lie in [0, num_keys)."""
+    if order is None:
+        order = sweep_order(keys, counts)
+    o = order.long()
+    sorted_keys = keys.reshape(-1).long()[o] + (
+        (counts.reshape(-1)[o] == 0).long() << 32)
+    starts = torch.searchsorted(
+        sorted_keys, torch.arange(num_keys + 1, device=keys.device))
+    return order, starts.to(torch.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class TokenLayout:
     """Token-major view of a padded-CSR mini-batch.
@@ -130,6 +147,20 @@ class TokenLayout:
         port-only field: the packed kernel's visiting order)."""
         return sweep_order(self.word_ids, self.counts)
 
+    @functools.cached_property
+    def _runs(self) -> dict:
+        return {}
+
+    def word_runs(self, vocab_size: int):
+        """`token_runs` of the tokens by word over ``vocab_size`` words, on
+        `sweep_order`, made once per mini-batch: the visiting order of the
+        fixed-order sums (the word scatter, the carry sweep's d/r)."""
+        W = int(vocab_size)
+        if W not in self._runs:
+            self._runs[W] = token_runs(self.word_ids, self.counts, W,
+                                       self.sweep_order)
+        return self._runs[W]
+
     def to_batch_major(self, values_tk: torch.Tensor) -> torch.Tensor:
         """[T, K] token-major tensor back to the [D, L, K] batch view."""
         return values_tk.reshape(self.num_docs, self.max_len, -1)
@@ -141,7 +172,8 @@ class LDATrainState:
     mini-batch to the next.
 
     phi_acc[W, K]  accumulated topic-word sufficient statistics (Eq. 11),
-                   float32, on the step's device
+                   float32 or bfloat16 (``cfg.phi_acc_dtype``), on the
+                   step's device
     m              mini-batches consumed so far (batch m+1 is the next)
     generator      ``torch.Generator`` on phi_acc's device; the step draws
                    each mini-batch's random message init from it (the

@@ -85,14 +85,25 @@
 //     one token each, lanes stride over the token's Pk topics (any Pk from
 //     1 to K), sel_k and phi are read by index, theta and phi_tot at the
 //     Pk topics from global memory (L1/L2);
-//   - d_pack and r_pack are atomicAdds into the [P, Pk] buffers (5.6 MB,
-//     L2-resident); their order varies from run to run, so they are
-//     compared with tolerances, never bit for bit;
+//   - d_pack and r_pack are sums over each power row's tokens, taken in one
+//     fixed order with no atomics, so they repeat bit for bit from launch to
+//     launch: the sweep writes each power token's cd [Pk] into a
+//     token-indexed [T, Pk] scratch stream (coalesced, 9.2 MB at these
+//     shapes), and a second kernel (carry_dr_fold_kernel), one warp a power
+//     row, adds the row's tokens in the sweep order the caller made once
+//     per mini-batch (TokenLayout.word_runs: counted tokens sorted by word,
+//     stable, so by token index within a word; starts[w] .. starts[w + 1]
+//     is the run of word w), the run of its word sel_w[p].  Lanes stride
+//     over Pk, each lane owning its (p, j) elements: one writer each, and
+//     every row is written, so the buffers need no zeroing.  Tokens of count 0 are
+//     outside the runs: their cd is exactly 0;
 //   - theta_delta stays deterministic: each warp stages its token's cd_j in
 //     shared memory, and after the round's __syncthreads warp 0 adds the
 //     round's tokens into one [K] row in token order (double-buffered
 //     stage, one barrier a round).  The fold is not what bounds the kernel:
 //     a variant with a warp of its own for it ran no faster on an H100.
+//   The fold reads the power tokens' cd once more (9.2 MB) and writes the
+//   [P, Pk] buffers (5.6 MB) the atomics wrote before.
 //   Shared memory: 4 * (K + 2 * warps * Pk) bytes, 11.2 KB at K = 2000,
 //   Pk = 50, 8 warps; with __launch_bounds__(256, 4) (<= 64 registers) 4
 //   CTAs fit an SM, so the 512 CTAs of a training batch run in one wave.
@@ -113,6 +124,7 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kCluster = 4;          // CTAs per serving slot
 constexpr int kTrainMaxWarps = 8;
+constexpr int kFoldWarps = 8;           // power rows a fold CTA
 
 __device__ __forceinline__ float warp_sum(float v) {
   // xor butterfly: a fixed order, every lane ends with the same sum
@@ -541,9 +553,8 @@ __global__ void __launch_bounds__(kTrainMaxWarps * kWarp, 4) carry_train_kernel(
     const float* __restrict__ counts, float* mu, const float* __restrict__ theta,
     const float* __restrict__ phi_tot, const float* __restrict__ phi,
     const int* __restrict__ sel_w, const int* __restrict__ sel_k,
-    float* __restrict__ theta_delta, float* __restrict__ d_pack,
-    float* __restrict__ r_pack, int T, int K, int P, int Pk, float alpha, float beta,
-    float wbeta) {
+    float* __restrict__ theta_delta, float* __restrict__ cd_out, int T, int K, int P,
+    int Pk, float alpha, float beta, float wbeta) {
   extern __shared__ float smem[];
   __shared__ int stage_p[2][kTrainMaxWarps];  // each warp's row this round, -1 none
   const int nw = blockDim.x / kWarp;
@@ -579,8 +590,7 @@ __global__ void __launch_bounds__(kTrainMaxWarps * kWarp, 4) carry_train_kernel(
       sm = warp_sum(sm);
       const float denom = fmaxf(su, 1e-30f);
       float* st = stage + (size_t)(buf * nw + warp) * Pk;
-      float* dp = d_pack + (size_t)p * Pk;
-      float* rp = r_pack + (size_t)p * Pk;
+      float* co = cd_out + (size_t)t * Pk;
       for (int j = lane; j < Pk; j += kWarp) {
         const int k = __ldg(ks + j);
         const float m = mu_t[k];
@@ -589,8 +599,7 @@ __global__ void __launch_bounds__(kTrainMaxWarps * kWarp, 4) carry_train_kernel(
         const float cd = c * (mn - m);
         mu_t[k] = mn;
         st[j] = cd;
-        atomicAdd(dp + j, cd);
-        atomicAdd(rp + j, fabsf(cd));
+        co[j] = cd;
       }
     }
     if (lane == 0) stage_p[buf][warp] = p;
@@ -611,6 +620,32 @@ __global__ void __launch_bounds__(kTrainMaxWarps * kWarp, 4) carry_train_kernel(
   __syncthreads();
   for (int k = threadIdx.x; k < K; k += blockDim.x)
     theta_delta[(size_t)d * K + k] = acc[k];
+}
+
+// d_pack[p, :] and r_pack[p, :]: one warp a power row p sums the cd rows of
+// the run of its word sel_w[p] in run order.
+__global__ void __launch_bounds__(kFoldWarps * kWarp) carry_dr_fold_kernel(
+    const int* __restrict__ order, const int* __restrict__ starts,
+    const int* __restrict__ sel_w, const float* __restrict__ cd,
+    float* __restrict__ d_pack, float* __restrict__ r_pack, int P, int Pk) {
+  const int p = blockIdx.x * kFoldWarps + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (p >= P) return;
+  const int key = __ldg(sel_w + p);
+  const int lo = __ldg(starts + key), hi = __ldg(starts + key + 1);
+  for (int j0 = 0; j0 < Pk; j0 += kWarp) {
+    const int j = j0 + lane;
+    float sd = 0.f, sr = 0.f;
+    if (j < Pk) {
+      for (int i = lo; i < hi; ++i) {
+        const float v = __ldg(cd + (size_t)__ldg(order + i) * Pk + j);
+        sd += v;
+        sr += fabsf(v);
+      }
+      d_pack[(size_t)p * Pk + j] = sd;
+      r_pack[(size_t)p * Pk + j] = sr;
+    }
+  }
 }
 
 }  // namespace
@@ -665,22 +700,32 @@ int power_sweep_carry_serve(const int* p_tok, const int* doc_ids, const float* c
 
 // Launches one training sweep on `stream` with `warps` warps a CTA (1 to 8,
 // leaving 4 * (K + 2 * warps * Pk) bytes within what
-// power_sweep_carry_configure allowed); allocates nothing.  theta_delta
-// [D, K] is written whole; d_pack and r_pack [P, Pk] must be zeroed by the
-// caller (the kernel adds into them).  Returns the CUDA error code of the
-// launch (0 on success).
+// power_sweep_carry_configure allowed), then the d/r fold; allocates
+// nothing.  `order` [T] and `starts` [W + 1] are the runs by word (see the
+// note above): the counted tokens of word w are order[starts[w] ..
+// starts[w + 1]).  `cd` is a scratch of T * Pk floats.  theta_delta [D, K], d_pack and r_pack [P, Pk]
+// are written whole.  Returns the CUDA error code of the launches (0 on
+// success).
 int power_sweep_carry_train(const int* p_tok, const int* doc_ids, const float* counts,
                             float* mu, const float* theta, const float* phi_tot,
                             const float* phi, const int* sel_w, const int* sel_k,
-                            float* theta_delta, float* d_pack, float* r_pack, int T,
-                            int D, int K, int P, int Pk, float alpha, float beta,
+                            const int* order, const int* starts,
+                            float* cd, float* theta_delta, float* d_pack, float* r_pack,
+                            int T, int D, int K, int P, int Pk, float alpha, float beta,
                             float wbeta, int warps, void* stream) {
   if (warps < 1 || warps > kTrainMaxWarps) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)K + 2 * (size_t)warps * Pk);
   if (D > 0) {
     carry_train_kernel<<<D, warps * kWarp, smem, (cudaStream_t)stream>>>(
-        p_tok, doc_ids, counts, mu, theta, phi_tot, phi, sel_w, sel_k, theta_delta,
-        d_pack, r_pack, T, K, P, Pk, alpha, beta, wbeta);
+        p_tok, doc_ids, counts, mu, theta, phi_tot, phi, sel_w, sel_k, theta_delta, cd,
+        T, K, P, Pk, alpha, beta, wbeta);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (P > 0 && Pk > 0) {
+    carry_dr_fold_kernel<<<(P + kFoldWarps - 1) / kFoldWarps, kFoldWarps * kWarp, 0,
+                           (cudaStream_t)stream>>>(order, starts, sel_w, cd, d_pack,
+                                                   r_pack, P, Pk);
   }
   return (int)cudaGetLastError();
 }

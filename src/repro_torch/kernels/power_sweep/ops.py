@@ -24,7 +24,9 @@ rows by index from HBM and has its own two serving paths: threads that keep
 their topics of a row in registers (K <= ``SERVE_REGISTER_MAX_K``), and the
 K-blocked two passes, for any K; `serve_launch_plan` picks by K.  Training
 takes K + 2 * Pk floats of shared memory (`power_sweep_carry_train_max_k`);
-past that the wrapper raises ``ValueError``.
+past that the wrapper raises ``ValueError``.  Both modes sum in a fixed
+order (training: a second device kernel adds the d/r rows over the tokens'
+runs), so every output repeats bit for bit from launch to launch.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([ptr] * 10 + [i32] * 5 + [f32] * 3
                        + [i32] * 2 + [ptr])
         fn.restype = ctypes.c_int
-        lib.power_sweep_carry_train.argtypes = ([ptr] * 12 + [i32] * 5
+        lib.power_sweep_carry_train.argtypes = ([ptr] * 15 + [i32] * 5
                                                 + [f32] * 3 + [i32, ptr])
         lib.power_sweep_carry_train.restype = ctypes.c_int
         lib.power_sweep_carry_error_string.argtypes = [ctypes.c_int]
@@ -184,13 +186,15 @@ power_sweep_carry.launches = 0
 
 def power_sweep_carry_train_plain(p_tok, doc_ids, counts_t, mu_t, theta,
                                   phi_tot, phi_eff_wk, sel_w, sel_k, *,
-                                  alpha: float, beta: float, wbeta: float):
+                                  alpha: float, beta: float, wbeta: float,
+                                  runs=None):
     """The training sweep in plain PyTorch ops: phi gathered at the
     selection, then the per-token [T, Pk] gathers, update and fold-back of
     ``packed.power_sweep_tokens_plain`` (the same sweep as the reference's
     ``power_sweep_carry_ref(..., update_phi=True)`` over [P+1, K] tables,
-    read back at ``sel_k``).  Returns (mu_t, theta_delta [D, K],
-    d_pack [P, Pk], r_pack [P, Pk]); mu_t updated IN PLACE."""
+    read back at ``sel_k``).  ``runs`` is the kernel's visiting order, not
+    needed here.  Returns (mu_t, theta_delta [D, K], d_pack [P, Pk],
+    r_pack [P, Pk]); mu_t updated IN PLACE."""
     phi_pack = phi_eff_wk[sel_w.long()[:, None], sel_k.long()]
     return power_sweep_tokens_plain(
         p_tok, doc_ids, counts_t, mu_t, theta, phi_tot, phi_pack, sel_k,
@@ -221,7 +225,7 @@ def power_sweep_carry_train_max_k(Pk: int, device="cuda") -> int:
 
 def power_sweep_carry_train(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
                             phi_eff_wk, sel_w, sel_k, *, alpha: float,
-                            beta: float, wbeta: float):
+                            beta: float, wbeta: float, runs=None):
     """One training-mode selective sweep at the (power word, power topic)
     coordinates, over the token-major [T, K] messages.
 
@@ -233,13 +237,17 @@ def power_sweep_carry_train(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     statistic, read at the selection only; sel_w [P] int32 the power words;
     sel_k [P, Pk] int32 each power word's topics, distinct within a row.
     sel_w and sel_k must be in range: the kernel reads them unchecked.
+    ``runs`` (order [T], starts [W + 1], int32) are the tokens' runs by word
+    (``TokenLayout.word_runs(W)``, made once per mini-batch): the d/r sums
+    add each power row's counted tokens in that order.  The kernel needs
+    them; the plain version does not.
 
     Returns (mu_t, theta_delta [D, K], d_pack [P, Pk], r_pack [P, Pk]);
     the caller forms theta + theta_delta.  A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel, counted in
-    ``power_sweep_carry_train.launches``.  theta_delta repeats bit for bit
-    from launch to launch; d_pack and r_pack are atomic sums whose order
-    varies.
+    version; a CUDA tensor launches the kernel (the sweep, then the d/r
+    fold), counted once in ``power_sweep_carry_train.launches``.  Every
+    sum runs in a fixed order, so all four outputs repeat bit for bit from
+    launch to launch.
     """
     if mu_t.device.type == "cpu":
         return power_sweep_carry_train_plain(
@@ -263,6 +271,14 @@ def power_sweep_carry_train(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
                         "sel_k": (sel_k, torch.int32, (P, Pk))})
     if Pk > K:
         raise ValueError(f"Pk={Pk} power topics exceed K={K}")
+    if runs is None:
+        raise ValueError("power_sweep_carry_train needs the tokens' runs by "
+                         "word on CUDA (TokenLayout.word_runs)")
+    order, starts = runs
+    check_args("mu_t", {"order": (order, torch.int32, (T,)),
+                        "starts": (starts, torch.int32,
+                                   (phi_eff_wk.shape[0] + 1,)),
+                        "mu_t": (mu_t, torch.float32, (T, K))})
     dev = mu_t.device
     lib = _lib()
     with torch.cuda.device(dev):
@@ -273,12 +289,14 @@ def power_sweep_carry_train(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
                 f"K={K}, Pk={Pk}: the training kernel takes K + 2 * Pk <= "
                 f"{floats} on {dev} (its shared memory)")
         theta_delta = torch.empty_like(theta)
-        d_pack = torch.zeros((P, Pk), dtype=torch.float32, device=dev)
-        r_pack = torch.zeros_like(d_pack)
+        d_pack = torch.empty((P, Pk), dtype=torch.float32, device=dev)
+        r_pack = torch.empty_like(d_pack)
+        cd = torch.empty((T, Pk), dtype=torch.float32, device=dev)
         err = lib.power_sweep_carry_train(
             p_tok.data_ptr(), doc_ids.data_ptr(), counts_t.data_ptr(),
             mu_t.data_ptr(), theta.data_ptr(), phi_tot.data_ptr(),
             phi_eff_wk.data_ptr(), sel_w.data_ptr(), sel_k.data_ptr(),
+            order.data_ptr(), starts.data_ptr(), cd.data_ptr(),
             theta_delta.data_ptr(), d_pack.data_ptr(), r_pack.data_ptr(),
             T, D, K, P, Pk, float(alpha), float(beta), float(wbeta), warps,
             torch.cuda.current_stream(dev).cuda_stream)

@@ -130,7 +130,8 @@ def test_kernel_limits_on_card(card):
         kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3)
         plain = list(args)
         plain[3] = args[3].clone()
-        got = ops.power_sweep_carry_train(*args, **kw)
+        got = ops.power_sweep_carry_train(*args, **kw,
+                                          runs=_word_runs(args, 7))
         want = ops.power_sweep_carry_train_plain(*plain, **kw)
         torch.cuda.synchronize()
         torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
@@ -139,7 +140,8 @@ def test_kernel_limits_on_card(card):
                                                    Pk=Pk)]
         before = ops.power_sweep_carry_train.launches
         with pytest.raises(ValueError, match="training kernel takes"):
-            ops.power_sweep_carry_train(*args, **kw)
+            ops.power_sweep_carry_train(*args, **kw,
+                                        runs=_word_runs(args, 7))
         assert ops.power_sweep_carry_train.launches == before
 
 
@@ -155,7 +157,8 @@ def test_wrapper_checks_on_card(card):
     with pytest.raises(ValueError, match="phi_rows is on cpu"):
         ops.power_sweep_carry(*bad, **kw)
     targs = [x.to("cuda") for x in _train_args(0, D=2, L=4, K=8, P=3, Pk=2)]
-    tkw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3)
+    tkw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3,
+               runs=_word_runs(targs, 7))
     bad = list(targs)
     bad[7] = torch.zeros(4, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="sel_w must have shape"):
@@ -164,6 +167,8 @@ def test_wrapper_checks_on_card(card):
     bad[8] = targs[8].long()
     with pytest.raises(ValueError, match="sel_k must be torch.int32"):
         ops.power_sweep_carry_train(*bad, **tkw)
+    with pytest.raises(ValueError, match="runs by word on CUDA"):
+        ops.power_sweep_carry_train(*targs, **dict(tkw, runs=None))
     bp = [x.to("cuda") for x in _bp_args(0, D=2, L=4, K=8, W=10)]
     bad = list(bp)
     bad[3] = bp[3].t().contiguous().t()
@@ -239,6 +244,19 @@ def _check_bp_update_on_card(D, L, K, W):
         assert torch.equal(g, r)
 
 
+def _word_runs(args, W):
+    """The tokens' runs by word, as the step makes them: a power token's
+    word is its row's sel_w, a guard token's a word outside the selection."""
+    from repro_torch.core.types import token_runs
+
+    p_tok, counts, sel_w = args[0], args[2], args[7]
+    P = sel_w.shape[0]
+    other = int(np.setdiff1d(np.arange(W), sel_w.cpu().numpy())[0])
+    words = torch.where(p_tok < P, sel_w[p_tok.clamp(max=P - 1).long()],
+                        other)
+    return token_runs(words, counts, W)
+
+
 def _train_args(seed, *, D, L, K, P, Pk, guard=0.5, empty_doc=False):
     """Training-mode carry inputs: tokens on power rows [0, P) or (a
     ``guard`` share) the guard id P, a ragged last document (with
@@ -284,6 +302,7 @@ def test_carry_training_kernel_matches_plain_version_on_card(
     mu0 = args[3].clone()
     plain = list(args)
     plain[3] = mu0.clone()
+    kw["runs"] = _word_runs(args, 2 * P + 1)
     before = ops.power_sweep_carry_train.launches
     got = ops.power_sweep_carry_train(*args, **kw)
     assert ops.power_sweep_carry_train.launches == before + 1
@@ -292,7 +311,8 @@ def test_carry_training_kernel_matches_plain_version_on_card(
     torch.cuda.synchronize()
     assert got[0].data_ptr() == args[3].data_ptr()        # mu in place
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
-    # theta_delta and the atomically summed packs: rel 1e-4 of their scale
+    # theta_delta and the packs, summed in another order: rel 1e-4 of
+    # their scale
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(
             g, w, rtol=1e-4, atol=1e-4 * max(float(w.abs().max()), 1e-30))
@@ -304,11 +324,11 @@ def test_carry_training_kernel_matches_plain_version_on_card(
     assert torch.equal(got[0][~selected], mu0[~selected])
     if empty_doc:
         assert not got[1][1].any()
-    # mu' and theta_delta repeat bit for bit from launch to launch
+    # all four outputs repeat bit for bit from launch to launch
     again = list(args)
     again[3] = mu0.clone()
     rerun = ops.power_sweep_carry_train(*again, **kw)
-    assert torch.equal(rerun[0], got[0]) and torch.equal(rerun[1], got[1])
+    assert all(torch.equal(r, g) for r, g in zip(rerun, got))
 
 
 def _pack_args(seed, *, W, K, P, Pk):
@@ -606,3 +626,134 @@ def test_engines_serve_on_card_with_pipelined_harvest(card):
         assert np.isfinite(th).all()
         np.testing.assert_allclose(th.sum(axis=1), 1.0, atol=1e-5)
     assert ops.power_sweep_carry.launches > before
+
+
+# ------------------------------------------------ the training step repeats
+
+@pytest.mark.parametrize("D,L,K,P,Pk", [
+    (512, 128, 2000, 14104, 50),                # the training slice's shapes
+    (5, 7, 37, 6, 37), (4, 16, 8192, 50, 50), (3, 8, 1, 4, 1),
+    (6, 9, 999, 13, 33)])                       # odd K and Pk
+def test_carry_training_dr_repeat_bit_for_bit_on_card(card, D, L, K, P, Pk):
+    """The carry training sweep's d/r sums run in a fixed order: three
+    launches with the step's runs by word give the same four outputs bit
+    for bit."""
+    args = [x.to("cuda") for x in _train_args(D + P, D=D, L=L, K=K, P=P,
+                                              Pk=Pk, guard=0.3)]
+    runs = _word_runs(args, 2 * P + 1)
+    kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3)
+    outs = []
+    for r in (runs, runs, runs):
+        a = list(args)
+        a[3] = args[3].clone()
+        outs.append(ops.power_sweep_carry_train(*a, **kw, runs=r))
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(outs[0], other))
+
+
+@pytest.mark.parametrize("T,K,W", [(65536, 2000, 141043), (21, 37, 5),
+                                   (256, 10000, 50)])
+def test_word_rows_sum_matches_cpu_bit_for_bit_on_card(card, T, K, W):
+    from repro_torch.core.types import token_runs
+    from repro_torch.kernels.segment_sum import ops as seg
+
+    rng = np.random.default_rng(T + K)
+    words = (rng.random(T) ** 4 * W).astype(np.int32)
+    counts = rng.integers(0, 3, (T, 1)).astype(np.float32)
+    words[counts[:, 0] == 0] = 0
+    values = counts * rng.random((T, K)).astype(np.float32)
+    runs = token_runs(torch.from_numpy(words), torch.from_numpy(counts), W)
+    want = seg.word_rows_sum_plain(*runs, torch.from_numpy(values), W)
+    before = seg.word_rows_sum.launches
+    got = seg.word_rows_sum(*[r.cuda() for r in runs],
+                            torch.from_numpy(values).cuda(), W)
+    again = seg.word_rows_sum(*[r.cuda() for r in runs],
+                              torch.from_numpy(values).cuda(), W)
+    assert seg.word_rows_sum.launches == before + 2
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("P,Pk,K", [(14104, 50, 2000), (9, 1, 100),
+                                    (9, 37, 37), (300, 50, 10000)])
+def test_topic_sum_matches_plain_version_on_card(card, P, Pk, K):
+    from repro_torch.kernels.segment_sum import ops as seg
+
+    rng = np.random.default_rng(P + K)
+    sel_k = torch.from_numpy(np.argsort(rng.random((P, K)), axis=1)[
+        :, :Pk].astype(np.int32).copy())
+    vals = torch.from_numpy(rng.standard_normal((P, Pk)).astype(np.float32))
+    base = torch.from_numpy((rng.random(K) * 100).astype(np.float32))
+    want = seg.topic_sum_plain(sel_k, vals, base)
+    got = seg.topic_sum(sel_k.cuda(), vals.cuda(), base.cuda())
+    again = seg.topic_sum(sel_k.cuda(), vals.cuda(), base.cuda())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, again)
+
+
+def test_restored_cuda_generator_draws_the_same_init(card):
+    """get_state/set_state on a CUDA generator restore its seed and offset:
+    the restored generator draws what the uninterrupted one draws, and its
+    initial_seed (the stochastic rounding's seed) survives."""
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    torch.rand((7, 33), generator=g, device="cuda")
+    saved = g.get_state()
+    want = torch.rand((16, 32, 64), generator=g, device="cuda")
+    h = torch.Generator(device="cuda").manual_seed(99)
+    h.set_state(saved)
+    assert h.initial_seed() == 1234
+    assert torch.equal(torch.rand((16, 32, 64), generator=h, device="cuda"),
+                       want)
+
+
+@pytest.mark.parametrize("policy,dtype", [("auto", "float32"),
+                                          ("packed", "float32"),
+                                          ("auto", "bfloat16")])
+def test_train_step_repeats_bit_for_bit_on_card(card, policy, dtype):
+    """One mini-batch run twice from one state, the generator's state put
+    back in between: phi_acc, theta, mean_r and iterations equal bit for
+    bit on both policies (every sum in a fixed order) and with a bf16
+    phi_acc (the rounding's dither from a generator of its own)."""
+    W, K = 3000, 128
+    cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_k_abs=16,
+                    inner_iters=30, residual_tol=0.02, sweep_policy=policy,
+                    phi_acc_dtype=dtype)
+    step, _ = pobp.make_train_step(cfg, device="cuda")
+    state = pobp.init_train_state(cfg, 3, device="cuda")
+    docs, _, _ = lda_corpus(5, 64, W, K, doc_len_mean=60)
+    mb = docs_to_padded(docs, max_len=64)
+    state, _ = step(state, mb.word_ids, mb.counts)
+    saved = state.generator.get_state()
+    runs = []
+    for _ in range(2):
+        state.generator.set_state(saved)
+        new, diag = step(state, mb.word_ids, mb.counts)
+        runs.append((new.phi_acc, diag["theta"], float(diag["mean_r"]),
+                     diag["iters"]))
+    (pa, ta, ra, ia), (pb, tb, rb, ib) = runs
+    assert ia == ib and ia > 2 and ra == rb
+    assert torch.equal(pa, pb) and torch.equal(ta, tb)
+    assert pa.dtype == (torch.bfloat16 if dtype == "bfloat16"
+                        else torch.float32)
+
+
+def test_crash_resume_through_the_driver_on_card(card, tmp_path):
+    """``--crash-at`` then the same command again on the card: the resumed
+    run ends where the uninterrupted one ends, bit for bit."""
+    from repro_torch.launch import lda_train
+
+    def args(ck, *extra):
+        return lda_train.build_parser().parse_args([
+            "--minibatches", "5", "--docs-per-batch", "32", "--vocab", "600",
+            "--topics", "32", "--lambda-k", "8", "--inner-iters", "20",
+            "--tol", "0.02", "--log-every", "0", "--ckpt-every", "2",
+            "--ckpt-dir", str(ck), "--device", "cuda", *extra])
+
+    full = lda_train.train_loop(args(tmp_path / "a"))
+    with pytest.raises(SystemExit):
+        lda_train.train_loop(args(tmp_path / "b", "--crash-at", "3"))
+    resumed = lda_train.train_loop(args(tmp_path / "b", "--crash-at", "3"))
+    assert resumed["first_m"] == 2
+    assert resumed["mean_r"] == full["mean_r"][2:]
+    assert resumed["iters"] == full["iters"][2:]
+    assert torch.equal(resumed["phi_acc"], full["phi_acc"])

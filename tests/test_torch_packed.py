@@ -523,18 +523,25 @@ def test_resolve_sweep_policy_follows_the_reference_pallas_branch():
 
 def test_cli_parser_takes_every_flag_of_the_reference_driver():
     """The docstring's promise: each flag of the reference's parser exists
-    in the port's, with the reference's default."""
-    mine = vars(cli.build_parser().parse_args([]))
+    in the port's, with the reference's default; ``--impl``'s default
+    follows ``--device`` (None), which resolves to the reference's "jnp" on
+    the CPU."""
+    args = cli.build_parser().parse_args([])
+    mine = vars(args)
     theirs = vars(jcli.build_parser().parse_args([]))
     assert set(theirs) <= set(mine)
-    assert {k: mine[k] for k in theirs if k != "shards"} == \
-        {k: v for k, v in theirs.items() if k != "shards"}
+    skip = ("shards", "impl")
+    assert {k: mine[k] for k in theirs if k not in skip} == \
+        {k: v for k, v in theirs.items() if k not in skip}
+    assert mine["impl"] is None
+    args.device = "cpu"
+    assert cli.resolve_impl(args) == theirs["impl"] == "jnp"
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--impl", "pallas"], "item 4"),
-    (["--sync-dtype", "bfloat16"], "item 2c"),
-    (["--no-warmup-buckets"], "item 4")])
+    (["--ps-servers", "2"], "item 7"),
+    (["--mesh", "multi"], "item 5"),
+    (["--vocab-growth-per-batch", "3"], "item 6")])
 def test_cli_rejects_the_newly_listed_flags_naming_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
         cli.main(["--minibatches", "1", "--device", "cpu"] + flag)

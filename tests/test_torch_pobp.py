@@ -311,15 +311,23 @@ def test_pobp_minibatch_conserves_mass_and_rejects_unported_modes():
     np.testing.assert_allclose(res.mu.sum(-1).numpy(), 1.0, rtol=1e-5)
     with pytest.raises(NotImplementedError, match="item 6"):
         pobp.pobp_minibatch(tb, zero, 1.0, 1.0, cfg, live_w=100)
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        pobp.pobp_minibatch(tb, zero.bfloat16(), 1.0, 1.0, cfg)
+    # a bfloat16 statistic (ported since item 2c) accumulates in float32:
+    # from zeros, the same init gives the float32 run's result bit for bit
+    res16 = pobp.pobp_minibatch(tb, zero.bfloat16(), float(tb.counts.sum()),
+                                1.0, cfg,
+                                generator=torch.Generator().manual_seed(0))
+    assert res16.phi_acc_new.dtype == torch.float32
+    assert torch.equal(res16.phi_acc_new, res.phi_acc_new)
     with pytest.raises(ValueError, match="u0 must have shape"):
         pobp.pobp_minibatch(tb, zero, 1.0, 1.0, cfg, u0=torch.ones(2, 2, 2))
     with pytest.raises(NotImplementedError, match="item 5"):
         pobp.make_train_step(cfg, num_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2c"):
+    assert pobp.init_train_state(dataclasses.replace(
+        cfg, phi_acc_dtype="bfloat16"), device="cpu").phi_acc.dtype == \
+        torch.bfloat16
+    with pytest.raises(ValueError, match="unknown phi_acc_dtype"):
         pobp.init_train_state(dataclasses.replace(
-            cfg, phi_acc_dtype="bfloat16"), device="cpu")
+            cfg, phi_acc_dtype="float16"), device="cpu")
 
 
 def test_sweep_policy_resolves_to_the_carry_kernel():
@@ -552,15 +560,18 @@ def test_cli_checkpoint_restores_in_reference_and_serves_in_port(tmp_path):
     th = np.stack([r.theta for r in eng.drain()])
     assert th.shape == (6, K) and np.isfinite(th).all()
     np.testing.assert_allclose(th.sum(1), 1.0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        cli.train_loop(args)                   # resume is not ported
+    # the same command again resumes (ported since item 4): the checkpoint
+    # already covers every mini-batch, so nothing more is trained
+    again = cli.train_loop(args)
+    assert again["first_m"] == 4 and again["mean_r"] == []
+    assert torch.equal(again["phi_acc"], res["phi_acc"])
 
 
 @pytest.mark.parametrize("flag", [
     ["--shards", "2"], ["--backend", "ps"], ["--dynamic-vocab"],
-    ["--phi-acc-dtype", "bfloat16"], ["--impl", "pallas"],
+    ["--staleness", "1"], ["--compact-every", "2"],
     ["--chaos-drop", "0.1"], ["--elastic-events", "join:w1@2"],
-    ["--crash-at", "2"]])
+    ["--w-growth", "3.0"]])
 def test_cli_rejects_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         cli.main(["--minibatches", "1", "--device", "cpu"] + flag)
