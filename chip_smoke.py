@@ -82,7 +82,26 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      checkpoint; the uninterrupted run once more with ``--prefetch 0``
      (no draw thread beside the steps), equal to it bit for bit.  The
      warmed steps' walls, the checkpoints' save and restore seconds and
-     the kernels' launches net of the warm-up are printed.
+     the kernels' launches net of the warm-up are printed;
+  9. multi-shard sync at PUBMED width: (a) ``make_train_step(cfg, 4)``,
+     four data shards in lockstep on the card, over phase 6's mini-batches
+     split 4 x 128 documents: every training kernel launched 4 x its
+     single-shard count, phi_acc holding every token, the meter's dense and
+     power bytes Eq. 5/6's, one mini-batch twice from one state equal bit
+     for bit, the shards' phi_acc identical bit for bit, the step walls
+     beside phase 6's; (b) the driver's ``--backend shard_map``, 2
+     mini-batches of ``--driver-docs`` documents: a 2 x 2 mesh of four gloo
+     ranks on the one card (every rank's iterations and mean_r alike, rank
+     0's checkpoint a global [W, K] phi_acc holding every token, the
+     model-axis phases in the meter; with the topics sharded the dense
+     sweep runs the reference's formulation in torch code, as the
+     reference runs jnp code there), a 1 x 1 NCCL mesh equal to one shard
+     bit for bit, a 2 x 2 NCCL mesh where four cards allow; (c)
+     ``SlabEngine(topic_shards=4)`` from phase 3's checkpoint, 64 requests
+     (torch code, as the reference's sharded serving is jnp): each theta
+     within 1e-5 of the unsharded engine's, the model psums billed per
+     retired document, docs/s beside phase 3's.  The kernels' launches in
+     the JSON line include (a)'s.
 
 Each phase prints its wall time.  The line before the last is the
 kernels' JSON record; the last line is
@@ -1306,8 +1325,8 @@ DRIVER_KERNELS = ("bp_update", "power_sweep_carry_train", "scatter_add_rows",
 
 def driver_args(ckpt_dir, *, seed: int, docs: int, extra=()):
     """The driver's flags at PUBMED width with the paper-scale settings:
-    4 mini-batches of ``docs`` documents (length mean 128, one bucket of
-    128), a checkpoint every 2."""
+    one shard, 4 mini-batches of ``docs`` documents (length mean 128, one
+    bucket of 128), a checkpoint every 2; ``extra`` flags override."""
     from repro_torch.launch import lda_train
 
     return lda_train.build_parser().parse_args([
@@ -1316,7 +1335,7 @@ def driver_args(ckpt_dir, *, seed: int, docs: int, extra=()):
         "--docs-per-batch", str(docs), "--doc-len-means", "128",
         "--len-buckets", "128", "--minibatches", "4", "--ckpt-every", "2",
         "--log-every", "0", "--seed", str(seed), "--device", "cuda",
-        "--ckpt-dir", str(ckpt_dir), *extra])
+        "--shards", "1", "--ckpt-dir", str(ckpt_dir), *extra])
 
 
 def timed_driver(args, walls: list, io: dict):
@@ -1511,6 +1530,244 @@ def driver_slice(*, seed: int, docs: int, card: str):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return net
+
+
+# --------------------------------------------------------------- phase 9
+
+SIM_SHARDS = 4
+
+
+def sim_slice(batches, *, W: int, K: int, seed: int, card: str,
+              single_readings, device="cuda"):
+    """Phase 9 (a): ``make_train_step(cfg, 4)``, four data shards in
+    lockstep on the card, over phase 6's mini-batches split 4 x D/4
+    documents, with phase 6's settings.  Checks: each training kernel
+    launched 4 x its single-shard count for the iterations run; phi_acc
+    holding every token (rel 1e-4), finite; the meter's dense and power
+    bytes Eq. 5/6's (2 W K 4 and 2 P Pk 4) and ``per_minibatch_bytes``
+    following from them; one mini-batch twice from one state equal bit for
+    bit; the four shards' phi_acc identical bit for bit
+    (``make_sim_minibatch_fn``).  Prints the step walls and ms per
+    iteration beside phase 6's single-shard steps on the same documents,
+    the peak device memory, and one step profiled (the card's busy
+    share).  Returns (launch counts, readings)."""
+    import torch
+
+    from repro_torch.core.pobp import (init_train_state, make_sim_minibatch_fn,
+                                       make_train_step)
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.data.batching import stack_shards
+    from repro_torch.kernels import launch_counts
+
+    N = SIM_SHARDS
+    cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_w=0.1,
+                    lambda_k_abs=50, inner_iters=200, residual_tol=0.1)
+    step, meter = make_train_step(cfg, N, device=device)
+    state = init_train_state(cfg, seed, device=device)
+    stacked = [stack_shards(mb, N) for mb in batches]
+    card_ = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if card_ else (lambda: None)
+    if card_:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    readings, tokens = [], 0.0
+    sync()
+    launch_counts(reset=True)                    # the main path starts here
+    for mb in stacked:
+        t0 = time.time()
+        state, diag = step(state, mb.word_ids, mb.counts)
+        mean_r = float(diag["mean_r"])
+        sync()
+        wall = time.time() - t0
+        ntok = float(mb.counts.sum())
+        tokens += ntok
+        readings.append((wall, diag["iters"], ntok, mean_r))
+    launches = launch_counts()                   # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30 if card_ else 0.0
+
+    for i, ((wall, iters, ntok, mean_r), one) in enumerate(
+            zip(readings, single_readings)):
+        print(f"[sim] step {i + 1}: {N} shards {wall * 1e3:.3f} ms  "
+              f"iters={iters}  {wall * 1e3 / iters:.3f} ms/iteration  "
+              f"{ntok / wall:.1f} tokens/s  mean_r={mean_r:.4f}; one shard "
+              f"(phase 6) {one[0] * 1e3:.3f} ms  iters={one[1]}  "
+              f"{one[0] * 1e3 / one[1]:.3f} ms/iteration  [{card}]")
+    print(f"[sim] peak device memory {peak:.2f} GiB  [{card}]")
+    sweeps = sum(iters - 1 for _, iters, _, _ in readings)
+    want = {"bp_update": N * len(batches), "power_sweep_carry": 0,
+            "power_sweep_carry_train": N * sweeps,
+            "scatter_add_rows": N * sweeps, "power_sweep_tokens": 0,
+            "pack_rows": 0, "word_rows_sum": N * 3 * len(batches),
+            "topic_sum": N * sweeps}
+    print(f"[sim] launches {launches} ({N} x the single-shard counts of "
+          f"{len(batches)} steps and {sweeps} selective sweeps)")
+    if launches != want:
+        fail(f"the 4-shard simulation launched {launches}, expected {want}")
+    mass = float(state.phi_acc.sum(dtype=torch.float64))
+    print(f"[sim] phi_acc mass {mass:.3f} against {tokens:.0f} tokens "
+          f"(rel {abs(mass - tokens) / tokens:.2e}, tol 1e-4)")
+    if not (abs(mass - tokens) <= 1e-4 * tokens
+            and bool(torch.isfinite(state.phi_acc).all())):
+        fail("the 4-shard phi_acc does not hold its tokens or is not finite")
+    P, Pk = cfg.num_power_words, cfg.num_power_topics
+    by = meter.bytes_by_phase
+    want_by = {"tokens": 4, "dense": 2 * W * K * 4, "power": 2 * P * Pk * 4}
+    per = {it: meter.per_minibatch_bytes(it) for _, it, _, _ in readings}
+    print(f"[sim] meter {by}; per-minibatch bytes by iterations {per} "
+          f"(Eq. 5: dense 2 W K 4 = {2 * W * K * 4:,}; Eq. 6: power "
+          f"2 P Pk 4 = {2 * P * Pk * 4:,})")
+    if by != want_by or any(v != 4 + 2 * W * K * 4 + (it - 1) * 2 * P * Pk * 4
+                            for it, v in per.items()):
+        fail("the 4-shard meter does not follow Eq. 5/6")
+    repeat_step(step, state, stacked[1 % len(stacked)], "sim", card)
+    if card_:
+        (_, diag), _ = profile_run(
+            lambda: step(state, stacked[0].word_ids, stacked[0].counts),
+            f"one {N}-shard step (batch 1 again)", card,
+            watch=("carry_train_kernel", "bp_update"))
+        print(f"[profile] that step ran {diag['iters']} iterations")
+        del diag
+    del step
+    fn, _ = make_sim_minibatch_fn(cfg, N, device=device)
+    mb = stacked[1 % len(stacked)]
+    phi, iters, *_ = fn(mb.word_ids, mb.counts, state.phi_acc, 1.0,
+                        generator=torch.Generator(device=device).manual_seed(
+                            seed + 3))
+    same = all(bool(torch.equal(phi[n], phi[0])) for n in range(1, N))
+    print(f"[sim] one mini-batch through make_sim_minibatch_fn: the {N} "
+          f"shards' phi_acc identical bit for bit: {same}  iters "
+          f"{iters.tolist()}")
+    if not same or len(set(iters.tolist())) != 1:
+        fail("the shards of the simulation disagree")
+    del phi, state
+    return launches, readings
+
+
+def mesh_slice(*, seed: int, docs: int, card: str):
+    """Phase 9 (b): the driver's ``--backend shard_map`` at PUBMED width
+    with phase 8's settings, 2 mini-batches of ``docs`` documents.  (1) A
+    2 x 2 mesh (documents over 2 data shards, topics over 2) of four gloo
+    ranks on the one card: every rank ends with the same iterations and
+    mean_r; rank 0's checkpoint holds a global [W, K] phi_acc, finite,
+    holding every token; the [comm] phases carry ``model_norm``,
+    ``model_rw`` and ``model_rw_loop``.  (2) A 1 x 1 NCCL mesh equal to
+    ``--backend sim --shards 1`` bit for bit (mean_r, iterations,
+    phi_acc).  (3) A 2 x 2 NCCL mesh where the card count allows.  The
+    ranks' kernel launches are printed."""
+    import torch
+
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.launch import lda_train
+
+    print("[mesh] with 2 topic shards the dense sweep runs the reference's "
+          "formulation in torch code, its normalizer psum'd over the topic "
+          "shards (bp_update normalizes over all of K); every other kernel "
+          "of the path runs in every rank; the 1x1 mesh runs bp_update")
+    root = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    grid = ("--backend", "shard_map", "--minibatches", "2")
+    try:
+        t0 = time.time()
+        res = lda_train.train_loop(driver_args(
+            root / "grid", seed=seed, docs=docs,
+            extra=grid + ("--mesh-shape", "2,2", "--dist-backend", "gloo")))
+        wall = time.time() - t0
+        agree = all(r["iters"] == res["iters"] and r["mean_r"] == res["mean_r"]
+                    for r in res["ranks"])
+        phi, _, step = ckpt.restore_phi(str(root / "grid"))
+        mass = float(phi.double().sum())
+        finite = bool(torch.isfinite(phi).all())
+        by = res["bytes_by_phase"]
+        print(f"[mesh] 2x2 gloo, 4 ranks on one card, {wall:.1f}s (warm-up "
+              f"{res['warmup_s']:.1f}s, stream {res['wall_s']:.2f}s): iters "
+              f"{res['iters']}  mean_r {res['mean_r']}; every rank alike: "
+              f"{agree}  [{card}]")
+        print(f"[mesh] rank 0's checkpoint (step {step}): phi_acc "
+              f"{tuple(phi.shape)} finite {finite}, mass {mass:.3f} against "
+              f"{res['tokens']:.0f} tokens; [comm] per-minibatch bytes="
+              f"{res['per_minibatch_bytes']:,} (phases: {by})")
+        print(f"[mesh] ranks' kernel launches: "
+              f"{[{k: n for k, n in r['launches'].items() if n} for r in res['ranks']]}")
+        if not (agree and finite and tuple(phi.shape) == (141043, 2000)
+                and abs(mass - res["tokens"]) <= 1e-4 * res["tokens"]
+                and {"model_norm", "model_rw", "model_rw_loop"} <= set(by)):
+            fail("the 2x2 gloo mesh's ranks disagree, or its checkpoint or "
+                 "meter is wrong")
+        del phi
+
+        sim = lda_train.train_loop(driver_args(
+            root / "sim", seed=seed, docs=docs, extra=("--minibatches", "2")))
+        one = lda_train.train_loop(driver_args(
+            root / "one", seed=seed, docs=docs,
+            extra=grid + ("--mesh-shape", "1,1", "--dist-backend", "nccl")))
+        same = {"mean_r": one["mean_r"] == sim["mean_r"],
+                "iters": one["iters"] == sim["iters"],
+                "phi_acc": bool(torch.equal(one["phi_acc"], sim["phi_acc"]))}
+        print(f"[mesh] 1x1 nccl against --backend sim --shards 1: mean_r "
+              f"{one['mean_r']} / {sim['mean_r']}, iters {one['iters']} / "
+              f"{sim['iters']}; equal bit for bit: {same}; the rank's "
+              f"launches {one['ranks'][0]['launches']}")
+        if not all(same.values()):
+            fail("the 1x1 NCCL mesh differs from the one-shard simulation")
+        cards = torch.cuda.device_count()
+        if cards >= 4:
+            nccl = lda_train.train_loop(driver_args(
+                root / "nccl", seed=seed, docs=docs,
+                extra=grid + ("--mesh-shape", "2,2", "--dist-backend",
+                              "nccl")))
+            print(f"[mesh] 2x2 nccl on {cards} cards: iters "
+                  f"{nccl['iters']}, mean_r {nccl['mean_r']}")
+        else:
+            print(f"[mesh] 2x2 nccl not run: {cards} card(s), NCCL takes a "
+                  f"card a rank")
+        del sim, one
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def sharded_serve(ckpt_dir: Path, docs, *, seed: int, card: str,
+                  phase3_dps: float, device="cuda"):
+    """Phase 9 (c): ``SlabEngine(topic_shards=4)`` from phase 3's checkpoint
+    (phi [4, W', K/4] on the card, the sharded body in torch code) and the
+    unsharded engine, each serving ``docs`` with one seed: every theta
+    finite, summing to 1 +- 1e-5, the sharded within 1e-5 of the
+    unsharded; the model psums billed per retired document
+    (``comm_bytes`` > 0, the slab's per-sweep normalizer phase
+    ``slab_norm_loop`` in the meter).  Prints docs/s beside phase 3's."""
+    import numpy as np
+
+    from repro_torch.serve import SlabEngine
+
+    print("[shard-serve] the topic-sharded body runs torch code, not the "
+          "serving kernel (which needs every topic of a row), as the "
+          "reference's jnp path does")
+    out = {}
+    for shards in (1, 4):
+        eng = SlabEngine.from_checkpoint(str(ckpt_dir), seed=seed,
+                                         topic_shards=shards, device=device)
+        results, wall = serve_burst(eng, docs)
+        out[shards] = ({r.req_id: r for r in results}, wall, eng.stats())
+        del eng
+    (solo, wall1, _), (shard, wall4, s4) = out[1], out[4]
+    th1 = np.stack([solo[i].theta for i in sorted(solo)])
+    th4 = np.stack([shard[i].theta for i in sorted(shard)])
+    gap = float(np.abs(th4 - th1).max())
+    sums = float(np.abs(th4.sum(axis=1) - 1.0).max())
+    billed = [shard[i].comm_bytes for i in sorted(shard)]
+    print(f"[shard-serve] {len(shard)} requests, 4 topic shards: max "
+          f"|theta - unsharded| {gap:.3e} (tol 1e-5), sums within "
+          f"{sums:.2e} of 1; comm bytes a document {min(billed):,.0f}.."
+          f"{max(billed):,.0f} (mean {s4['per_request_bytes']:,.0f}); meter "
+          f"{s4['bytes_by_phase']}")
+    print(f"[shard-serve] {len(shard) / wall4:.1f} docs/s sharded, "
+          f"{len(solo) / wall1:.1f} unsharded (phase 3's first burst: "
+          f"{phase3_dps:.1f})  [{card}]")
+    if not (np.isfinite(th4).all() and sums <= 1e-5 and gap <= 1e-5
+            and min(billed) > 0
+            and s4["bytes_by_phase"].get("slab_norm_loop", 0) > 0):
+        fail("topic-sharded serving disagrees with the unsharded engine or "
+             "bills nothing")
 
 
 def profile_run(fn, label: str, card: str, watch=()):
@@ -1713,14 +1970,13 @@ def main(argv=None) -> None:
     from repro_torch.core import infer
 
     t0 = time.time()
-    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    try:
-        engine, docs, results, wall, launches, s = serve_slice(
-            W=141043, K=2000, requests=args.requests, seed=args.seed,
-            device="cuda", ckpt_dir=ckpt_dir)
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # phase 9 serves from this checkpoint again, then deletes it
+    serve_ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(serve_ckpt, ignore_errors=True)
+    engine, docs, results, wall, launches, s = serve_slice(
+        W=141043, K=2000, requests=args.requests, seed=args.seed,
+        device="cuda", ckpt_dir=serve_ckpt)
+    phase3_dps = len(results) / wall
     want = s["steps"] * engine.sweeps_per_step
     print(f"[slice] {s['served']} requests over {s['steps']} slab steps at "
           f"W={engine.cfg.vocab_size} K={engine.cfg.num_topics}: "
@@ -1888,6 +2144,23 @@ def main(argv=None) -> None:
     driver_slice(seed=args.seed, docs=args.driver_docs, card=card)
     print(f"[time] phase 8: {time.time() - t0:.1f}s")
 
+    # ---- 9. multi-shard sync: 4 data shards in lockstep on the card, the
+    # driver's mesh (gloo 2x2 on the one card, NCCL 1x1 against one
+    # shard), topic-sharded serving.  With topics sharded the dense sweep
+    # runs the reference's torch formulation (a normalizer psum'd over the
+    # topic shards), not bp_update, and serving runs torch code, not the
+    # serving kernel, as the reference runs jnp code there
+    t0 = time.time()
+    sim_launches, _ = sim_slice(batches, W=W, K=K, seed=args.seed,
+                                card=card, single_readings=carry_readings)
+    mesh_slice(seed=args.seed, docs=args.driver_docs, card=card)
+    try:
+        sharded_serve(serve_ckpt, docs[:64], seed=args.seed, card=card,
+                      phase3_dps=phase3_dps)
+    finally:
+        shutil.rmtree(serve_ckpt, ignore_errors=True)
+    print(f"[time] phase 9: {time.time() - t0:.1f}s")
+
     rec["launches"] = launches
     kernels = [rec]
     # device ms a launch on the main path, from the profiled steps
@@ -1908,9 +2181,10 @@ def main(argv=None) -> None:
                    packed_watch, "packed_sweep_kernel",
                    "packed_fold_kernel")}
     for name, r in train_recs.items():
+        # the main path's launches: phases 6 or 7, and phase 9's simulation
         r["launches"] = (packed_launches if name in ("power_sweep_tokens",
                                                      "pack_rows")
-                         else train_launches)[name]
+                         else train_launches)[name] + sim_launches[name]
         r["ms_main_path"] = main_ms[name]
         kernels.append(r)
     print(json.dumps({"kernels": kernels}))

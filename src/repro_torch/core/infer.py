@@ -17,6 +17,16 @@ Random message inits come from the caller's ``torch.Generator``; the JAX
 package draws them from ``jax.random``, which torch cannot reproduce, so
 ``fold_in_tokens`` takes an injected ``mu0`` and the slab step an injected
 ``init_u`` for tests that hold the two packages against each other.
+
+A topic-sharded phi (``topic_shards = N > 1``) is served as the reference
+serves it: the shards stacked [N, W, K/N] on a leading axis
+(`split_topic_shards`), every tensor of the body carrying that axis, and
+the renormalization and residual sums psum'd over it (``StackedReducer``,
+byte-metered).  The random init is drawn at the global K and sliced per
+shard, so sharded and unsharded fold-ins start from the same field.  As
+in the reference (whose Pallas path needs ``topic_shards == 1``), this
+path runs torch code, not the serving kernel, on whatever device holds
+phi.
 """
 
 from __future__ import annotations
@@ -29,8 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.sync import (CommMeter, LocalReducer,
-                                   topic_shards_unsupported)
+from repro_torch.core.sync import CommMeter, LocalReducer, StackedReducer
 from repro_torch.core.types import LDAConfig, MiniBatch
 from repro_torch.kernels.power_sweep.ops import power_sweep_carry
 
@@ -47,16 +56,56 @@ class FoldInResult:
     r_doc: torch.Tensor
 
 
-def _init_messages(generator: Optional[torch.Generator], batch: MiniBatch,
-                   cfg: LDAConfig, device: torch.device) -> torch.Tensor:
-    """Random init drawn at [D, max(init_pad_len, L), K] and sliced to L, so
-    a document's init does not depend on the bucket that admitted it."""
+def _init_field(generator: Optional[torch.Generator], batch: MiniBatch,
+                cfg: LDAConfig, device: torch.device) -> torch.Tensor:
+    """The random field U(0.01, 1), drawn at [D, max(init_pad_len, L), K]
+    and sliced to L, so a document's init does not depend on the bucket
+    that admitted it."""
     D, L = batch.word_ids.shape
     Lpad = L if cfg.init_pad_len is None else max(cfg.init_pad_len, L)
     u = torch.rand((D, Lpad, cfg.num_topics), generator=generator,
                    device=device)[:, :L]
-    u = u * (1.0 - 0.01) + 0.01
+    return u * (1.0 - 0.01) + 0.01
+
+
+def _init_messages(generator: Optional[torch.Generator], batch: MiniBatch,
+                   cfg: LDAConfig, device: torch.device) -> torch.Tensor:
+    """`_init_field` normalized over K."""
+    u = _init_field(generator, batch, cfg, device)
     return u / u.sum(dim=-1, keepdim=True)
+
+
+def _shard_columns(x: torch.Tensor, n: int) -> torch.Tensor:
+    """[..., K] -> [N, ..., K/N]: each topic shard's columns, stacked."""
+    K = x.shape[-1]
+    return x.reshape(*x.shape[:-1], n, K // n).movedim(-2, 0)
+
+
+def _merge_columns(x: torch.Tensor) -> torch.Tensor:
+    """[N, ..., K/N] -> [..., K], the inverse of `_shard_columns`."""
+    return x.movedim(0, -2).reshape(*x.shape[1:-1], -1)
+
+
+def _sharded_sweep(act_tok, doc_l, c, mu, theta, phi_tok, cfg: LDAConfig,
+                   reducer: StackedReducer, num_docs: int, norm_phase: str,
+                   rw_phase: str):
+    """One fold-in sweep over topic shards stacked on the leading axis, the
+    reference's jnp body: mu [N, T, Kl], theta [N, D, Kl], phi_tok [N, T,
+    Kl] (phi at each token's row), c [T, 1], act_tok [T] bool.  The
+    normalizer and the per-document residual are psum'd over the shards.
+    Returns new (mu, theta, r_doc [D])."""
+    N, T, Kl = mu.shape
+    unnorm = theta[:, doc_l] - c * mu + cfg.alpha
+    unnorm.mul_(phi_tok)
+    norm = reducer.psum(unnorm.sum(dim=-1, keepdim=True), norm_phase,
+                        compress=False)
+    mu_new = torch.where(act_tok[:, None], unnorm / norm.clamp_min(1e-30),
+                         mu)
+    delta = c * (mu_new - mu)
+    theta = theta + delta.reshape(N, num_docs, -1, Kl).sum(dim=2)
+    r_local = delta.abs_().reshape(N, num_docs, -1).sum(dim=-1)
+    return mu_new, theta, reducer.psum(r_local, rw_phase,
+                                       compress=False)[0]
 
 
 def _tail_active(r_doc, r_prev, tok_d, tol: float) -> torch.Tensor:
@@ -135,6 +184,60 @@ def fold_in_tokens(batch: MiniBatch, phi_norm_wk: torch.Tensor,
                         mean_r=r_doc.sum() / total, r_doc=r_doc)
 
 
+def fold_in_tokens_sharded(batch: MiniBatch, phi_shards: torch.Tensor,
+                           cfg: LDAConfig, iters: int = 30,
+                           residual_tol: float = 0.0,
+                           model_reducer: Optional[StackedReducer] = None, *,
+                           generator: Optional[torch.Generator] = None,
+                           mu0: Optional[torch.Tensor] = None,
+                           device="cuda") -> FoldInResult:
+    """`fold_in_tokens` over a topic-sharded phi: ``phi_shards`` [N, W', K/N]
+    (`split_topic_shards`), the body in torch code with the shard axis
+    leading every tensor and the model psums through ``model_reducer`` (a
+    ``StackedReducer`` over N; one is made when not given).  The init
+    field (drawn at the global K, or ``mu0`` [D, L, K]) is split by topic
+    shard and normalized by the psum'd sum, as the reference's
+    ``_init_messages`` does.  theta comes back merged, [D, K]."""
+    dev = resolve_device(device)
+    phi = phi_shards.to(dev, torch.float32)
+    N = phi.shape[0]
+    reducer = model_reducer or StackedReducer(N)
+    layout = MiniBatch(batch.word_ids.to(dev, torch.int32),
+                       batch.counts.to(dev, torch.float32)).token_layout()
+    D, T = layout.num_docs, layout.num_slots
+    c = layout.counts
+    tok_d = c.reshape(D, -1).sum(dim=1)
+    total = tok_d.sum().clamp_min(1.0)
+    doc_l = layout.doc_ids.long()
+    with reducer.meter.section():
+        u = (_init_field(generator, batch, cfg, dev) if mu0 is None
+             else mu0.to(dev, torch.float32))
+        u = _shard_columns(u, N).reshape(N, T, -1)
+        mu = u / reducer.psum(u.sum(dim=-1, keepdim=True), "model_norm",
+                              compress=False)
+        del u
+        phi_tok = phi[:, layout.word_ids.long()]                # [N, T, Kl]
+        theta = (c * mu).reshape(N, D, -1, mu.shape[-1]).sum(dim=2)
+        r_doc = torch.full((D,), float("inf"), device=dev)
+        r_prev = torch.ones((D,), device=dev)
+        t = 0
+        while t < iters:
+            act = _tail_active(r_doc, r_prev, tok_d, residual_tol)
+            if not bool(act.any()):
+                break
+            with reducer.meter.section():
+                mu, theta, r_new = _sharded_sweep(
+                    act[doc_l], doc_l, c, mu, theta, phi_tok, cfg, reducer,
+                    D, "model_norm_loop", "model_rw_loop")
+            r_prev, r_doc = r_doc, r_new
+            t += 1
+        th = theta + cfg.alpha
+        th = th / reducer.psum(th.sum(dim=-1, keepdim=True), "theta_norm",
+                               compress=False)
+    return FoldInResult(theta=_merge_columns(th), iters=t,
+                        mean_r=r_doc.sum() / total, r_doc=r_doc)
+
+
 def make_fold_in_step(cfg: LDAConfig, fold_iters: int = 30,
                       residual_tol: float = 0.0, topic_shards: int = 1,
                       sync_dtype=torch.float32, device="cuda"
@@ -142,20 +245,35 @@ def make_fold_in_step(cfg: LDAConfig, fold_iters: int = 30,
     """The bucket engine's serving step.  Returns (step, meter) with
     ``step(phi_norm, word_ids, counts, *, generator=None, mu0=None) ->
     (theta [D, K], iters, mean_r)``; phi is an argument so one copy on the
-    device serves every bucket shape."""
-    topic_shards_unsupported(topic_shards)
+    device serves every bucket shape.  With ``topic_shards > 1`` phi is
+    the [N, W, K/N] stack of `split_topic_shards` and the step runs
+    `fold_in_tokens_sharded`, its model psums metered per request
+    batch."""
     dev = resolve_device(device)
     meter = CommMeter()
-    reducer = LocalReducer(meter=meter, sync_dtype=sync_dtype)
+    if topic_shards == 1:
+        reducer = LocalReducer(meter=meter, sync_dtype=sync_dtype)
+        fold = fold_in_tokens
+    else:
+        _check_divides(cfg.num_topics, topic_shards)
+        reducer = StackedReducer(topic_shards, meter=meter,
+                                 sync_dtype=sync_dtype)
+        fold = fold_in_tokens_sharded
 
     def step(phi_norm, word_ids, counts, *, generator=None, mu0=None):
-        res = fold_in_tokens(MiniBatch(word_ids, counts), phi_norm, cfg,
-                             iters=fold_iters, residual_tol=residual_tol,
-                             model_reducer=reducer, generator=generator,
-                             mu0=mu0, device=dev)
+        res = fold(MiniBatch(word_ids, counts), phi_norm, cfg,
+                   iters=fold_iters, residual_tol=residual_tol,
+                   model_reducer=reducer, generator=generator, mu0=mu0,
+                   device=dev)
         return res.theta, res.iters, res.mean_r
 
     return step, meter
+
+
+def _check_divides(K: int, topic_shards: int) -> None:
+    if topic_shards < 1 or K % topic_shards:
+        raise ValueError(f"num_topics={K} does not divide over "
+                         f"{topic_shards} topic shards")
 
 
 # --------------------------------------------------------------------------
@@ -214,6 +332,13 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
     from ``generator`` when not given), or, when ``warm_mask`` is set, from
     ``warm_theta * phi`` (a warm start from a cached theta).  ``state`` is
     updated in place and returned.  The step never waits for the device.
+
+    With ``topic_shards = N > 1``, phi is the [N, W, K/N] stack of
+    `split_topic_shards`, the state's mu and theta carry the shard axis
+    ([N, B*L, K/N], [N, B, K/N]), and the sweeps run `_sharded_sweep`
+    with the model psums metered: the refill's init normalizer over all R
+    lanes in one section (as the reference's step computes it), the
+    sweeps' and theta's in the step's.
     """
     B, L = int(slots), int(slot_len)
     R = B if refill_cap is None else int(refill_cap)
@@ -221,11 +346,14 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
         raise ValueError(f"refill_cap={R} outside [1, slots={B}]")
     if sweeps_per_step < 1:
         raise ValueError(f"sweeps_per_step must be >= 1: {sweeps_per_step}")
-    topic_shards_unsupported(topic_shards)
+    _check_divides(cfg.num_topics, topic_shards)
     dev = resolve_device(device)
     K = cfg.num_topics
+    N = int(topic_shards)
     meter = CommMeter()
-    reducer = LocalReducer(meter=meter, sync_dtype=sync_dtype)
+    reducer = (LocalReducer(meter=meter, sync_dtype=sync_dtype) if N == 1
+               else StackedReducer(N, meter=meter, sync_dtype=sync_dtype))
+    lead = () if N == 1 else (N,)
     doc_ids = torch.arange(B, dtype=torch.int32, device=dev
                            ).repeat_interleave(L)
     doc_l = doc_ids.long()
@@ -235,8 +363,10 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
         return SlabState(
             word_rows=torch.zeros((B, L), dtype=torch.int32, device=dev),
             counts=torch.zeros((B, L), dtype=torch.float32, device=dev),
-            mu=torch.zeros((B * L, K), dtype=torch.float32, device=dev),
-            theta=torch.zeros((B, K), dtype=torch.float32, device=dev),
+            mu=torch.zeros(lead + (B * L, K // N), dtype=torch.float32,
+                           device=dev),
+            theta=torch.zeros(lead + (B, K // N), dtype=torch.float32,
+                              device=dev),
             r_doc=torch.zeros((B,), dtype=torch.float32, device=dev),
             r_prev=torch.ones((B,), dtype=torch.float32, device=dev),
             it=torch.zeros((B,), dtype=torch.int32, device=dev),
@@ -245,6 +375,26 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
     def active_slots(st: SlabState, tok_d) -> torch.Tensor:
         return (st.live & (st.it < fold_iters)
                 & _tail_active(st.r_doc, st.r_prev, tok_d, tol))
+
+    def sharded_init(phi_norm, init_u, refill_rows, refill_cnt, warm_theta,
+                     warm_mask, lane_d):
+        """The init of every refill lane over the topic shards (the
+        normalizer psum'd over them), then this step's lanes: (mu0 [N, n,
+        L, Kl], theta0 [N, n, Kl])."""
+        with meter.section():
+            rows = _to_device(refill_rows, torch.long, dev)
+            warm = _shard_columns(_to_device(warm_theta, torch.float32,
+                                             dev), N)
+            wmask = _to_device(warm_mask, torch.bool, dev)
+            u = torch.where(wmask[:, None, None],
+                            warm[:, :, None, :] * phi_norm[:, rows],
+                            _shard_columns(init_u.to(dev, torch.float32), N))
+            norm0 = reducer.psum(u.sum(dim=-1, keepdim=True),
+                                 "slab_init_norm", compress=False)
+            mu0 = (u / norm0.clamp_min(1e-30)).index_select(1, lane_d)
+        cnt = _to_device(refill_cnt, torch.float32, dev).index_select(
+            0, lane_d)
+        return mu0, (cnt[..., None] * mu0).sum(dim=2)
 
     def refill(phi_norm, st, refill_rows, refill_cnt, refill_slot,
                warm_theta, warm_mask, generator, init_u):
@@ -258,20 +408,27 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
         slot_d = _to_device(np.asarray(refill_slot)[lanes], torch.long, dev)
         rows = _to_device(np.asarray(refill_rows)[lanes], torch.int32, dev)
         cnt = _to_device(np.asarray(refill_cnt)[lanes], torch.float32, dev)
-        warm = _to_device(np.asarray(warm_theta)[lanes], torch.float32, dev)
-        wmask = _to_device(np.asarray(warm_mask)[lanes], torch.bool, dev)
-        u = init_u.to(dev, torch.float32).index_select(0, lane_d)
-        warm_u = warm[:, None, :] * phi_norm[rows.long()]        # [n, L, K]
-        u = torch.where(wmask[:, None, None], warm_u, u)
-        norm0 = reducer.psum(u.sum(dim=-1, keepdim=True), "slab_init_norm",
-                             compress=False)
-        mu0 = u / norm0.clamp_min(1e-30)
-        theta0 = (cnt[..., None] * mu0).sum(dim=1)
+        if N > 1:
+            mu0, theta0 = sharded_init(phi_norm, init_u, refill_rows,
+                                       refill_cnt, warm_theta, warm_mask,
+                                       lane_d)
+            st.mu.view(N, B, L, -1).index_copy_(1, slot_d, mu0)
+            st.theta.index_copy_(1, slot_d, theta0)
+        else:
+            warm = _to_device(np.asarray(warm_theta)[lanes], torch.float32,
+                              dev)
+            wmask = _to_device(np.asarray(warm_mask)[lanes], torch.bool, dev)
+            u = init_u.to(dev, torch.float32).index_select(0, lane_d)
+            warm_u = warm[:, None, :] * phi_norm[rows.long()]    # [n, L, K]
+            u = torch.where(wmask[:, None, None], warm_u, u)
+            norm0 = reducer.psum(u.sum(dim=-1, keepdim=True),
+                                 "slab_init_norm", compress=False)
+            mu0 = u / norm0.clamp_min(1e-30)
+            st.mu.view(B, L, K).index_copy_(0, slot_d, mu0)
+            st.theta.index_copy_(0, slot_d, (cnt[..., None] * mu0).sum(dim=1))
         st.word_rows.index_copy_(0, slot_d, rows)
         st.counts.index_copy_(0, slot_d, cnt)
         st.live.index_fill_(0, slot_d, True)
-        st.mu.view(B, L, K).index_copy_(0, slot_d, mu0)
-        st.theta.index_copy_(0, slot_d, theta0)
         st.r_doc.index_fill_(0, slot_d, float("inf"))
         st.r_prev.index_fill_(0, slot_d, 1.0)
         st.it.index_fill_(0, slot_d, 0)
@@ -279,39 +436,54 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
     def step(phi_norm, state: SlabState, refill_rows, refill_cnt,
              refill_slot, warm_theta, warm_mask, *, generator=None,
              init_u=None):
-        refill(phi_norm, state, refill_rows, refill_cnt, refill_slot,
-               warm_theta, warm_mask, generator, init_u)
-        c = state.counts.view(B * L, 1)
-        tok_d = state.counts.sum(dim=1)
-        wid_t = state.word_rows.view(B * L)
-        guard = torch.full_like(wid_t, phi_norm.shape[0])
-        for _ in range(sweeps_per_step):
-            act_d = active_slots(state, tok_d)
-            p_tok = torch.where(act_d[doc_l], wid_t, guard)
-            th_delta, r_local = _serve_sweep(p_tok, doc_ids, c, state.mu,
-                                             state.theta, phi_norm, cfg)
-            state.theta += th_delta
-            r_new = reducer.psum(r_local, "slab_rw_loop", compress=False)
-            state.r_prev = torch.where(act_d, state.r_doc, state.r_prev)
-            state.r_doc = torch.where(act_d, r_new, state.r_doc)
-            state.it = state.it + act_d.to(torch.int32)
-        still = active_slots(state, tok_d)
-        retired = state.live & ~still
-        th_out = state.theta + cfg.alpha
-        denom = reducer.psum(th_out.sum(dim=-1, keepdim=True),
-                             "slab_theta_norm", compress=False)
+        with meter.section():
+            refill(phi_norm, state, refill_rows, refill_cnt, refill_slot,
+                   warm_theta, warm_mask, generator, init_u)
+            c = state.counts.view(B * L, 1)
+            tok_d = state.counts.sum(dim=1)
+            wid_t = state.word_rows.view(B * L)
+            if N > 1:
+                phi_tok = phi_norm[:, wid_t.long()]           # [N, T, Kl]
+            else:
+                guard = torch.full_like(wid_t, phi_norm.shape[0])
+            for _ in range(sweeps_per_step):
+                act_d = active_slots(state, tok_d)
+                if N > 1:
+                    state.mu, state.theta, r_new = _sharded_sweep(
+                        act_d[doc_l], doc_l, c, state.mu, state.theta,
+                        phi_tok, cfg, reducer, B, "slab_norm_loop",
+                        "slab_rw_loop")
+                else:
+                    p_tok = torch.where(act_d[doc_l], wid_t, guard)
+                    th_delta, r_local = _serve_sweep(
+                        p_tok, doc_ids, c, state.mu, state.theta, phi_norm,
+                        cfg)
+                    state.theta += th_delta
+                    r_new = reducer.psum(r_local, "slab_rw_loop",
+                                         compress=False)
+                state.r_prev = torch.where(act_d, state.r_doc, state.r_prev)
+                state.r_doc = torch.where(act_d, r_new, state.r_doc)
+                state.it = state.it + act_d.to(torch.int32)
+            still = active_slots(state, tok_d)
+            retired = state.live & ~still
+            th_out = state.theta + cfg.alpha
+            th_out = th_out / reducer.psum(th_out.sum(dim=-1, keepdim=True),
+                                           "slab_theta_norm", compress=False)
         state.live = still
-        return (state, retired, th_out / denom, state.it.clone(),
-                state.r_doc.clone())
+        return (state, retired, th_out if N == 1 else _merge_columns(th_out),
+                state.it.clone(), state.r_doc.clone())
 
     return init_state, step, meter
 
 
 def split_topic_shards(phi_norm_wk: torch.Tensor, topic_shards: int
                        ) -> torch.Tensor:
-    """[W, K] -> the layout the steps consume; only N = 1 is ported."""
-    topic_shards_unsupported(topic_shards)
-    return phi_norm_wk
+    """[W, K] -> [N, W, K/N] contiguous topic shards (the layout the steps
+    take with ``topic_shards = N``); N = 1 returns phi as it is."""
+    if topic_shards == 1:
+        return phi_norm_wk
+    _check_divides(phi_norm_wk.shape[1], topic_shards)
+    return _shard_columns(phi_norm_wk, topic_shards).contiguous()
 
 
 def fold_in_dense_reference(batch: MiniBatch, phi_norm_wk: torch.Tensor,

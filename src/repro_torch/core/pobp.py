@@ -40,14 +40,30 @@ run's seed and the batch number, never from the run's own stream.
 The reference's ``lax.while_loop`` is a Python loop here: each iteration
 reads the mean residual back to the host once to decide whether to go on.
 The port updates in place where that saves a [W, K] or [T, K] copy, and
-says so per function.  One shard only: the multi-shard sync and live-W
-runs raise (ROADMAP Queue 1, items 5 and 6).
+says so per function.
+
+One per-shard body (`pobp_shard_body`) serves every execution mode, as in
+the reference, through the two reducers it is handed (``core/sync``): a
+data reducer over the shards that split the documents and a model reducer
+over the shards that split the topics.  ``LocalReducer`` for both is the
+single device (OBP); `make_train_step` and `make_sim_minibatch_fn` with
+``num_shards > 1`` run N data shards in lockstep on one device
+(``SimReducer``, the reference's vmap); `make_mesh_shard_fn` and
+`shard_map_minibatch_fn` run one shard a process of a ``DeviceMesh``
+(``MeshReducer``, the reference's shard_map).  With more than one topic
+shard the dense sweep cannot normalize inside ``bp_update`` (the kernel
+sums over all of K): it runs the reference's formulation in torch code
+on whatever device holds the tensors (unnormalized messages, the
+normalizer psum'd over topic shards, the divide), as the reference runs
+jnp code and no Pallas kernel there.  That is not a plain version standing
+in for a kernel: ``bp_update`` never falls back.  Live-W runs raise
+(ROADMAP Queue 1, item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,7 +74,9 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.residuals import (mean_residual, packed_rw_delta,
                                         token_scatter_wk)
 from repro_torch.core.sweep_dispatch import resolve_sweep_policy
-from repro_torch.core.sync import CommMeter, LocalReducer
+from repro_torch.core.sync import (CommMeter, LocalReducer, MeshReducer,
+                                   Reducer, SimReducer, lockstep,
+                                   mesh_axis_group)
 from repro_torch.core.types import (LDAConfig, LDATrainState, MiniBatch,
                                     TokenLayout)
 from repro_torch.kernels.bp_update.ops import bp_update
@@ -80,16 +98,23 @@ def _theta(counts: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
 
 def dense_sweep(batch: MiniBatch, mu: torch.Tensor, phi_eff_wk: torch.Tensor,
                 phi_tot: torch.Tensor, cfg: LDAConfig,
-                layout: Optional[TokenLayout] = None):
+                layout: Optional[TokenLayout] = None,
+                model_reducer: Optional[Reducer] = None,
+                norm_phase: str = "model_norm"):
     """One synchronous full update of all messages (Eq. 1).
 
-    mu [D, L, K]; phi_eff_wk [W, K] is the effective statistic (accumulated
-    prior plus this mini-batch's contribution); phi_tot [K] its column sums.
-    The topic axis is never sharded in the port, so the normalization runs
-    inside ``bp_update`` (the reference's ``dense_sweep_pallas`` branch).
-    Returns new tensors (mu_new [D, L, K], r_wk [W, K]).
+    mu [D, L, Kl]; phi_eff_wk [W, Kl] is the effective statistic
+    (accumulated prior plus this mini-batch's contribution) over this
+    shard's Kl topics; phi_tot [Kl] its column sums.  With one topic shard
+    the normalization over K runs inside ``bp_update`` (the reference's
+    ``dense_sweep_pallas`` branch); with ``model_reducer`` spanning more,
+    `_dense_sweep_sharded` psums it under ``norm_phase``.  Returns new
+    tensors (mu_new [D, L, Kl], r_wk [W, Kl]).
     """
     layout = layout or batch.token_layout()
+    if model_reducer is not None and model_reducer.shards > 1:
+        return _dense_sweep_sharded(batch, mu, phi_eff_wk, phi_tot, cfg,
+                                    layout, model_reducer, norm_phase)
     D, L, K = mu.shape
     mu_new, r_tok = bp_update(
         layout.word_ids, layout.doc_ids, layout.counts,
@@ -99,6 +124,28 @@ def dense_sweep(batch: MiniBatch, mu: torch.Tensor, phi_eff_wk: torch.Tensor,
     return (mu_new.reshape(D, L, K),
             token_scatter_wk(layout.word_ids, r_tok, cfg.vocab_size,
                              layout.word_runs(cfg.vocab_size)))
+
+
+def _dense_sweep_sharded(batch: MiniBatch, mu, phi_eff_wk, phi_tot,
+                         cfg: LDAConfig, layout: TokenLayout,
+                         model_reducer: Reducer, norm_phase: str):
+    """The dense sweep over one topic shard, the reference's jnp
+    ``dense_sweep``: the unnormalized messages over this shard's topics,
+    their per-token sum psum'd over the topic shards, then the divide.
+    Torch code on the tensors' device; the reference runs no kernel here
+    either."""
+    W = cfg.vocab_size
+    c = batch.counts[..., None]
+    self_c = c * mu
+    unnorm = _theta(batch.counts, mu)[:, None, :] - self_c + cfg.alpha
+    unnorm.mul_(phi_eff_wk[batch.word_ids.long()] - self_c + cfg.beta)
+    unnorm.div_(phi_tot - self_c + W * cfg.beta)
+    del self_c
+    norm = model_reducer.psum(torch.sum(unnorm, dim=-1, keepdim=True),
+                              norm_phase, compress=False)
+    mu_new = unnorm.div_(norm)
+    return mu_new, token_scatter_wk(batch.word_ids, c * (mu_new - mu).abs(),
+                                    W, layout.word_runs(W))
 
 
 # --------------------------------------------------------------------------
@@ -177,41 +224,56 @@ class MinibatchResult:
     theta: torch.Tensor            # final doc-topic statistics [D, K]
 
 
+def _uniform_init(shape, generator, device) -> torch.Tensor:
+    """The random message field U(0.01, 1) at ``shape``."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u * (1.0 - 0.01) + 0.01
+
+
+def _init_shape(batch: MiniBatch, K: int, cfg: LDAConfig):
+    """[D, Lpad, K]: ``Lpad`` honours ``cfg.init_pad_len`` as the reference
+    does, so the init of a document does not depend on the L bucket its
+    batch landed in."""
+    D, L = batch.word_ids.shape
+    return (D, L if cfg.init_pad_len is None else max(cfg.init_pad_len, L),
+            K)
+
+
 def _draw_u0(batch: MiniBatch, K: int, cfg: LDAConfig, generator,
              u0: Optional[torch.Tensor], device) -> torch.Tensor:
-    """The random message field U(0.01, 1) at [D, Lpad, K], sliced to L.
-
-    ``Lpad`` honours ``cfg.init_pad_len`` as the reference does, so the
-    init of a document does not depend on the L bucket its batch landed
-    in.  ``u0`` [D, Lpad, K] replaces the draw from ``generator`` (tests
+    """The random message field at [D, Lpad, K] (`_init_shape`), sliced to
+    L.  ``u0`` [D, Lpad, K] replaces the draw from ``generator`` (tests
     inject the reference's ``jax.random.uniform`` draw)."""
-    D, L = batch.word_ids.shape
-    Lpad = L if cfg.init_pad_len is None else max(cfg.init_pad_len, L)
+    shape = _init_shape(batch, K, cfg)
     if u0 is None:
-        u0 = torch.rand((D, Lpad, K), generator=generator, device=device)
-        u0 = u0 * (1.0 - 0.01) + 0.01
-    elif tuple(u0.shape) != (D, Lpad, K):
-        raise ValueError(f"u0 must have shape {(D, Lpad, K)}, got "
+        u0 = _uniform_init(shape, generator, device)
+    elif tuple(u0.shape) != shape:
+        raise ValueError(f"u0 must have shape {shape}, got "
                          f"{tuple(u0.shape)}")
-    return u0.to(device=device, dtype=torch.float32)[:, :L]
+    return u0.to(device=device, dtype=torch.float32)[:, :batch.max_len]
 
 
 def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
                    delta_weight: float, cfg: LDAConfig,
-                   data_reducer: Optional[LocalReducer] = None,
+                   data_reducer: Optional[Reducer] = None,
+                   model_reducer: Optional[Reducer] = None,
                    sync_mode: str = "power", live_w=None,
                    decay: Optional[float] = None, *,
                    generator: Optional[torch.Generator] = None,
                    u0: Optional[torch.Tensor] = None) -> MinibatchResult:
-    """Run one mini-batch to convergence (all Fig. 4 lines).
+    """Run one mini-batch to convergence on this shard (all Fig. 4 lines).
 
-    ``batch`` holds [D, L] tensors on phi_acc's device; ``phi_acc_wk``
-    [W, K] float32 or bfloat16 is the accumulated statistic (left
-    unchanged; the result is float32, the caller narrows it);
-    ``total_tokens`` the mini-batch's token count; ``delta_weight`` the
-    Eq. 11 weight on this batch's delta; ``decay`` (or None) the
-    Robbins-Monro retention on the historical statistic.  The random init
-    comes from ``generator``, or from an injected ``u0`` [D, Lpad, K].
+    ``batch`` holds this shard's [Dl, L] documents on phi_acc's device;
+    ``phi_acc_wk`` [W, Kl] float32 or bfloat16 is the synchronized
+    accumulated statistic over this shard's topics (left unchanged; the
+    result is float32, the caller narrows it); ``total_tokens`` the
+    mini-batch's global token count; ``delta_weight`` the Eq. 11 weight on
+    this batch's delta; ``decay`` (or None) the Robbins-Monro retention on
+    the historical statistic.  Every psum goes through ``data_reducer``
+    (the document shards) or ``model_reducer`` (the topic shards) under the
+    reference's phase, the once-a-batch part in one meter section and each
+    inner iteration in one of its own.  The random init comes from
+    ``generator``, or from an injected ``u0`` [Dl, Lpad, Kl].
     ``phi_acc_new`` reuses the storage of the step's working statistic
     ``phi_eff``; nothing the caller passed is modified.
     """
@@ -222,6 +284,7 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
     if sync_mode not in SYNC_MODES:
         raise ValueError(f"unknown sync_mode: {sync_mode}")
     reducer = data_reducer or LocalReducer()
+    model = model_reducer or LocalReducer(meter=reducer.meter)
     dev = phi_acc_wk.device
     W = cfg.vocab_size
     K = phi_acc_wk.shape[1]
@@ -236,79 +299,100 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
     phi_wire = (torch.bfloat16 if cfg.phi_acc_dtype == "bfloat16"
                 else None)
 
-    # ---- lines 3-8: random init, local stats, first dense update ----
-    u = _draw_u0(batch, K, cfg, generator, u0, dev)
-    mu0 = u / torch.sum(u, -1, keepdim=True)
-    del u
-    phi_eff = phi_acc_wk + token_scatter_wk(batch.word_ids, c3 * mu0, W,
-                                            runs)
-    phi_tot = torch.sum(phi_eff, dim=0)
-    mu1, r_wk_local = dense_sweep(batch, mu0, phi_eff, phi_tot, cfg, layout)
-    del mu0, phi_eff
+    with reducer.meter.section():
+        # ---- lines 3-8: random init, local stats, first dense update ----
+        u = _draw_u0(batch, K, cfg, generator, u0, dev)
+        mu0 = u / model.psum(torch.sum(u, -1, keepdim=True), "model_norm",
+                             compress=False)
+        del u
+        phi_eff = phi_acc_wk + token_scatter_wk(batch.word_ids, c3 * mu0, W,
+                                                runs)
+        phi_tot = torch.sum(phi_eff, dim=0)
+        mu1, r_wk_local = dense_sweep(batch, mu0, phi_eff, phi_tot, cfg,
+                                      layout, model)
+        del mu0, phi_eff
 
-    # ---- lines 9-10: dense synchronization of phi and r ----
-    phi_eff = phi_acc_wk + reducer.psum(
-        token_scatter_wk(batch.word_ids, c3 * mu1, W, runs), "dense",
-        dtype=phi_wire)
-    phi_tot = torch.sum(phi_eff, dim=0)
-    r_glob = reducer.psum(r_wk_local, "dense", dtype=phi_wire)
-    del r_wk_local
-    theta = _theta(batch.counts, mu1)
-    r_w = torch.sum(r_glob, dim=1)
+        # ---- lines 9-10: dense synchronization of phi and r ----
+        phi_eff = phi_acc_wk + reducer.psum(
+            token_scatter_wk(batch.word_ids, c3 * mu1, W, runs), "dense",
+            w_rows=W, dtype=phi_wire)
+        phi_tot = torch.sum(phi_eff, dim=0)
+        r_glob = reducer.psum(r_wk_local, "dense", w_rows=W, dtype=phi_wire)
+        del r_wk_local
+        theta = _theta(batch.counts, mu1)
+        r_w = model.psum(torch.sum(r_glob, dim=1), "model_rw",
+                         compress=False, w_rows=W)
 
-    def go_on(t: int, r_w: torch.Tensor) -> bool:
-        # the one host read per iteration
-        return t < cfg.inner_iters and \
-            float(mean_residual(r_w, total_tokens)) > cfg.residual_tol
+        def go_on(t: int, r_w: torch.Tensor) -> bool:
+            # the one host read per iteration; r_w is psum'd, so every
+            # shard reads the same bits and takes the same decision
+            return t < cfg.inner_iters and \
+                float(mean_residual(r_w, total_tokens)) > cfg.residual_tol
 
-    t = 1
-    if sync_mode == "power":
-        mu_t = mu1.reshape(layout.num_slots, K)
-        while go_on(t, r_w):
-            sel_w = pw.select_power_words(r_w, P)
-            sel_k = pw.select_power_topics(r_glob, sel_w, Pk)
-            mu_t, theta, d_pack, r_pack = selective_sweep_tokens(
-                layout, mu_t, theta, phi_eff, phi_tot, sel_w, sel_k, cfg,
-                policy)
-            # lines 23-24: sync only the power submatrices
-            d_pack = reducer.psum(d_pack, "power", dtype=phi_wire)
-            r_pack = reducer.psum(r_pack, "power", dtype=phi_wire)
-            # packed-carry refresh, Eq. 9: O(P*Pk) updates, in place.  The
-            # power words and each row's topics are distinct, so the two
-            # scatters and the r_w index_add have one writer an element:
-            # their order does not matter; phi_tot's per-topic sums do,
-            # and topic_sum takes them in a fixed order
-            rw_delta = packed_rw_delta(r_glob, sel_w, sel_k, r_pack)
-            pw.scatter_add_rows(phi_eff, sel_w, sel_k, d_pack)
-            phi_tot = topic_sum(sel_k, d_pack, phi_tot)
-            pw.scatter_set_rows(r_glob, sel_w, sel_k, r_pack)
-            rw_delta = reducer.psum(rw_delta, "model_rw_loop", compress=False)
-            r_w = r_w.index_add(0, sel_w.long(), rw_delta)
-            t += 1
-        mu = layout.to_batch_major(mu_t)
-    else:
-        mu = mu1
-        while go_on(t, r_w):
-            mu, r_wk = dense_sweep(batch, mu, phi_eff, phi_tot, cfg, layout)
-            phi_eff = phi_acc_wk + reducer.psum(
-                token_scatter_wk(batch.word_ids, c3 * mu, W, runs),
-                "dense_loop", dtype=phi_wire)
-            phi_tot = torch.sum(phi_eff, dim=0)
-            theta = _theta(batch.counts, mu)
-            r_w = torch.sum(reducer.psum(r_wk, "dense_loop", dtype=phi_wire),
-                            dim=1)
-            del r_wk
-            t += 1
+        t = 1
+        if sync_mode == "power":
+            mu_t = mu1.reshape(layout.num_slots, K)
+            while go_on(t, r_w):
+                with reducer.meter.section():
+                    sel_w = pw.select_power_words(r_w, P)
+                    sel_k = pw.select_power_topics(r_glob, sel_w, Pk)
+                    mu_t, theta, d_pack, r_pack = selective_sweep_tokens(
+                        layout, mu_t, theta, phi_eff, phi_tot, sel_w, sel_k,
+                        cfg, policy)
+                    # lines 23-24: sync only the power submatrices
+                    d_pack = reducer.psum(d_pack, "power", w_rows=W,
+                                          dtype=phi_wire)
+                    r_pack = reducer.psum(r_pack, "power", w_rows=W,
+                                          dtype=phi_wire)
+                    # packed-carry refresh, Eq. 9: O(P*Pk) updates, in
+                    # place.  The power words and each row's topics are
+                    # distinct, so the two scatters and the r_w index_add
+                    # have one writer an element: their order does not
+                    # matter; phi_tot's per-topic sums do, and topic_sum
+                    # takes them in a fixed order.  Each shard updates
+                    # its own phi_eff and r_glob (psum results are never
+                    # shared between shards)
+                    rw_delta = packed_rw_delta(r_glob, sel_w, sel_k, r_pack)
+                    pw.scatter_add_rows(phi_eff, sel_w, sel_k, d_pack)
+                    phi_tot = topic_sum(sel_k, d_pack, phi_tot)
+                    pw.scatter_set_rows(r_glob, sel_w, sel_k, r_pack)
+                    # the topic shards' share of each power word's
+                    # residual: a model psum (the data shards' is already
+                    # in r_pack)
+                    rw_delta = model.psum(rw_delta, "model_rw_loop",
+                                          compress=False, w_rows=W)
+                    r_w = r_w.index_add(0, sel_w.long(), rw_delta)
+                t += 1
+            mu = layout.to_batch_major(mu_t)
+        else:
+            mu = mu1
+            while go_on(t, r_w):
+                with reducer.meter.section():
+                    mu, r_wk = dense_sweep(batch, mu, phi_eff, phi_tot, cfg,
+                                           layout, model,
+                                           norm_phase="model_norm_loop")
+                    phi_eff = phi_acc_wk + reducer.psum(
+                        token_scatter_wk(batch.word_ids, c3 * mu, W, runs),
+                        "dense_loop", w_rows=W, dtype=phi_wire)
+                    phi_tot = torch.sum(phi_eff, dim=0)
+                    theta = _theta(batch.counts, mu)
+                    r_w = model.psum(
+                        torch.sum(reducer.psum(r_wk, "dense_loop", w_rows=W,
+                                               dtype=phi_wire), dim=1),
+                        "model_rw_loop", compress=False, w_rows=W)
+                    del r_wk
+                t += 1
 
-    # ---- Eq. (11): fold this batch's delta into the statistic, written
-    # as the reference writes it, in phi_eff's (float32) storage ----
-    phi_acc_new = phi_eff.sub_(phi_acc_wk).mul_(delta_weight)
-    if decay is None:
-        phi_acc_new.add_(phi_acc_wk)
-    else:
-        # the decay's [W, K] pass is billed once per mini-batch
-        reducer.bill(phi_acc_wk, "decay")
-        phi_acc_new.add_(decay * phi_acc_wk)
+        # ---- Eq. (11): fold this batch's delta into the statistic,
+        # written as the reference writes it, in phi_eff's (float32)
+        # storage ----
+        phi_acc_new = phi_eff.sub_(phi_acc_wk).mul_(delta_weight)
+        if decay is None:
+            phi_acc_new.add_(phi_acc_wk)
+        else:
+            # the decay's [W, K] pass is billed once per mini-batch
+            reducer.bill(phi_acc_wk, "decay", w_rows=W)
+            phi_acc_new.add_(decay * phi_acc_wk)
     return MinibatchResult(phi_acc_new=phi_acc_new, iters=t,
                            mean_r=mean_residual(r_w, total_tokens), mu=mu,
                            theta=theta)
@@ -317,19 +401,34 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
 # --------------------------------------------------------------------------
 # drivers
 # --------------------------------------------------------------------------
+#
+# Every execution mode runs ONE per-shard body, `pobp_shard_body`:
+#   - `make_train_step`        the streaming step: one device, N = 1, or N
+#                              data shards in lockstep (`run_stream` and
+#                              `launch.lda_train --backend sim`)
+#   - `make_sim_minibatch_fn`  one stateless mini-batch (tests, the chip
+#                              smoke run)
+#   - `make_mesh_shard_fn`     one shard a process of a DeviceMesh
+#                              (`shard_map_minibatch_fn`,
+#                              `launch.lda_train --backend shard_map`)
 
 def pobp_shard_body(word_ids, counts, phi_acc, delta_weight: float,
-                    cfg: LDAConfig, data_reducer: LocalReducer,
+                    cfg: LDAConfig, data_reducer: Reducer,
+                    model_reducer: Optional[Reducer] = None,
                     sync_mode: str = "power", decay: Optional[float] = None,
                     *, generator=None, u0=None):
-    """One shard's mini-batch routine: the token count goes through the
-    reducer ("tokens" phase), then `pobp_minibatch`.  Returns (phi_acc_new,
-    iters, mean_r, mu, theta)."""
+    """One shard's mini-batch routine: ``word_ids``/``counts`` are this
+    shard's [Dl, L] documents, ``phi_acc`` the synchronized statistic over
+    its topics; the global token count goes through the data reducer
+    ("tokens" phase), then `pobp_minibatch`.  Returns (phi_acc_new, iters,
+    mean_r, mu, theta)."""
     batch = MiniBatch(word_ids=word_ids, counts=counts)
-    total = data_reducer.psum(torch.sum(counts), "tokens", compress=False)
+    with data_reducer.meter.section():
+        total = data_reducer.psum(torch.sum(counts), "tokens",
+                                  compress=False)
     res = pobp_minibatch(batch, phi_acc, total, delta_weight, cfg,
-                         data_reducer, sync_mode=sync_mode, decay=decay,
-                         generator=generator, u0=u0)
+                         data_reducer, model_reducer, sync_mode=sync_mode,
+                         decay=decay, generator=generator, u0=u0)
     return res.phi_acc_new, res.iters, res.mean_r, res.mu, res.theta
 
 
@@ -356,17 +455,11 @@ def _decay_factor(cfg: LDAConfig, m: int) -> Optional[float]:
     return _f32(np.float32(1.0) - rho)
 
 
-def _check_ported(cfg: LDAConfig, num_shards: int = 1,
-                  reducer=None) -> None:
-    """Raise for what the port does not run yet, and (``ValueError``) for
-    an unknown ``sweep_policy`` or ``phi_acc_dtype``."""
+def _check_ported(cfg: LDAConfig) -> None:
+    """Raise ``ValueError`` for an unknown ``sweep_policy`` or
+    ``phi_acc_dtype``."""
     resolve_sweep_policy(cfg)
     quantize.phi_acc_dtype(cfg)
-    if num_shards != 1 or reducer is not None:
-        raise NotImplementedError(
-            f"num_shards={num_shards}, reducer={reducer!r}: multi-shard sync "
-            f"and injected reducers are not ported yet (ROADMAP Queue 1, "
-            f"item 5)")
 
 
 def init_train_state(cfg: LDAConfig, seed: int = 0,
@@ -399,30 +492,81 @@ def _sr_generator(generator: torch.Generator, m: int) -> torch.Generator:
     return torch.Generator(device=generator.device).manual_seed(seed)
 
 
+def _shard_inits(batch: MiniBatch, num_shards: int, K: int, cfg: LDAConfig,
+                 generator, u0: Optional[torch.Tensor], device) -> list:
+    """The N shards' random inits, [Dl, Lpad, K] each, drawn from
+    ``generator`` in shard order on the calling thread (the reference
+    splits its key before the vmap), or ``u0`` [N, Dl, Lpad, K]
+    unstacked."""
+    shape = _init_shape(batch, K, cfg)
+    if u0 is None:
+        return [_uniform_init(shape, generator, device)
+                for _ in range(num_shards)]
+    if tuple(u0.shape) != (num_shards,) + shape:
+        raise ValueError(f"u0 must have shape {(num_shards,) + shape}, got "
+                         f"{tuple(u0.shape)}")
+    return list(u0.to(device=device, dtype=torch.float32).unbind(0))
+
+
+def _lockstep_minibatch(word_ids, counts, phi_acc, delta_weight, cfg,
+                        reducer: SimReducer, sync_mode: str, decay,
+                        generator, u0) -> list:
+    """`pobp_shard_body` on each of ``reducer.num_shards`` data shards of
+    ``word_ids``/``counts`` [N, Dl, L] in lockstep; the shards' results in
+    shard order."""
+    N = reducer.num_shards
+    if word_ids.dim() != 3 or word_ids.shape[0] != N:
+        raise ValueError(f"word_ids must be [N={N}, Dl, L], got "
+                         f"{tuple(word_ids.shape)}")
+    dev = phi_acc.device
+    inits = _shard_inits(MiniBatch(word_ids[0], counts[0]), N,
+                         phi_acc.shape[1], cfg, generator, u0, dev)
+    return lockstep(
+        lambda n: pobp_shard_body(word_ids[n], counts[n], phi_acc,
+                                  delta_weight, cfg, reducer,
+                                  sync_mode=sync_mode, decay=decay,
+                                  u0=inits[n]),
+        N, [reducer], dev)
+
+
 def make_train_step(cfg: LDAConfig, num_shards: int = 1,
                     sync_mode: str = "power", sync_dtype=torch.float32, *,
-                    reducer=None, device="cuda"):
-    """The streaming step: one POBP mini-batch on one device.
+                    reducer: Optional[Reducer] = None, device="cuda"):
+    """The streaming step: one POBP mini-batch, on one shard or on
+    ``num_shards`` data shards in lockstep on one device.
 
     The reference's positional order: ``sync_dtype`` (a torch dtype or its
     name) is the payload dtype of the compressed syncs; with one shard they
     take its cast round trip, so an N = 1 run computes what an N-shard run
     with that sync dtype computes.  Returns (step, meter) with
     ``step(state, word_ids, counts, *, u0=None) -> (new_state, diag)``;
-    word_ids/counts are [D, L] (moved to the device), ``diag = {iters,
-    mean_r, theta}`` with ``mean_r`` and theta left on the device.  The
-    step draws the init from ``state.generator`` (advancing it) unless
-    ``u0`` [D, Lpad, K] is injected.  The new state's phi_acc is a new
-    tensor at ``cfg.phi_acc_dtype``, folded back from the float32
-    accumulate by stochastic rounding when that is bfloat16; the old one is
-    left unchanged.
+    word_ids/counts are [D, L], or [N, Dl, L] with N shards (moved to the
+    device); ``diag = {iters, mean_r, theta}`` with ``mean_r`` and theta
+    left on the device, theta [N, Dl, K] with N shards.  The step draws
+    the init from ``state.generator`` (advancing it; with N shards each
+    shard's [Dl, Lpad, K] in shard order) unless ``u0`` [D, Lpad, K] (or
+    [N, Dl, Lpad, K]) is injected.  The new state's phi_acc is a new
+    tensor at ``cfg.phi_acc_dtype`` (shard 0's: the shards' are identical
+    bit for bit), folded back from the float32 accumulate by stochastic
+    rounding when that is bfloat16; the old one is left unchanged.
+    ``reducer`` injects the data reducer (a `SimReducer` over the N
+    shards when N > 1); its meter is the step's.
     """
-    _check_ported(cfg, num_shards, reducer)
+    _check_ported(cfg)
     if sync_mode not in SYNC_MODES:
         raise ValueError(f"unknown sync_mode: {sync_mode}")
     dev = resolve_device(device)
-    meter = CommMeter()
-    red = LocalReducer(meter=meter, sync_dtype=sync_dtype)
+    if reducer is None:
+        meter = CommMeter()
+        reducer = (LocalReducer(meter=meter, sync_dtype=sync_dtype)
+                   if num_shards == 1 else
+                   SimReducer(num_shards, meter=meter, sync_dtype=sync_dtype))
+    elif num_shards > 1 and not (isinstance(reducer, SimReducer)
+                                 and reducer.num_shards == num_shards):
+        raise ValueError(f"an injected reducer over {num_shards} shards "
+                         f"must be a SimReducer of {num_shards} shards, got "
+                         f"{reducer!r}")
+    meter = reducer.meter
     storage = quantize.phi_acc_dtype(cfg)
 
     def step(state: LDATrainState, word_ids, counts, *, u0=None):
@@ -431,12 +575,21 @@ def make_train_step(cfg: LDAConfig, num_shards: int = 1,
             raise ValueError(f"state.phi_acc is on {state.phi_acc.device}, "
                              f"the step on {dev}")
         m = state.m + 1
-        phi, iters, mean_r, mu, theta = pobp_shard_body(
-            word_ids.to(here, torch.int32), counts.to(here, torch.float32),
-            state.phi_acc, _delta_weight(cfg, m), cfg, red,
-            sync_mode=sync_mode, decay=_decay_factor(cfg, m),
-            generator=state.generator, u0=u0)
-        del mu                  # freed before the rounding allocates
+        wid = word_ids.to(here, torch.int32)
+        cnt = counts.to(here, torch.float32)
+        if num_shards == 1:
+            phi, iters, mean_r, mu, theta = pobp_shard_body(
+                wid, cnt, state.phi_acc, _delta_weight(cfg, m), cfg, reducer,
+                sync_mode=sync_mode, decay=_decay_factor(cfg, m),
+                generator=state.generator, u0=u0)
+            del mu              # freed before the rounding allocates
+        else:
+            outs = _lockstep_minibatch(
+                wid, cnt, state.phi_acc, _delta_weight(cfg, m), cfg, reducer,
+                sync_mode, _decay_factor(cfg, m), state.generator, u0)
+            phi, iters, mean_r = outs[0][:3]
+            theta = torch.stack([o[4] for o in outs])
+            del outs            # the other shards' phi_acc freed here
         if storage != torch.float32:
             phi = quantize.stochastic_round(
                 phi, storage, _sr_generator(state.generator, m))
@@ -444,6 +597,130 @@ def make_train_step(cfg: LDAConfig, num_shards: int = 1,
                 dict(iters=iters, mean_r=mean_r, theta=theta))
 
     return step, meter
+
+
+def make_sim_minibatch_fn(cfg: LDAConfig, num_shards: int,
+                          sync_mode: str = "power", sync_dtype=torch.float32,
+                          *, device="cuda"):
+    """One stateless mini-batch on ``num_shards`` data shards in lockstep on
+    one device (the reference's vmap simulation).  Returns (fn, meter)
+    with ``fn(word_ids, counts, phi_acc, delta_weight, *, generator=None,
+    u0=None) -> (phi_acc_new, iters, mean_r, mu, theta)``: with one shard
+    the inputs are [D, L] and the outputs `pobp_shard_body`'s; with N they
+    are [N, Dl, L] and every output carries a leading N axis (phi_acc_new
+    [N, W, K], iters an int64 [N] tensor), so a test can read that the
+    shards agree.  ``u0`` [N, Dl, Lpad, K] replaces the shards' draws."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    meter = CommMeter()
+    red = (LocalReducer(meter=meter, sync_dtype=sync_dtype)
+           if num_shards == 1 else
+           SimReducer(num_shards, meter=meter, sync_dtype=sync_dtype))
+
+    def fn(word_ids, counts, phi_acc, delta_weight, *, generator=None,
+           u0=None):
+        wid = word_ids.to(dev, torch.int32)
+        cnt = counts.to(dev, torch.float32)
+        phi_acc = phi_acc.to(dev)
+        if num_shards == 1:
+            return pobp_shard_body(wid, cnt, phi_acc, delta_weight, cfg, red,
+                                   sync_mode=sync_mode, generator=generator,
+                                   u0=u0)
+        outs = _lockstep_minibatch(wid, cnt, phi_acc, delta_weight, cfg, red,
+                                   sync_mode, None, generator, u0)
+        phi, iters, mean_r, mu, theta = zip(*outs)
+        return (torch.stack(phi), torch.tensor(iters), torch.stack(mean_r),
+                torch.stack(mu), torch.stack(theta))
+
+    return fn, meter
+
+
+def mesh_data_index(mesh) -> Tuple[int, int]:
+    """(this rank's index among the data shards, their count): the
+    ``pod`` and ``data`` coordinates of ``mesh`` flattened, pod major."""
+    names = mesh.mesh_dim_names
+    coord = mesh.get_coordinate()
+    index, count = 0, 1
+    for name, size, c in zip(names, mesh.shape, coord):
+        if name in ("pod", "data"):
+            index, count = index * size + c, count * size
+    return index, count
+
+
+def make_mesh_shard_fn(cfg: LDAConfig, mesh, sync_mode: str = "power",
+                       sync_dtype=torch.float32,
+                       meter: Optional[CommMeter] = None,
+                       with_decay: bool = False, reducer_factory=None):
+    """This rank's POBP body on a ``DeviceMesh``: documents split over the
+    ``data`` (and ``pod``) axes, topics over ``model``.  Returns (local_fn,
+    meter) with ``local_fn(word_ids [Dl, L], counts, phi_acc [W, Kl],
+    delta_weight, *, generator=None, u0=None) -> (phi_acc_new, iters,
+    mean_r)``; ``with_decay=True`` inserts the Robbins-Monro retention
+    after ``delta_weight``.  The data psums run over the data axes'
+    group, the model psums over the model axis's, so every rank of the
+    mesh must call ``local_fn`` in step.  ``reducer_factory(group, meter,
+    sync_dtype) -> Reducer`` replaces the data reducer; the model reducer
+    is always a `MeshReducer`.  Creating it is collective (new process
+    groups): every rank calls it."""
+    _check_ported(cfg)
+    names = tuple(mesh.mesh_dim_names)
+    dp = tuple(a for a in names if a in ("pod", "data"))
+    meter = meter or CommMeter()
+    group = mesh_axis_group(mesh, dp)
+    data_red = (reducer_factory(group, meter, sync_dtype)
+                if reducer_factory is not None else
+                MeshReducer(group, meter=meter, sync_dtype=sync_dtype))
+    model_red = (MeshReducer(mesh_axis_group(mesh, ("model",)), meter=meter,
+                             sync_dtype=sync_dtype)
+                 if "model" in names else None)
+
+    def run(wid, cnt, phi_acc, delta_weight, decay, generator, u0):
+        phi, iters, mean_r, _, _ = pobp_shard_body(
+            wid, cnt, phi_acc, delta_weight, cfg, data_red, model_red,
+            sync_mode=sync_mode, decay=decay, generator=generator, u0=u0)
+        return phi, iters, mean_r
+
+    if with_decay:
+        def local(wid, cnt, phi_acc, delta_weight, decay, *, generator=None,
+                  u0=None):
+            return run(wid, cnt, phi_acc, delta_weight, decay, generator, u0)
+    else:
+        def local(wid, cnt, phi_acc, delta_weight, *, generator=None,
+                  u0=None):
+            return run(wid, cnt, phi_acc, delta_weight, None, generator, u0)
+    return local, meter
+
+
+def shard_map_minibatch_fn(cfg: LDAConfig, mesh, sync_mode: str = "power",
+                           sync_dtype=torch.float32,
+                           meter: Optional[CommMeter] = None,
+                           with_decay: bool = False):
+    """`make_mesh_shard_fn` with the reference's partition specs, one rank
+    a mesh position: ``fn(word_ids [D, L], counts [D, L], phi_acc [W, Kl],
+    delta_weight[, decay], *, generator=None, u0=None) -> (phi_acc_new
+    [W, Kl], iters, mean_r)`` takes the global batch, runs this rank's
+    slice of documents (its data index, `mesh_data_index`) against its
+    topic columns of phi_acc, and returns them.  Each rank draws its init
+    [Dl, Lpad, Kl] from its own ``generator``; seeded alike, every rank
+    draws the same field, as the reference draws one replicated key under
+    shard_map.  Returns (fn, meter)."""
+    local, meter = make_mesh_shard_fn(cfg, mesh, sync_mode, sync_dtype,
+                                      meter, with_decay=with_decay)
+    index, count = mesh_data_index(mesh)
+
+    def fn(word_ids, counts, phi_acc, delta_weight, *decay, generator=None,
+           u0=None):
+        D = word_ids.shape[0]
+        if D % count:
+            raise ValueError(f"a batch of {D} documents does not divide over "
+                             f"{count} data shards")
+        docs = slice(index * (D // count), (index + 1) * (D // count))
+        dev = phi_acc.device
+        return local(word_ids[docs].to(dev, torch.int32),
+                     counts[docs].to(dev, torch.float32), phi_acc,
+                     delta_weight, *decay, generator=generator, u0=u0)
+
+    return fn, meter
 
 
 class DiagBuffer:
@@ -474,15 +751,18 @@ class DiagBuffer:
 
 
 def run_stream(stream, cfg: LDAConfig, num_shards: int = 1,
-               sync_mode: str = "power", seed: int = 0, callback=None,
+               sync_mode: str = "power", seed: int = 0,
+               sync_dtype=torch.float32, callback=None,
                state: Optional[LDATrainState] = None, device="cuda"):
-    """The outer ``for m`` loop of Fig. 4 over a stream of MiniBatches.
+    """The outer ``for m`` loop of Fig. 4 over a stream of MiniBatches
+    ([D, L], or [N, Dl, L] stacked with N shards:
+    ``data.batching.sharded_minibatch_stream``).
 
     ``callback(m, phi_acc, rec, theta)`` (if given) sees each batch's
     result, with device scalars in ``rec``.  Pass ``state`` to continue a
     run.  Returns (phi_acc [W, K], history list of per-batch dicts, meter).
     """
-    step, meter = make_train_step(cfg, num_shards, sync_mode,
+    step, meter = make_train_step(cfg, num_shards, sync_mode, sync_dtype,
                                   device=device)
     if state is None:
         state = init_train_state(cfg, seed, device=device)

@@ -4,9 +4,9 @@ length-bucket ladder, prefetched mini-batch streams and the 80/20
 held-out split.
 
 Streams are built on the host (numpy, then CPU tensors) on a background
-thread, so batch construction overlaps the device's work.  One shard
-only: the leading-shard stacking of the reference comes with the
-multi-shard slice (ROADMAP Queue 1, item 5).
+thread, so batch construction overlaps the device's work.  With N data
+shards a batch is stacked [N, D/N, L] on a leading shard axis
+(`stack_shards`), as the lockstep simulation consumes it.
 """
 
 from __future__ import annotations
@@ -164,26 +164,57 @@ def prefetched(gen_factory: Callable[[], Iterator], prefetch: int) -> Iterator:
                           stacklevel=2)
 
 
-def _check_one_shard(num_shards: int) -> None:
-    if num_shards != 1:
-        raise NotImplementedError(
-            f"num_shards={num_shards}: sharded streams come with the "
-            f"multi-shard slice (ROADMAP Queue 1, item 5)")
+def stack_shards(mb: MiniBatch, num_shards: int) -> MiniBatch:
+    """[D, L] -> [N, D/N, L]: the leading shard axis of the lockstep
+    simulation (a view); N = 1 returns the batch as it is."""
+    if num_shards <= 1:
+        return mb
+    D, L = mb.word_ids.shape
+    if D % num_shards:
+        raise ValueError(f"batch of {D} docs does not divide over "
+                         f"{num_shards} shards")
+    shape = (num_shards, D // num_shards, L)
+    return MiniBatch(word_ids=mb.word_ids.reshape(shape),
+                     counts=mb.counts.reshape(shape))
+
+
+def _padded_chunk(docs: Sequence[Doc], m: int, batch_docs: int,
+                  multiple: int) -> List[Doc]:
+    """Documents of batch ``m``, padded with empty documents up to a
+    multiple of ``multiple``."""
+    chunk = list(docs[m * batch_docs: (m + 1) * batch_docs])
+    if multiple > 1 and len(chunk) % multiple:
+        chunk += [(np.zeros(1, np.int32), np.zeros(1, np.float32))
+                  ] * (multiple - len(chunk) % multiple)
+    return chunk
 
 
 def minibatch_stream(docs: Sequence[Doc], batch_docs: int,
-                     max_len: int | None = None, prefetch: int = 2
-                     ) -> Iterator[MiniBatch]:
+                     max_len: int | None = None, prefetch: int = 2,
+                     pad_docs_multiple: int = 1) -> Iterator[MiniBatch]:
     """Yield MiniBatches of ``batch_docs`` documents (the last one may be
-    shorter), built on a prefetch thread."""
+    shorter, padded with empty documents to a multiple of
+    ``pad_docs_multiple`` so it divides over the shards), built on a
+    prefetch thread."""
     n_batches = -(-len(docs) // batch_docs)
 
     def slices():
         for m in range(n_batches):
-            yield docs_to_padded(docs[m * batch_docs: (m + 1) * batch_docs],
-                                 max_len)
+            yield docs_to_padded(_padded_chunk(docs, m, batch_docs,
+                                               pad_docs_multiple), max_len)
 
     yield from prefetched(slices, prefetch)
+
+
+def sharded_minibatch_stream(docs: Sequence[Doc], batch_docs: int,
+                             num_shards: int, max_len: int | None = None,
+                             prefetch: int = 2) -> Iterator[MiniBatch]:
+    """Yield MiniBatches stacked [N, Dl, L] on a leading shard axis, Dl =
+    ceil(batch_docs / N)."""
+    per_shard = -(-batch_docs // num_shards)
+    for mb in minibatch_stream(docs, per_shard * num_shards, max_len,
+                               prefetch, pad_docs_multiple=num_shards):
+        yield stack_shards(mb, num_shards)
 
 
 def bucketed_minibatch_stream(docs: Sequence[Doc], batch_docs: int,
@@ -192,20 +223,22 @@ def bucketed_minibatch_stream(docs: Sequence[Doc], batch_docs: int,
                               prefetch: int = 2) -> Iterator[MiniBatch]:
     """Shape-bucketed stream: every batch has exactly ``batch_docs``
     documents (a short last chunk is padded with empty documents) and an L
-    snapped up to one of ``len_buckets`` (multiples of 8)."""
-    _check_one_shard(num_shards)
+    snapped up to one of ``len_buckets`` (multiples of 8); stacked [N, Dl,
+    L] when ``num_shards > 1``."""
     len_buckets = tuple(sorted(int(b) for b in len_buckets))
     if any(b % 8 for b in len_buckets):
         raise ValueError(f"len_buckets must be multiples of 8: {len_buckets}")
+    if batch_docs % max(num_shards, 1):
+        raise ValueError(f"batch_docs={batch_docs} must divide over "
+                         f"num_shards={num_shards}")
     n_batches = -(-len(docs) // batch_docs)
 
     def slices():
         for m in range(n_batches):
-            chunk = list(docs[m * batch_docs: (m + 1) * batch_docs])
-            nat = max((len(ids) for ids, _ in chunk), default=1)
-            chunk += [(np.zeros(1, np.int32), np.zeros(1, np.float32))
-                      ] * (batch_docs - len(chunk))
-            yield docs_to_padded(chunk, max_len=bucket_len(nat, len_buckets))
+            chunk = _padded_chunk(docs, m, batch_docs, batch_docs)
+            nat = max(len(ids) for ids, _ in chunk)
+            yield stack_shards(docs_to_padded(
+                chunk, max_len=bucket_len(nat, len_buckets)), num_shards)
 
     yield from prefetched(slices, prefetch)
 

@@ -3,6 +3,10 @@ version.  ``build`` compiles ``csrc/*.cu`` at first use."""
 
 from __future__ import annotations
 
+import threading
+
+_COUNT_LOCK = threading.Lock()
+
 
 def check_args(anchor: str, want: dict) -> None:
     """Raise ``ValueError`` unless every tensor of ``want`` (name ->
@@ -20,6 +24,13 @@ def check_args(anchor: str, want: dict) -> None:
                              f"got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, under a lock: the shards of a
+    lockstep run launch from threads of their own."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def launch_counts(reset: bool = False) -> dict:

@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build, check_args
+from repro_torch.kernels import build, check_args, count_launch
 
 _SOURCE = "bp_update"
 REGISTER_MAX_K = 2048              # 4 topics a thread x 512 threads
@@ -130,7 +130,7 @@ def bp_update(word_ids, doc_ids, counts_t, mu_t, theta, phi_wk, phi_tot, *,
         msg = lib.bp_update_error_string(err).decode()
         raise RuntimeError(f"bp_update kernel launch failed: CUDA error "
                            f"{err} ({msg})")
-    bp_update.launches += 1
+    count_launch(bp_update)
     return mu_new, r_tok
 
 

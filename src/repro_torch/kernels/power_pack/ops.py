@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, check_args
+from repro_torch.kernels import build, check_args, count_launch
 
 _SOURCE = "power_pack"
 
@@ -100,7 +100,7 @@ def pack_rows(mat, sel_w, sel_k):
         msg = lib.power_pack_error_string(err).decode()
         raise RuntimeError(f"pack_rows kernel launch failed: CUDA error "
                            f"{err} ({msg})")
-    pack_rows.launches += 1
+    count_launch(pack_rows)
     return out
 
 
@@ -133,7 +133,7 @@ def scatter_add_rows(mat, sel_w, sel_k, vals):
         msg = lib.power_pack_error_string(err).decode()
         raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA "
                            f"error {err} ({msg})")
-    scatter_add_rows.launches += 1
+    count_launch(scatter_add_rows)
     return mat
 
 

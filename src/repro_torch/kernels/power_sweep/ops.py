@@ -36,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build, check_args
+from repro_torch.kernels import build, check_args, count_launch
 from repro_torch.kernels.power_sweep.packed import power_sweep_tokens_plain
 
 _SOURCE = "power_sweep_carry"
@@ -175,7 +175,7 @@ def power_sweep_carry(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
             int(n_guard), float(alpha), float(beta), float(wbeta), plan.V,
             plan.threads, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "power_sweep_carry kernel launch")
-    power_sweep_carry.launches += 1
+    count_launch(power_sweep_carry)
     return mu_t, theta_delta, rdoc
 
 
@@ -301,7 +301,7 @@ def power_sweep_carry_train(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
             T, D, K, P, Pk, float(alpha), float(beta), float(wbeta), warps,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "power_sweep_carry_train kernel launch")
-    power_sweep_carry_train.launches += 1
+    count_launch(power_sweep_carry_train)
     return mu_t, theta_delta, d_pack, r_pack
 
 

@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from repro_torch.core.types import sweep_order
-from repro_torch.kernels import build, check_args
+from repro_torch.kernels import build, check_args, count_launch
 
 _SOURCE = "power_sweep_tokens"
 _MAX_FOLD_WARPS = 4
@@ -216,7 +216,7 @@ def power_sweep_tokens(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
             r_pack.data_ptr(), T, D, K, P, Pk, float(alpha), float(beta),
             float(wbeta), warps, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "power_sweep_tokens kernel launch")
-    power_sweep_tokens.launches += 1
+    count_launch(power_sweep_tokens)
     return mu_t, theta_delta, d_pack, r_pack
 
 

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, check_args
+from repro_torch.kernels import build, check_args, count_launch
 
 _SOURCE = "segment_sum"
 _MAX_TOPIC_WARPS = 8
@@ -92,7 +92,7 @@ def word_rows_sum(order, starts, values, vocab_size: int):
                                 values.data_ptr(), out.data_ptr(), W, K,
                                 torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "word_rows_sum kernel launch")
-    word_rows_sum.launches += 1
+    count_launch(word_rows_sum)
     return out
 
 
@@ -159,7 +159,7 @@ def topic_sum(sel_k, vals, base):
                             out.data_ptr(), P, Pk, K, grid, warps,
                             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "topic_sum kernel launch")
-    topic_sum.launches += 1
+    count_launch(topic_sum)
     return out
 
 

@@ -1,20 +1,34 @@
 """Streaming POBP training driver of the port (counterpart of
-``repro.launch.lda_train``): the paper's Fig. 4 outer loop on one device.
+``repro.launch.lda_train``): the paper's Fig. 4 outer loop.
 
-The single-shard, fixed-vocabulary path of the reference driver, with its
-flag names, its synthetic stream (batch m drawn from (seed, m) off one
-fixed ground-truth topic set, L snapped to ``--len-buckets``) and its
-held-out split.  Each batch runs ``core.pobp.make_train_step``; the host
-reads the diagnostics every ``--log-every`` batches.  ``--eval-every``
-scores held-out perplexity through ``core.perplexity.evaluate``;
-``--ckpt-dir``/``--ckpt-every`` save checkpoints in the reference's format
-(``dist/checkpoint.save``), so ``launch/serve.py`` of either package can
-serve them.  ``--device`` (default ``cuda``) picks the card or, when
-asked, the CPU.
+The fixed-vocabulary path of the reference driver, with its flag names,
+its synthetic stream (batch m drawn from (seed, m) off one fixed
+ground-truth topic set, L snapped to ``--len-buckets``) and its held-out
+split.  Each batch runs one step; the host reads the diagnostics every
+``--log-every`` batches.  ``--eval-every`` scores held-out perplexity
+through ``core.perplexity.evaluate``; ``--ckpt-dir``/``--ckpt-every`` save
+checkpoints in the reference's format (``dist/checkpoint.save``), so
+``launch/serve.py`` of either package can serve them.  ``--device``
+(default ``cuda``) picks the card or, when asked, the CPU.
 
   PYTHONPATH=src python -m repro_torch.launch.lda_train --minibatches 8 \\
       --docs-per-batch 32 --vocab 300 --topics 16 --lambda-k 8 \\
       --eval-every 4 --ckpt-dir /tmp/lda_ck --ckpt-every 4 --device cuda
+
+Execution, as the reference's: ``--backend sim`` (the default) runs
+``--shards`` data shards (default 4, the reference's) in lockstep on one
+device (``core.pobp.make_train_step``); ``--backend shard_map`` runs one
+process a position of a ``DeviceMesh`` (``--mesh single|multi``, or
+``--mesh-shape data,model`` / ``pod,data,model``), documents split over
+the data axes and topics over the model axis (``core.pobp.
+shard_map_minibatch_fn``).  One command starts the whole mesh: the
+driver builds the CUDA kernels, spawns a process a rank, and returns rank
+0's result; rank 0 alone prints, and it alone writes checkpoints, of the
+global [W, K] phi_acc; on resume each rank restores its columns.
+``--dist-backend`` names the collective transport (default ``nccl`` with
+a CUDA ``--device``, ``gloo`` with ``--device cpu``); NCCL refuses two
+ranks on one card, so a mesh larger than the card count asks for
+``gloo``.
 
 Crash-resume, as the reference's: the checkpoint holds the whole state
 (phi_acc, m, the generator's state) and the stream cursor, so rerunning
@@ -41,7 +55,7 @@ host thread that draws the stream ahead.
 
 Every other flag of the reference driver is accepted only at its
 reference default, and any other value raises naming the ROADMAP item
-that ports it.
+that ports it; so does ``--backend ps``.
 """
 
 from __future__ import annotations
@@ -59,10 +73,6 @@ _Q1 = "ROADMAP Queue 1, item"
 # flags of the reference driver that are not ported: the value that keeps
 # each off, and the ROADMAP item that brings it
 _UNPORTED = {
-    "shards": (1, f"{_Q1} 5 (multi-shard sync)"),
-    "backend": ("sim", f"{_Q1} 5 (shard_map) and item 7 (parameter server)"),
-    "mesh": ("single", f"{_Q1} 5 (multi-shard sync)"),
-    "mesh_shape": ("", f"{_Q1} 5 (multi-shard sync)"),
     "dynamic_vocab": (False, f"{_Q1} 6 (dynamic vocabulary)"),
     "vocab_growth_per_batch": (24, f"{_Q1} 6 (dynamic vocabulary)"),
     "drift_mode": ("grow", f"{_Q1} 6 (dynamic vocabulary)"),
@@ -167,6 +177,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--crash-at", type=int, default=0,
                     help="simulate a hard failure after minibatch N (fresh "
                          "runs only; needs --ckpt-dir)")
+    ap.add_argument("--shards", type=int, default=4,
+                    help="data shards in lockstep on one device "
+                         "(--backend sim)")
+    ap.add_argument("--backend", default="sim",
+                    choices=["sim", "shard_map", "ps"],
+                    help="sim: --shards in lockstep on one device; "
+                         "shard_map: a process a mesh position; ps: not "
+                         f"ported yet ({_Q1} 7 (parameter server))")
+    ap.add_argument("--mesh", default="single", choices=["single", "multi"],
+                    help="production mesh for --backend shard_map: (16, 16) "
+                         "data x model, or (2, 16, 16) pod x data x model")
+    ap.add_argument("--mesh-shape", default="",
+                    help="the mesh as 'data,model' or 'pod,data,model' "
+                         "instead, e.g. --mesh-shape 2,2")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="collective transport of --backend shard_map "
+                         "(default: nccl with a CUDA --device, gloo with "
+                         "--device cpu; gloo runs several ranks on one "
+                         "card, NCCL refuses that)")
     for name, (default, item) in _UNPORTED.items():
         flag = "--" + name.replace("_", "-")
         if isinstance(default, bool):
@@ -192,13 +221,15 @@ def _parse_decay(s: str):
 
 
 def _reject_unported(args) -> None:
+    if args.backend == "ps":
+        raise NotImplementedError(
+            f"--backend ps is not ported yet ({_Q1} 7 (parameter server))")
     for name, (default, item) in _UNPORTED.items():
         value = getattr(args, name)
         if value != default:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}={value!r} is not ported yet "
-                f"({item}); this driver runs one shard and a fixed "
-                f"vocabulary")
+                f"({item}); this driver runs a fixed vocabulary")
 
 
 def resolve_impl(args) -> str:
@@ -321,11 +352,12 @@ def _jax_written_rng(directory: str) -> bool:
                and rec["shape"] == [2] for rec in leaves)
 
 
-def _warmup_batches(args, buckets, cfg):
+def _warmup_batches(args, buckets, cfg, shards: int = 1):
     """What the warm-up pushes through the step: an all-padding [D, L]
     batch of each length bucket (they stop at t = 1), and one batch of the
     smallest bucket with every slot counted, for a step that runs one
-    selective iteration (the policy's selective kernels)."""
+    selective iteration (the policy's selective kernels); stacked [N, D/N,
+    L] for ``shards`` data shards."""
     import torch
 
     D = args.docs_per_batch
@@ -335,38 +367,232 @@ def _warmup_batches(args, buckets, cfg):
     L = pads[0][0].shape[1]
     ids = (torch.arange(D * L, dtype=torch.int32) % cfg.vocab_size
            ).reshape(D, L)
-    return pads, (ids, torch.ones((D, L), dtype=torch.float32))
+    full = (ids, torch.ones((D, L), dtype=torch.float32))
+    if shards > 1:
+        pads, full = ([tuple(x.reshape(shards, -1, x.shape[1]) for x in p)
+                       for p in pads],
+                      tuple(x.reshape(shards, D // shards, L) for x in full))
+    return pads, full
+
+
+def _mesh_dims(args):
+    """(shape, axis names) of the ``--backend shard_map`` mesh."""
+    if args.mesh_shape:
+        dims = _csv_ints(args.mesh_shape)
+        if len(dims) not in (2, 3):
+            raise ValueError(f"--mesh-shape takes 'data,model' or "
+                             f"'pod,data,model', got {args.mesh_shape!r}")
+        return dims, (("data", "model") if len(dims) == 2
+                      else ("pod", "data", "model"))
+    if args.mesh == "multi":
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_shardmap_train_step(cfg, mesh, sync_mode="power",
+                             sync_dtype="float32"):
+    """The driver's step on a mesh, one rank a position: the state holds
+    this rank's topic columns of phi_acc [W, K/M]; ``step(state, word_ids
+    [D, L], counts)`` runs this rank's documents through
+    ``core.pobp.shard_map_minibatch_fn``.  The same contract as
+    ``core.pobp.make_train_step`` (theta is not gathered: None)."""
+    import torch
+
+    from repro_torch.core import quantize
+    from repro_torch.core.pobp import (_decay_factor, _delta_weight,
+                                       _sr_generator, shard_map_minibatch_fn)
+    from repro_torch.core.types import LDATrainState
+
+    with_decay = bool(cfg.decay_kappa)
+    fn, meter = shard_map_minibatch_fn(cfg, mesh, sync_mode, sync_dtype,
+                                       with_decay=with_decay)
+    storage = quantize.phi_acc_dtype(cfg)
+
+    def step(state, word_ids, counts, *, u0=None):
+        m = state.m + 1
+        extra = (_decay_factor(cfg, m),) if with_decay else ()
+        phi, iters, mean_r = fn(word_ids, counts, state.phi_acc,
+                                _delta_weight(cfg, m), *extra,
+                                generator=state.generator, u0=u0)
+        if storage != torch.float32:
+            phi = quantize.stochastic_round(
+                phi, storage, _sr_generator(state.generator, m))
+        return (LDATrainState(phi_acc=phi, m=m, generator=state.generator),
+                dict(iters=iters, mean_r=mean_r, theta=None))
+
+    return step, meter
+
+
+# the CUDA sources of the training path, built once before a mesh's ranks
+# start (ranks building into one directory would race)
+_SOURCES = ("power_sweep_carry", "bp_update", "power_pack",
+            "power_sweep_tokens", "segment_sum")
+
+
+def _run_mesh(args) -> Dict[str, Any]:
+    """Start one process a position of the ``--backend shard_map`` mesh,
+    each running `train_loop` inside an initialized process group, and
+    return rank 0's result with every rank's ``iters`` and ``mean_r``
+    under ``ranks``.  A simulated crash (``--crash-at``) in the ranks ends
+    this call by ``SystemExit`` too."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as tmp_mp
+
+    from repro_torch.core.device import resolve_device
+
+    dims, _ = _mesh_dims(args)
+    world = int(np.prod(dims))
+    dev = resolve_device(args.device)
+    backend = args.dist_backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError("--dist-backend nccl needs --device cuda; pass "
+                             "--dist-backend gloo to run the mesh on the CPU")
+        cards = torch.cuda.device_count()
+        if world > cards:
+            raise ValueError(
+                f"the mesh {dims} needs {world} ranks and NCCL refuses two "
+                f"ranks on one card ({cards} card(s) here); pass "
+                f"--dist-backend gloo to run them on {cards} card(s)")
+    if dev.type == "cuda":
+        from repro_torch.kernels import build
+        build.build_all(_SOURCES)
+    out = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    try:
+        tmp_mp.start_processes(_mesh_rank, args=(args, world, backend, out),
+                               nprocs=world, join=True, start_method="spawn")
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    crash = next((r["crash"] for r in ranks if "crash" in r), None)
+    if crash is not None:
+        raise SystemExit(crash)
+    res = ranks[0]
+    res["ranks"] = [{k: r[k] for k in ("iters", "mean_r", "launches")}
+                    for r in ranks]
+    res["dist_backend"] = backend
+    return res
+
+
+def _mesh_rank(rank: int, args, world: int, backend: str, out: str) -> None:
+    """One rank of `_run_mesh`: join the process group (a file store in
+    ``out``), run `train_loop`, save the result (rank 0's whole; the
+    others' diagnostics and kernel launches) to ``out``."""
+    import datetime
+    import sys
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import launch_counts
+
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"file://{out}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=10))
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        try:
+            res = train_loop(args)
+        except SystemExit as e:
+            res = {"crash": str(e)}
+        res["launches"] = launch_counts()
+        if rank:
+            res = {k: res[k] for k in ("iters", "mean_r", "launches",
+                                       "crash") if k in res}
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
 
 
 def train_loop(args) -> Dict[str, Any]:
-    """Run the driver; returns a result dict (see the end)."""
+    """Run the driver; returns a result dict (see the end).  With
+    ``--backend shard_map`` and no process group yet, starts the mesh
+    (`_run_mesh`); inside one, runs this rank."""
     import dataclasses
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch.core import perplexity
     from repro_torch.core.device import resolve_device
     from repro_torch.core.pobp import (DiagBuffer, init_train_state,
-                                       make_train_step)
+                                       make_train_step, mesh_data_index)
     from repro_torch.core.types import LDATrainState
-    from repro_torch.data.batching import prefetched
+    from repro_torch.data.batching import prefetched, stack_shards
     from repro_torch.dist import checkpoint as ckpt
     from repro_torch.kernels import launch_counts
 
     _reject_unported(args)
+    if args.backend == "shard_map" and not dist.is_initialized():
+        return _run_mesh(args)
     if args.crash_at and not args.ckpt_dir:
         raise ValueError("--crash-at needs --ckpt-dir: without a checkpoint "
                          "the rerun restarts from scratch and hits the same "
                          "simulated failure forever")
-    if args.crash_at and args.ckpt_dir and args.crash_at <= args.ckpt_every:
+    cfg, buckets = _build_cfg(args)
+    dev = resolve_device(args.device)
+    shards = args.shards if args.backend == "sim" else 1
+    if shards < 1 or args.docs_per_batch % shards:
+        raise ValueError(f"--docs-per-batch {args.docs_per_batch} does not "
+                         f"divide over --shards {shards}")
+    mesh, rank0, gather_group = None, True, None
+    W, K = cfg.vocab_size, cfg.num_topics
+    cols = slice(0, K)
+    if args.backend == "shard_map":
+        from repro_torch.launch.mesh import make_mesh
+
+        dims, axes = _mesh_dims(args)
+        mesh = make_mesh(dims, axes, dev.type)
+        if K % dims[-1]:
+            raise ValueError(f"--topics {K} does not divide over the "
+                             f"model axis of {dims[-1]}")
+        Kl = K // dims[-1]
+        m_index = mesh.get_coordinate()[axes.index("model")]
+        cols = slice(m_index * Kl, (m_index + 1) * Kl)
+        rank0 = dist.get_rank() == 0
+        # the data shard 0 ranks gather the global phi_acc for rank 0
+        if mesh_data_index(mesh)[0] == 0:
+            gather_group = mesh.get_group("model")
+    if args.crash_at and args.ckpt_dir and args.crash_at <= args.ckpt_every \
+            and rank0:
         print(f"[warn] --crash-at {args.crash_at} fires before the first "
               f"checkpoint (--ckpt-every {args.ckpt_every}); the rerun will "
               f"restart from scratch and crash again", flush=True)
-    cfg, buckets = _build_cfg(args)
-    dev = resolve_device(args.device)
-    step, meter = make_train_step(cfg, 1, args.sync, args.sync_dtype,
-                                  device=dev)
-    state = init_train_state(cfg, args.seed, device=dev)
+
+    def build_step(c):
+        if mesh is None:
+            return make_train_step(c, shards, args.sync, args.sync_dtype,
+                                   device=dev)
+        return make_shardmap_train_step(c, mesh, args.sync, args.sync_dtype)
+
+    def fresh_state():
+        st = init_train_state(cfg, args.seed, device=dev)
+        if mesh is not None:
+            st = LDATrainState(phi_acc=st.phi_acc[:, cols].contiguous(),
+                               m=0, generator=st.generator)
+        return st
+
+    def global_phi(phi):
+        """The global [W, K] phi_acc (collective on the data shard 0
+        ranks; None elsewhere)."""
+        if mesh is None:
+            return phi
+        if gather_group is None:
+            return None
+        full = phi.new_zeros((W, K))
+        full[:, cols] = phi
+        dist.all_reduce(full, group=gather_group)
+        return full
+
+    step, meter = build_step(cfg)
+    state = fresh_state()
     signature = _run_signature(args)
     start_m = 0
     if args.ckpt_dir:
@@ -379,8 +605,12 @@ def train_loop(args) -> Dict[str, Any]:
                 f"carry its phi_acc and m over with "
                 f"convert.train_state_from_reference and a seed, or use a "
                 f"fresh --ckpt-dir")
+        template = LDATrainState(
+            phi_acc=(state.phi_acc if mesh is None
+                     else state.phi_acc.new_zeros((W, K))),
+            m=0, generator=state.generator)
         try:
-            got = ckpt.restore_latest(args.ckpt_dir, _state_tree(state),
+            got = ckpt.restore_latest(args.ckpt_dir, _state_tree(template),
                                       grow_rows=("phi_acc",),
                                       cast_dtypes=("phi_acc",))
         except ValueError as e:
@@ -388,6 +618,7 @@ def train_loop(args) -> Dict[str, Any]:
                 f"cannot restore checkpoint from {args.ckpt_dir} ({e}); it "
                 f"was probably written by an older/other tool — use a fresh "
                 f"--ckpt-dir") from e
+        del template
         if got is not None:
             trees, extra, ck_step = got
             for key, saved in extra.get("run", {}).items():
@@ -399,13 +630,15 @@ def train_loop(args) -> Dict[str, Any]:
                         f"flags or a fresh --ckpt-dir")
             saved = trees["state"]
             state.generator.set_state(saved["rng"])
-            state = LDATrainState(phi_acc=saved["phi_acc"],
-                                  m=int(saved["m"]),
-                                  generator=state.generator)
+            state = LDATrainState(
+                phi_acc=saved["phi_acc"][:, cols].contiguous(),
+                m=int(saved["m"]), generator=state.generator)
+            del trees, saved
             start_m = int(extra["next_m"])
-            print(f"[restore] resumed from checkpoint step {ck_step} -> "
-                  f"next minibatch {start_m + 1}", flush=True)
-            if start_m >= args.minibatches:
+            if rank0:
+                print(f"[restore] resumed from checkpoint step {ck_step} -> "
+                      f"next minibatch {start_m + 1}", flush=True)
+            if start_m >= args.minibatches and rank0:
                 print(f"[restore] checkpoint already covers all "
                       f"{args.minibatches} minibatches — nothing to train "
                       f"(raise --minibatches or use a fresh --ckpt-dir)",
@@ -418,13 +651,12 @@ def train_loop(args) -> Dict[str, Any]:
         # the run's draws and result are untouched
         t0 = time.time()
         before = launch_counts()
-        pads, full = _warmup_batches(args, buckets, cfg)
-        scratch = init_train_state(cfg, args.seed, device=dev)
+        pads, full = _warmup_batches(args, buckets, cfg, shards)
+        scratch = fresh_state()
         for ids, cnt in pads:
             scratch, _ = step(scratch, ids, cnt)
-        once, _ = make_train_step(
-            dataclasses.replace(cfg, inner_iters=2, residual_tol=-1.0), 1,
-            args.sync, args.sync_dtype, device=dev)
+        once, _ = build_step(
+            dataclasses.replace(cfg, inner_iters=2, residual_tol=-1.0))
         scratch, _ = once(scratch, *full)
         del scratch
         if dev.type == "cuda":
@@ -434,13 +666,17 @@ def train_loop(args) -> Dict[str, Any]:
                            for k, n in launch_counts().items()}
     eval_split = None
 
-    def eval_ppl() -> float:
+    def eval_ppl(phi=None) -> float:
         nonlocal eval_split
+        if phi is None:
+            phi = global_phi(state.phi_acc)
+        if not rank0:
+            return float("nan")
         if eval_split is None:
             eval_split = _eval_split(args)
         gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-        return perplexity.evaluate(state.phi_acc, *eval_split, cfg,
-                                   generator=gen, device=dev)
+        return perplexity.evaluate(phi, *eval_split, cfg, generator=gen,
+                                   device=dev)
 
     buf = DiagBuffer(block=max(args.log_every, 64))
     ppl_trace = []
@@ -449,6 +685,7 @@ def train_loop(args) -> Dict[str, Any]:
     stream = prefetched(synthetic_stream(args, buckets, start_m),
                         args.prefetch)
     for m, (batch, ntok) in enumerate(stream, start=start_m):
+        batch = stack_shards(batch, shards)
         state, diag = step(state, batch.word_ids, batch.counts)
         buf.append(diag["mean_r"], diag["iters"])
         tokens += ntok
@@ -462,22 +699,28 @@ def train_loop(args) -> Dict[str, Any]:
         if args.eval_every and step_no % args.eval_every == 0:
             ppl = eval_ppl()
             ppl_trace.append((step_no, ppl))
-            print(f"minibatch {step_no:5d}  held-out ppl={ppl:.2f}",
-                  flush=True)
+            if rank0:
+                print(f"minibatch {step_no:5d}  held-out ppl={ppl:.2f}",
+                      flush=True)
         if args.crash_at and step_no == args.crash_at and start_m == 0:
             # fresh runs only: a resumed run sails past the simulated
             # failure, so rerunning the same command completes
             raise SystemExit(f"[simulated crash] after minibatch {step_no}")
         if args.ckpt_dir and args.ckpt_every and \
                 step_no % args.ckpt_every == 0:
-            ckpt.save(args.ckpt_dir, step_no, _state_tree(state),
-                      extra={"next_m": step_no, "run": signature})
+            phi = global_phi(state.phi_acc)
+            if rank0:
+                ckpt.save(args.ckpt_dir, step_no, _state_tree(LDATrainState(
+                    phi_acc=phi, m=state.m, generator=state.generator)),
+                    extra={"next_m": step_no, "run": signature})
+            del phi
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.time() - t0
 
     rows = buf.rows()
     iters = [int(i) for _, i in rows]
+    phi = global_phi(state.phi_acc)
     return {
         "first_m": start_m,
         "mean_r": [float(r) for r, _ in rows],
@@ -488,12 +731,12 @@ def train_loop(args) -> Dict[str, Any]:
         "warmup_s": warmup_s,
         "warmup_launches": warmup_launches,
         "tokens_per_s": tokens / max(wall, 1e-9),
-        "ppl": eval_ppl(),
+        "ppl": eval_ppl(phi),
         "ppl_trace": ppl_trace,
         "bytes_by_phase": dict(meter.bytes_by_phase),
         "per_minibatch_bytes": (meter.per_minibatch_bytes(iters[-1])
                                 if iters else 0),
-        "phi_acc": state.phi_acc.cpu(),
+        "phi_acc": phi.cpu() if rank0 else None,
     }
 
 
@@ -508,6 +751,12 @@ def main(argv=None):
           f"wall={res['wall_s']:.1f}s")
     print(f"[comm] per-minibatch bytes={res['per_minibatch_bytes']:,} "
           f"(phases: {res['bytes_by_phase']})")
+    if "ranks" in res:
+        same = all(r["iters"] == res["iters"] and r["mean_r"] == res["mean_r"]
+                   for r in res["ranks"])
+        print(f"[mesh] {len(res['ranks'])} ranks over "
+              f"{res['dist_backend']}: iters and mean_r equal on every rank: "
+              f"{same}")
     return res
 
 

@@ -9,8 +9,10 @@ train-once / fold-in-forever deployment as a request loop.
   - `FoldInEngine` — bucket-ladder admission: requests queue per length
     bucket and run when ``batch_docs`` have gathered (or on flush).
 
-Both run on one device (``device``, default ``"cuda"``) with a
-single-shard phi; a topic-sharded phi comes with the multi-shard slice.
+Both run on one device (``device``, default ``"cuda"``).  With
+``topic_shards > 1`` they serve a topic-sharded phi ([N, W, K/N], the
+reference's model-axis simulation): its model psums are metered, per
+request batch (bucket engine) or per retired document (slab engine).
 The slab step never waits for the card: each step's outputs are copied
 into pinned host buffers behind a ``torch.cuda.Event``, and ``_harvest``
 reads a step only once its event has completed (or, once ``pipeline``
@@ -31,7 +33,7 @@ import torch
 from repro_torch import convert
 from repro_torch.core import infer, perplexity
 from repro_torch.core.device import resolve_device
-from repro_torch.core.sync import topic_shards_unsupported, wire_dtype
+from repro_torch.core.sync import wire_dtype
 from repro_torch.core.types import LDAConfig
 from repro_torch.data.batching import bucket_len, docs_to_padded, slab_refill
 from repro_torch.serve.cache import ThetaCache, doc_digest
@@ -51,7 +53,7 @@ class ServeResult:
     mean_r: float                  # residual at exit (per-doc on the slab)
     oov_tokens: float = 0.0        # token mass folded in via the OOV row
     phi_version: int = 0           # phi generation that served it
-    comm_bytes: float = 0.0        # sync bytes billed (0: single shard)
+    comm_bytes: float = 0.0        # sync bytes billed to this request
     cached: bool = False           # served straight from the theta cache
     tenant: Optional[Hashable] = None
     error: Optional[str] = None    # "nonfinite_input" / "nonfinite_theta"
@@ -211,7 +213,6 @@ class FoldInEngine:
                  seed: int = 0, warmup: bool = True, vocab=None,
                  live_words: Optional[int] = None,
                  phi_version: int = 0, device="cuda"):
-        topic_shards_unsupported(topic_shards)
         self.device = resolve_device(device)
         self.len_buckets = tuple(sorted(int(b) for b in len_buckets))
         if any(b % 8 for b in self.len_buckets):
@@ -227,12 +228,15 @@ class FoldInEngine:
         self.fold_iters = int(fold_iters)
         self.residual_tol = float(residual_tol)
         self.phi_version = int(phi_version)
-        self._phi, self.live_words, self.w_cap = _prepare_phi(
+        self._topic_shards = int(topic_shards)
+        phi, self.live_words, self.w_cap = _prepare_phi(
             phi_acc, cfg, live_words, normalized, self.device)
+        self._phi = infer.split_topic_shards(phi, self._topic_shards)
         self._oov_row = self.live_words
         self._vocab = vocab
         self._step, self.meter = infer.make_fold_in_step(
             cfg, fold_iters=self.fold_iters, residual_tol=self.residual_tol,
+            topic_shards=self._topic_shards,
             sync_dtype=wire_dtype(sync_dtype or cfg.sync_dtype),
             device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -267,8 +271,9 @@ class FoldInEngine:
         admitted under the old vocabulary, so they are flushed and run on
         the old phi first and keep the old ``phi_version`` stamp."""
         self.flush()
-        self._phi, self.live_words, self.w_cap = _prepare_phi(
+        phi, self.live_words, self.w_cap = _prepare_phi(
             phi_acc, self.cfg, live_words, False, self.device)
+        self._phi = infer.split_topic_shards(phi, self._topic_shards)
         self._oov_row = self.live_words
         if vocab is not None:
             self._vocab = vocab
@@ -499,7 +504,6 @@ class SlabEngine:
         if cache_mode not in ("serve", "warm"):
             raise ValueError(f"cache_mode must be 'serve' or 'warm': "
                              f"{cache_mode!r}")
-        topic_shards_unsupported(topic_shards)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.slots = int(slots)
@@ -517,8 +521,10 @@ class SlabEngine:
                       if isinstance(theta_cache, int) else theta_cache)
         self.cache_mode = cache_mode
         self.trigger = oov_trigger
-        self._phi, self.live_words, self.w_cap = _prepare_phi(
+        self._topic_shards = int(topic_shards)
+        phi, self.live_words, self.w_cap = _prepare_phi(
             phi_acc, cfg, live_words, normalized, self.device)
+        self._phi = infer.split_topic_shards(phi, self._topic_shards)
         self._oov_row = self.live_words
         self._vocab = vocab
         self._init_state, self._step, self.meter = infer.make_slab_step(
@@ -526,6 +532,7 @@ class SlabEngine:
             refill_cap=self._refill_cap,
             sweeps_per_step=self.sweeps_per_step,
             fold_iters=self.fold_iters, residual_tol=self.residual_tol,
+            topic_shards=self._topic_shards,
             sync_dtype=wire_dtype(sync_dtype or cfg.sync_dtype),
             device=self.device)
         self._state = self._init_state()
@@ -549,6 +556,8 @@ class SlabEngine:
         self._iters_sum = 0
         self._warm_iters = 0
         self._cold_iters = 0
+        self._billed_bytes = 0.0
+        self._rates: Optional[Tuple[float, float]] = None
         self._latencies: List[float] = []
         self._oov_tokens = 0.0
         self._total_tokens = 0.0
@@ -742,6 +751,7 @@ class SlabEngine:
         itn = out.iters.numpy()
         rn = out.r_doc.numpy()
         t_done = time.time()
+        sweep_b, once_b = self._billing_rates()
         n = 0
         for s in np.nonzero(ret)[0]:
             s = int(s)
@@ -751,6 +761,7 @@ class SlabEngine:
             self._slot_req[s] = None
             self._free.append(s)
             doc_iters = int(itn[s])
+            bytes_d = sweep_b * doc_iters + once_b
             lat = t_done - req.t_submit
             theta_d = th[s].copy()
             finite = bool(np.isfinite(theta_d).all())
@@ -764,7 +775,7 @@ class SlabEngine:
                 req_id=req.req_id, theta=theta_d, latency_s=lat,
                 bucket=s, iters=doc_iters, mean_r=float(rn[s]),
                 oov_tokens=req.oov, phi_version=out.phi_version,
-                cached=False, tenant=req.tenant,
+                comm_bytes=bytes_d, cached=False, tenant=req.tenant,
                 error=None if finite else "nonfinite_theta"))
             self._latencies.append(lat)
             self._iters_sum += doc_iters
@@ -774,6 +785,7 @@ class SlabEngine:
             else:
                 self._cold_iters += doc_iters
                 self._cold_served += 1
+            self._billed_bytes += bytes_d
             self._served += 1
             n += 1
         self._t_last_done = t_done
@@ -809,8 +821,9 @@ class SlabEngine:
         """Install a new (phi, vocab) generation after pumping the slab to
         empty, so no request observes a torn phi."""
         self.pump()
-        self._phi, self.live_words, self.w_cap = _prepare_phi(
+        phi, self.live_words, self.w_cap = _prepare_phi(
             phi_acc, self.cfg, live_words, False, self.device)
+        self._phi = infer.split_topic_shards(phi, self._topic_shards)
         self._oov_row = self.live_words
         if vocab is not None:
             self._vocab = vocab
@@ -839,6 +852,22 @@ class SlabEngine:
             torch.cuda.synchronize(self.device)
         self.warmup_s = time.time() - t0
 
+    def _billing_rates(self) -> Tuple[float, float]:
+        """(bytes a slot-sweep, bytes a document) from the metered step, as
+        the reference attributes them: the loop phases split evenly over
+        the step's sweeps and slots, so a document pays for its own
+        sweeps, plus its share of the once-a-document phases (the init
+        over the refill lanes, theta's normalizer over the slots).  Zero
+        when phi is unsharded (the local reducer meters nothing)."""
+        if self._rates is None:
+            by = self.meter.bytes_by_phase
+            loop = (by.get("slab_norm_loop", 0.0)
+                    + by.get("slab_rw_loop", 0.0))
+            once = (by.get("slab_init_norm", 0.0) / max(self._refill_cap, 1)
+                    + by.get("slab_theta_norm", 0.0) / self.slots)
+            self._rates = (loop / self.sweeps_per_step / self.slots, once)
+        return self._rates
+
     def stats(self) -> Dict[str, object]:
         """Serving scorecard with the reference's keys.  ``compiles`` is 0:
         the port runs eagerly and compiles no step programs."""
@@ -865,8 +894,8 @@ class SlabEngine:
                                if self._steps else 0.0),
             "warmup_s": self.warmup_s,
             "bytes_by_phase": dict(self.meter.bytes_by_phase),
-            # the single-shard slab sends nothing to bill
-            "per_request_bytes": 0.0,
+            "per_request_bytes": (self._billed_bytes / folded if folded
+                                  else 0.0),
             "live_words": self.live_words,
             "w_cap": self.w_cap,
             "occupancy": self.live_words / max(self.w_cap, 1),

@@ -747,7 +747,8 @@ def test_crash_resume_through_the_driver_on_card(card, tmp_path):
             "--minibatches", "5", "--docs-per-batch", "32", "--vocab", "600",
             "--topics", "32", "--lambda-k", "8", "--inner-iters", "20",
             "--tol", "0.02", "--log-every", "0", "--ckpt-every", "2",
-            "--ckpt-dir", str(ck), "--device", "cuda", *extra])
+            "--shards", "1", "--ckpt-dir", str(ck), "--device", "cuda",
+            *extra])
 
     full = lda_train.train_loop(args(tmp_path / "a"))
     with pytest.raises(SystemExit):
@@ -757,3 +758,77 @@ def test_crash_resume_through_the_driver_on_card(card, tmp_path):
     assert resumed["mean_r"] == full["mean_r"][2:]
     assert resumed["iters"] == full["iters"][2:]
     assert torch.equal(resumed["phi_acc"], full["phi_acc"])
+
+
+# ---------------------------------------------------- multi-shard sync
+
+def _shard_batches(W, K, shards, steps=2, docs=32, L=32):
+    rng = np.random.default_rng(5)
+    out = []
+    for m in range(steps):
+        d, _, _ = lda_corpus(30 + m, docs, W, K, doc_len_mean=40)
+        mb = docs_to_padded(d, max_len=L)
+        out.append((mb.word_ids.reshape(shards, -1, L),
+                    mb.counts.reshape(shards, -1, L),
+                    rng.uniform(0.01, 1.0, (shards, docs // shards, L, K)
+                                ).astype(np.float32)))
+    return out
+
+
+def test_lockstep_shards_on_card_match_cpu_and_repeat(card):
+    """Four data shards in lockstep on the card (a thread a shard, one
+    stream) against the same four on the CPU from one numpy-drawn init:
+    the same iterations, phi_acc within rtol 1e-3; each kernel launched
+    four times its single-shard count; a second run on the card equal bit
+    for bit; the meter the same on both devices."""
+    from repro_torch.kernels import launch_counts
+
+    W, K, N = 500, 64, 4
+    cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_k_abs=8,
+                    inner_iters=8, residual_tol=0.05)
+    batches = _shard_batches(W, K, N)
+    res = {}
+    for device in ("cpu", "cuda", "cuda"):
+        step, meter = pobp.make_train_step(cfg, N, device=device)
+        state = pobp.init_train_state(cfg, device=device)
+        launch_counts(reset=True)
+        trace = []
+        for wid, cnt, u0 in batches:
+            state, diag = step(state, wid, cnt, u0=torch.from_numpy(u0))
+            trace.append(diag["iters"])
+        res.setdefault(device, []).append(
+            (state.phi_acc.cpu(), trace, launch_counts(),
+             meter.bytes_by_phase))
+    (cpu_phi, cpu_it, cpu_n, cpu_by), = res["cpu"]
+    (a_phi, a_it, a_n, a_by), (b_phi, b_it, _, _) = res["cuda"]
+    sweeps = sum(it - 1 for it in a_it)
+    assert a_it == b_it == cpu_it and sweeps > 0
+    assert set(cpu_n.values()) == {0}
+    assert a_n["bp_update"] == N * len(batches)
+    assert a_n["power_sweep_carry_train"] == a_n["topic_sum"] == N * sweeps
+    assert torch.equal(a_phi, b_phi)
+    torch.testing.assert_close(a_phi, cpu_phi, rtol=1e-3, atol=1e-3)
+    assert a_by == cpu_by and a_by["dense"] == 2 * W * K * 4
+
+
+def test_topic_sharded_slab_on_card_matches_unsharded(card):
+    """``SlabEngine(topic_shards=4)`` on the card (torch code over the
+    stacked shards) serves the unsharded card engine's theta within
+    1e-5 and bills every retired document."""
+    W, K = 400, 64
+    docs, _, true_phi = lda_corpus(2, 24, W, K, doc_len_mean=30)
+    phi_acc = (true_phi.T * 200.0).astype(np.float32)
+    cfg = LDAConfig(vocab_size=W, num_topics=K)
+    kw = dict(slots=8, slot_len=64, sweeps_per_step=2, fold_iters=30,
+              residual_tol=1e-2, pipeline=0, device="cuda")
+    res = {}
+    for shards in (1, 4):
+        eng = SlabEngine(phi_acc, cfg, topic_shards=shards, **kw)
+        _replay_numpy_init(eng, 4)
+        for d in docs:
+            eng.submit(d)
+        res[shards] = {r.req_id: r for r in eng.drain()}
+    for rid, want in res[1].items():
+        got = res[4][rid]
+        assert got.iters == want.iters and got.comm_bytes > 0
+        np.testing.assert_allclose(got.theta, want.theta, atol=1e-5)

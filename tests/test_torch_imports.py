@@ -139,3 +139,33 @@ def test_packed_slice_modules_stand_alone(no_card):
                        torch.zeros((1, 8), dtype=torch.int32),
                        torch.ones((1, 8)))
     assert state.m == 1 and diag["iters"] >= 1
+
+
+def test_multishard_slice_modules_stand_alone(no_card):
+    """The multi-shard slice's modules (the sync layer, the mesh, the
+    sharded serving body) are among the files checked above and import
+    nothing of JAX; its entry points default to the card too."""
+    from repro_torch.core import infer, pobp, sync
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.launch import lda_train, mesh
+    from repro_torch.serve import SlabEngine
+
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in (sync, mesh, infer, pobp, lda_train):
+        rel = str(Path(mod.__file__).resolve().relative_to(ROOT))
+        assert rel in names
+        assert not [m for m in _imported_modules(Path(mod.__file__))
+                    if _forbidden(m)]
+    cfg = LDAConfig(vocab_size=20, num_topics=4)
+    for build in (lambda: pobp.make_train_step(cfg, 2),
+                  lambda: pobp.make_sim_minibatch_fn(cfg, 2),
+                  lambda: infer.make_fold_in_step(cfg, topic_shards=2),
+                  lambda: infer.make_slab_step(cfg, slots=2, slot_len=8,
+                                               topic_shards=2),
+                  lambda: SlabEngine(np.ones((20, 4), np.float32), cfg,
+                                     slots=2, slot_len=8, topic_shards=2),
+                  lambda: lda_train.main(["--minibatches", "1", "--backend",
+                                          "shard_map", "--mesh-shape",
+                                          "1,1"])):
+        with pytest.raises(RuntimeError, match="is_available"):
+            build()

@@ -117,17 +117,16 @@ def test_fold_in_matches_dense_reference_oracle(phi):
                                rtol=1e-4, atol=1e-5)
 
 
-def test_slab_step_matches_jax_jnp_over_three_steps(phi):
-    """Three slab steps with refills, a warm start and retirements: equal
-    masks and int32 state, mu/theta/theta_out/r_doc within rtol 1e-5 (atol
-    1e-6: theta sums c * delta-mu over a document's tokens in another
-    order)."""
+def _slab_three_steps(phi, topic_shards):
+    """Three slab steps with refills, a warm start and retirements through
+    the port's and the reference's jnp slab step (the reference's draws
+    injected); returns both meters."""
     B, L, R = 6, 24, 4
     kw = dict(slots=B, slot_len=L, refill_cap=R, sweeps_per_step=2,
-              fold_iters=4, residual_tol=1e-2)
-    j_init, j_step, _ = jinfer.make_slab_step(JCFG, impl="jnp",
-                                              donate=False, **kw)
-    t_init, t_step, _ = infer.make_slab_step(CFG, device="cpu", **kw)
+              fold_iters=4, residual_tol=1e-2, topic_shards=topic_shards)
+    j_init, j_step, jmeter = jinfer.make_slab_step(JCFG, impl="jnp",
+                                                   donate=False, **kw)
+    t_init, t_step, tmeter = infer.make_slab_step(CFG, device="cpu", **kw)
     jstate, tstate = j_init(), t_init()
     docs, _, _ = lda_corpus(11, 8, W, K, doc_len_mean=18)
     warm_theta = np.full((R, K), 1.0 / K, np.float32)
@@ -138,7 +137,8 @@ def test_slab_step_matches_jax_jnp_over_three_steps(phi):
         (docs[5:8], [0, 1, 5], [False] * R),
     ]
     key = jax.random.PRNGKey(0)
-    jphi, tphi = jnp.asarray(phi), torch.from_numpy(phi)
+    jphi = jinfer.split_topic_shards(jnp.asarray(phi), topic_shards)
+    tphi = infer.split_topic_shards(torch.from_numpy(phi), topic_shards)
     for n, (ds, slots, wmask) in enumerate(plan):
         wid, cnt, slot, _ = slab_refill(ds, slots, capacity=R, slot_len=L,
                                         pad_slot=B)
@@ -169,16 +169,88 @@ def test_slab_step_matches_jax_jnp_over_three_steps(phi):
         np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-5,
                                    atol=1e-6, err_msg=msg)
     assert np.asarray(jret).any(), "the plan should retire some slots"
+    return tmeter, jmeter
+
+
+def test_slab_step_matches_jax_jnp_over_three_steps(phi):
+    """Three slab steps with refills, a warm start and retirements: equal
+    masks and int32 state, mu/theta/theta_out/r_doc within rtol 1e-5 (atol
+    1e-6: theta sums c * delta-mu over a document's tokens in another
+    order)."""
+    tmeter, _ = _slab_three_steps(phi, 1)
+    assert tmeter.total_bytes == 0               # one shard sends nothing
+
+
+def test_topic_sharded_slab_step_matches_reference_jnp(phi):
+    """The same three steps over 4 topic shards ([N, W, K/N] phi, mu and
+    theta carrying the shard axis) against the reference's topic-sharded
+    jnp slab step, with the same tolerances; the meter bills what the
+    reference's bills: the refill's init normalizer over all R lanes, two
+    sweeps' normalizer and residual psums, theta's normalizer."""
+    tmeter, jmeter = _slab_three_steps(phi, 4)
+    by = tmeter.bytes_by_phase
+    assert by == jmeter.bytes_by_phase
+    assert by["slab_init_norm"] == 4 * 24 * 4
+    assert by["slab_norm_loop"] == 2 * 6 * 24 * 4
+    assert by["slab_rw_loop"] == 2 * 6 * 4
+    assert by["slab_theta_norm"] == 6 * 4
+
+
+def test_topic_sharded_fold_in_matches_unsharded_and_reference(phi):
+    """The reference's ``test_topic_sharded_fold_in_matches_unsharded``, on
+    the port: the model-axis fold-in (psum'd renormalization, the init
+    drawn at the global K and split) gives the unsharded port's theta and
+    the reference's sharded theta within atol 1e-5; the meter bills the
+    per-iteration psums as the reference's does."""
+    jb, tb = _batch_pair(6, n=16)
+    key = jax.random.PRNGKey(6)
+    D, L = jb.word_ids.shape
+    u = np.array(jax.random.uniform(key, (D, L, K), minval=0.01, maxval=1.0))
+    base = infer.fold_in_tokens(tb, torch.from_numpy(phi), CFG, iters=10,
+                                mu0=torch.from_numpy(u / u.sum(-1, keepdims=
+                                                               True)),
+                                device="cpu")
+    step, meter = infer.make_fold_in_step(CFG, fold_iters=10, topic_shards=4,
+                                          device="cpu")
+    theta, iters, mean_r = step(
+        infer.split_topic_shards(torch.from_numpy(phi), 4), tb.word_ids,
+        tb.counts, mu0=torch.from_numpy(u))
+    jstep, jmeter = jinfer.make_fold_in_step(JCFG, fold_iters=10,
+                                             topic_shards=4, donate=False,
+                                             impl="jnp")
+    jtheta, jiters, jmean = jstep(
+        jinfer.split_topic_shards(jnp.asarray(phi), 4), key, jb.word_ids,
+        jb.counts)
+    assert theta.shape == (D, K) and iters == int(jiters) == base.iters
+    np.testing.assert_allclose(theta.numpy(), base.theta.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(theta.numpy(), np.asarray(jtheta), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(mean_r), float(jmean), rtol=1e-4)
+    by = meter.bytes_by_phase
+    assert by == jmeter.bytes_by_phase
+    assert by["model_norm_loop"] == D * L * 4 and by["model_rw_loop"] == D * 4
+    assert meter.per_minibatch_bytes(iters) == (
+        sum(v for p, v in by.items() if not p.endswith("_loop"))
+        + (iters - 1) * (D * L * 4 + D * 4))
 
 
 def test_topic_sharding_is_refused_with_roadmap_item(phi):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        infer.make_slab_step(CFG, slots=2, slot_len=8, topic_shards=2,
+    """Topic sharding is ported (ROADMAP Queue 1, item 5): what is still
+    refused is a shard count that does not divide K; `split_topic_shards`
+    lays phi out as the reference's does."""
+    with pytest.raises(ValueError, match="does not divide over 3"):
+        infer.make_slab_step(CFG, slots=2, slot_len=8, topic_shards=3,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        infer.split_topic_shards(torch.from_numpy(phi), 4)
+    with pytest.raises(ValueError, match="does not divide over 5"):
+        infer.split_topic_shards(torch.from_numpy(phi), 5)
+    with pytest.raises(ValueError, match="does not divide over 6"):
+        infer.make_fold_in_step(CFG, topic_shards=6, device="cpu")
     assert infer.split_topic_shards(torch.from_numpy(phi), 1).shape == \
         phi.shape
+    np.testing.assert_array_equal(
+        infer.split_topic_shards(torch.from_numpy(phi), 4).numpy(),
+        np.asarray(jinfer.split_topic_shards(jnp.asarray(phi), 4)))
 
 
 def test_predictive_perplexity_matches_reference(phi):
@@ -210,17 +282,24 @@ def test_local_reducer_applies_sync_dtype_cast_like_reference():
 
 
 def test_comm_meter_counts_each_payload_once_per_program():
-    """An eager program records its payloads every run; each distinct
-    (phase, shape, dtype) counts once, as a traced program's would."""
+    """An eager program records its payloads every run; the runs of one
+    program section (a `CommMeter.section`) log alike and count once, as
+    a traced program's would; records outside any section accumulate per
+    call, as the reference's eager records do."""
     from repro_torch.core.sync import CommMeter
 
     meter = CommMeter()
     for _ in range(3):                           # three runs of one program
-        meter.record("dense", torch.zeros(10, 4))
-        meter.record("model_rw_loop", torch.zeros(8))
+        with meter.section():
+            meter.record("dense", torch.zeros(10, 4))
+        with meter.section():
+            meter.record("model_rw_loop", torch.zeros(8))
     assert meter.bytes_by_phase == {"dense": 160, "model_rw_loop": 32}
     assert meter.total_bytes == 192
     assert meter.per_minibatch_bytes(5) == 160 + 4 * 32
+    meter.record("decay", torch.zeros(2))
+    meter.record("decay", torch.zeros(2))
+    assert meter.phase_bytes("decay") == 16
     meter.reset()
     assert meter.total_bytes == 0
 

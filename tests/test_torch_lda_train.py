@@ -23,7 +23,7 @@ def _args(ckpt_dir=None, **over):
     base = dict(minibatches=8, docs_per_batch=16, vocab=W, topics=K,
                 lambda_k=4, inner_iters=4, tol=1e-9, log_every=0,
                 doc_len_means="10,20,30", len_buckets="16,32",
-                ckpt_every=3, seed=3, device="cpu")
+                ckpt_every=3, seed=3, shards=1, device="cpu")
     base.update(over)
     if ckpt_dir is not None:
         base["ckpt_dir"] = str(ckpt_dir)
@@ -193,7 +193,8 @@ def test_restore_fence_casts_phi_acc_both_ways(tmp_path):
 def test_cli_main_resumes_after_a_crash(tmp_path, capsys):
     argv = ["--minibatches", "4", "--docs-per-batch", "16", "--vocab",
             str(W), "--topics", str(K), "--lambda-k", "4", "--device", "cpu",
-            "--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "2",
+            "--shards", "1", "--ckpt-dir", str(tmp_path / "ck"),
+            "--ckpt-every", "2",
             "--crash-at", "3"]
     with pytest.raises(SystemExit):
         cli.main(argv)
@@ -220,3 +221,37 @@ def test_cdf_draws_are_numpys_weighted_choice():
             np.testing.assert_array_equal(a, b)
             np.testing.assert_array_equal(a, c)
             np.testing.assert_array_equal(ca, cc)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_cli_runs_the_sharded_simulation(shards, capsys):
+    """``--shards N`` (the default ``--backend sim``; ported since ROADMAP
+    Queue 1, item 5) runs N data shards in lockstep: every token lands in
+    phi_acc once, and the [comm] line bills the data psums."""
+    res = cli.main(["--minibatches", "2", "--docs-per-batch", "16",
+                    "--vocab", "200", "--topics", "8", "--inner-iters", "4",
+                    "--log-every", "1", "--shards", str(shards),
+                    "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[done] 2 minibatches" in out and "'power'" in out
+    assert float(res["phi_acc"].sum()) == pytest.approx(res["tokens"],
+                                                        rel=1e-5)
+    assert res["bytes_by_phase"]["dense"] == 2 * 200 * 8 * 4
+    with pytest.raises(ValueError, match="does not divide over --shards 3"):
+        cli.main(["--minibatches", "1", "--docs-per-batch", "16",
+                  "--shards", "3", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("sync", ["power", "dense"])
+def test_sharded_cli_bills_what_the_reference_cli_bills(sync):
+    """The two drivers with ``--shards 4`` on the same flags: the same
+    ``bytes_by_phase`` (the payload shapes do not depend on the draws)."""
+    from repro.launch import lda_train as jcli
+
+    flags = dict(minibatches=2, docs_per_batch=16, vocab=200, topics=8,
+                 lambda_k=4, inner_iters=4, sync=sync, decay="1,0.5",
+                 log_every=0, warmup_buckets=False)
+    theirs = jcli.train_loop(jcli.default_args(**flags, shards=4))
+    mine = cli.train_loop(_args(**flags, shards=4))
+    assert mine["bytes_by_phase"] == theirs["bytes_by_phase"]
+    assert set(mine["bytes_by_phase"]) >= {"tokens", "dense", "decay"}

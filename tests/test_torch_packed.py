@@ -441,7 +441,8 @@ def _cli_args(**kw):
     argv = []
     for k, v in flags.items():
         argv += [f"--{k.replace('_', '-')}", str(v)]
-    return cli.build_parser().parse_args(argv + ["--device", "cpu"]), flags
+    return cli.build_parser().parse_args(
+        argv + ["--shards", "1", "--device", "cpu"]), flags
 
 
 def test_make_train_step_packed_matches_reference_over_the_cli_stream():
@@ -530,7 +531,7 @@ def test_cli_parser_takes_every_flag_of_the_reference_driver():
     mine = vars(args)
     theirs = vars(jcli.build_parser().parse_args([]))
     assert set(theirs) <= set(mine)
-    skip = ("shards", "impl")
+    skip = ("impl",)
     assert {k: mine[k] for k in theirs if k not in skip} == \
         {k: v for k, v in theirs.items() if k not in skip}
     assert mine["impl"] is None
@@ -540,7 +541,7 @@ def test_cli_parser_takes_every_flag_of_the_reference_driver():
 
 @pytest.mark.parametrize("flag,item", [
     (["--ps-servers", "2"], "item 7"),
-    (["--mesh", "multi"], "item 5"),
+    (["--elastic-workers", "w0,w1"], "item 7"),
     (["--vocab-growth-per-batch", "3"], "item 6")])
 def test_cli_rejects_the_newly_listed_flags_naming_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
@@ -549,6 +550,7 @@ def test_cli_rejects_the_newly_listed_flags_naming_their_item(flag, item):
 
 def test_cli_trains_the_packed_policy_with_prefetch(capsys):
     res = cli.main(["--minibatches", "3", "--docs-per-batch", "16",
+                    "--shards", "1",
                     "--vocab", "200", "--topics", "8", "--lambda-k", "4",
                     "--sweep-policy", "packed", "--prefetch", "3",
                     "--onehot-crossover", "0", "--inner-iters", "6",

@@ -320,8 +320,17 @@ def test_pobp_minibatch_conserves_mass_and_rejects_unported_modes():
     assert torch.equal(res16.phi_acc_new, res.phi_acc_new)
     with pytest.raises(ValueError, match="u0 must have shape"):
         pobp.pobp_minibatch(tb, zero, 1.0, 1.0, cfg, u0=torch.ones(2, 2, 2))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pobp.make_train_step(cfg, num_shards=2, device="cpu")
+    # two data shards (ported since item 5): [N, Dl, L] in, shard 0's state
+    # out, every token held; a batch without its shard axis is refused
+    step2, _ = pobp.make_train_step(cfg, num_shards=2, device="cpu")
+    st2, diag2 = step2(pobp.init_train_state(cfg, device="cpu"),
+                       tb.word_ids.reshape(2, D // 2, L),
+                       tb.counts.reshape(2, D // 2, L))
+    assert diag2["theta"].shape == (2, D // 2, K)
+    assert float(st2.phi_acc.sum()) == pytest.approx(
+        float(tb.counts.sum()), rel=1e-5)
+    with pytest.raises(ValueError, match=r"\[N=2, Dl, L\]"):
+        step2(st2, tb.word_ids, tb.counts)
     assert pobp.init_train_state(dataclasses.replace(
         cfg, phi_acc_dtype="bfloat16"), device="cpu").phi_acc.dtype == \
         torch.bfloat16
@@ -362,7 +371,8 @@ def _cli_args(**kw):
     argv = []
     for k, v in flags.items():
         argv += [f"--{k.replace('_', '-')}", str(v)]
-    return cli.build_parser().parse_args(argv + ["--device", "cpu"]), flags
+    return cli.build_parser().parse_args(
+        argv + ["--shards", "1", "--device", "cpu"]), flags
 
 
 def test_cli_stream_and_eval_split_match_reference():
@@ -498,8 +508,21 @@ def test_batching_streams_match_reference():
         for (i1, c1), (i2, c2) in zip(x, y):
             np.testing.assert_array_equal(i1, i2)
             np.testing.assert_array_equal(c1, c2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        list(batching.bucketed_minibatch_stream(docs, 16, num_shards=2))
+    # the sharded streams (ported since item 5): [N, Dl, L] stacks
+    sharded = [(batching.bucketed_minibatch_stream(docs, 16, num_shards=2),
+                jbatching.bucketed_minibatch_stream(docs, 16, num_shards=2)),
+               (batching.sharded_minibatch_stream(docs, 10, 4),
+                jbatching.sharded_minibatch_stream(docs, 10, 4)),
+               (batching.minibatch_stream(docs, 16, pad_docs_multiple=3),
+                jbatching.minibatch_stream(docs, 16, pad_docs_multiple=3))]
+    for mine, theirs in sharded:
+        a, b = list(mine), list(theirs)
+        assert len(a) == len(b) and a[0].word_ids.dim() == b[0].word_ids.ndim
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x.word_ids.numpy(), y.word_ids)
+            np.testing.assert_array_equal(x.counts.numpy(), y.counts)
+    with pytest.raises(ValueError, match="divide over"):
+        list(batching.bucketed_minibatch_stream(docs, 16, num_shards=3))
     with pytest.raises(ValueError, match="multiples of 8"):
         list(batching.bucketed_minibatch_stream(docs, 16, len_buckets=(12,)))
 
@@ -568,7 +591,7 @@ def test_cli_checkpoint_restores_in_reference_and_serves_in_port(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--shards", "2"], ["--backend", "ps"], ["--dynamic-vocab"],
+    ["--drift-mode", "slide"], ["--backend", "ps"], ["--dynamic-vocab"],
     ["--staleness", "1"], ["--compact-every", "2"],
     ["--chaos-drop", "0.1"], ["--elastic-events", "join:w1@2"],
     ["--w-growth", "3.0"]])
@@ -579,6 +602,7 @@ def test_cli_rejects_unported_flags(flag):
 
 def test_cli_runs_dense_sync_with_decay(capsys):
     res = cli.main(["--minibatches", "2", "--docs-per-batch", "16",
+                    "--shards", "1",
                     "--vocab", "200", "--topics", "8", "--sync", "dense",
                     "--decay", "1,0.5", "--inner-iters", "4", "--log-every",
                     "1", "--device", "cpu"])
@@ -626,7 +650,7 @@ def test_cli_with_decay_prints_the_reference_comm_line(capsys):
     line (the decay pass billed, nothing else crossing)."""
     argv = ["--minibatches", "2", "--docs-per-batch", "16", "--vocab", "200",
             "--topics", "8", "--decay", "1,0.5", "--inner-iters", "4"]
-    cli.main(argv + ["--device", "cpu"])
+    cli.main(argv + ["--shards", "1", "--device", "cpu"])
     mine = [ln for ln in capsys.readouterr().out.splitlines()
             if ln.startswith("[comm]")]
     jcli.main(argv + ["--shards", "1"])

@@ -174,7 +174,7 @@ def _run(dtype, minibatches=6, **kw):
     base = ["--minibatches", str(minibatches), "--docs-per-batch", "16",
             "--vocab", "80", "--topics", "8", "--log-every", "0",
             "--no-warmup-buckets", "--phi-acc-dtype", dtype,
-            "--device", "cpu"]
+            "--shards", "1", "--device", "cpu"]
     for k, v in kw.items():
         base += [f"--{k.replace('_', '-')}", str(v)]
     return cli.train_loop(cli.build_parser().parse_args(base))
@@ -198,12 +198,12 @@ def test_dense_and_power_payloads_ship_at_half_width():
     real = LocalReducer.psum
     current = []
 
-    def record(self, x, phase, compress=True, dtype=None):
+    def record(self, x, phase, compress=True, w_rows=None, dtype=None):
         wire = dtype if dtype is not None else self.sync_dtype
         size = torch.empty((), dtype=wire if compress else x.dtype
                            ).element_size()
         seen.setdefault(current[0], {})[phase] = x.numel() * size
-        return real(self, x, phase, compress, dtype)
+        return real(self, x, phase, compress, w_rows, dtype)
 
     mb = _mb(2)
     for dtype in ("float32", "bfloat16"):
@@ -232,9 +232,17 @@ def test_sync_dtype_is_the_references_positional_parameter():
         out[wire], _ = step(state, mb.word_ids, mb.counts)
     assert not torch.equal(out[torch.float32].phi_acc,
                            out[torch.bfloat16].phi_acc)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pobp.make_train_step(cfg, 1, "power", torch.float32,
-                             reducer=LocalReducer(), device="cpu")
+    # an injected reducer (ported since item 5) is the step's: its meter
+    # is returned, and a LocalReducer computes what the default one does
+    red = LocalReducer(sync_dtype=torch.bfloat16)
+    step, meter = pobp.make_train_step(cfg, 1, "power", torch.float32,
+                                       reducer=red, device="cpu")
+    assert meter is red.meter
+    got, _ = step(pobp.init_train_state(cfg, 0, device="cpu"), mb.word_ids,
+                  mb.counts)
+    assert torch.equal(got.phi_acc, out[torch.bfloat16].phi_acc)
+    with pytest.raises(ValueError, match="SimReducer of 2 shards"):
+        pobp.make_train_step(cfg, 2, reducer=red, device="cpu")
 
 
 # ------------------------------------------------------------- checkpoints

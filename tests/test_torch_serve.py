@@ -112,6 +112,96 @@ def test_slab_engine_matches_jax_engine_with_replayed_inits(trained):
     assert teng.stats()["steps"] == jeng.stats()["steps"]
 
 
+def _submit_all(engine, docs):
+    for d in docs:
+        engine.submit(d)
+    return {r.req_id: r for r in engine.drain()}
+
+
+def test_engine_sharded_phi_bytes_accounted(trained):
+    """The reference's ``test_engine_sharded_phi_bytes_accounted`` and its
+    meter lifecycle test, on the port's bucket engine: a topic-sharded phi
+    meters the per-iteration model psums (the reference's bytes, integer
+    for integer), bills per request, keeps its bill across dispatches of
+    one shape and clears it on ``reset``; its theta is the unsharded
+    engine's within atol 1e-5 (same requests, same seed)."""
+    docs, phi_acc = trained
+    from repro.core.types import LDAConfig as JConfig
+    from repro_torch.core.types import LDAConfig
+
+    kw = dict(len_buckets=(32,), batch_docs=8, fold_iters=8,
+              residual_tol=0.0)
+    solo = FoldInEngine(phi_acc, LDAConfig(vocab_size=W, num_topics=K),
+                        device="cpu", **kw)
+    eng = FoldInEngine(phi_acc, LDAConfig(vocab_size=W, num_topics=K),
+                       topic_shards=4, device="cpu", **kw)
+    jeng = JFoldInEngine(jnp.asarray(phi_acc),
+                         JConfig(vocab_size=W, num_topics=K),
+                         topic_shards=4, warmup=False, **kw)
+    a, b = _submit_all(solo, docs[:8]), _submit_all(eng, docs[:8])
+    _submit_all(jeng, docs[:8])
+    for rid in a:
+        np.testing.assert_allclose(b[rid].theta, a[rid].theta, atol=1e-5)
+    first = eng.stats()
+    assert first["bytes_by_phase"].get("model_norm_loop", 0) == 8 * 32 * 4
+    assert first["bytes_by_phase"] == jeng.stats()["bytes_by_phase"]
+    assert first["per_request_bytes"] == pytest.approx(
+        jeng.stats()["per_request_bytes"]) and first["per_request_bytes"] > 0
+    assert solo.stats()["per_request_bytes"] == 0
+    for _ in range(3):
+        _submit_all(eng, docs[:8])
+    many = eng.stats()
+    assert many["served"] == 32
+    assert many["bytes_by_phase"] == first["bytes_by_phase"]
+    eng.meter.reset()
+    assert eng.stats()["bytes_by_phase"] == {}
+
+
+def test_slab_sharded_billing_per_retired_document(trained):
+    """The reference's ``test_slab_sharded_billing_per_retired_document``,
+    on the port: requests share a slab step, so sync bytes are billed per
+    retired document (its own iteration count); the sharded slab serves the
+    unsharded slab's theta within atol 1e-5; against the reference's
+    sharded slab with its draws replayed, every document's bill and the
+    meter are the reference's."""
+    from repro.core.types import LDAConfig as JConfig
+    from repro_torch.core.types import LDAConfig
+
+    _, phi_acc = trained
+    docs, _, _ = lda_corpus(9, 6, W, K, doc_len_mean=25)
+    kw = dict(slots=8, slot_len=48, fold_iters=60, residual_tol=1e-2,
+              seed=3)
+    cfg = LDAConfig(vocab_size=W, num_topics=K)
+    solo = SlabEngine(phi_acc, cfg, device="cpu", **kw)
+    shard = SlabEngine(phi_acc, cfg, topic_shards=4, device="cpu", **kw)
+    rs, rh = _submit_all(solo, docs), _submit_all(shard, docs)
+    for rid in rs:
+        np.testing.assert_allclose(rs[rid].theta, rh[rid].theta, atol=1e-5)
+        assert rs[rid].comm_bytes == 0.0          # local reducer: no wire
+        assert rh[rid].comm_bytes > 0.0
+    by_iters = sorted((r.iters, r.comm_bytes) for r in rh.values())
+    for (i1, b1), (i2, b2) in zip(by_iters, by_iters[1:]):
+        if i2 > i1:
+            assert b2 > b1
+    s = shard.stats()
+    total = sum(r.comm_bytes for r in rh.values())
+    assert s["per_request_bytes"] == pytest.approx(total / len(rh))
+
+    kw.update(pipeline=0)
+    jeng = JSlabEngine(jnp.asarray(phi_acc),
+                       JConfig(vocab_size=W, num_topics=K), topic_shards=4,
+                       **kw)
+    teng = SlabEngine(phi_acc, cfg, topic_shards=4, device="cpu", **kw)
+    _replay_jax_init(teng, kw["seed"])
+    want, got = _submit_all(jeng, docs), _submit_all(teng, docs)
+    assert teng.meter.bytes_by_phase == jeng.meter.bytes_by_phase
+    for rid in want:
+        assert got[rid].iters == want[rid].iters
+        assert got[rid].comm_bytes == pytest.approx(want[rid].comm_bytes)
+        np.testing.assert_allclose(got[rid].theta, want[rid].theta,
+                                   atol=1e-5)
+
+
 def test_slab_swap_under_queued_load_stamps_versions(trained):
     docs, phi_acc = trained
     from repro_torch.core.types import LDAConfig
