@@ -28,7 +28,11 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      the port adds (the word-row scatter, bit for bit against its plain
      version on the CPU and timed in turns with ``index_add_`` with and
      without PyTorch's deterministic algorithms; the phi_tot refresh's
-     per-topic sum), each repeating bit for bit;
+     per-topic sum), each repeating bit for bit; and a live-W selection's
+     dead slots (the trailing slots of ``sel_w`` on one all-zero row that
+     no token has) through the carry training sweep, the packed sweep and
+     the pack, the sweeps repeating bit for bit, the dead slots' outputs
+     exactly 0;
   3. the serving slice at PUBMED width (W = 141,043, K = 2000): a random
      phi statistic made on the card from ``--seed``, saved as a JAX-format
      checkpoint, served by ``SlabEngine.from_checkpoint`` for
@@ -100,8 +104,20 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      ``SlabEngine(topic_shards=4)`` from phase 3's checkpoint, 64 requests
      (torch code, as the reference's sharded serving is jnp): each theta
      within 1e-5 of the unsharded engine's, the model psums billed per
-     retired document, docs/s beside phase 3's.  The kernels' launches in
-     the JSON line include (a)'s.
+     retired document, docs/s beside phase 3's;
+ 10. the dynamic vocabulary and the stream lifecycle through the driver at
+     PUBMED width (``lifecycle_slice``; phase 8's settings, K = 2000,
+     ``--dynamic-vocab`` over 141,043 external words): (a) 4 mini-batches
+     growing the state at least twice to a rung >= 131,072, every training
+     kernel launched, guard rows exactly 0, every token held, a live-W
+     mini-batch repeating bit for bit; (b) ``--crash-at 3`` and the rerun,
+     equal to (a) bit for bit; (c) a grown run against a fresh run at its
+     final rung within rtol 1e-6; (d) the sliding stream with decay and a
+     fence every 2 mini-batches: a fence reclaims rows, a dropped rung's
+     bytes are freed, a crash-resume across a fence equal bit for bit, and
+     64 requests served from the last post-compaction checkpoint.
+     The kernels' launches in the JSON line include phase 9 (a)'s and
+     phase 10 (a)'s.
 
 Each phase prints its wall time.  The line before the last is the
 kernels' JSON record; the last line is
@@ -112,6 +128,7 @@ the repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import shutil
 import subprocess
@@ -418,12 +435,22 @@ def check_bp_update(ops, gen, *, D, L, K, W, ragged, timed, twopass=False,
                          ms_twopass=twopass_ms)
 
 
+def dead_slots(sel_w, sel_k, dead: int, row: int) -> None:
+    """A live-W selection's tail, in place: the last ``dead`` slots all on
+    ``row`` (a guard row, all zeros, that no token has), each with the
+    topics of the slot before them (a tie over a zero row)."""
+    sel_w[-dead:] = row
+    sel_k[-dead:] = sel_k[-dead - 1]
+
+
 def carry_train_inputs(gen, *, D, L, K, W, P, Pk, ragged, guard_share,
-                       empty_doc=False):
+                       empty_doc=False, dead=0):
     """Inputs of one training-mode selective sweep: tokens on P power rows
     or (a ``guard_share`` of them, and with ``empty_doc`` all of document
     0, whose counts are 0) the guard id P; P distinct power words of a
-    [W, K] phi and Pk distinct topics for each."""
+    [W, K] phi and Pk distinct topics for each.  With ``dead``, the last
+    ``dead`` slots are a live-W selection's dead slots (`dead_slots`):
+    no token on them, their row all zeros in phi."""
     import torch
 
     dev = "cuda"
@@ -440,9 +467,14 @@ def carry_train_inputs(gen, *, D, L, K, W, P, Pk, ragged, guard_share,
     theta = torch.zeros((D, K), device=dev).index_add_(0, doc_ids.long(),
                                                        counts * mu)
     phi = torch.rand((W, K), generator=gen, device=dev) * 5
-    sel_w = torch.randperm(W, generator=gen, device=dev)[:P].to(torch.int32)
+    perm = torch.randperm(W, generator=gen, device=dev).to(torch.int32)
+    sel_w = perm[:P].clone()
     sel_k = torch.rand((P, K), generator=gen, device=dev).argsort(dim=1)[
         :, :Pk].to(torch.int32).contiguous()
+    if dead:
+        p_tok = torch.where(p_tok >= P - dead, P, p_tok).to(torch.int32)
+        dead_slots(sel_w, sel_k, dead, int(perm[P]))
+        phi[int(perm[P])] = 0.0
     phi_tot = phi[sel_w.long()].sum(0) + 30.0
     return [p_tok, doc_ids, counts, mu, theta, phi_tot, phi, sel_w, sel_k]
 
@@ -490,17 +522,19 @@ def carry_train_bound_ms(x):
 
 
 def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
-                      timed, empty_doc=False):
+                      timed, empty_doc=False, dead=0):
     """The training sweep against its plain version: mu' within 1e-5,
     theta_delta, d_pack and r_pack within rel 1e-4 (the sums' order
     differs); mu outside the power tokens' selections bit for bit as it
     was; a second launch repeats all four outputs bit for bit.  The kernel
-    is given the tokens' runs by word, as the training step gives them."""
+    is given the tokens' runs by word, as the training step gives them.
+    With ``dead`` dead slots (`dead_slots`), their d/r must be exactly
+    0."""
     import torch
 
     x = carry_train_inputs(gen, D=D, L=L, K=K, W=W, P=P, Pk=Pk,
                            ragged=ragged, guard_share=guard_share,
-                           empty_doc=empty_doc)
+                           empty_doc=empty_doc, dead=dead)
     runs = carry_train_runs(x, W)
     kw = dict(alpha=0.1, beta=0.01, wbeta=141043 * 0.01)
 
@@ -518,12 +552,16 @@ def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
     off = ~selected_mask(x[3], x[0], x[8], P)
     kept = bool(torch.equal(got[0][off], x[3][off]))
     same = all(bool(torch.equal(g, a)) for g, a in zip(got, again))
+    zero = not dead or not (got[2][-dead:].any() or got[3][-dead:].any())
     print(f"[kernel] power_sweep_carry_train T={D * L} D={D} K={K} P={P} "
-          f"Pk={Pk} guard={guard_share}: max|dmu'|={err_mu:.3e} (tol 1e-5)  "
+          f"Pk={Pk} guard={guard_share}"
+          + (f" dead slots={dead}" if dead else "") + f": max|dmu'|="
+          f"{err_mu:.3e} (tol 1e-5)  "
           f"rel dtheta={rel[0]:.3e}  rel d_pack={rel[1]:.3e}  rel r_pack="
           f"{rel[2]:.3e} (tol 1e-4)  untouched bit for bit: {kept}  "
-          f"relaunch bit for bit (mu', dtheta, d_pack, r_pack): {same}")
-    if not (err_mu <= 1e-5 and max(rel) <= 1e-4 and kept and same):
+          f"relaunch bit for bit (mu', dtheta, d_pack, r_pack): {same}"
+          + (f"  dead slots' d/r exactly 0: {zero}" if dead else ""))
+    if not (err_mu <= 1e-5 and max(rel) <= 1e-4 and kept and same and zero):
         fail(f"power_sweep_carry_train disagrees with its plain version, or "
              f"does not repeat bit for bit, at D={D} L={L} K={K} P={P} "
              f"Pk={Pk}")
@@ -737,7 +775,7 @@ def check_topic_sum(seg, gen, *, P, Pk, K, timed):
 
 
 def packed_inputs(gen, *, D, L, K, P, Pk, guard_share, empty_doc,
-                  skewed=False):
+                  skewed=False, dead=0):
     """Inputs of one packed sweep: doc-contiguous tokens with a ragged last
     document, a ``guard_share`` of them on the guard id P (and, with
     ``empty_doc``, all of document 0, whose counts are 0), each power row's
@@ -745,7 +783,10 @@ def packed_inputs(gen, *, D, L, K, P, Pk, guard_share, empty_doc,
     uniform, or with ``skewed`` drawn Zipf-like (weight 1 / rank) with each
     document's padding slots (a random quarter to all of its length, count
     0) on row 0, the padding word's row: one very long row, as the main
-    path has when word 0 is a power word."""
+    path has when word 0 is a power word.  With ``dead``, the last
+    ``dead`` rows are a live-W selection's dead slots: no token on them,
+    their phi_pack rows zero (the packed guard row), their topics those of
+    the row before them."""
     import torch
 
     dev = "cuda"
@@ -775,6 +816,10 @@ def packed_inputs(gen, *, D, L, K, P, Pk, guard_share, empty_doc,
         :, :Pk].to(torch.int32).contiguous()
     phi_pack = torch.rand((P, Pk), generator=gen, device=dev) * 5 + 3
     phi_tot = torch.rand(K, generator=gen, device=dev) * 50 + 30
+    if dead:
+        p_tok = torch.where(p_tok >= P - dead, P, p_tok).to(torch.int32)
+        sel_k[-dead:] = sel_k[-dead - 1]
+        phi_pack[-dead:] = 0.0
     return [p_tok, doc_ids, counts, mu, theta, phi_tot, phi_pack, sel_k]
 
 
@@ -789,20 +834,21 @@ def selected_mask(mu, p_tok, sel_k, P):
 
 
 def check_packed_sweep(packed, gen, *, D, L, K, P, Pk, guard_share,
-                       empty_doc, timed, skewed=False):
+                       empty_doc, timed, skewed=False, dead=0):
     """The packed sweep against its plain version: mu', theta_delta, d_pack
     and r_pack at rel 1e-5 (max |gap| over max |plain|); every coordinate
     outside the power tokens' selections bit for bit as it was; a second
     launch on the same inputs repeats all four outputs bit for bit.  The
     kernel gets its sweep order made beforehand, as the training step makes
-    it once per mini-batch."""
+    it once per mini-batch.  With ``dead`` dead slots, their d/r must be
+    exactly 0."""
     import torch
 
     from repro_torch.core.types import sweep_order
 
     x = packed_inputs(gen, D=D, L=L, K=K, P=P, Pk=Pk,
                       guard_share=guard_share, empty_doc=empty_doc,
-                      skewed=skewed)
+                      skewed=skewed, dead=dead)
     kw = dict(alpha=0.1, beta=0.01, wbeta=141043 * 0.01)
     order = sweep_order(torch.where(x[0] < P, x[0], P), x[2])
 
@@ -820,13 +866,16 @@ def check_packed_sweep(packed, gen, *, D, L, K, P, Pk, guard_share,
     off = ~selected_mask(x[3], x[0], x[7], P)
     kept = bool(torch.equal(got[0][off], x[3][off]))
     same = all(bool(torch.equal(g, a)) for g, a in zip(got, again))
-    tag = " skewed" if skewed else ""
+    zero = not dead or not (got[2][-dead:].any() or got[3][-dead:].any())
+    tag = (" skewed" if skewed else "") + (f" dead slots={dead}" if dead
+                                           else "")
     print(f"[kernel] power_sweep_tokens{tag} T={D * L} D={D} K={K} P={P} "
           f"Pk={Pk} guard={guard_share}: rel mu'={rel[0]:.3e}  rel dtheta="
           f"{rel[1]:.3e}  rel d_pack={rel[2]:.3e}  rel r_pack={rel[3]:.3e} "
           f"(tol 1e-5)  untouched bit for bit: {kept}  relaunch bit for bit: "
-          f"{same}")
-    if not (max(rel) <= 1e-5 and kept and same):
+          f"{same}" + (f"  dead slots' d/r exactly 0: {zero}" if dead
+                       else ""))
+    if not (max(rel) <= 1e-5 and kept and same and zero):
         fail(f"power_sweep_tokens disagrees with its plain version or "
              f"itself at D={D} L={L} K={K} P={P} Pk={Pk}")
     if not timed:
@@ -866,28 +915,37 @@ def check_packed_sweep(packed, gen, *, D, L, K, P, Pk, guard_share,
         bound, bound_by)
 
 
-def check_pack_rows(pack_ops, gen, *, W, K, P, Pk, outside, timed):
+def check_pack_rows(pack_ops, gen, *, W, K, P, Pk, outside, timed,
+                    dead=0):
     """The phi pack against its plain version, exactly; with ``outside``,
-    a column and a row outside the matrix pack to 0."""
+    a column and a row outside the matrix pack to 0; with ``dead``, the
+    last ``dead`` slots repeat one all-zero row (`dead_slots`) and pack to
+    0."""
     import torch
 
     dev = "cuda"
     mat = torch.rand((W, K), generator=gen, device=dev) * 4
-    sel_w = torch.randperm(W, generator=gen, device=dev)[:P].to(torch.int32)
+    perm = torch.randperm(W, generator=gen, device=dev).to(torch.int32)
+    sel_w = perm[:P].clone()
     sel_k = torch.rand((P, K), generator=gen, device=dev).argsort(dim=1)[
         :, :Pk].to(torch.int32).contiguous()
     if outside:
         sel_k[0, 0] = K
         sel_w[1] = W
+    if dead:
+        dead_slots(sel_w, sel_k, dead, int(perm[P]))
+        mat[int(perm[P])] = 0.0
     got = pack_ops.pack_rows(mat, sel_w, sel_k)
     want = pack_ops.pack_rows_plain(mat, sel_w, sel_k)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     zeros = not outside or (float(got[0, 0]) == 0.0
                             and not bool(got[1].any()))
+    zeros &= not dead or not bool(got[-dead:].any())
     print(f"[kernel] pack_rows W={W} K={K} P={P} Pk={Pk}: max|dout|="
           f"{err:.3e} (exact)" + ("  outside pairs 0: " + str(zeros)
-                                  if outside else ""))
+                                  if outside else "")
+          + (f"  dead slots={dead} packed 0: {zeros}" if dead else ""))
     if not (err == 0.0 and zeros):
         fail(f"pack_rows disagrees with its plain version at W={W} K={K} "
              f"P={P} Pk={Pk}")
@@ -1168,19 +1226,21 @@ def train_slice(batches, *, W: int, K: int, seed: int, device,
     return cfg, state, step, launches, readings
 
 
-def repeat_step(step, state, mb, tag: str, card: str) -> None:
+def repeat_step(step, state, mb, tag: str, card: str, live_w=None) -> None:
     """One mini-batch run twice from one state, the generator's state put
     back in between: phi_acc, theta, mean_r and iterations must be equal
-    bit for bit (every sum of the step runs in a fixed order)."""
+    bit for bit (every sum of the step runs in a fixed order).  ``live_w``
+    is the live-W step's trailing argument."""
     import torch
 
     rng = state.generator.get_state()
+    live = () if live_w is None else (live_w,)
     runs = []
     for _ in range(2):
         state.generator.set_state(rng)
         torch.cuda.synchronize()
         t0 = time.time()
-        new, diag = step(state, mb.word_ids, mb.counts)
+        new, diag = step(state, mb.word_ids, mb.counts, *live)
         mean_r = float(diag["mean_r"])
         torch.cuda.synchronize()
         runs.append((new.phi_acc, diag["theta"], mean_r, diag["iters"],
@@ -1338,11 +1398,13 @@ def driver_args(ckpt_dir, *, seed: int, docs: int, extra=()):
         "--shards", "1", "--ckpt-dir", str(ckpt_dir), *extra])
 
 
-def timed_driver(args, walls: list, io: dict):
+def timed_driver(args, walls: list, io: dict, every: bool = False):
     """``lda_train.train_loop(args)`` with each step of the run's stream
     timed (host clock, ended by a device sync; the first step built is the
     run's, and its last calls are the stream's) and the checkpoint saves
-    and restores timed into ``io`` (seconds)."""
+    and restores timed into ``io`` (seconds).  With ``every`` (a dynamic
+    run builds a step a rung) every step built is timed, and only the
+    stream's calls are kept (the warm-up's pass live_w 1 or W_cap - 1)."""
     from unittest import mock
 
     import torch
@@ -1357,16 +1419,18 @@ def timed_driver(args, walls: list, io: dict):
 
     def make_timed(*a, **kw):
         step, meter = make(*a, **kw)
-        if built:
+        if built and not every:
             return step, meter
         built.append(step)
+        warm_live = (1, a[0].vocab_size - 1)
 
         def timed(*sa, **skw):
             torch.cuda.synchronize()
             t0 = time.time()
             out = step(*sa, **skw)
             torch.cuda.synchronize()
-            walls.append(time.time() - t0)
+            if not every or sa[3:4] and sa[3] not in warm_live:
+                walls.append(time.time() - t0)
             return out
         return timed, meter
 
@@ -1770,6 +1834,296 @@ def sharded_serve(ckpt_dir: Path, docs, *, seed: int, card: str,
              "bills nothing")
 
 
+# --------------------------------------------------------------- phase 10
+
+def lifecycle_args(ckpt_dir, *, seed: int, docs: int, extra=(), W=141043,
+                   K=2000, device="cuda"):
+    """Phase 8's flags (PUBMED width, the paper-scale settings, one shard,
+    4 mini-batches of ``docs`` documents, a checkpoint every 2) with
+    ``--dynamic-vocab``: the drifting stream over PUBMED's W = 141,043
+    external words; ``extra`` flags override."""
+    return driver_args(ckpt_dir, seed=seed, docs=docs,
+                       extra=("--dynamic-vocab", "--vocab", str(W),
+                              "--topics", str(K), "--device", device,
+                              *extra))
+
+
+def stream_walls(walls) -> str:
+    return ", ".join(f"{w * 1e3:.3f}" for w in walls)
+
+
+def expect_crash(args) -> None:
+    try:
+        timed_driver(args, [], {})
+    except SystemExit as e:
+        print(f"[lifecycle] {e}")
+    else:
+        fail("--crash-at 3 did not end the run")
+
+
+def lifecycle_slice(*, seed: int, docs: int, card: str, W=141043, K=2000,
+                    drift=8192, rung=131072, device="cuda"):
+    """Phase 10: the driver's dynamic vocabulary and stream lifecycle on the
+    card at PUBMED width (K = 2000, phase 8's settings; depth cut, width
+    not).  (a) grow: 4 mini-batches of ``docs`` documents over 141,043
+    external words, a checkpoint every 2: at least two growth events, the
+    last to a rung >= 131,072; every training kernel launched (net of the
+    warm-ups); phi_acc finite, its guard rows exactly 0, every consumed
+    token held (rel 1e-4); one live-W mini-batch twice from one state, bit
+    for bit.  (b) ``--crash-at 3`` in a fresh directory, then again: it
+    resumes at m = 2, past the second growth, and ends equal to (a) bit for
+    bit (mean_r, iterations, phi_acc, rung, keys).  (c) 2 mini-batches, 8
+    iterations each, grown from the first rung and fresh at the grown run's
+    final rung: no growth in the fresh run, the same keys, mean_r and
+    phi_acc[:live_w] within rtol 1e-6.  (d) the sliding stream with decay
+    and a fence every 2: at least one fence reclaims rows; a fence that
+    drops a rung frees the old rung's bytes (and a direct shrink of a
+    131,072 x 2000 state frees them); ``--crash-at 3`` then again, equal to
+    the uninterrupted run bit for bit (with the same vocabulary version,
+    touch stamps and row remap); 64 requests served in float32 by
+    ``SlabEngine.from_checkpoint`` from the last post-compaction
+    checkpoint, each theta finite and summing to 1 +- 1e-5, unseen keys on
+    the guard row, the vocabulary unchanged.  Returns (a)'s launches net of
+    its warm-ups.  (The keywords shrink it for a rehearsal.)"""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.lifecycle import resize_state
+    from repro_torch.core.pobp import make_train_step
+    from repro_torch.core.types import LDATrainState
+    from repro_torch.data import synthetic
+    from repro_torch.data.vocab import VocabMap
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import lda_train
+    from repro_torch.serve import SlabEngine
+
+    args_at = functools.partial(lifecycle_args, seed=seed, docs=docs, W=W,
+                                K=K, device=device)
+    slide = ("--drift-mode", "slide", "--vocab-growth-per-batch", str(drift),
+             "--decay", "1,0.5", "--compact-every", "2",
+             "--compact-min-idle", "1", "--compact-mass-tol", "25",
+             "--recycle-tol", "0.01", "--minibatches", "6",
+             "--ckpt-every", "2")
+    root = ROOT / "build" / "chip_smoke_lifecycle"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        # the host draws: every word's topic scores (once a process, for
+        # both streams), then one batch (its window's cdf and documents)
+        t0 = time.time()
+        cache = lda_train._score_cache(seed, K)
+        words = W + 5 * drift                       # (d)'s last window
+        synthetic._scores_upto(cache, seed, K, words)
+        print(f"[lifecycle] word scores ({words} x {K} gamma draws on the "
+              f"host, in worker processes) in {time.time() - t0:.1f}s")
+        t0 = time.time()
+        synthetic.drifting_vocab_docs(seed, 0, docs, W, K,
+                                      doc_len_mean=128, score_cache=cache)
+        print(f"[lifecycle] one host draw of {docs} documents over {W} "
+              f"words (the window's cdf, then the documents) in "
+              f"{time.time() - t0:.2f}s")
+
+        # ---- (a) grow
+        t0 = time.time()
+        a_args = args_at(root / "a")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        walls, io = [], {}
+        res_a = timed_driver(a_args, walls, io, every=True)
+        counts = launch_counts()
+        net = {k: counts[k] - res_a["warmup_launches"].get(k, 0)
+               for k in counts}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ev, live = res_a["growth_events"], res_a["live_w"]
+        phi = res_a["phi_acc"]
+        held = abs(float(phi.double().sum()) - res_a["tokens"]) / \
+            res_a["tokens"]
+        print(f"[lifecycle] (a) grow: {len(res_a['iters'])} mini-batches in "
+              f"{time.time() - t0:.1f}s; growth events {ev} "
+              f"({res_a['growth_s']:.2f}s: resize, rebuild, rewarm, save); "
+              f"live_w {live} W_cap {res_a['w_cap']}; mean_r "
+              f"{res_a['mean_r']}  iters {res_a['iters']}  "
+              f"{res_a['tokens']:.0f} tokens (held to rel {held:.1e})  peak "
+              f"device memory {peak:.2f} GiB  [{card}]")
+        print(f"[lifecycle] (a) stream step walls (ms) {stream_walls(walls)};"
+              f" saves {', '.join(f'{x:.2f}' for x in io['save_s'])} s  "
+              f"[{card}]")
+        print(f"[lifecycle] (a) launches net of the warm-ups {net}")
+        if not (len(ev) >= 2 and ev[-1]["w_cap"] >= rung
+                and res_a["w_cap"] == ev[-1]["w_cap"]):
+            fail(f"the grown run did not grow twice to a rung >= {rung}: "
+                 f"{ev}")
+        if any(net[k] <= 0 for k in DRIVER_KERNELS):
+            fail(f"the live-W run did not go through every training kernel "
+                 f"(net of its warm-ups: {net})")
+        if not (bool(torch.isfinite(phi).all()) and not phi[live:].any()
+                and held <= 1e-4):
+            fail("the grown phi_acc is not finite, its guard rows are not 0, "
+                 "or it does not hold every consumed token")
+        cfg, buckets = lda_train._build_cfg(a_args, vocab_size=res_a["w_cap"])
+        step, _ = make_train_step(cfg, 1, device=device)
+        (mb, _, live_b), = lda_train.drifting_stream(
+            a_args, buckets, 3, VocabMap(res_a["vocab_keys"]), end_m=4)()
+        state = LDATrainState(
+            phi_acc=phi.to(device), m=4,
+            generator=torch.Generator(device=device).manual_seed(seed))
+        repeat_step(step, state, mb, "lifecycle", card, live_w=live_b)
+        del step, state, mb
+
+        # ---- (b) crash-resume across the growth events
+        t0 = time.time()
+        b_args = args_at(root / "b", extra=("--crash-at", "3"))
+        expect_crash(b_args)
+        res_b = timed_driver(b_args, [], {})
+        same = {k: res_b[k] == res_a[k] for k in ("w_cap", "vocab_keys")}
+        same.update(first_m=res_b["first_m"] == 2,
+                    mean_r=res_b["mean_r"] == res_a["mean_r"][2:],
+                    iters=res_b["iters"] == res_a["iters"][2:],
+                    phi_acc=bool(torch.equal(res_b["phi_acc"], phi)))
+        print(f"[lifecycle] (b) resumed at m={res_b['first_m']} on W_cap "
+              f"{res_b['w_cap']} (growth events before the crash: "
+              f"{[e['m'] for e in ev if e['m'] < 3]}); equal to (a) bit for "
+              f"bit: {same}  ({time.time() - t0:.1f}s)")
+        if not all(same.values()):
+            fail("the resumed lifecycle run differs from the uninterrupted "
+                 "run")
+        del res_b
+
+        # ---- (c) grown against fresh at the final rung
+        t0 = time.time()
+        c_extra = ("--minibatches", "2", "--inner-iters", "8", "--tol",
+                   "1e-9", "--ckpt-every", "0")
+        grown = timed_driver(args_at(root / "c1", extra=c_extra), [], {})
+        fresh = timed_driver(args_at(
+            root / "c2", extra=c_extra + ("--w-cap-min", str(grown["w_cap"]))),
+            [], {})
+        lw = grown["live_w"]
+        gap_r = max(abs(a - b) / abs(b) for a, b in
+                    zip(fresh["mean_r"], grown["mean_r"]))
+        gp, fp = grown["phi_acc"][:lw], fresh["phi_acc"][:lw]
+        close = bool(torch.allclose(fp, gp, rtol=1e-6, atol=1e-7))
+        print(f"[lifecycle] (c) grown {grown['growth_events']} against fresh "
+              f"at W_cap {fresh['w_cap']} ({fresh['growth_events']}): keys "
+              f"equal {fresh['vocab_keys'] == grown['vocab_keys']}; iters "
+              f"{grown['iters']} / {fresh['iters']}; max rel mean_r gap "
+              f"{gap_r:.2e}; phi_acc[:{lw}] max |gap| "
+              f"{float((fp - gp).abs().max()):.3e}, within rtol 1e-6 atol "
+              f"1e-7: {close}, bit for bit: {bool(torch.equal(fp, gp))}  "
+              f"({time.time() - t0:.1f}s)  [{card}]")
+        if not (fresh["growth_events"] == [] and close and gap_r <= 1e-6
+                and fresh["vocab_keys"] == grown["vocab_keys"]
+                and fresh["iters"] == grown["iters"]):
+            fail("the grown run and the fresh run at its final rung differ")
+        del grown, fresh, gp, fp
+
+        # ---- (d) the sliding stream with the lifecycle
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        d_walls = []
+        res_d = timed_driver(args_at(root / "d", extra=slide), d_walls, {},
+                             every=True)
+        peak_d = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[lifecycle] (d) slide: {len(res_d['iters'])} mini-batches in "
+              f"{time.time() - t0:.1f}s (--compact-mass-tol 25: a floor of "
+              f"25 x K x beta = 500); growth events "
+              f"{res_d['growth_events']} ({res_d['growth_s']:.2f}s); "
+              f"compactions {res_d['compaction_events']} "
+              f"({res_d['compact_s']:.2f}s); occupancy "
+              f"{res_d['occupancy_trace']}; vocab_version "
+              f"{res_d['vocab_version']}; iters {res_d['iters']}; peak "
+              f"device memory {peak_d:.2f} GiB  [{card}]")
+        print(f"[lifecycle] (d) stream step walls (ms) "
+              f"{stream_walls(d_walls)}  [{card}]")
+        if not any(e["dead"] > 0 for e in res_d["compaction_events"]):
+            fail("no compaction fence reclaimed a row")
+        phi_d = res_d["phi_acc"]
+        if not (bool(torch.isfinite(phi_d).all())
+                and not phi_d[res_d["live_w"]:].any()):
+            fail("the lifecycle run's phi_acc is not finite or its guard rows "
+                 "are not 0")
+        drops = [f for f in res_d["fence_bytes"] if f["w_cap"][1] <
+                 f["w_cap"][0]]
+        for f in res_d["fence_bytes"]:
+            (c0, c1), (b0, b1) = f["w_cap"], f["allocated"]
+            print(f"[lifecycle] (d) fence at m={f['m']}: W_cap {c0} -> {c1}, "
+                  f"device memory allocated {b0 / 2**20:.1f} -> "
+                  f"{b1 / 2**20:.1f} MiB (the rung's rows "
+                  f"{(c0 - c1) * K * 4 / 2**20:.1f} MiB)")
+        if not drops:
+            print("[lifecycle] (d) no fence dropped a rung")
+        for f in drops:
+            (c0, c1), (b0, b1) = f["w_cap"], f["allocated"]
+            if b0 - b1 < 0.99 * (c0 - c1) * K * 4:
+                fail(f"the fence at m={f['m']} dropped the rung {c0} -> {c1} "
+                     f"but freed only {(b0 - b1) / 2**20:.1f} MiB")
+        st = LDATrainState(
+            phi_acc=torch.zeros((rung, K), device=device), m=0,
+            generator=torch.Generator(device=device))
+        before = torch.cuda.memory_allocated()
+        st = resize_state(st, rung // 2, live_w=rung // 2 - 1)
+        freed = before - torch.cuda.memory_allocated()
+        print(f"[lifecycle] (d) a direct shrink of a {rung} x {K} state to "
+              f"{rung // 2} rows freed {freed / 2**20:.1f} MiB (the rows "
+              f"cut: {rung // 2 * K * 4 / 2**20:.1f} MiB)")
+        if freed < 0.99 * rung // 2 * K * 4:
+            fail("a shrink did not free the old rung's storage")
+        del st
+
+        t0 = time.time()
+        e_args = args_at(root / "e", extra=slide + ("--crash-at", "3"))
+        expect_crash(e_args)
+        res_e = timed_driver(e_args, [], {})
+        first = res_e["first_m"]
+        dyn_d = ckpt.peek_extra(str(root / "d"))[0]["dyn"]
+        dyn_e = ckpt.peek_extra(str(root / "e"))[0]["dyn"]
+        same = {k: res_e[k] == res_d[k] for k in ("vocab_keys",
+                                                  "vocab_version", "w_cap")}
+        same["compaction_events"] = res_e["compaction_events"] == [
+            e for e in res_d["compaction_events"] if e["m"] > first]
+        same.update(mean_r=res_e["mean_r"] == res_d["mean_r"][first:],
+                    iters=res_e["iters"] == res_d["iters"][first:],
+                    phi_acc=bool(torch.equal(res_e["phi_acc"], phi_d)),
+                    **{k: dyn_e[k] == dyn_d[k] for k in ("row_remap",
+                                                         "touched")})
+        print(f"[lifecycle] (d) --crash-at 3 then again: resumed at m={first}"
+              f" (after the fence at 2), through the fences at 4 and 6; equal "
+              f"to the uninterrupted run bit for bit: {same}  "
+              f"({time.time() - t0:.1f}s)")
+        if not (first == 2 and all(same.values())):
+            fail("the lifecycle run resumed across a fence differs")
+        del res_e
+
+        t0 = time.time()
+        eng = SlabEngine.from_checkpoint(str(root / "d"), device=device)
+        n_keys = len(eng._vocab)
+        reqs, _ = synthetic.drifting_news_stream(
+            seed, 5, 64, W, drift, K, doc_len_mean=128, heldout=True,
+            score_cache=cache)
+        for doc in reqs:
+            eng.submit(doc)
+        out = eng.drain()
+        th = np.stack([np.asarray(r.theta) for r in out])
+        dev1 = float(np.abs(th.sum(1) - 1).max())
+        oov = eng.stats()["oov_rate"]
+        print(f"[lifecycle] (d) served {len(out)} requests in "
+              f"{eng._phi.dtype} from the post-compaction checkpoint (step "
+              f"{ckpt.latest_step(str(root / 'd'))}, live_w "
+              f"{dyn_d['live_w']}, W_cap {dyn_d['w_cap']}): theta finite, "
+              f"sums within {dev1:.2e} of 1 (tol 1e-5); OOV rate {oov:.4f} "
+              f"on the guard row {eng._oov_row}; vocabulary {n_keys} -> "
+              f"{len(eng._vocab)} keys  ({time.time() - t0:.1f}s)")
+        if not (len(out) == 64 and bool(np.isfinite(th).all())
+                and dev1 <= 1e-5 and eng._phi.dtype == torch.float32
+                and eng._oov_row == dyn_d["live_w"] and oov > 0
+                and len(eng._vocab) == n_keys):
+            fail("serving from the post-compaction checkpoint failed")
+        del eng
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return net
+
+
 def profile_run(fn, label: str, card: str, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the card's busy
     share of the wall time (the summed time of the events that ran on the
@@ -1957,6 +2311,21 @@ def main(argv=None) -> None:
     check_packed_sweep(packed, gen, D=6, L=40, K=300, P=9, Pk=200,
                        guard_share=0.2, empty_doc=True, timed=False,
                        skewed=True)
+    # a live-W selection's dead slots: the trailing slots of sel_w all on
+    # one all-zero guard row that no token has, each with the same topics;
+    # the carry training sweep, the packed sweep and the pack against their
+    # plain versions, the sweeps repeating bit for bit, the dead slots'
+    # d/r and packs exactly 0 (the scatter's repeated zero rows are above)
+    for D, L, K, W, P, Pk, dead in ((4, 7, 100, 50, 9, 5, 3),
+                                    (64, 128, 2000, 20000, 1400, 50, 300)):
+        check_carry_train(ops, gen, D=D, L=L, K=K, W=W, P=P, Pk=Pk,
+                          ragged=True, guard_share=0.3, empty_doc=True,
+                          timed=False, dead=dead)
+        check_packed_sweep(packed, gen, D=D, L=L, K=K, P=P, Pk=Pk,
+                           guard_share=0.3, empty_doc=True, timed=False,
+                           dead=dead)
+        check_pack_rows(pack_ops, gen, W=W, K=K, P=P, Pk=Pk, outside=False,
+                        timed=False, dead=dead)
     # the packed sweep at the slice's shapes with Zipf-like rows and one
     # very long row (the padding slots on word 0's row), timed
     skew = check_packed_sweep(packed, gen, D=512, L=128, K=2000, P=14104,
@@ -2161,6 +2530,14 @@ def main(argv=None) -> None:
         shutil.rmtree(serve_ckpt, ignore_errors=True)
     print(f"[time] phase 9: {time.time() - t0:.1f}s")
 
+    # ---- 10. dynamic vocabulary and the stream lifecycle through the
+    # driver at PUBMED width: growth, crash-resume across growth, grown
+    # against fresh, the sliding stream's fences, serving after a fence
+    t0 = time.time()
+    life_launches = lifecycle_slice(seed=args.seed, docs=args.driver_docs,
+                                    card=card)
+    print(f"[time] phase 10: {time.time() - t0:.1f}s")
+
     rec["launches"] = launches
     kernels = [rec]
     # device ms a launch on the main path, from the profiled steps
@@ -2181,10 +2558,12 @@ def main(argv=None) -> None:
                    packed_watch, "packed_sweep_kernel",
                    "packed_fold_kernel")}
     for name, r in train_recs.items():
-        # the main path's launches: phases 6 or 7, and phase 9's simulation
+        # the main path's launches: phases 6 or 7, phase 9's simulation and
+        # phase 10's grown run (net of its warm-ups)
         r["launches"] = (packed_launches if name in ("power_sweep_tokens",
                                                      "pack_rows")
-                         else train_launches)[name] + sim_launches[name]
+                         else train_launches)[name] + sim_launches[name] + \
+            life_launches[name]
         r["ms_main_path"] = main_ms[name]
         kernels.append(r)
     print(json.dumps({"kernels": kernels}))

@@ -63,11 +63,18 @@ def fold_in_theta(batch: MiniBatch, phi_norm_wk: torch.Tensor,
 def evaluate(phi_acc_wk: torch.Tensor, train: MiniBatch, test: MiniBatch,
              cfg: LDAConfig, fold_iters: int = 30, *,
              generator: Optional[torch.Generator] = None,
-             mu0: Optional[torch.Tensor] = None, device="cuda") -> float:
+             mu0: Optional[torch.Tensor] = None, device="cuda",
+             live_w=None) -> float:
     """Held-out predictive perplexity of ``phi_acc_wk`` [W, K]: normalize
-    phi, fold theta in on ``train``, score ``test`` (Eq. 20)."""
+    phi, fold theta in on ``train``, score ``test`` (Eq. 20).
+
+    ``live_w`` scores a capacity-laddered phi at its live vocabulary
+    (`normalize_phi`'s live mask): a held-out word the vocabulary has not
+    seen, mapped by the caller to the first guard row (``live_w``), gets
+    the beta-prior mass and scores finitely."""
     dev = resolve_device(device)
-    phi_norm = normalize_phi(phi_acc_wk.to(dev, torch.float32), cfg.beta)
+    phi_norm = normalize_phi(phi_acc_wk.to(dev, torch.float32), cfg.beta,
+                             live_w=live_w)
     theta = fold_in_theta(train, phi_norm, cfg, iters=fold_iters,
                           generator=generator, mu0=mu0, device=dev)
     test = MiniBatch(test.word_ids.to(dev), test.counts.to(dev))

@@ -27,9 +27,18 @@ hand-written kernel, a CPU tensor runs its plain version):
     ``core.residuals.token_scatter_wk``) and the phi_tot refresh
     (``kernels/segment_sum::topic_sum``).
 
-Every sum on the card runs in a fixed order (no atomics, or atomics with
-one writer an element), so a step run twice from one state repeats bit
-for bit, and a crash-resume reproduces the uninterrupted run.
+Every sum on the card runs in a fixed order, or adds with atomics only
+values whose order cannot matter (one writer an element, or exact zeros),
+so a step run twice from one state repeats bit for bit, and a crash-resume
+reproduces the uninterrupted run.
+
+A capacity-laddered run (``live_w``, the dynamic vocabulary) holds phi_acc
+at a rung W_cap > live_w: rows in [live_w, W_cap) are guard rows that no
+token has.  The smoothing mass is ``live_w * beta`` (float32), never
+``W_cap * beta``, and the power selection masks the guard rows and keeps
+``floor(lambda_w * live_w)`` power words (``core.power.
+select_power_words_live``), its remaining slots all on the first guard
+row; so the trajectory depends on the live vocabulary, not on the rung.
 
 ``cfg.phi_acc_dtype = "bfloat16"`` keeps phi_acc at half width: the
 accumulate runs in float32, every phi and residual statistic sync ships at
@@ -56,8 +65,7 @@ sums over all of K): it runs the reference's formulation in torch code
 on whatever device holds the tensors (unnormalized messages, the
 normalizer psum'd over topic shards, the divide), as the reference runs
 jnp code and no Pallas kernel there.  That is not a plain version standing
-in for a kernel: ``bp_update`` never falls back.  Live-W runs raise
-(ROADMAP Queue 1, item 6).
+in for a kernel: ``bp_update`` never falls back.
 """
 
 from __future__ import annotations
@@ -87,6 +95,12 @@ from repro_torch.kernels.segment_sum.ops import topic_sum
 SYNC_MODES = ("power", "dense")
 
 
+def _smoothing(cfg: LDAConfig, wbeta) -> float:
+    """The W*beta smoothing mass: ``wbeta`` when given (a live-W run's
+    live_w * beta), else ``cfg.vocab_size * cfg.beta``."""
+    return cfg.vocab_size * cfg.beta if wbeta is None else wbeta
+
+
 def _theta(counts: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     """Eq. (2): theta[d, k] = sum_l c[d, l] mu[d, l, k], contiguous."""
     return torch.einsum("dl,dlk->dk", counts, mu).contiguous()
@@ -100,7 +114,7 @@ def dense_sweep(batch: MiniBatch, mu: torch.Tensor, phi_eff_wk: torch.Tensor,
                 phi_tot: torch.Tensor, cfg: LDAConfig,
                 layout: Optional[TokenLayout] = None,
                 model_reducer: Optional[Reducer] = None,
-                norm_phase: str = "model_norm"):
+                norm_phase: str = "model_norm", wbeta=None):
     """One synchronous full update of all messages (Eq. 1).
 
     mu [D, L, Kl]; phi_eff_wk [W, Kl] is the effective statistic
@@ -108,19 +122,21 @@ def dense_sweep(batch: MiniBatch, mu: torch.Tensor, phi_eff_wk: torch.Tensor,
     shard's Kl topics; phi_tot [Kl] its column sums.  With one topic shard
     the normalization over K runs inside ``bp_update`` (the reference's
     ``dense_sweep_pallas`` branch); with ``model_reducer`` spanning more,
-    `_dense_sweep_sharded` psums it under ``norm_phase``.  Returns new
-    tensors (mu_new [D, L, Kl], r_wk [W, Kl]).
+    `_dense_sweep_sharded` psums it under ``norm_phase``.  ``wbeta``
+    overrides the W*beta smoothing mass (a live-W run passes live_w *
+    beta).  Returns new tensors (mu_new [D, L, Kl], r_wk [W, Kl]).
     """
     layout = layout or batch.token_layout()
+    wbeta = _smoothing(cfg, wbeta)
     if model_reducer is not None and model_reducer.shards > 1:
         return _dense_sweep_sharded(batch, mu, phi_eff_wk, phi_tot, cfg,
-                                    layout, model_reducer, norm_phase)
+                                    layout, model_reducer, norm_phase, wbeta)
     D, L, K = mu.shape
     mu_new, r_tok = bp_update(
         layout.word_ids, layout.doc_ids, layout.counts,
         mu.reshape(D * L, K).contiguous(),
         _theta(batch.counts, mu), phi_eff_wk, phi_tot, alpha=cfg.alpha,
-        beta=cfg.beta, wbeta=cfg.vocab_size * cfg.beta)
+        beta=cfg.beta, wbeta=wbeta)
     return (mu_new.reshape(D, L, K),
             token_scatter_wk(layout.word_ids, r_tok, cfg.vocab_size,
                              layout.word_runs(cfg.vocab_size)))
@@ -128,7 +144,8 @@ def dense_sweep(batch: MiniBatch, mu: torch.Tensor, phi_eff_wk: torch.Tensor,
 
 def _dense_sweep_sharded(batch: MiniBatch, mu, phi_eff_wk, phi_tot,
                          cfg: LDAConfig, layout: TokenLayout,
-                         model_reducer: Reducer, norm_phase: str):
+                         model_reducer: Reducer, norm_phase: str,
+                         wbeta: float):
     """The dense sweep over one topic shard, the reference's jnp
     ``dense_sweep``: the unnormalized messages over this shard's topics,
     their per-token sum psum'd over the topic shards, then the divide.
@@ -139,7 +156,7 @@ def _dense_sweep_sharded(batch: MiniBatch, mu, phi_eff_wk, phi_tot,
     self_c = c * mu
     unnorm = _theta(batch.counts, mu)[:, None, :] - self_c + cfg.alpha
     unnorm.mul_(phi_eff_wk[batch.word_ids.long()] - self_c + cfg.beta)
-    unnorm.div_(phi_tot - self_c + W * cfg.beta)
+    unnorm.div_(phi_tot - self_c + wbeta)
     del self_c
     norm = model_reducer.psum(torch.sum(unnorm, dim=-1, keepdim=True),
                               norm_phase, compress=False)
@@ -154,7 +171,7 @@ def _dense_sweep_sharded(batch: MiniBatch, mu, phi_eff_wk, phi_tot,
 
 def selective_sweep_tokens(layout: TokenLayout, mu_t, theta, phi_eff_wk,
                            phi_tot, sel_w, sel_k, cfg: LDAConfig,
-                           policy: Optional[str] = None):
+                           policy: Optional[str] = None, wbeta=None):
     """One selective sweep at the (power word, power topic) coordinates,
     in the formulation ``policy`` names (default: ``cfg.sweep_policy``
     resolved by ``resolve_sweep_policy``), as the reference's
@@ -164,17 +181,19 @@ def selective_sweep_tokens(layout: TokenLayout, mu_t, theta, phi_eff_wk,
 
     mu_t [T, K] token-major messages, updated IN PLACE; theta [D, K] the
     doc-topic statistic of mu_t; phi_eff_wk [W, K]; phi_tot [K]; sel_w
-    [P]; sel_k [P, Pk].  Returns (mu_t, theta_new, d_pack [P, Pk],
-    r_pack [P, Pk]).
+    [P]; sel_k [P, Pk]; ``wbeta`` the smoothing mass (default W*beta).
+    Returns (mu_t, theta_new, d_pack [P, Pk], r_pack [P, Pk]).
     """
     policy = policy or resolve_sweep_policy(cfg)
     fn = (_selective_sweep_packed if policy == "packed"
           else _selective_sweep_carry)
-    return fn(layout, mu_t, theta, phi_eff_wk, phi_tot, sel_w, sel_k, cfg)
+    return fn(layout, mu_t, theta, phi_eff_wk, phi_tot, sel_w, sel_k, cfg,
+              wbeta)
 
 
 def _selective_sweep_carry(layout: TokenLayout, mu_t, theta, phi_eff_wk,
-                           phi_tot, sel_w, sel_k, cfg: LDAConfig):
+                           phi_tot, sel_w, sel_k, cfg: LDAConfig,
+                           wbeta=None):
     """The carry formulation, the reference's
     ``_selective_sweep_carry_pallas``: the training mode of the carry sweep
     (``power_sweep_carry_train``), which reads ``sel_w``, ``sel_k`` and phi
@@ -185,13 +204,14 @@ def _selective_sweep_carry(layout: TokenLayout, mu_t, theta, phi_eff_wk,
     mu_t, theta_delta, d_pack, r_pack = power_sweep_carry_train(
         p_tok, layout.doc_ids, layout.counts, mu_t, theta, phi_tot,
         phi_eff_wk, sel_w, sel_k, alpha=cfg.alpha, beta=cfg.beta,
-        wbeta=cfg.vocab_size * cfg.beta,
+        wbeta=_smoothing(cfg, wbeta),
         runs=layout.word_runs(cfg.vocab_size))
     return mu_t, theta + theta_delta, d_pack, r_pack
 
 
 def _selective_sweep_packed(layout: TokenLayout, mu_t, theta, phi_eff_wk,
-                            phi_tot, sel_w, sel_k, cfg: LDAConfig):
+                            phi_tot, sel_w, sel_k, cfg: LDAConfig,
+                            wbeta=None):
     """The packed-stream formulation, the reference's packed path
     (``selective_sweep_tokens_pallas`` with policy ``packed``): the [P, Pk]
     phi pack (``pack_rows``), then ``power_sweep_tokens``, which gathers,
@@ -205,7 +225,7 @@ def _selective_sweep_packed(layout: TokenLayout, mu_t, theta, phi_eff_wk,
     mu_t, theta_delta, d_pack, r_pack = power_sweep_tokens(
         p_tok, layout.doc_ids, layout.counts, mu_t, theta, phi_tot, phi_pack,
         sel_k, alpha=cfg.alpha, beta=cfg.beta,
-        wbeta=cfg.vocab_size * cfg.beta,
+        wbeta=_smoothing(cfg, wbeta),
         onehot=layout.num_slots * P <= cfg.onehot_crossover,
         order=layout.sweep_order)
     return mu_t, theta + theta_delta, d_pack, r_pack
@@ -276,11 +296,13 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
     ``generator``, or from an injected ``u0`` [Dl, Lpad, Kl].
     ``phi_acc_new`` reuses the storage of the step's working statistic
     ``phi_eff``; nothing the caller passed is modified.
+
+    ``live_w`` (an int, or None for a fixed vocabulary) makes the W axis a
+    capacity rung: ``cfg.vocab_size`` = W_cap > live_w, every word id of
+    the batch below live_w, rows [live_w, W_cap) guard rows.  The smoothing
+    mass is float32(live_w) * beta and the power selection
+    `core.power.select_power_words_live`'s; the guard rows stay exactly 0.
     """
-    if live_w is not None:
-        raise NotImplementedError(
-            "live_w: capacity-laddered (dynamic vocabulary) training is not "
-            "ported yet (ROADMAP Queue 1, item 6)")
     if sync_mode not in SYNC_MODES:
         raise ValueError(f"unknown sync_mode: {sync_mode}")
     reducer = data_reducer or LocalReducer()
@@ -290,6 +312,7 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
     K = phi_acc_wk.shape[1]
     P, Pk = cfg.num_power_words, min(cfg.num_power_topics, K)
     _check_ported(cfg)
+    wbeta = None if live_w is None else _live_wbeta(cfg, live_w)
     policy = resolve_sweep_policy(cfg)
     layout = batch.token_layout()
     runs = layout.word_runs(W)
@@ -307,16 +330,16 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
         del u
         phi_eff = phi_acc_wk + token_scatter_wk(batch.word_ids, c3 * mu0, W,
                                                 runs)
-        phi_tot = torch.sum(phi_eff, dim=0)
+        phi_tot = _topic_totals(phi_eff, live_w)
         mu1, r_wk_local = dense_sweep(batch, mu0, phi_eff, phi_tot, cfg,
-                                      layout, model)
+                                      layout, model, wbeta=wbeta)
         del mu0, phi_eff
 
         # ---- lines 9-10: dense synchronization of phi and r ----
         phi_eff = phi_acc_wk + reducer.psum(
             token_scatter_wk(batch.word_ids, c3 * mu1, W, runs), "dense",
             w_rows=W, dtype=phi_wire)
-        phi_tot = torch.sum(phi_eff, dim=0)
+        phi_tot = _topic_totals(phi_eff, live_w)
         r_glob = reducer.psum(r_wk_local, "dense", w_rows=W, dtype=phi_wire)
         del r_wk_local
         theta = _theta(batch.counts, mu1)
@@ -334,24 +357,34 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
             mu_t = mu1.reshape(layout.num_slots, K)
             while go_on(t, r_w):
                 with reducer.meter.section():
-                    sel_w = pw.select_power_words(r_w, P)
+                    # a live-W selection's dead slots repeat the first
+                    # guard row, whose residual and phi rows are zero
+                    sel_w = (pw.select_power_words(r_w, P) if live_w is None
+                             else pw.select_power_words_live(
+                                 r_w, P, live_w, cfg.lambda_w))
                     sel_k = pw.select_power_topics(r_glob, sel_w, Pk)
                     mu_t, theta, d_pack, r_pack = selective_sweep_tokens(
                         layout, mu_t, theta, phi_eff, phi_tot, sel_w, sel_k,
-                        cfg, policy)
+                        cfg, policy, wbeta)
                     # lines 23-24: sync only the power submatrices
                     d_pack = reducer.psum(d_pack, "power", w_rows=W,
                                           dtype=phi_wire)
                     r_pack = reducer.psum(r_pack, "power", w_rows=W,
                                           dtype=phi_wire)
                     # packed-carry refresh, Eq. 9: O(P*Pk) updates, in
-                    # place.  The power words and each row's topics are
-                    # distinct, so the two scatters and the r_w index_add
-                    # have one writer an element: their order does not
-                    # matter; phi_tot's per-topic sums do, and topic_sum
-                    # takes them in a fixed order.  Each shard updates
-                    # its own phi_eff and r_glob (psum results are never
-                    # shared between shards)
+                    # place.  Each row's topics are distinct and the power
+                    # words are too, but for a live-W selection's dead
+                    # slots, which all repeat the first guard row and carry
+                    # exact zeros (no token has that word).  The phi
+                    # scatter and the r_w index_add add with atomics on the
+                    # card, so the repeated row takes a sum of zeros in any
+                    # order: the same bits; the residual refresh writes the
+                    # same zeros from each dead slot.  Every other element
+                    # has one writer, so their order does not matter;
+                    # phi_tot's per-topic sums do, and topic_sum takes them
+                    # in a fixed order.  Each shard updates its own phi_eff
+                    # and r_glob (psum results are never shared between
+                    # shards)
                     rw_delta = packed_rw_delta(r_glob, sel_w, sel_k, r_pack)
                     pw.scatter_add_rows(phi_eff, sel_w, sel_k, d_pack)
                     phi_tot = topic_sum(sel_k, d_pack, phi_tot)
@@ -370,11 +403,12 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
                 with reducer.meter.section():
                     mu, r_wk = dense_sweep(batch, mu, phi_eff, phi_tot, cfg,
                                            layout, model,
-                                           norm_phase="model_norm_loop")
+                                           norm_phase="model_norm_loop",
+                                           wbeta=wbeta)
                     phi_eff = phi_acc_wk + reducer.psum(
                         token_scatter_wk(batch.word_ids, c3 * mu, W, runs),
                         "dense_loop", w_rows=W, dtype=phi_wire)
-                    phi_tot = torch.sum(phi_eff, dim=0)
+                    phi_tot = _topic_totals(phi_eff, live_w)
                     theta = _theta(batch.counts, mu)
                     r_w = model.psum(
                         torch.sum(reducer.psum(r_wk, "dense_loop", w_rows=W,
@@ -416,19 +450,20 @@ def pobp_shard_body(word_ids, counts, phi_acc, delta_weight: float,
                     cfg: LDAConfig, data_reducer: Reducer,
                     model_reducer: Optional[Reducer] = None,
                     sync_mode: str = "power", decay: Optional[float] = None,
-                    *, generator=None, u0=None):
+                    *, live_w=None, generator=None, u0=None):
     """One shard's mini-batch routine: ``word_ids``/``counts`` are this
     shard's [Dl, L] documents, ``phi_acc`` the synchronized statistic over
     its topics; the global token count goes through the data reducer
-    ("tokens" phase), then `pobp_minibatch`.  Returns (phi_acc_new, iters,
-    mean_r, mu, theta)."""
+    ("tokens" phase), then `pobp_minibatch` (``live_w`` as there).
+    Returns (phi_acc_new, iters, mean_r, mu, theta)."""
     batch = MiniBatch(word_ids=word_ids, counts=counts)
     with data_reducer.meter.section():
         total = data_reducer.psum(torch.sum(counts), "tokens",
                                   compress=False)
     res = pobp_minibatch(batch, phi_acc, total, delta_weight, cfg,
                          data_reducer, model_reducer, sync_mode=sync_mode,
-                         decay=decay, generator=generator, u0=u0)
+                         live_w=live_w, decay=decay, generator=generator,
+                         u0=u0)
     return res.phi_acc_new, res.iters, res.mean_r, res.mu, res.theta
 
 
@@ -455,6 +490,33 @@ def _decay_factor(cfg: LDAConfig, m: int) -> Optional[float]:
     return _f32(np.float32(1.0) - rho)
 
 
+def _topic_totals(phi_eff: torch.Tensor, live_w) -> torch.Tensor:
+    """phi_tot [K], the column sums of phi_eff.  A live-W run sums the live
+    rows only: the guard rows are exactly 0, so the value is the same, and
+    the sum's order no longer depends on the rung (a grown run and a fresh
+    run at its final rung sum alike)."""
+    return torch.sum(phi_eff if live_w is None else phi_eff[:live_w], dim=0)
+
+
+def _live_wbeta(cfg: LDAConfig, live_w: int) -> float:
+    """The live-W smoothing mass float32(live_w) * float32(beta), as the
+    reference traces it; refuses a live_w without a guard row above it."""
+    if not 0 < int(live_w) < cfg.vocab_size:
+        raise ValueError(f"live_w={live_w} must lie in [1, vocab_size="
+                         f"{cfg.vocab_size}): the rung keeps a guard row "
+                         f"above the live vocabulary")
+    return _f32(np.float32(live_w) * np.float32(cfg.beta))
+
+
+def _check_live_words(word_ids: torch.Tensor, live_w) -> None:
+    """Every word id of a live-W batch is a live row: no token has a guard
+    row's word (the dead power-word slots rely on it)."""
+    if live_w is not None and word_ids.numel() and \
+            int(word_ids.max()) >= int(live_w):
+        raise ValueError(f"word id {int(word_ids.max())} is not below "
+                         f"live_w={live_w}: the batch has a guard row's word")
+
+
 def _check_ported(cfg: LDAConfig) -> None:
     """Raise ``ValueError`` for an unknown ``sweep_policy`` or
     ``phi_acc_dtype``."""
@@ -474,6 +536,13 @@ def init_train_state(cfg: LDAConfig, seed: int = 0,
         phi_acc=torch.zeros((cfg.vocab_size, cfg.num_topics),
                             dtype=quantize.phi_acc_dtype(cfg), device=dev),
         m=0, generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def grow_state(state: LDATrainState, new_vocab_cap: int) -> LDATrainState:
+    """Grow-only capacity resize: `core.lifecycle.resize_state` without a
+    fence (a shrink raises)."""
+    from repro_torch.core.lifecycle import resize_state
+    return resize_state(state, new_vocab_cap)
 
 
 # tag of the stochastic-rounding generator, derived from the run's seed and
@@ -510,7 +579,7 @@ def _shard_inits(batch: MiniBatch, num_shards: int, K: int, cfg: LDAConfig,
 
 def _lockstep_minibatch(word_ids, counts, phi_acc, delta_weight, cfg,
                         reducer: SimReducer, sync_mode: str, decay,
-                        generator, u0) -> list:
+                        generator, u0, live_w=None) -> list:
     """`pobp_shard_body` on each of ``reducer.num_shards`` data shards of
     ``word_ids``/``counts`` [N, Dl, L] in lockstep; the shards' results in
     shard order."""
@@ -525,7 +594,7 @@ def _lockstep_minibatch(word_ids, counts, phi_acc, delta_weight, cfg,
         lambda n: pobp_shard_body(word_ids[n], counts[n], phi_acc,
                                   delta_weight, cfg, reducer,
                                   sync_mode=sync_mode, decay=decay,
-                                  u0=inits[n]),
+                                  live_w=live_w, u0=inits[n]),
         N, [reducer], dev)
 
 
@@ -539,9 +608,13 @@ def make_train_step(cfg: LDAConfig, num_shards: int = 1,
     name) is the payload dtype of the compressed syncs; with one shard they
     take its cast round trip, so an N = 1 run computes what an N-shard run
     with that sync dtype computes.  Returns (step, meter) with
-    ``step(state, word_ids, counts, *, u0=None) -> (new_state, diag)``;
-    word_ids/counts are [D, L], or [N, Dl, L] with N shards (moved to the
-    device); ``diag = {iters, mean_r, theta}`` with ``mean_r`` and theta
+    ``step(state, word_ids, counts, live_w=None, *, u0=None) -> (new_state,
+    diag)``; word_ids/counts are [D, L], or [N, Dl, L] with N shards (moved
+    to the device); ``live_w`` (the reference's trailing argument) is the
+    live vocabulary of a capacity-laddered run whose ``cfg.vocab_size`` is
+    the current rung, every word id below it (checked); a rung crossing
+    takes `grow_state` and a step made for the new rung's cfg.  ``diag =
+    {iters, mean_r, theta}`` with ``mean_r`` and theta
     left on the device, theta [N, Dl, K] with N shards.  The step draws
     the init from ``state.generator`` (advancing it; with N shards each
     shard's [Dl, Lpad, K] in shard order) unless ``u0`` [D, Lpad, K] (or
@@ -569,11 +642,16 @@ def make_train_step(cfg: LDAConfig, num_shards: int = 1,
     meter = reducer.meter
     storage = quantize.phi_acc_dtype(cfg)
 
-    def step(state: LDATrainState, word_ids, counts, *, u0=None):
+    def step(state: LDATrainState, word_ids, counts, live_w=None, *,
+             u0=None):
         here = state.phi_acc.device
         if here.type != dev.type or dev.index not in (None, here.index):
             raise ValueError(f"state.phi_acc is on {state.phi_acc.device}, "
                              f"the step on {dev}")
+        if live_w is not None:
+            live_w = int(live_w)
+            _live_wbeta(cfg, live_w)
+            _check_live_words(word_ids, live_w)
         m = state.m + 1
         wid = word_ids.to(here, torch.int32)
         cnt = counts.to(here, torch.float32)
@@ -581,12 +659,13 @@ def make_train_step(cfg: LDAConfig, num_shards: int = 1,
             phi, iters, mean_r, mu, theta = pobp_shard_body(
                 wid, cnt, state.phi_acc, _delta_weight(cfg, m), cfg, reducer,
                 sync_mode=sync_mode, decay=_decay_factor(cfg, m),
-                generator=state.generator, u0=u0)
+                live_w=live_w, generator=state.generator, u0=u0)
             del mu              # freed before the rounding allocates
         else:
             outs = _lockstep_minibatch(
                 wid, cnt, state.phi_acc, _delta_weight(cfg, m), cfg, reducer,
-                sync_mode, _decay_factor(cfg, m), state.generator, u0)
+                sync_mode, _decay_factor(cfg, m), state.generator, u0,
+                live_w)
             phi, iters, mean_r = outs[0][:3]
             theta = torch.stack([o[4] for o in outs])
             del outs            # the other shards' phi_acc freed here

@@ -12,12 +12,15 @@ a CPU tensor.
 Top-k ties: ``torch.topk`` does not promise ``lax.top_k``'s tie order.
 Ties arise at zero residual (words or topics no token touched); which of
 those is picked moves no statistic, because no token updates through them.
-The live-vocabulary selection (``select_power_words_live``) comes with the
-dynamic-vocabulary slice (ROADMAP Queue 1, item 6).
+On a capacity-laddered run (``select_power_words_live``) the dead slots
+past the live count all point at the first guard row, an all-zero row of
+the residual, so their topics are a tie over zeros too: whichever topics
+they get, they carry exact zeros into the packed buffers.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.power_pack.ops import pack_rows as _pack
@@ -31,6 +34,40 @@ def select_power_words(r_w: torch.Tensor, num_power_words: int
     return torch.topk(r_w, num_power_words).indices.to(torch.int32)
 
 
+def num_live_power_words(live_w: int, lambda_w: float) -> int:
+    """``P_live = max(1, floor(lambda_w * live_w))``, the product formed in
+    float32 as the reference traces it (a double product can floor to
+    another count next to an integer)."""
+    return max(1, int(np.floor(np.float32(lambda_w) * np.float32(live_w))))
+
+
+def select_power_words_live(r_w: torch.Tensor, num_power_words: int,
+                            live_w: int, lambda_w: float) -> torch.Tensor:
+    """Power-word selection on a capacity-laddered run: int32 [P].
+
+    ``r_w`` is [W_cap]; rows in [live_w, W_cap) are guard rows and are
+    never selected (masked to -inf), and only the first
+    `num_live_power_words` slots hold power words, so the selection depends
+    on the live vocabulary, never on the rung.  The shape stays
+    [num_power_words]: every slot past the live count points at row
+    ``live_w``, the first guard row, which no token has and whose residual
+    and phi rows are zero, so those slots pack and scatter exact zeros.
+    """
+    W = r_w.shape[0]
+    if not 0 < live_w < W:
+        raise ValueError(f"live_w={live_w} must lie in [1, {W}): a guard row "
+                         f"must exist above the live vocabulary")
+    p_live = num_live_power_words(live_w, lambda_w)
+    if p_live > num_power_words:
+        raise ValueError(f"{p_live} live power words exceed the "
+                         f"{num_power_words} slots")
+    masked = r_w.masked_fill(
+        torch.arange(W, device=r_w.device) >= live_w, float("-inf"))
+    idx = torch.topk(masked, num_power_words).indices.to(torch.int32)
+    idx[p_live:] = live_w
+    return idx
+
+
 def select_power_topics(r_wk: torch.Tensor, word_idx: torch.Tensor,
                         num_power_topics: int) -> torch.Tensor:
     """Per power word, its top-``num_power_topics`` topic ids by residual
@@ -40,7 +77,10 @@ def select_power_topics(r_wk: torch.Tensor, word_idx: torch.Tensor,
 
 
 def word_to_row(word_idx: torch.Tensor, vocab_size: int) -> torch.Tensor:
-    """Inverse map: word -> its row in the packed buffers, or -1."""
+    """Inverse map: word -> its row in the packed buffers, or -1.  A live-W
+    selection repeats the guard row at its dead slots; which of them that
+    row maps to is unspecified, and moves nothing: no token has the guard
+    row's word (`token_power_rows` reads only the tokens' words)."""
     rows = torch.full((vocab_size,), -1, dtype=torch.int32,
                       device=word_idx.device)
     rows[word_idx.long()] = torch.arange(word_idx.shape[0], dtype=torch.int32,

@@ -1,2 +1,2 @@
 """Host-side data plumbing of the port (numpy copies of the reference's
-generators, batching and vocabulary lookup)."""
+generators, batching and vocabulary map)."""

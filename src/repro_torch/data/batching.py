@@ -1,7 +1,8 @@
 """Padded-CSR batching and mini-batch streaming (counterpart of
 ``repro.data.batching``): truncation, padding, slab refill buffers, the
-length-bucket ladder, prefetched mini-batch streams and the 80/20
-held-out split.
+length-bucket ladder, prefetched mini-batch streams (one of them mapping
+external keys through a ``VocabMap``), the token-balanced document split
+and the 80/20 held-out split.
 
 Streams are built on the host (numpy, then CPU tensors) on a background
 thread, so batch construction overlaps the device's work.  With N data
@@ -239,6 +240,58 @@ def bucketed_minibatch_stream(docs: Sequence[Doc], batch_docs: int,
             nat = max(len(ids) for ids, _ in chunk)
             yield stack_shards(docs_to_padded(
                 chunk, max_len=bucket_len(nat, len_buckets)), num_shards)
+
+    yield from prefetched(slices, prefetch)
+
+
+def shard_docs(docs: Sequence[Doc], num_shards: int) -> List[List[Doc]]:
+    """Spread documents over shards by tokens, greedily (paper §4: 'evenly
+    distribute D documents to N processors'): the reference's order and
+    ties, so both packages split alike."""
+    shards: List[List[Doc]] = [[] for _ in range(num_shards)]
+    order = np.argsort([-float(c.sum()) for _, c in docs])
+    loads = np.zeros(num_shards)
+    for i in order:
+        j = int(np.argmin(loads))
+        shards[j].append(docs[i])
+        loads[j] += float(docs[i][1].sum())
+    return shards
+
+
+def vocab_mapped_minibatch_stream(docs: Sequence[Doc], vocab,
+                                  batch_docs: int, num_shards: int = 1,
+                                  len_buckets: Sequence[int] = (16, 32, 64,
+                                                                128),
+                                  prefetch: int = 2, admit: bool = True,
+                                  oov_row: int | None = None
+                                  ) -> Iterator[Tuple[MiniBatch, int]]:
+    """Shape-bucketed stream over external-id documents: each chunk's keys
+    go through ``vocab`` (a ``data.vocab.VocabMap``) before padding, and
+    each batch comes with the live vocabulary size right after its
+    admissions, taken in generation order on the prefetch thread (so it
+    does not depend on how far the prefetch runs ahead).  Yields
+    ``(MiniBatch, live_w)``, stacked [N, Dl, L] when ``num_shards > 1``.
+    The driver's ``launch.lda_train.drifting_stream`` applies the same
+    map, snapshot, bucket and pad to batches it draws lazily."""
+    len_buckets = tuple(sorted(int(b) for b in len_buckets))
+    if any(b % 8 for b in len_buckets):
+        raise ValueError(f"len_buckets must be multiples of 8: {len_buckets}")
+    if batch_docs % max(num_shards, 1):
+        raise ValueError(f"batch_docs={batch_docs} must divide over "
+                         f"num_shards={num_shards}")
+    n_batches = -(-len(docs) // batch_docs)
+
+    def slices():
+        for m in range(n_batches):
+            chunk = vocab.map_docs(docs[m * batch_docs: (m + 1) * batch_docs],
+                                   admit=admit, oov_row=oov_row)
+            live = vocab.live
+            nat = max((len(ids) for ids, _ in chunk), default=1)
+            if len(chunk) < batch_docs:
+                chunk += [(np.zeros(1, np.int32), np.zeros(1, np.float32))
+                          ] * (batch_docs - len(chunk))
+            mb = docs_to_padded(chunk, max_len=bucket_len(nat, len_buckets))
+            yield stack_shards(mb, num_shards), live
 
     yield from prefetched(slices, prefetch)
 

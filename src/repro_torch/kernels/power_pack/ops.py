@@ -6,7 +6,11 @@ package's ``kernels/power_pack/ops.py::pack_rows`` and
 ``::scatter_add_rows`` (the Pallas kernels ``pack_rows_pallas`` and
 ``scatter_add_rows_pallas``), without the TPU tile padding.
 `scatter_add_rows` updates ``mat`` IN PLACE, where the reference returns a
-new array.  On a CUDA tensor each launches its hand-written kernel
+new array.  ``sel_w`` may repeat a row: a live-W power selection points
+every dead slot at one guard row, all zeros in phi, with zero values to
+add.  `pack_rows` gathers such a row again for each slot; `scatter_add_rows`
+adds each slot's values with atomics in whatever order they land, which
+changes no bit when they are exact zeros.  On a CUDA tensor each launches its hand-written kernel
 (``csrc/power_pack.cu``) and raises if the kernel cannot build or launch;
 on a CPU tensor each runs its plain version.
 """

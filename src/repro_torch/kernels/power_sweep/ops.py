@@ -234,9 +234,13 @@ def power_sweep_carry_train(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     int32, non-decreasing; counts_t [T, 1]; mu_t [T, K], updated IN PLACE
     at the power tokens' selected topics only; theta [D, K], read only
     (the sweep is Jacobi); phi_tot [K]; phi_eff_wk [W, K] the effective
-    statistic, read at the selection only; sel_w [P] int32 the power words;
-    sel_k [P, Pk] int32 each power word's topics, distinct within a row.
-    sel_w and sel_k must be in range: the kernel reads them unchecked.
+    statistic, read at the selection only; sel_w [P] int32 the power words,
+    distinct but for repeated rows that no token has (a live-W selection's
+    dead slots all point at one guard row, all zeros in phi: each such
+    slot's d/r is a sum over no token, exact zeros, and no token's p_tok
+    names it); sel_k [P, Pk] int32 each power word's topics, distinct
+    within a row.  sel_w and sel_k must be in range: the kernel reads them
+    unchecked.
     ``runs`` (order [T], starts [W + 1], int32) are the tokens' runs by word
     (``TokenLayout.word_runs(W)``, made once per mini-batch): the d/r sums
     add each power row's counted tokens in that order.  The kernel needs

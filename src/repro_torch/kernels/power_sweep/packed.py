@@ -159,7 +159,10 @@ def power_sweep_tokens(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     selected topics only; theta [D, K], read only (every token sees it as
     it was: the sweep is Jacobi); phi_tot [K]; phi_pack [P, Pk] the packed
     effective phi (no guard row); sel_k [P, Pk] int32 each power word's
-    topics, distinct within a row.  ``onehot`` picks the plain version's
+    topics, distinct within a row.  A row no token maps to (a live-W
+    selection's dead slots, which repeat one zero guard row of phi: the
+    same topics, a zero phi_pack row) gets d/r rows of exact zeros.
+    ``onehot`` picks the plain version's
     packed accumulation (the reference's ``onehot_crossover``); the kernel
     ignores it, as the TPU kernel does.  ``order`` [T] int32 is the
     kernel's sweep order (`sweep_order` of the tokens' words or rows, made

@@ -53,9 +53,29 @@ where the packed sweep's plain version (the CPU path) turns from a one-hot
 contraction to a row ``index_add_``; ``--prefetch`` is the depth of the
 host thread that draws the stream ahead.
 
-Every other flag of the reference driver is accepted only at its
-reference default, and any other value raises naming the ROADMAP item
-that ports it; so does ``--backend ps``.
+Dynamic vocabulary and the stream lifecycle, as the reference's
+(``--backend sim`` only, as there): ``--dynamic-vocab`` draws a drifting
+stream (``--drift-mode grow``: ``--vocab`` words plus
+``--vocab-growth-per-batch`` a batch; ``slide``: a window of ``--vocab``
+words sliding by that many a batch), maps its external word keys to phi
+rows through a ``VocabMap`` and holds phi_acc on the capacity ladder
+(``--w-cap-min``, ``--w-growth``); a batch whose live vocabulary reaches
+the rung grows the state (guard rows padded on), rebuilds and rewarms the
+step and checkpoints (``[grow]``).  ``--decay tau0,kappa`` fades the
+statistic; ``--compact-every N`` adds a checkpoint fence every N batches
+(``[compact]``): the stream is drained, rows idle for
+``--compact-min-idle`` batches whose mass is at or under
+``--compact-mass-tol`` x K x beta are reclaimed (``VocabMap.compact``, the
+remap applied on the device), topics whose mass faded under
+``--recycle-tol`` are reseeded, a rung the vocabulary no longer needs is
+dropped, and the state is saved with its vocabulary and remap.  The
+checkpoint's ``dyn`` extra (rung, live size, keys, touch stamps, version,
+remap) is read before the restore template is built, so a run resumes on
+the rung it saved.
+
+``--backend ps`` and the parameter-server, chaos and elastic flags are
+accepted only at their reference defaults; any other value raises naming
+ROADMAP Queue 1, item 7.
 """
 
 from __future__ import annotations
@@ -65,7 +85,7 @@ import functools
 import json
 import os
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -73,15 +93,6 @@ _Q1 = "ROADMAP Queue 1, item"
 # flags of the reference driver that are not ported: the value that keeps
 # each off, and the ROADMAP item that brings it
 _UNPORTED = {
-    "dynamic_vocab": (False, f"{_Q1} 6 (dynamic vocabulary)"),
-    "vocab_growth_per_batch": (24, f"{_Q1} 6 (dynamic vocabulary)"),
-    "drift_mode": ("grow", f"{_Q1} 6 (dynamic vocabulary)"),
-    "w_cap_min": (64, f"{_Q1} 6 (dynamic vocabulary)"),
-    "w_growth": (2.0, f"{_Q1} 6 (dynamic vocabulary)"),
-    "compact_every": (0, f"{_Q1} 6 (lifecycle)"),
-    "compact_min_idle": (5, f"{_Q1} 6 (lifecycle)"),
-    "compact_mass_tol": (25.0, f"{_Q1} 6 (lifecycle)"),
-    "recycle_tol": (0.0, f"{_Q1} 6 (lifecycle)"),
     "staleness": (0, f"{_Q1} 7 (parameter server)"),
     "ps_servers": (4, f"{_Q1} 7 (parameter server)"),
     "ps_latency": (0.0, f"{_Q1} 7 (parameter server)"),
@@ -126,11 +137,39 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefetch", type=int, default=2,
                     help="mini-batches the host thread draws ahead "
                          "(0: draw inline)")
-    ap.add_argument("--vocab", type=int, default=500)
+    ap.add_argument("--vocab", type=int, default=500,
+                    help="vocabulary size (dynamic mode: the initial external "
+                         "vocabulary of the drifting stream, or with "
+                         "--drift-mode slide its window)")
     ap.add_argument("--topics", type=int, default=16)
+    ap.add_argument("--dynamic-vocab", action="store_true",
+                    help="a drifting stream: external keys map to phi rows "
+                         "through a VocabMap and phi grows along the "
+                         "capacity ladder (--backend sim only)")
+    ap.add_argument("--vocab-growth-per-batch", type=int, default=24,
+                    help="external words entering the stream a mini-batch "
+                         "(--drift-mode slide: also the words retired)")
+    ap.add_argument("--drift-mode", default="grow", choices=["grow", "slide"],
+                    help="'grow': the vocabulary only accretes; 'slide': a "
+                         "window of --vocab words slides each batch")
     ap.add_argument("--decay", default="1,0",
                     help="Robbins-Monro forgetting 'tau0,kappa' on the phi "
                          "fold; kappa=0 disables")
+    ap.add_argument("--compact-every", type=int, default=0,
+                    help="a checkpoint-fenced compaction every N mini-batches "
+                         "(0: never; --dynamic-vocab only)")
+    ap.add_argument("--compact-min-idle", type=int, default=5,
+                    help="batches a row must be untouched to be reclaimed")
+    ap.add_argument("--compact-mass-tol", type=float, default=25.0,
+                    help="dead-mass floor in units of K*beta: an idle row "
+                         "dies when its statistic <= tol*K*beta")
+    ap.add_argument("--recycle-tol", type=float, default=0.0,
+                    help="at each fence, reseed topics whose live mass <= "
+                         "tol x the mean topic mass (0: never)")
+    ap.add_argument("--w-cap-min", type=int, default=64,
+                    help="first W capacity rung")
+    ap.add_argument("--w-growth", type=float, default=2.0,
+                    help="geometric W ladder factor")
     ap.add_argument("--lambda-w", type=float, default=0.1)
     ap.add_argument("--lambda-k", type=int, default=8)
     ap.add_argument("--inner-iters", type=int, default=12)
@@ -229,7 +268,7 @@ def _reject_unported(args) -> None:
         if value != default:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}={value!r} is not ported yet "
-                f"({item}); this driver runs a fixed vocabulary")
+                f"({item})")
 
 
 def resolve_impl(args) -> str:
@@ -249,14 +288,15 @@ def resolve_impl(args) -> str:
     return impl
 
 
-def _build_cfg(args):
+def _build_cfg(args, vocab_size: Optional[int] = None):
     from repro_torch.core.types import LDAConfig
 
     buckets = tuple(sorted(_csv_ints(args.len_buckets)))
     if any(b % 8 for b in buckets):
         raise ValueError(f"--len-buckets must be multiples of 8: {buckets}")
     decay_tau0, decay_kappa = _parse_decay(args.decay)
-    return LDAConfig(vocab_size=args.vocab, num_topics=args.topics,
+    return LDAConfig(vocab_size=vocab_size or args.vocab,
+                     num_topics=args.topics,
                      lambda_w=args.lambda_w, lambda_k_abs=args.lambda_k,
                      inner_iters=args.inner_iters, residual_tol=args.tol,
                      decay_tau0=decay_tau0, decay_kappa=decay_kappa,
@@ -307,6 +347,89 @@ def synthetic_stream(args, buckets, start_m: int = 0):
     return gen
 
 
+@functools.lru_cache(maxsize=1)
+def _score_cache(seed: int, topics: int) -> dict:
+    """The drifting streams' word scores (and last window cdf) for the
+    process: a pure function of (seed, topics), grown as the stream asks;
+    at PUBMED width the scores alone are ~30 s of gamma draws."""
+    return {}
+
+
+def drifting_stream(args, buckets, start_m: int, vocab,
+                    end_m: Optional[int] = None):
+    """The reference's drifting-vocabulary stream factory.
+
+    ``--drift-mode grow``: batch m draws from the first ``vocab + growth *
+    m`` external words; ``slide``: from the window ``[growth * m, growth *
+    m + vocab)``.  Each batch's keys are admitted through ``vocab`` in
+    generation order, stamping the rows as touched at m, and the live size
+    is read right after, so it does not depend on how far the prefetch runs
+    ahead; a resumed run re-admits the saved prefix's keys as no-ops.  The
+    generator stops before ``end_m`` (a compaction fence), so nothing is
+    admitted or touched past the fence.  Yields (MiniBatch of CPU tensors,
+    token count, live_w)."""
+    from repro_torch.data.batching import bucket_len, docs_to_padded
+    from repro_torch.data.synthetic import (drifting_news_stream,
+                                            drifting_vocab_docs)
+
+    means = _csv_ints(args.doc_len_means)
+    cache = _score_cache(args.seed, args.topics)
+    stop = args.minibatches if end_m is None else end_m
+    slide = args.drift_mode == "slide"
+
+    def gen():
+        for m in range(start_m, stop):
+            if slide:
+                docs, _ = drifting_news_stream(
+                    args.seed, m, args.docs_per_batch, args.vocab,
+                    args.vocab_growth_per_batch, args.topics,
+                    doc_len_mean=means[m % len(means)], score_cache=cache)
+            else:
+                docs, _ = drifting_vocab_docs(
+                    args.seed, m, args.docs_per_batch,
+                    args.vocab + args.vocab_growth_per_batch * m,
+                    args.topics, doc_len_mean=means[m % len(means)],
+                    score_cache=cache)
+            docs = vocab.map_docs(docs, admit=True, step=m)
+            live = vocab.live
+            nat = max(len(ids) for ids, _ in docs)
+            L = buckets[-1] if args.fixed_len else bucket_len(nat, buckets)
+            mb = docs_to_padded(docs, max_len=L)
+            yield mb, float(mb.counts.sum()), live
+
+    return gen
+
+
+def _eval_split_dynamic(args):
+    """Held-out documents of the growing stream in EXTERNAL key space, from
+    the batch-0 vocabulary with a disjoint batch counter (the training
+    vocabulary is never touched); each evaluation maps them through the
+    vocabulary, unseen words to the first guard row."""
+    from repro_torch.data.batching import train_test_split_counts
+    from repro_torch.data.synthetic import drifting_vocab_docs
+
+    docs, _ = drifting_vocab_docs(args.seed, 987_654_321, args.eval_docs,
+                                  args.vocab, args.topics, doc_len_mean=40,
+                                  score_cache=_score_cache(args.seed,
+                                                           args.topics))
+    return train_test_split_counts(docs, args.seed)
+
+
+def _eval_split_slide(args, m: int):
+    """Held-out documents of the sliding stream: an independent set
+    (``heldout=True``) from the window batch ``m`` trained on, so the
+    held-out set drifts with the stream."""
+    from repro_torch.data.batching import train_test_split_counts
+    from repro_torch.data.synthetic import drifting_news_stream
+
+    docs, _ = drifting_news_stream(args.seed, m, args.eval_docs, args.vocab,
+                                   args.vocab_growth_per_batch, args.topics,
+                                   doc_len_mean=40, heldout=True,
+                                   score_cache=_score_cache(args.seed,
+                                                            args.topics))
+    return train_test_split_counts(docs, args.seed)
+
+
 def _eval_split(args):
     """The reference's held-out split, drawn with a seed disjoint from every
     stream batch's."""
@@ -352,12 +475,13 @@ def _jax_written_rng(directory: str) -> bool:
                and rec["shape"] == [2] for rec in leaves)
 
 
-def _warmup_batches(args, buckets, cfg, shards: int = 1):
+def _warmup_batches(args, buckets, cfg, shards: int = 1, words=None):
     """What the warm-up pushes through the step: an all-padding [D, L]
     batch of each length bucket (they stop at t = 1), and one batch of the
     smallest bucket with every slot counted, for a step that runs one
-    selective iteration (the policy's selective kernels); stacked [N, D/N,
-    L] for ``shards`` data shards."""
+    selective iteration (the policy's selective kernels), its word ids
+    cycling over ``words`` (default: the vocabulary); stacked [N, D/N, L]
+    for ``shards`` data shards."""
     import torch
 
     D = args.docs_per_batch
@@ -365,7 +489,7 @@ def _warmup_batches(args, buckets, cfg, shards: int = 1):
              torch.zeros((D, L), dtype=torch.float32))
             for L in (buckets[-1:] if args.fixed_len else buckets)]
     L = pads[0][0].shape[1]
-    ids = (torch.arange(D * L, dtype=torch.int32) % cfg.vocab_size
+    ids = (torch.arange(D * L, dtype=torch.int32) % (words or cfg.vocab_size)
            ).reshape(D, L)
     full = (ids, torch.ones((D, L), dtype=torch.float32))
     if shards > 1:
@@ -511,6 +635,19 @@ def _mesh_rank(rank: int, args, world: int, backend: str, out: str) -> None:
         dist.destroy_process_group()
 
 
+def _check_dynamic(args) -> bool:
+    """The reference's refusals of the dynamic and lifecycle flags, word
+    for word; returns whether the run has a dynamic vocabulary."""
+    dynamic = bool(args.dynamic_vocab)
+    if dynamic and args.backend != "sim":
+        raise ValueError("--dynamic-vocab currently requires --backend sim "
+                         "(shard_map growth is on the ROADMAP backlog)")
+    if args.compact_every and not dynamic:
+        raise ValueError("--compact-every needs --dynamic-vocab: a fixed-W "
+                         "run has no VocabMap to compact (DESIGN.md §14)")
+    return dynamic
+
+
 def train_loop(args) -> Dict[str, Any]:
     """Run the driver; returns a result dict (see the end).  With
     ``--backend shard_map`` and no process group yet, starts the mesh
@@ -520,15 +657,18 @@ def train_loop(args) -> Dict[str, Any]:
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core import perplexity
+    from repro_torch.core import lifecycle, perplexity
     from repro_torch.core.device import resolve_device
     from repro_torch.core.pobp import (DiagBuffer, init_train_state,
                                        make_train_step, mesh_data_index)
     from repro_torch.core.types import LDATrainState
-    from repro_torch.data.batching import prefetched, stack_shards
+    from repro_torch.data.batching import (docs_to_padded, prefetched,
+                                           stack_shards)
+    from repro_torch.data.vocab import VocabMap, next_capacity
     from repro_torch.dist import checkpoint as ckpt
     from repro_torch.kernels import launch_counts
 
+    dynamic = _check_dynamic(args)
     _reject_unported(args)
     if args.backend == "shard_map" and not dist.is_initialized():
         return _run_mesh(args)
@@ -536,7 +676,27 @@ def train_loop(args) -> Dict[str, Any]:
         raise ValueError("--crash-at needs --ckpt-dir: without a checkpoint "
                          "the rerun restarts from scratch and hits the same "
                          "simulated failure forever")
-    cfg, buckets = _build_cfg(args)
+    compact_every = int(args.compact_every or 0)
+
+    # dynamic mode: the rung must be known before the restore template is
+    # built, so the newest manifest's extra is read first
+    vocab = VocabMap()
+    live_done = 0            # live vocabulary as of the last consumed batch
+    vocab_version = 0        # one more at every fence that reclaims rows
+    last_remap = None        # the latest fence's row remap
+    w_cap = next_capacity(0, 0, args.w_cap_min, args.w_growth)
+    if dynamic and args.ckpt_dir:
+        peeked = ckpt.peek_extra(args.ckpt_dir)
+        if peeked is not None and "dyn" in peeked[0]:
+            dyn = peeked[0]["dyn"]
+            w_cap = int(dyn["w_cap"])
+            live_done = int(dyn["live_w"])
+            vocab = VocabMap(dyn["vocab_keys"],
+                             touched=dyn.get("touched", ()))
+            vocab_version = int(dyn.get("vocab_version", 0))
+            last_remap = dyn.get("row_remap")
+
+    cfg, buckets = _build_cfg(args, vocab_size=w_cap if dynamic else None)
     dev = resolve_device(args.device)
     shards = args.shards if args.backend == "sim" else 1
     if shards < 1 or args.docs_per_batch % shards:
@@ -572,8 +732,8 @@ def train_loop(args) -> Dict[str, Any]:
                                    device=dev)
         return make_shardmap_train_step(c, mesh, args.sync, args.sync_dtype)
 
-    def fresh_state():
-        st = init_train_state(cfg, args.seed, device=dev)
+    def fresh_state(c):
+        st = init_train_state(c, args.seed, device=dev)
         if mesh is not None:
             st = LDATrainState(phi_acc=st.phi_acc[:, cols].contiguous(),
                                m=0, generator=st.generator)
@@ -591,8 +751,12 @@ def train_loop(args) -> Dict[str, Any]:
         dist.all_reduce(full, group=gather_group)
         return full
 
+    def sync_device():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
     step, meter = build_step(cfg)
-    state = fresh_state()
+    state = fresh_state(cfg)
     signature = _run_signature(args)
     start_m = 0
     if args.ckpt_dir:
@@ -645,83 +809,246 @@ def train_loop(args) -> Dict[str, Any]:
                       flush=True)
 
     warmup_s, warmup_launches = 0.0, {}
-    if args.warmup_buckets:
-        # the first launch of every kernel (the port's counterpart of the
-        # reference's compile) on a throwaway state with its own generator:
-        # the run's draws and result are untouched
-        t0 = time.time()
+
+    def warm(step_fn, c) -> None:
+        """The first launch of every kernel (the port's counterpart of the
+        reference's compile) on a throwaway state with its own generator:
+        the run's draws and result are untouched.  A dynamic run warms at
+        its rung, the guard row kept.  Adds its launches to
+        ``warmup_launches``."""
         before = launch_counts()
-        pads, full = _warmup_batches(args, buckets, cfg, shards)
-        scratch = fresh_state()
+        words = c.vocab_size - 1 if dynamic else None
+        live = (1,) if dynamic else ()
+        pads, full = _warmup_batches(args, buckets, c, shards, words)
+        scratch = fresh_state(c)
         for ids, cnt in pads:
-            scratch, _ = step(scratch, ids, cnt)
+            scratch, _ = step_fn(scratch, ids, cnt, *live)
         once, _ = build_step(
-            dataclasses.replace(cfg, inner_iters=2, residual_tol=-1.0))
-        scratch, _ = once(scratch, *full)
+            dataclasses.replace(c, inner_iters=2, residual_tol=-1.0))
+        scratch, _ = once(scratch, *full, *((words,) if dynamic else ()))
         del scratch
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        sync_device()
+        for k, n in launch_counts().items():
+            warmup_launches[k] = warmup_launches.get(k, 0) + n - before[k]
+
+    if args.warmup_buckets:
+        t0 = time.time()
+        warm(step, cfg)
         warmup_s = time.time() - t0
-        warmup_launches = {k: n - before[k]
-                           for k, n in launch_counts().items()}
     eval_split = None
+    consumed_m = start_m - 1     # the last consumed batch (slide's eval)
+    slide = dynamic and args.drift_mode == "slide"
+
+    def heldout():
+        nonlocal eval_split
+        if slide:
+            # re-drawn from the current window at every evaluation
+            return _eval_split_slide(args, max(consumed_m, 0))
+        if eval_split is None:
+            eval_split = (_eval_split_dynamic(args) if dynamic
+                          else _eval_split(args))
+        return eval_split
 
     def eval_ppl(phi=None) -> float:
-        nonlocal eval_split
         if phi is None:
             phi = global_phi(state.phi_acc)
         if not rank0:
             return float("nan")
-        if eval_split is None:
-            eval_split = _eval_split(args)
         gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-        return perplexity.evaluate(phi, *eval_split, cfg, generator=gen,
-                                   device=dev)
+        if not dynamic:
+            return perplexity.evaluate(phi, *heldout(), cfg, generator=gen,
+                                       device=dev)
+        # the split is in external key space: looked up at the current
+        # vocabulary, unseen words to the first guard row
+        tr, te = heldout()
+        tr_b, te_b = (docs_to_padded(vocab.map_docs(d, admit=False,
+                                                    oov_row=live_done))
+                      for d in (tr, te))
+        return perplexity.evaluate(phi, tr_b, te_b, cfg, generator=gen,
+                                   device=dev, live_w=live_done)
+
+    def extra_at(next_m: int) -> Dict[str, Any]:
+        extra = {"next_m": next_m, "run": signature}
+        if dynamic:
+            # the consumed prefix's vocabulary; touch stamps of rows the
+            # prefetch re-touched ahead come back by max-merge on replay.
+            # row_remap is the latest fence's remap, which lets an older
+            # phi restore into this row space
+            extra["dyn"] = {"w_cap": cfg.vocab_size, "live_w": live_done,
+                            "vocab_keys": vocab.keys_upto(live_done),
+                            "touched": vocab.touched_upto(live_done),
+                            "vocab_version": vocab_version,
+                            "row_remap": last_remap}
+        return extra
+
+    def save(step_no: int, next_m: int) -> None:
+        phi = global_phi(state.phi_acc)
+        if rank0:
+            ckpt.save(args.ckpt_dir, step_no, _state_tree(LDATrainState(
+                phi_acc=phi, m=state.m, generator=state.generator)),
+                extra=extra_at(next_m))
+
+    def new_rung(new_cap: int, fence_live: Optional[int] = None) -> None:
+        """Resize the state to ``new_cap`` rows (a shrink under the fence
+        of ``fence_live`` live rows), then rebuild and rewarm the step."""
+        nonlocal state, cfg, step, meter
+        state = lifecycle.resize_state(state, new_cap, live_w=fence_live)
+        cfg = dataclasses.replace(cfg, vocab_size=new_cap)
+        step, meter = build_step(cfg)
+        if args.warmup_buckets:
+            warm(step, cfg)
+
+    growth_s = compact_s = 0.0
+    growth_events, compaction_events, occupancy_trace = [], [], []
+    fence_bytes = []
+
+    def compaction_fence(fence_m: int) -> None:
+        """The checkpoint-fenced compaction and topic recycling.  The
+        segment's generator stopped before ``fence_m`` and every batch it
+        yielded is consumed, so ``vocab.live == live_done`` and the touch
+        stamps cover exactly the consumed prefix: the dead rows (and the
+        remap) are a function of (stream, fence).  The new state, vocabulary
+        and remap are saved at once."""
+        nonlocal state, live_done, vocab_version, last_remap, compact_s
+        sync_device()
+        t_c = time.time()
+        held = (torch.cuda.memory_allocated(dev) if dev.type == "cuda"
+                else None)
+        live = vocab.live
+        phi_host = state.phi_acc[:live].float().cpu().numpy()
+        floor = float(args.compact_mass_tol) * cfg.num_topics * cfg.beta
+        dead = lifecycle.dead_rows(
+            phi_host.sum(axis=1), vocab.touched_upto(live), fence_m - 1,
+            args.compact_min_idle, floor)
+        del phi_host
+        n_dead = int(dead.sum())
+        live_new = live
+        if n_dead:
+            remap = vocab.compact(~dead)
+            state = lifecycle.apply_row_remap(state, remap)
+            live_new = vocab.live
+            last_remap = [int(r) for r in remap]
+            vocab_version += 1
+        recycled = []
+        if args.recycle_tol:
+            phi2, recycled = lifecycle.recycle_topics(
+                state.phi_acc.float().cpu().numpy(), live_new,
+                args.recycle_tol)
+            if recycled:
+                state = LDATrainState(
+                    phi_acc=torch.from_numpy(phi2).to(dev,
+                                                      state.phi_acc.dtype),
+                    m=state.m, generator=state.generator)
+            del phi2
+        # drop the rungs the compacted vocabulary no longer needs
+        old_cap = cfg.vocab_size
+        new_cap = next_capacity(live_new, 0, args.w_cap_min, args.w_growth)
+        if new_cap < old_cap:
+            new_rung(new_cap, fence_live=live_new)
+        live_done = live_new
+        if held is not None:
+            fence_bytes.append({"m": fence_m, "w_cap": [old_cap, new_cap],
+                                "allocated": [held, torch.cuda.
+                                              memory_allocated(dev)]})
+        if args.ckpt_dir:
+            save(fence_m, fence_m)
+        compact_s += time.time() - t_c
+        if n_dead or recycled:
+            compaction_events.append(
+                {"m": fence_m, "dead": n_dead, "live_before": live,
+                 "live_after": live_new, "w_cap": cfg.vocab_size,
+                 "recycled": recycled})
+            print(f"minibatch {fence_m:5d}  [compact] dead={n_dead} "
+                  f"live_w={live} -> {live_new}  W_cap={cfg.vocab_size}"
+                  + (f"  recycled_topics={recycled}" if recycled else ""),
+                  flush=True)
+        occupancy_trace.append({"m": fence_m, "live_w": live_done,
+                                "w_cap": cfg.vocab_size})
+
+    def make_stream(seg_start: int, seg_end: int):
+        # one prefetched generator per fence segment: it stops before
+        # seg_end, so nothing is admitted or touched past a fence
+        if dynamic:
+            return prefetched(drifting_stream(args, buckets, seg_start, vocab,
+                                              end_m=seg_end), args.prefetch)
+        return prefetched(synthetic_stream(args, buckets, seg_start),
+                          args.prefetch)
 
     buf = DiagBuffer(block=max(args.log_every, 64))
     ppl_trace = []
     tokens = 0.0
     t0 = time.time()
-    stream = prefetched(synthetic_stream(args, buckets, start_m),
-                        args.prefetch)
-    for m, (batch, ntok) in enumerate(stream, start=start_m):
-        batch = stack_shards(batch, shards)
-        state, diag = step(state, batch.word_ids, batch.counts)
-        buf.append(diag["mean_r"], diag["iters"])
-        tokens += ntok
-        step_no = m + 1
-        if args.log_every and step_no % args.log_every == 0:
-            dt = time.time() - t0
-            print(f"minibatch {step_no:5d}  "
-                  f"mean_r={float(diag['mean_r']):.4f}"
-                  f"  iters={int(diag['iters']):3d}"
-                  f"  tokens/s={tokens / max(dt, 1e-9):,.0f}", flush=True)
-        if args.eval_every and step_no % args.eval_every == 0:
-            ppl = eval_ppl()
-            ppl_trace.append((step_no, ppl))
-            if rank0:
-                print(f"minibatch {step_no:5d}  held-out ppl={ppl:.2f}",
-                      flush=True)
-        if args.crash_at and step_no == args.crash_at and start_m == 0:
-            # fresh runs only: a resumed run sails past the simulated
-            # failure, so rerunning the same command completes
-            raise SystemExit(f"[simulated crash] after minibatch {step_no}")
-        if args.ckpt_dir and args.ckpt_every and \
-                step_no % args.ckpt_every == 0:
-            phi = global_phi(state.phi_acc)
-            if rank0:
-                ckpt.save(args.ckpt_dir, step_no, _state_tree(LDATrainState(
-                    phi_acc=phi, m=state.m, generator=state.generator)),
-                    extra={"next_m": step_no, "run": signature})
-            del phi
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    seg_start = start_m
+    while seg_start < args.minibatches:
+        seg_end = (min(args.minibatches,
+                       (seg_start // compact_every + 1) * compact_every)
+                   if compact_every else args.minibatches)
+        for m, item in enumerate(make_stream(seg_start, seg_end),
+                                 start=seg_start):
+            if dynamic:
+                batch, ntok, live_b = item
+            else:
+                (batch, ntok), live_b = item, None
+            if dynamic and live_b >= cfg.vocab_size:
+                # a rung crossing: pad the state to the next rung (guard
+                # rows), rebuild and rewarm the step, and save the grown
+                # state, so a crash right here resumes on the new rung;
+                # the save holds live_done, the consumed prefix (this batch
+                # is not consumed yet)
+                sync_device()
+                t_g = time.time()
+                new_cap = next_capacity(live_b, cfg.vocab_size,
+                                        args.w_cap_min, args.w_growth)
+                new_rung(new_cap)
+                if args.ckpt_dir:
+                    save(m, m)
+                growth_s += time.time() - t_g
+                growth_events.append({"m": m, "w_cap": new_cap,
+                                      "live_w": live_b})
+                print(f"minibatch {m + 1:5d}  [grow] live_w={live_b} -> "
+                      f"W_cap={new_cap}", flush=True)
+            batch = stack_shards(batch, shards)
+            state, diag = step(state, batch.word_ids, batch.counts,
+                               *((live_b,) if dynamic else ()))
+            buf.append(diag["mean_r"], diag["iters"])
+            tokens += ntok
+            if live_b is not None:
+                live_done = live_b
+            consumed_m = m
+            step_no = m + 1
+            if args.log_every and step_no % args.log_every == 0:
+                dt = time.time() - t0
+                print(f"minibatch {step_no:5d}  "
+                      f"mean_r={float(diag['mean_r']):.4f}"
+                      f"  iters={int(diag['iters']):3d}"
+                      f"  tokens/s={tokens / max(dt, 1e-9):,.0f}", flush=True)
+            if args.eval_every and step_no % args.eval_every == 0:
+                ppl = eval_ppl()
+                ppl_trace.append((step_no, ppl))
+                if rank0:
+                    print(f"minibatch {step_no:5d}  held-out ppl={ppl:.2f}",
+                          flush=True)
+            if args.crash_at and step_no == args.crash_at and start_m == 0:
+                # fresh runs only: a resumed run sails past the simulated
+                # failure, so rerunning the same command completes
+                raise SystemExit(f"[simulated crash] after minibatch "
+                                 f"{step_no}")
+            if args.ckpt_dir and args.ckpt_every and \
+                    step_no % args.ckpt_every == 0:
+                save(step_no, step_no)
+        seg_start = seg_end
+        if compact_every:
+            compaction_fence(seg_end)
+    sync_device()
     wall = time.time() - t0
 
     rows = buf.rows()
     iters = [int(i) for _, i in rows]
     phi = global_phi(state.phi_acc)
-    return {
+    # steady tokens/s: growth events and fences (resize, rewarm, save) are
+    # set-up-like costs, left out as the warm-up is; wall_s holds them
+    steady_s = max(wall - growth_s - compact_s, 1e-9)
+    result = {
         "first_m": start_m,
         "mean_r": [float(r) for r, _ in rows],
         "iters": iters,
@@ -730,7 +1057,7 @@ def train_loop(args) -> Dict[str, Any]:
         "wall_s": wall,
         "warmup_s": warmup_s,
         "warmup_launches": warmup_launches,
-        "tokens_per_s": tokens / max(wall, 1e-9),
+        "tokens_per_s": tokens / steady_s,
         "ppl": eval_ppl(phi),
         "ppl_trace": ppl_trace,
         "bytes_by_phase": dict(meter.bytes_by_phase),
@@ -738,6 +1065,23 @@ def train_loop(args) -> Dict[str, Any]:
                                 if iters else 0),
         "phi_acc": phi.cpu() if rank0 else None,
     }
+    if dynamic:
+        result.update(
+            w_cap=cfg.vocab_size,
+            live_w=live_done,
+            growth_s=growth_s,
+            growth_events=growth_events,
+            compact_s=compact_s,
+            compaction_events=compaction_events,
+            occupancy_trace=occupancy_trace,
+            fence_bytes=fence_bytes,
+            vocab_version=vocab_version,
+            vocab_keys=vocab.keys_upto(live_done),
+            bytes_by_phase_live=dict(meter.bytes_by_phase_at(live_done)),
+            per_minibatch_bytes_live=(
+                meter.per_minibatch_bytes(iters[-1], live_w=live_done)
+                if iters else 0))
+    return result
 
 
 def main(argv=None):
@@ -757,6 +1101,16 @@ def main(argv=None):
         print(f"[mesh] {len(res['ranks'])} ranks over "
               f"{res['dist_backend']}: iters and mean_r equal on every rank: "
               f"{same}")
+    if args.dynamic_vocab:
+        print(f"[vocab] live_w={res['live_w']}  W_cap={res['w_cap']}  "
+              f"growths={len(res['growth_events'])} "
+              f"({res['growth_s']:.1f}s)  per-minibatch bytes at live W="
+              f"{res['per_minibatch_bytes_live']:,}")
+        if args.compact_every:
+            print(f"[lifecycle] compactions={len(res['compaction_events'])} "
+                  f"({res['compact_s']:.1f}s)  vocab_version="
+                  f"{res['vocab_version']}  occupancy="
+                  f"{res['live_w']}/{res['w_cap']}")
     return res
 
 

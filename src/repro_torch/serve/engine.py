@@ -289,7 +289,7 @@ class FoldInEngine:
         if self._vocab is not None:
             rows = self._vocab.rows(
                 ids.tolist() if hasattr(ids, "tolist") else ids,
-                oov_row=self._oov_row)
+                admit=False, oov_row=self._oov_row)
         else:
             ids = np.asarray(ids)
             rows = np.where((ids >= 0) & (ids < self.live_words),
@@ -589,7 +589,7 @@ class SlabEngine:
         ids = np.asarray(ids)
         counts = np.asarray(counts, np.float32)
         if self._vocab is not None:
-            rows = np.asarray(self._vocab.rows(ids.tolist(),
+            rows = np.asarray(self._vocab.rows(ids.tolist(), admit=False,
                                                oov_row=self._oov_row),
                               np.int32)
         else:

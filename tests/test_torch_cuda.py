@@ -832,3 +832,151 @@ def test_topic_sharded_slab_on_card_matches_unsharded(card):
         got = res[4][rid]
         assert got.iters == want.iters and got.comm_bytes > 0
         np.testing.assert_allclose(got.theta, want.theta, atol=1e-5)
+
+
+# ------------------------------------------- dynamic vocabulary (live W)
+
+def _dead_slots(sel_w, sel_k, dead, guard_row):
+    """A live-W selection's tail: the last ``dead`` slots all on one guard
+    row, all with the same topics (a tie over a zero row)."""
+    sel_w[-dead:] = guard_row
+    sel_k[-dead:] = sel_k[-dead - 1]
+
+
+@pytest.mark.parametrize("D,L,K,P,Pk,dead", [(6, 8, 20, 9, 5, 4),
+                                             (64, 128, 2000, 1400, 50, 300)])
+def test_carry_training_kernel_dead_slots_on_card(card, D, L, K, P, Pk, dead):
+    """The training sweep with dead slots repeating one all-zero guard row
+    that no token has: against its plain version, d/r exactly 0 there, all
+    four outputs repeating bit for bit."""
+    args = _train_args(D + K + Pk + 1, D=D, L=L, K=K, P=P, Pk=Pk, guard=0.3)
+    p_tok, phi, sel_w, sel_k = args[0], args[6], args[7], args[8]
+    guard_row = int(np.setdiff1d(np.arange(phi.shape[0]), sel_w.numpy())[0])
+    _dead_slots(sel_w, sel_k, dead, guard_row)
+    p_tok[p_tok >= P - dead] = P
+    phi[guard_row] = 0.0
+    args = [x.to("cuda") for x in args]
+    kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3,
+              runs=_word_runs(args, phi.shape[0]))
+    mu0 = args[3].clone()
+    got = ops.power_sweep_carry_train(*args, **kw)
+    plain = list(args)
+    plain[3] = mu0.clone()
+    want = ops.power_sweep_carry_train_plain(*plain, **{
+        k: v for k, v in kw.items() if k != "runs"})
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(
+            g, w, rtol=1e-4, atol=1e-4 * max(float(w.abs().max()), 1e-30))
+    assert not got[2][-dead:].any() and not got[3][-dead:].any()
+    again = list(args)
+    again[3] = mu0.clone()
+    rerun = ops.power_sweep_carry_train(*again, **kw)
+    assert all(torch.equal(r, g) for r, g in zip(rerun, got))
+
+
+@pytest.mark.parametrize("D,L,K,P,Pk,dead", [(6, 8, 20, 9, 5, 4),
+                                             (64, 128, 2000, 1400, 50, 300)])
+def test_packed_sweep_and_pack_dead_slots_on_card(card, D, L, K, P, Pk, dead):
+    """The packed path with dead slots: ``pack_rows`` packs the repeated
+    zero guard row as zeros (exactly its plain version), the packed sweep
+    gives those slots zero d/r against its plain version and repeats bit
+    for bit, and the scatter adds their zeros exactly."""
+    W = 2 * P + 1
+    mat, sel_w, sel_k, vals = _pack_args(W + K, W=W, K=K, P=P, Pk=Pk)
+    guard_row = int(np.setdiff1d(np.arange(W), sel_w.numpy())[0])
+    mat[guard_row] = 0.0
+    _dead_slots(sel_w, sel_k, dead, guard_row)
+    vals[-dead:] = 0.0
+    mat, sel_w, sel_k, vals = (x.to("cuda") for x in (mat, sel_w, sel_k,
+                                                      vals))
+    phi_pack = pack_ops.pack_rows(mat, sel_w, sel_k)
+    assert torch.equal(phi_pack, pack_ops.pack_rows_plain(mat, sel_w, sel_k))
+    assert not phi_pack[-dead:].any()
+    want = pack_ops.scatter_add_rows_plain(mat.clone(), sel_w, sel_k, vals)
+    assert torch.equal(pack_ops.scatter_add_rows(mat.clone(), sel_w, sel_k,
+                                                 vals), want)
+    args = _packed_args(D + K + Pk + 2, D=D, L=L, K=K, P=P, Pk=Pk, guard=0.3)
+    args[0][args[0] >= P - dead] = P
+    args = [x.to("cuda") for x in args]
+    args[6] = phi_pack + torch.where(phi_pack > 0, 3.0, 0.0)
+    args[7] = sel_k
+    kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3)
+    mu0 = args[3].clone()
+    got = packed.power_sweep_tokens(*args, **kw)
+    plain = list(args)
+    plain[3] = mu0.clone()
+    want = packed.power_sweep_tokens_plain(*plain, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(
+            g, w, rtol=1e-5, atol=1e-5 * max(float(w.abs().max()), 1e-30))
+    assert not got[2][-dead:].any() and not got[3][-dead:].any()
+    again = list(args)
+    again[3] = mu0.clone()
+    rerun = packed.power_sweep_tokens(*again, **kw)
+    assert all(torch.equal(r, g) for r, g in zip(rerun, got))
+
+
+@pytest.mark.parametrize("policy", ["auto", "packed"])
+def test_live_w_train_step_on_card_repeats_and_matches_cpu(card, policy):
+    """A live-W step (W_cap 4096 above a 3000-word vocabulary) on the card:
+    run twice from one state, equal bit for bit; against the CPU step from
+    the same init, iterations equal, rel 1e-3; guard rows exactly 0."""
+    W, W_cap, K = 3000, 4096, 64
+    cfg = LDAConfig(vocab_size=W_cap, num_topics=K, lambda_k_abs=8,
+                    inner_iters=20, residual_tol=0.02, sweep_policy=policy)
+    docs, _, _ = lda_corpus(7, 64, W, K, doc_len_mean=60)
+    mb = docs_to_padded(docs, max_len=64)
+    u0 = torch.from_numpy(np.random.default_rng(1).uniform(
+        0.01, 1.0, (64, 64, K)).astype(np.float32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        step, _ = pobp.make_train_step(cfg, device=device)
+        state = pobp.init_train_state(cfg, 3, device=device)
+        state, _ = step(state, mb.word_ids, mb.counts, W, u0=u0)
+        runs = [step(state, mb.word_ids, mb.counts, W, u0=u0)
+                for _ in range(2)]
+        (a, da), (b, db) = runs
+        assert da["iters"] == db["iters"] > 2
+        assert torch.equal(a.phi_acc, b.phi_acc)
+        assert float(da["mean_r"]) == float(db["mean_r"])
+        assert not a.phi_acc[W:].any()
+        out[device] = (a.phi_acc.cpu(), da["iters"], float(da["mean_r"]))
+    assert out["cuda"][1] == out["cpu"][1]
+    assert out["cuda"][2] == pytest.approx(out["cpu"][2], rel=1e-3)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_lifecycle_driver_crash_resume_on_card(card, tmp_path):
+    """The sliding stream with decay and fences on the card: a crash after
+    batch 7, then the same command, replays through the fence at 8 and ends
+    equal to the uninterrupted run bit for bit; a fence that drops a rung
+    frees the old rung's bytes."""
+    from repro_torch.launch import lda_train
+
+    def args(ck, *extra):
+        return lda_train.build_parser().parse_args([
+            "--minibatches", "8", "--docs-per-batch", "32", "--vocab", "96",
+            "--topics", "16", "--lambda-k", "8", "--shards", "1",
+            "--dynamic-vocab", "--drift-mode", "slide",
+            "--vocab-growth-per-batch", "6", "--decay", "1,0.3",
+            "--compact-every", "4", "--compact-min-idle", "2",
+            "--compact-mass-tol", "60", "--tol", "1e-9", "--log-every", "0",
+            "--ckpt-every", "3", "--ckpt-dir", str(ck), "--device", "cuda",
+            *extra])
+
+    full = lda_train.train_loop(args(tmp_path / "a"))
+    assert [e["m"] for e in full["compaction_events"]] == [4, 8]
+    with pytest.raises(SystemExit):
+        lda_train.train_loop(args(tmp_path / "b", "--crash-at", "7"))
+    resumed = lda_train.train_loop(args(tmp_path / "b", "--crash-at", "7"))
+    assert resumed["first_m"] == 6
+    assert resumed["mean_r"] == full["mean_r"][6:]
+    assert torch.equal(resumed["phi_acc"], full["phi_acc"])
+    assert resumed["vocab_keys"] == full["vocab_keys"]
+    assert not full["phi_acc"][full["live_w"]:].any()
+    assert [f["m"] for f in full["fence_bytes"]] == [4, 8]

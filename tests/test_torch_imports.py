@@ -169,3 +169,39 @@ def test_multishard_slice_modules_stand_alone(no_card):
                                           "1,1"])):
         with pytest.raises(RuntimeError, match="is_available"):
             build()
+
+
+def test_lifecycle_slice_modules_stand_alone(no_card):
+    """The dynamic-vocabulary slice's modules (the lifecycle transitions,
+    the vocabulary map, the drifting streams, the live-W selection and
+    step, the driver) are among the files checked above and import nothing
+    of JAX; its entry points default to the card too."""
+    from repro_torch.core import lifecycle, perplexity, pobp, power
+    from repro_torch.core.types import LDAConfig, MiniBatch
+    from repro_torch.data import batching, synthetic, vocab
+    from repro_torch.launch import lda_train
+    from repro_torch.serve import engine
+
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "src/repro_torch/core/lifecycle.py" in names
+    for mod in (lifecycle, vocab, synthetic, batching, power, perplexity,
+                pobp, lda_train, engine):
+        rel = str(Path(mod.__file__).resolve().relative_to(ROOT))
+        assert rel in names
+        assert not [m for m in _imported_modules(Path(mod.__file__))
+                    if _forbidden(m)]
+    cfg = LDAConfig(vocab_size=64, num_topics=4)
+    mb = MiniBatch(torch.zeros((1, 8), dtype=torch.int32), torch.ones((1, 8)))
+    for build in (lambda: pobp.make_train_step(cfg),
+                  lambda: perplexity.evaluate(torch.ones((64, 4)), mb, mb,
+                                              cfg, live_w=40),
+                  lambda: lda_train.main(["--minibatches", "1",
+                                          "--dynamic-vocab", "--drift-mode",
+                                          "slide", "--compact-every", "1"])):
+        with pytest.raises(RuntimeError, match="is_available"):
+            build()
+    # asked for the CPU, a live-W step runs there
+    step, _ = pobp.make_train_step(cfg, device="cpu")
+    state, diag = step(pobp.init_train_state(cfg, device="cpu"),
+                       mb.word_ids, mb.counts, 40)
+    assert state.m == 1 and not state.phi_acc[40:].any()

@@ -332,7 +332,7 @@ def test_serving_batching_and_vocab_copies_match_reference():
     keys = ["k7", "k2", "k9"]
     tv, jv = VocabMap(keys), jvocab.VocabMap(keys)
     probe = ["k2", "zz", "k9", "k7"]
-    np.testing.assert_array_equal(tv.rows(probe, oov_row=3),
+    np.testing.assert_array_equal(tv.rows(probe, admit=False, oov_row=3),
                                   jv.rows(probe, admit=False, oov_row=3))
     assert tv.to_state() == jv.to_state() and tv.live == jv.live == 3
     assert tv.lookup("k9") == jv.lookup("k9") == 2

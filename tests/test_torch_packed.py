@@ -542,7 +542,7 @@ def test_cli_parser_takes_every_flag_of_the_reference_driver():
 @pytest.mark.parametrize("flag,item", [
     (["--ps-servers", "2"], "item 7"),
     (["--elastic-workers", "w0,w1"], "item 7"),
-    (["--vocab-growth-per-batch", "3"], "item 6")])
+    (["--chaos-dup", "0.2"], "item 7")])
 def test_cli_rejects_the_newly_listed_flags_naming_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
         cli.main(["--minibatches", "1", "--device", "cpu"] + flag)

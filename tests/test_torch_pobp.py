@@ -309,8 +309,9 @@ def test_pobp_minibatch_conserves_mass_and_rejects_unported_modes():
     assert float(res.phi_acc_new.sum()) == pytest.approx(
         float(tb.counts.sum()), rel=1e-5)
     np.testing.assert_allclose(res.mu.sum(-1).numpy(), 1.0, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pobp.pobp_minibatch(tb, zero, 1.0, 1.0, cfg, live_w=100)
+    # a live vocabulary (ported since item 6) must leave a guard row
+    with pytest.raises(ValueError, match="guard row"):
+        pobp.pobp_minibatch(tb, zero, 1.0, 1.0, cfg, live_w=W)
     # a bfloat16 statistic (ported since item 2c) accumulates in float32:
     # from zeros, the same init gives the float32 run's result bit for bit
     res16 = pobp.pobp_minibatch(tb, zero.bfloat16(), float(tb.counts.sum()),
@@ -591,10 +592,10 @@ def test_cli_checkpoint_restores_in_reference_and_serves_in_port(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--drift-mode", "slide"], ["--backend", "ps"], ["--dynamic-vocab"],
-    ["--staleness", "1"], ["--compact-every", "2"],
+    ["--ps-latency", "0.1"], ["--backend", "ps"], ["--chaos-seed", "3"],
+    ["--staleness", "1"], ["--ps-pull-timeout", "5"],
     ["--chaos-drop", "0.1"], ["--elastic-events", "join:w1@2"],
-    ["--w-growth", "3.0"]])
+    ["--chaos-restart-after", "3"]])
 def test_cli_rejects_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         cli.main(["--minibatches", "1", "--device", "cpu"] + flag)
