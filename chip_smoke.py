@@ -113,11 +113,36 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      mini-batch repeating bit for bit; (b) ``--crash-at 3`` and the rerun,
      equal to (a) bit for bit; (c) a grown run against a fresh run at its
      final rung within rtol 1e-6; (d) the sliding stream with decay and a
-     fence every 2 mini-batches: a fence reclaims rows, a dropped rung's
-     bytes are freed, a crash-resume across a fence equal bit for bit, and
-     64 requests served from the last post-compaction checkpoint.
-     The kernels' launches in the JSON line include phase 9 (a)'s and
-     phase 10 (a)'s.
+     fence every 2 mini-batches (4 of them): a fence reclaims rows, a
+     dropped rung's bytes are freed, a crash-resume across a fence equal
+     bit for bit, and 64 requests served from the last post-compaction
+     checkpoint; (e) topic recycling at a reduced width (W = 20,000,
+     K = 2000): the sliding stream with ``--recycle-tol 1`` (every topic at
+     or under the mean mass), a recycle at each fence in float32 and in
+     bf16 phi_acc (the host round trip in the storage dtype), and
+     ``--crash-at 3`` then again through the recycling fence, equal bit for
+     bit;
+ 11. the parameter server through the driver at PUBMED width
+     (``ps_slice``; phase 8's settings with ``--backend ps --ps-servers 4``):
+     (a) ``--staleness 0``: iterations equal to phase 8 (a)'s ``--backend
+     sim`` batch by batch, phi_acc within a relative L1 gap of 1e-5 and
+     mean_r within 1e-6 of it, the training kernels launched as often as
+     its steps and iterations, every token held, the measured wire bytes
+     beside the meter's touched-row model and ``touched_power_sync_bytes``
+     at the measured mean touched rows; (b) (a) under a seeded chaos plan
+     (drops, duplicates, shard 1 crashing at push op 2 and restarting one
+     op later): equal to (a) bit for bit, a recovery run; (c) (a) with
+     elastic workers (a join, a leave, a crash of the assigned worker, so a
+     survivor replays its batch): equal to (a) bit for bit; (d)
+     ``--crash-at 3`` then again: it resumes at m = 2 and ends equal to (a)
+     bit for bit (else the first batch that differs is named); (e)
+     ``--staleness 1 --ps-latency 0.001``: finite, every token held, its
+     pull and push waits beside (a)'s; (f) per batch the touched rows and
+     the replica's two copies (host to card before the step, card to host
+     after it: ms and GB/s against the PCIe bound), the server's
+     ``np.add.at`` per push, and the step walls beside phase 8 (a)'s.
+     The kernels' launches in the JSON line include phase 9 (a)'s, phase
+     10 (a)'s and phase 11 (a)'s.
 
 Each phase prints its wall time.  The line before the last is the
 kernels' JSON record; the last line is
@@ -1462,7 +1487,8 @@ def driver_slice(*, seed: int, docs: int, card: str):
     0``, the batches drawn between the steps: its step walls printed
     beside (a)'s, its result equal to (a)'s bit for bit.  Launch counts of
     (a) net of its warm-up: every training kernel of the path launched.
-    The checkpoints live in a directory deleted at the end."""
+    The checkpoints live in a directory deleted at the end.  Returns (a)'s
+    launches net of its warm-up, its result and its warmed step walls."""
     import numpy as np
     import torch
 
@@ -1593,7 +1619,7 @@ def driver_slice(*, seed: int, docs: int, card: str):
             fail("the run without a draw thread differs from (a)")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return net
+    return net, res_a, steps
 
 
 # --------------------------------------------------------------- phase 9
@@ -1903,7 +1929,7 @@ def lifecycle_slice(*, seed: int, docs: int, card: str, W=141043, K=2000,
     slide = ("--drift-mode", "slide", "--vocab-growth-per-batch", str(drift),
              "--decay", "1,0.5", "--compact-every", "2",
              "--compact-min-idle", "1", "--compact-mass-tol", "25",
-             "--recycle-tol", "0.01", "--minibatches", "6",
+             "--recycle-tol", "0.01", "--minibatches", "4",
              "--ckpt-every", "2")
     root = ROOT / "build" / "chip_smoke_lifecycle"
     shutil.rmtree(root, ignore_errors=True)
@@ -1912,7 +1938,7 @@ def lifecycle_slice(*, seed: int, docs: int, card: str, W=141043, K=2000,
         # both streams), then one batch (its window's cdf and documents)
         t0 = time.time()
         cache = lda_train._score_cache(seed, K)
-        words = W + 5 * drift                       # (d)'s last window
+        words = W + 3 * drift                       # (d)'s last window
         synthetic._scores_upto(cache, seed, K, words)
         print(f"[lifecycle] word scores ({words} x {K} gamma draws on the "
               f"host, in worker processes) in {time.time() - t0:.1f}s")
@@ -2087,7 +2113,7 @@ def lifecycle_slice(*, seed: int, docs: int, card: str, W=141043, K=2000,
                     **{k: dyn_e[k] == dyn_d[k] for k in ("row_remap",
                                                          "touched")})
         print(f"[lifecycle] (d) --crash-at 3 then again: resumed at m={first}"
-              f" (after the fence at 2), through the fences at 4 and 6; equal "
+              f" (after the fence at 2), through the fence at 4; equal "
               f"to the uninterrupted run bit for bit: {same}  "
               f"({time.time() - t0:.1f}s)")
         if not (first == 2 and all(same.values())):
@@ -2098,7 +2124,7 @@ def lifecycle_slice(*, seed: int, docs: int, card: str, W=141043, K=2000,
         eng = SlabEngine.from_checkpoint(str(root / "d"), device=device)
         n_keys = len(eng._vocab)
         reqs, _ = synthetic.drifting_news_stream(
-            seed, 5, 64, W, drift, K, doc_len_mean=128, heldout=True,
+            seed, 3, 64, W, drift, K, doc_len_mean=128, heldout=True,
             score_cache=cache)
         for doc in reqs:
             eng.submit(doc)
@@ -2119,6 +2145,347 @@ def lifecycle_slice(*, seed: int, docs: int, card: str, W=141043, K=2000,
                 and len(eng._vocab) == n_keys):
             fail("serving from the post-compaction checkpoint failed")
         del eng
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return net
+
+
+def recycle_slice(*, seed: int, docs: int, card: str, W=20000, K=2000,
+                  drift=2048, device="cuda"):
+    """Phase 10 (e): topic recycling on the card at a reduced width (W =
+    20,000, K = 2000, phase 8's settings): the sliding stream with decay, a
+    fence every 2 of 4 mini-batches and ``--recycle-tol 1`` (every topic at
+    or under the mean topic mass), in float32 and in bf16 phi_acc.  Each
+    fence must recycle topics (phi_acc to the host and back to the card in
+    its storage dtype); ``--crash-at 3`` then again resumes from the
+    recycling fence at 2 and must end equal to the uninterrupted run bit
+    for bit (mean_r, iterations, phi_acc, keys, the later fences'
+    recycled topics).  (The keywords shrink it for a rehearsal.)"""
+    import torch
+
+    root = ROOT / "build" / "chip_smoke_recycle"
+    shutil.rmtree(root, ignore_errors=True)
+    flags = ("--drift-mode", "slide", "--vocab-growth-per-batch", str(drift),
+             "--decay", "1,0.5", "--compact-every", "2",
+             "--compact-min-idle", "1", "--compact-mass-tol", "25",
+             "--recycle-tol", "1.0", "--minibatches", "4", "--ckpt-every",
+             "2")
+    try:
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.time()
+            extra = flags + ("--phi-acc-dtype", dtype)
+            full = timed_driver(lifecycle_args(
+                root / f"{dtype}_a", seed=seed, docs=docs, W=W, K=K,
+                device=device, extra=extra), [], {}, every=True)
+            ev = full["compaction_events"]
+            phi = full["phi_acc"]
+            print(f"[recycle] (e) {dtype}: {len(full['iters'])} mini-batches "
+                  f"at W={W} K={K} in {time.time() - t0:.1f}s; fences "
+                  + "; ".join(f"m={e['m']}: {len(e['recycled'])} topics "
+                              f"recycled, {e['dead']} rows reclaimed"
+                              for e in ev)
+                  + f"; fences {full['compact_s']:.2f}s; phi_acc "
+                  f"{phi.dtype}  [{card}]")
+            if not (len(ev) == 2 and all(e["recycled"] for e in ev)
+                    and phi.dtype == getattr(torch, dtype)
+                    and bool(torch.isfinite(phi).all())):
+                fail(f"a {dtype} fence did not recycle, or phi_acc left the "
+                     f"storage dtype or is not finite: {ev}")
+            t0 = time.time()
+            b_args = lifecycle_args(root / f"{dtype}_b", seed=seed,
+                                    docs=docs, W=W, K=K, device=device,
+                                    extra=extra + ("--crash-at", "3"))
+            expect_crash(b_args)
+            res = timed_driver(b_args, [], {})
+            same = {"first_m": res["first_m"] == 2,
+                    "mean_r": res["mean_r"] == full["mean_r"][2:],
+                    "iters": res["iters"] == full["iters"][2:],
+                    "phi_acc": bool(torch.equal(res["phi_acc"], phi)),
+                    "vocab_keys": res["vocab_keys"] == full["vocab_keys"],
+                    "recycled": res["compaction_events"] == ev[1:]}
+            print(f"[recycle] (e) {dtype} --crash-at 3 then again: resumed "
+                  f"at m={res['first_m']} from the recycling fence, equal to "
+                  f"the uninterrupted run bit for bit: {same}  "
+                  f"({time.time() - t0:.1f}s)")
+            if not all(same.values()):
+                fail(f"the {dtype} run resumed across a recycling fence "
+                     f"differs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# --------------------------------------------------------------- phase 11
+
+# one direction of the host link: PCIe Gen5 x16 (NVIDIA's H100 SXM data
+# sheet gives 128 GB/s for both directions together)
+PCIE_BYTES_PER_S = 64e9
+
+
+def ps_args(ckpt_dir, *, seed: int, docs: int, W=141043, K=2000,
+            device="cuda", extra=()):
+    """Phase 8's flags (PUBMED width, the paper-scale settings, one shard,
+    4 mini-batches of ``docs`` documents, a checkpoint every 2) with
+    ``--backend ps --ps-servers 4 --staleness 0``; ``extra`` overrides."""
+    return driver_args(ckpt_dir, seed=seed, docs=docs, extra=(
+        "--vocab", str(W), "--topics", str(K), "--device", device,
+        "--backend", "ps", "--ps-servers", "4", "--staleness", "0",
+        "--ps-pull-timeout", "30", *extra))
+
+
+def push_clock(pushes: dict):
+    """A patch of ``ParamServer.apply_push`` that adds each call's seconds
+    (a shard's ``np.add.at``, its checks and its lock) to ``pushes[(client,
+    seq)]``: the server's time a push, over the shards it addresses."""
+    import threading
+    from unittest import mock
+
+    from repro_torch.dist import paramserver
+
+    lock = threading.Lock()
+    apply = paramserver.ParamServer.apply_push
+
+    def timed(self, server, rows, deltas, client_id=None, seq=None,
+              replay=False):
+        t0 = time.perf_counter()
+        out = apply(self, server, rows, deltas, client_id=client_id,
+                    seq=seq, replay=replay)
+        with lock:
+            key = (client_id, seq)
+            pushes[key] = pushes.get(key, 0.0) + time.perf_counter() - t0
+        return out
+
+    return mock.patch.object(paramserver.ParamServer, "apply_push", timed)
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def first_difference(res, base, first: int = 0):
+    """The first batch whose mean_r or iterations differ, or None."""
+    for i, (r, b) in enumerate(zip(zip(res["mean_r"], res["iters"]),
+                                   zip(base["mean_r"][first:],
+                                       base["iters"][first:]))):
+        if r != b:
+            return first + i + 1
+    return None
+
+
+def ps_slice(*, seed: int, docs: int, card: str, sim: dict, sim_walls,
+             W=141043, K=2000, device="cuda"):
+    """Phase 11: the parameter server through the driver on the card at
+    PUBMED width (phase 8's settings, ``--backend ps --ps-servers 4``).
+    (a) ``--staleness 0``: iterations equal to ``sim`` (phase 8 (a), the
+    same flags under ``--backend sim``) batch by batch, phi_acc within a
+    relative L1 gap of 1e-5 and mean_r within 1e-6 of it; the training
+    kernels launched as often as its steps and iterations (net of the
+    warm-up); every token held (rel 1e-4); the measured wire bytes (2 x
+    touched rows x (K x 4 + 4) a batch, exactly) beside the meter's
+    touched-row model and ``touched_power_sync_bytes`` at the measured mean
+    touched rows.  (b) (a) under ``--chaos-seed 7 --chaos-drop 0.25
+    --chaos-dup 0.25 --chaos-crash 1@2 --chaos-restart-after 1`` (shard 1
+    crashes at push op 2, batch 3's first push, and restarts at the next
+    op): equal to (a) bit for bit (mean_r, iterations, phi_acc), a recovery
+    run, the crash, the restart and the duplicates counted.  (c) (a) with
+    ``--elastic-workers w0,w1 --elastic-events join:w2@1,leave:w0@2,
+    crash:w2@3`` (w2 is batch 3's worker: a survivor replays the batch):
+    equal to (a) bit for bit.  (d) ``--crash-at 3`` then again: it resumes
+    at m = 2 and ends equal to (a) bit for bit; otherwise the first batch
+    that differs is named.  (e) ``--staleness 1 --ps-latency 0.001``:
+    finite, every token held, its pull and push waits beside (a)'s.  (f)
+    (a)'s timings: per batch the touched rows and the replica's two copies
+    (CUDA events; GB/s and the PCIe bound), the server's ``np.add.at`` a
+    push, the step walls beside ``sim_walls`` (phase 8 (a)'s), with
+    medians.  Returns (a)'s launches net of its warm-up.  (The keywords
+    shrink it for a rehearsal.)"""
+    import torch
+
+    from repro_torch.core.sync import touched_power_sync_bytes
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import lda_train
+
+    args_at = functools.partial(ps_args, seed=seed, docs=docs, W=W, K=K,
+                                device=device)
+    root = ROOT / "build" / "chip_smoke_ps"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        # ---- (a) staleness 0 against --backend sim
+        t0 = time.time()
+        a_args = args_at(root / "a")
+        torch.cuda.empty_cache()
+        launch_counts(reset=True)
+        walls, pushes = [], {}
+        with push_clock(pushes):
+            res_a = timed_driver(a_args, walls, {})
+        counts = launch_counts()
+        net = {k: counts[k] - res_a["warmup_launches"].get(k, 0)
+               for k in counts}
+        n, phi_a = len(res_a["iters"]), res_a["phi_acc"]
+        sweeps = sum(i - 1 for i in res_a["iters"])
+        want = {"bp_update": n, "power_sweep_carry_train": sweeps,
+                "scatter_add_rows": sweeps, "word_rows_sum": 3 * n,
+                "topic_sum": sweeps, "power_sweep_tokens": 0, "pack_rows": 0}
+        got = {k: net[k] for k in want}
+        held = abs(float(phi_a.double().sum()) - res_a["tokens"]) / \
+            res_a["tokens"]
+        ref = sim["phi_acc"].double()
+        gap_phi = float((phi_a.double() - ref).abs().sum() / ref.abs().sum())
+        gap_r = max(abs(a - b) for a, b in zip(res_a["mean_r"],
+                                               sim["mean_r"]))
+        print(f"[ps] (a) --staleness 0: {n} mini-batches in "
+              f"{time.time() - t0:.1f}s (warm-up {res_a['warmup_s']:.2f}s): "
+              f"mean_r {res_a['mean_r']}  iters {res_a['iters']} (--backend "
+              f"sim: {sim['iters']}); max |mean_r - sim| {gap_r:.2e} (tol "
+              f"1e-6); phi_acc rel L1 gap to sim {gap_phi:.3e} (tol 1e-5); "
+              f"{res_a['tokens']:.0f} tokens held to rel {held:.1e}  "
+              f"[{card}]")
+        print(f"[ps] (a) launches net of the warm-up {got} (steps {n}, "
+              f"selective sweeps {sweeps})")
+        if res_a["iters"] != sim["iters"]:
+            fail(f"--backend ps ran {res_a['iters']} iterations, --backend "
+                 f"sim {sim['iters']}")
+        if not (gap_r <= 1e-6 and gap_phi <= 1e-5):
+            fail("--backend ps at staleness 0 does not track --backend sim")
+        if got != want:
+            fail(f"the PS run's training kernels launched {got}, expected "
+                 f"{want}")
+        if not (held <= 1e-4 and bool(torch.isfinite(phi_a).all())):
+            fail("the PS run's phi_acc is not finite or does not hold every "
+                 "token")
+        cfg, _ = lda_train._build_cfg(a_args)
+        mt = res_a["mean_touched_rows"]
+        touched = round(mt * n)
+        P, Pk = cfg.num_power_words, min(cfg.num_power_topics, K)
+        model = touched_power_sync_bytes(P, Pk, round(mt))
+        by = res_a["ps_bytes_by_link"]
+        pushed = sum(v for k, v in by.items() if k.startswith("push"))
+        pulled = res_a["ps_wire_bytes"] - pushed
+        print(f"[ps] (a) wire: {res_a['ps_wire_bytes']} B measured "
+              f"({res_a['ps_wire_per_minibatch']:.0f} a mini-batch): pushed "
+              f"{pushed} = {touched} touched rows x (K x 4 + 4), pulled "
+              f"{pulled} (a fence drains the prefetched pull, and the next "
+              f"batch pulls again); mean touched rows {mt:.1f} "
+              f"of {W}; the meter's push/pull model at them "
+              f"{res_a['per_minibatch_bytes_touched']} B a mini-batch "
+              f"({res_a['bytes_by_phase_touched']}); "
+              f"touched_power_sync_bytes(P={P}, Pk={Pk}, {round(mt)}) = "
+              f"{model} B an iteration, x {res_a['iters'][-1] - 1} "
+              f"selective iterations of the last batch = "
+              f"{model * (res_a['iters'][-1] - 1)} B; by link {by}")
+        if pushed != touched * (K * 4 + 4) or pulled < pushed:
+            fail("the pushed bytes are not the touched rows' bytes")
+
+        # ---- (b) chaos
+        t0 = time.time()
+        res_b = timed_driver(args_at(root / "b", extra=(
+            "--chaos-seed", "7", "--chaos-drop", "0.25", "--chaos-dup",
+            "0.25", "--chaos-crash", "1@2", "--chaos-restart-after", "1")),
+            [], {})
+        same = {"mean_r": res_b["mean_r"] == res_a["mean_r"],
+                "iters": res_b["iters"] == res_a["iters"],
+                "phi_acc": bool(torch.equal(res_b["phi_acc"], phi_a))}
+        ev = res_b["chaos_events"]
+        print(f"[ps] (b) chaos (seed 7, drop 0.25, dup 0.25, shard 1 down at "
+              f"push op 2, back 1 op later): events {ev}; retries "
+              f"{res_b['ps_retries']}, replayed {res_b['ps_replayed_pushes']}"
+              f", recoveries {res_b['ps_recoveries']}, duplicates dropped "
+              f"{res_b['ps_duplicates_dropped']}, retry bytes "
+              f"{res_b['ps_retry_wire_bytes']}; recovery log "
+              f"{[e['event'] for e in res_b['ps_recovery_log']]}; equal to "
+              f"(a) bit for bit: {same}  ({time.time() - t0:.1f}s)")
+        if not (all(same.values()) and res_b["ps_recoveries"] >= 1
+                and ev.get("crash") == 1 and ev.get("restart") == 1
+                and ev.get("duplicate", 0) + ev.get("drop", 0) > 0):
+            fail("the chaos run differs from the clean PS run or did not "
+                 "crash, restart and recover")
+
+        # ---- (c) elastic workers
+        t0 = time.time()
+        res_c = timed_driver(args_at(root / "c", extra=(
+            "--elastic-workers", "w0,w1", "--elastic-events",
+            "join:w2@1,leave:w0@2,crash:w2@3")), [], {})
+        same = {"mean_r": res_c["mean_r"] == res_a["mean_r"],
+                "iters": res_c["iters"] == res_a["iters"],
+                "phi_acc": bool(torch.equal(res_c["phi_acc"], phi_a))}
+        crash = [e for e in res_c["elastic_log"] if e["event"] == "crash"]
+        print(f"[ps] (c) elastic: events {res_c['elastic_log']}; workers at "
+              f"the end {res_c['ps_workers']}; equal to (a) bit for bit: "
+              f"{same}  ({time.time() - t0:.1f}s)")
+        if not (all(same.values()) and crash and crash[0]["replayed"]):
+            fail("the elastic run differs from the clean PS run or replayed "
+                 "no batch")
+
+        # ---- (d) crash-resume
+        t0 = time.time()
+        d_args = args_at(root / "d", extra=("--crash-at", "3"))
+        try:
+            timed_driver(d_args, [], {})
+        except SystemExit as e:
+            print(f"[ps] (d) {e}")
+        else:
+            fail("--crash-at 3 did not end the PS run")
+        res_d = timed_driver(d_args, [], {})
+        same = {"first_m": res_d["first_m"] == 2,
+                "mean_r": res_d["mean_r"] == res_a["mean_r"][2:],
+                "iters": res_d["iters"] == res_a["iters"][2:],
+                "phi_acc": bool(torch.equal(res_d["phi_acc"], phi_a))}
+        print(f"[ps] (d) resumed at m={res_d['first_m']}: mean_r "
+              f"{res_d['mean_r']}; equal to (a) bit for bit: {same}  "
+              f"({time.time() - t0:.1f}s)")
+        if not all(same.values()):
+            fail(f"the resumed PS run differs from (a): first differing "
+                 f"batch {first_difference(res_d, res_a, 2)}")
+
+        # ---- (e) bounded staleness with link latency
+        t0 = time.time()
+        res_e = timed_driver(args_at(root / "e", extra=(
+            "--staleness", "1", "--ps-latency", "0.001")), [], {})
+        phi_e = res_e["phi_acc"]
+        held_e = abs(float(phi_e.double().sum()) - res_e["tokens"]) / \
+            res_e["tokens"]
+        print(f"[ps] (e) --staleness 1 --ps-latency 0.001: mean_r "
+              f"{res_e['mean_r']}  iters {res_e['iters']}; tokens held to "
+              f"rel {held_e:.1e}; pull wait {res_e['ps_pull_wait_s']:.3f} s, "
+              f"push wait {res_e['ps_push_wait_s']:.3f} s (against (a)'s "
+              f"{res_a['ps_pull_wait_s']:.3f} s, {res_a['ps_push_wait_s']:.3f}"
+              f" s)  ({time.time() - t0:.1f}s)  [{card}]")
+        if not (bool(torch.isfinite(phi_e).all()) and held_e <= 1e-4
+                and all(r == r for r in res_e["mean_r"])):
+            fail("the staleness-1 run is not finite or does not hold every "
+                 "token")
+
+        # ---- (f) where (a)'s time went
+        def rate(ms, nbytes):
+            # device ms (CUDA events; none off a card) and GB/s
+            return ("not measured" if ms is None else
+                    f"{ms:.3f} ms = {nbytes / ms / 1e6:.2f} GB/s")
+
+        rows_ms = []
+        for i, c in enumerate(res_a["ps_copies"]):
+            nbytes = c["rows"] * (K * 4 + 8)       # f32 values, int64 ids
+            bound = nbytes / PCIE_BYTES_PER_S * 1e3
+            rows_ms.append((c["h2d_ms"], c["d2h_ms"], bound))
+            print(f"[ps] (f) batch {i + 1}: {c['rows']} touched rows "
+                  f"({nbytes / 1e6:.1f} MB); host->card write "
+                  f"{rate(c['h2d_ms'], nbytes)} (host staging and enqueue "
+                  f"{c['h2d_host_ms']:.3f} ms); card->host read "
+                  f"{rate(c['d2h_ms'], nbytes)} (host wall "
+                  f"{c['d2h_host_ms']:.3f} ms); PCIe bound {bound:.3f} ms "
+                  f"each  [{card}]")
+        h2d, d2h, bnd = (median([r[j] or 0.0 for r in rows_ms])
+                         for j in range(3))
+        add_at = [v * 1e3 for v in pushes.values()]
+        print(f"[ps] (f) medians of {len(rows_ms)}: host->card {h2d:.3f} ms, "
+              f"card->host {d2h:.3f} ms, PCIe bound {bnd:.3f} ms; the "
+              f"server's np.add.at a push (4 shards) "
+              + ", ".join(f"{x:.1f}" for x in add_at)
+              + f" ms, median {median(add_at):.1f} ms; step walls (warmed) "
+              f"{', '.join(f'{w * 1e3:.3f}' for w in walls[-n:])} ms against "
+              f"--backend sim's {', '.join(f'{w * 1e3:.3f}' for w in sim_walls)}"
+              f" ms; pull wait {res_a['ps_pull_wait_s']:.3f} s, push wait "
+              f"{res_a['ps_push_wait_s']:.3f} s, stream wall "
+              f"{res_a['wall_s']:.2f} s (sim {sim['wall_s']:.2f} s)  [{card}]")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return net
@@ -2510,7 +2877,9 @@ def main(argv=None) -> None:
 
     # ---- 8. the training driver: crash-resume, bf16 phi_acc, f32 serving
     t0 = time.time()
-    driver_slice(seed=args.seed, docs=args.driver_docs, card=card)
+    _, drv_a, drv_walls = driver_slice(seed=args.seed, docs=args.driver_docs,
+                                       card=card)
+    drv_a = {k: drv_a[k] for k in ("mean_r", "iters", "phi_acc", "wall_s")}
     print(f"[time] phase 8: {time.time() - t0:.1f}s")
 
     # ---- 9. multi-shard sync: 4 data shards in lockstep on the card, the
@@ -2536,7 +2905,18 @@ def main(argv=None) -> None:
     t0 = time.time()
     life_launches = lifecycle_slice(seed=args.seed, docs=args.driver_docs,
                                     card=card)
+    # (e) topic recycling: the fence's host round trip in both dtypes
+    recycle_slice(seed=args.seed, docs=args.driver_docs, card=card)
     print(f"[time] phase 10: {time.time() - t0:.1f}s")
+
+    # ---- 11. the parameter server through the driver at PUBMED width:
+    # staleness 0 against --backend sim, chaos, elastic workers,
+    # crash-resume, staleness 1, the replica's copies and the server's adds
+    t0 = time.time()
+    ps_launches = ps_slice(seed=args.seed, docs=args.driver_docs, card=card,
+                           sim=drv_a, sim_walls=drv_walls)
+    del drv_a
+    print(f"[time] phase 11: {time.time() - t0:.1f}s")
 
     rec["launches"] = launches
     kernels = [rec]
@@ -2558,12 +2938,12 @@ def main(argv=None) -> None:
                    packed_watch, "packed_sweep_kernel",
                    "packed_fold_kernel")}
     for name, r in train_recs.items():
-        # the main path's launches: phases 6 or 7, phase 9's simulation and
-        # phase 10's grown run (net of its warm-ups)
+        # the main path's launches: phases 6 or 7, phase 9's simulation,
+        # phase 10's grown run and phase 11's PS run (net of their warm-ups)
         r["launches"] = (packed_launches if name in ("power_sweep_tokens",
                                                      "pack_rows")
                          else train_launches)[name] + sim_launches[name] + \
-            life_launches[name]
+            life_launches[name] + ps_launches[name]
         r["ms_main_path"] = main_ms[name]
         kernels.append(r)
     print(json.dumps({"kernels": kernels}))

@@ -83,7 +83,7 @@ from repro_torch.core.residuals import (mean_residual, packed_rw_delta,
                                         token_scatter_wk)
 from repro_torch.core.sweep_dispatch import resolve_sweep_policy
 from repro_torch.core.sync import (CommMeter, LocalReducer, MeshReducer,
-                                   Reducer, SimReducer, lockstep,
+                                   PSReducer, Reducer, SimReducer, lockstep,
                                    mesh_axis_group)
 from repro_torch.core.types import (LDAConfig, LDATrainState, MiniBatch,
                                     TokenLayout)
@@ -577,13 +577,23 @@ def _shard_inits(batch: MiniBatch, num_shards: int, K: int, cfg: LDAConfig,
     return list(u0.to(device=device, dtype=torch.float32).unbind(0))
 
 
+def _lockstep_reducer(reducer: Reducer) -> Optional[SimReducer]:
+    """The `SimReducer` that runs a data reducer's shards in lockstep: the
+    reducer itself, or the one a `PSReducer` bills around; else None."""
+    if isinstance(reducer, PSReducer):
+        reducer = reducer.inner
+    return reducer if isinstance(reducer, SimReducer) else None
+
+
 def _lockstep_minibatch(word_ids, counts, phi_acc, delta_weight, cfg,
-                        reducer: SimReducer, sync_mode: str, decay,
+                        reducer: Reducer, sync_mode: str, decay,
                         generator, u0, live_w=None) -> list:
-    """`pobp_shard_body` on each of ``reducer.num_shards`` data shards of
-    ``word_ids``/``counts`` [N, Dl, L] in lockstep; the shards' results in
+    """`pobp_shard_body` on each of the N data shards of ``word_ids``/
+    ``counts`` [N, Dl, L] in lockstep, through ``reducer`` (a `SimReducer`
+    over the N, or a `PSReducer` around one); the shards' results in
     shard order."""
-    N = reducer.num_shards
+    sim = _lockstep_reducer(reducer)
+    N = sim.num_shards
     if word_ids.dim() != 3 or word_ids.shape[0] != N:
         raise ValueError(f"word_ids must be [N={N}, Dl, L], got "
                          f"{tuple(word_ids.shape)}")
@@ -595,7 +605,7 @@ def _lockstep_minibatch(word_ids, counts, phi_acc, delta_weight, cfg,
                                   delta_weight, cfg, reducer,
                                   sync_mode=sync_mode, decay=decay,
                                   live_w=live_w, u0=inits[n]),
-        N, [reducer], dev)
+        N, [sim], dev)
 
 
 def make_train_step(cfg: LDAConfig, num_shards: int = 1,
@@ -622,8 +632,10 @@ def make_train_step(cfg: LDAConfig, num_shards: int = 1,
     tensor at ``cfg.phi_acc_dtype`` (shard 0's: the shards' are identical
     bit for bit), folded back from the float32 accumulate by stochastic
     rounding when that is bfloat16; the old one is left unchanged.
-    ``reducer`` injects the data reducer (a `SimReducer` over the N
-    shards when N > 1); its meter is the step's.
+    ``reducer`` injects the data reducer (when N > 1 a `SimReducer` over
+    the N shards, or a `PSReducer` around one: each lockstep shard then
+    bills the server's push and pull legs, and only the `PSReducer`
+    records); its meter is the step's.
     """
     _check_ported(cfg)
     if sync_mode not in SYNC_MODES:
@@ -634,11 +646,11 @@ def make_train_step(cfg: LDAConfig, num_shards: int = 1,
         reducer = (LocalReducer(meter=meter, sync_dtype=sync_dtype)
                    if num_shards == 1 else
                    SimReducer(num_shards, meter=meter, sync_dtype=sync_dtype))
-    elif num_shards > 1 and not (isinstance(reducer, SimReducer)
-                                 and reducer.num_shards == num_shards):
+    elif num_shards > 1 and getattr(_lockstep_reducer(reducer),
+                                    "num_shards", None) != num_shards:
         raise ValueError(f"an injected reducer over {num_shards} shards "
-                         f"must be a SimReducer of {num_shards} shards, got "
-                         f"{reducer!r}")
+                         f"must be a SimReducer of {num_shards} shards (or a "
+                         f"PSReducer around one), got {reducer!r}")
     meter = reducer.meter
     storage = quantize.phi_acc_dtype(cfg)
 

@@ -15,7 +15,9 @@ handed:
     ``SimReducer``);
   - ``MeshReducer``: ``torch.distributed.all_reduce`` over one group of a
     ``DeviceMesh`` axis, one process a mesh position, the reference's
-    ``lax.psum`` over a named mesh axis.
+    ``lax.psum`` over a named mesh axis;
+  - ``PSReducer``: the parameter server's wire model around one of the
+    others, which still does the sum (``--backend ps``).
 
 The byte meter bills each psum's logical payload (size x itemsize) under
 a phase label.  The reference records at trace time, once per traced
@@ -35,8 +37,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 # phases paid once per inner iteration; every other phase once per batch.
-# The parameter-server reducer (not ported yet) splits each vocabulary-row
-# payload into a ``.push`` and a ``.pull`` leg: both count as loop phases.
+# `PSReducer` splits each vocabulary-row payload into a ``.push`` and a
+# ``.pull`` leg: both count as loop phases.
 _BASE_LOOP_PHASES = ("power", "dense_loop", "model_rw_loop", "model_norm_loop")
 LOOP_PHASES = _BASE_LOOP_PHASES + tuple(
     f"{p}{leg}" for p in _BASE_LOOP_PHASES for leg in (".push", ".pull"))
@@ -474,6 +476,66 @@ class MeshReducer(Reducer):
         if self.shards > 1:
             dist.all_reduce(out, group=self.group)
         return out
+
+
+class PSReducer(Reducer):
+    """The parameter server's billing peer of the other reducers
+    (DESIGN.md §15, ``dist/paramserver.py``).
+
+    The step's math is unchanged: ``inner`` (a `LocalReducer` for one
+    worker shard, a `SimReducer` for N in lockstep) still does every sum,
+    so at staleness 0 the run follows the all-reduce backend.  The wire
+    model changes:
+
+      - a vocabulary-row payload (``w_rows``) crosses twice, as a touched-
+        row push to the owning server shards and as a touched-row pull for
+        the next mini-batch: it is billed as ``{phase}.push`` and
+        ``{phase}.pull``, both ``w_rows``-marked, so
+        ``bytes_by_phase_at(touched)`` bills the rows that travel;
+      - a payload that is not rows never reaches the servers: with one
+        worker shard (a `LocalReducer` inner) it is not billed, with
+        several it still needs their all-reduce and is billed as is.
+
+    Only this reducer records; the inner one sums.  ``bill`` is the base
+    class's (a local statistic touch is the same under the server).
+    """
+
+    def __init__(self, inner: Reducer, *, meter: Optional[CommMeter] = None,
+                 sync_dtype=None):
+        super().__init__(meter or inner.meter,
+                         inner.sync_dtype if sync_dtype is None
+                         else sync_dtype)
+        self.inner = inner
+        self.shards = inner.shards
+
+    def _payload(self, x):
+        return self.inner._payload(x)
+
+    def psum(self, x: torch.Tensor, phase: str, compress: bool = True,
+             w_rows: Optional[int] = None, dtype=None) -> torch.Tensor:
+        wire = self._wire(dtype)
+        cast = compress and x.dtype != wire
+        local = isinstance(self.inner, LocalReducer)
+        if local:
+            # nothing crosses: the wire's cast round trip in passes, as
+            # `LocalReducer` takes it, and the bill from the payload's shape
+            sent = torch.empty(x.shape, dtype=wire if cast else x.dtype,
+                               device="meta")
+        else:
+            sent = x.to(wire) if cast else x
+        if w_rows:
+            self.meter.record(f"{phase}.push", self._payload(sent),
+                              w_rows=w_rows)
+            self.meter.record(f"{phase}.pull", self._payload(sent),
+                              w_rows=w_rows)
+        elif not local:
+            self.meter.record(phase, self._payload(sent))
+        if local:
+            return _round_trip(x, wire) if cast else x
+        return self.inner._sum(sent, phase).to(x.dtype)
+
+    def _sum(self, x, phase):
+        return self.inner._sum(x, phase)
 
 
 def dense_sync_bytes(W: int, K: int, itemsize: int = 4) -> int:

@@ -73,9 +73,23 @@ checkpoint's ``dyn`` extra (rung, live size, keys, touch stamps, version,
 remap) is read before the restore template is built, so a run resumes on
 the rung it saved.
 
-``--backend ps`` and the parameter-server, chaos and elastic flags are
-accepted only at their reference defaults; any other value raises naming
-ROADMAP Queue 1, item 7.
+The parameter server, as the reference's (``--backend ps``, DESIGN.md
+§15): the same step (``--shards`` lockstep shards, one worker) under the
+server's wire model (``core.sync.PSReducer``); ``dist.paramserver`` holds
+the authoritative [W, K] statistic on the host in ``--ps-servers``
+row-range shards.  Before each batch the worker pulls the rows the batch
+touches into its replica on the device, after it pushes their delta;
+``--staleness S`` lets a pull miss the last S pushes (S = 0 follows
+``--backend sim``), ``--ps-latency`` delays each op, ``--ps-pull-timeout``
+bounds a pull's wait.  Each checkpoint fence drains the pipeline and
+adopts the server's phi.  ``--chaos-*`` injects a seeded fault schedule
+(``dist.faults``: drops, duplicates, delays, one server crash and
+restart), which the client's retries and replay survive bit for bit at
+S = 0 (DESIGN.md §17); ``--elastic-workers`` / ``--elastic-events`` let
+logical workers join, leave or crash mid-batch (a survivor replays the
+batch).  The run reports the measured wire bytes, the waits and the
+fault counters (``[ps]``, ``[chaos]``, ``[elastic]``).  Every flag of the
+reference's parser runs here or is refused as the reference refuses it.
 """
 
 from __future__ import annotations
@@ -89,24 +103,6 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-_Q1 = "ROADMAP Queue 1, item"
-# flags of the reference driver that are not ported: the value that keeps
-# each off, and the ROADMAP item that brings it
-_UNPORTED = {
-    "staleness": (0, f"{_Q1} 7 (parameter server)"),
-    "ps_servers": (4, f"{_Q1} 7 (parameter server)"),
-    "ps_latency": (0.0, f"{_Q1} 7 (parameter server)"),
-    "ps_pull_timeout": (60.0, f"{_Q1} 7 (parameter server)"),
-    "chaos_seed": (0, f"{_Q1} 7 (chaos)"),
-    "chaos_drop": (0.0, f"{_Q1} 7 (chaos)"),
-    "chaos_dup": (0.0, f"{_Q1} 7 (chaos)"),
-    "chaos_delay": (0.0, f"{_Q1} 7 (chaos)"),
-    "chaos_delay_prob": (0.0, f"{_Q1} 7 (chaos)"),
-    "chaos_crash": ("", f"{_Q1} 7 (chaos)"),
-    "chaos_restart_after": (2, f"{_Q1} 7 (chaos)"),
-    "elastic_workers": ("w0", f"{_Q1} 7 (elastic workers)"),
-    "elastic_events": ("", f"{_Q1} 7 (elastic workers)"),
-}
 # every flag that shapes the per-batch trajectory, saved in the checkpoint
 # and checked on resume: the reference's list.  sweep_policy and
 # onehot_crossover are not among them (both formulations compute the same
@@ -119,6 +115,10 @@ _RESUME_KEYS = ("seed", "sync", "backend", "shards", "vocab", "topics",
                 "w_cap_min", "w_growth", "drift_mode", "decay",
                 "compact_every", "compact_min_idle", "compact_mass_tol",
                 "recycle_tol", "staleness", "ps_servers")
+# ps_latency, ps_pull_timeout and the chaos and elastic flags are not
+# resume keys: latency changes the wall clock only, faults are retried and
+# replayed to the same committed state, and elastic membership at S = 0
+# only changes which client pushes a batch
 # the step's code by --impl: "pallas" the CUDA kernels, "jnp" their plain
 # versions, each on the one device type that runs it
 _IMPL_DEVICE = {"pallas": "cuda", "jnp": "cpu"}
@@ -222,8 +222,49 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default="sim",
                     choices=["sim", "shard_map", "ps"],
                     help="sim: --shards in lockstep on one device; "
-                         "shard_map: a process a mesh position; ps: not "
-                         f"ported yet ({_Q1} 7 (parameter server))")
+                         "shard_map: a process a mesh position; ps: the "
+                         "sim step as one worker of a parameter server")
+    ap.add_argument("--staleness", type=int, default=0,
+                    help="bounded staleness S of --backend ps: a pull for "
+                         "mini-batch m may miss the last S pushes; S=0 "
+                         "barriers every pull behind the previous push "
+                         "(the trajectory of --backend sim)")
+    ap.add_argument("--ps-servers", type=int, default=4,
+                    help="row-range server shards (--backend ps)")
+    ap.add_argument("--ps-latency", type=float, default=0.0,
+                    help="delay in seconds injected into each transport op "
+                         "(--backend ps)")
+    ap.add_argument("--ps-pull-timeout", type=float, default=60.0,
+                    help="seconds a pull waits server-side before a "
+                         "TimeoutError names the shard and version; the "
+                         "client's retry deadline is twice this")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="fault-plan seed: the same run replays the same "
+                         "drop/dup/delay decisions")
+    ap.add_argument("--chaos-drop", type=float, default=0.0,
+                    help="drop probability of each push and pull op (< 1)")
+    ap.add_argument("--chaos-dup", type=float, default=0.0,
+                    help="duplicate-delivery probability of each push")
+    ap.add_argument("--chaos-delay", type=float, default=0.0,
+                    help="issue-side delay in seconds when a delay fires")
+    ap.add_argument("--chaos-delay-prob", type=float, default=0.0,
+                    help="probability of --chaos-delay on each op")
+    ap.add_argument("--chaos-crash", default="",
+                    help="server loss as SERVER@PUSHOP (e.g. '1@6'): the "
+                         "shard crashes at that push op, restarts "
+                         "--chaos-restart-after ops later and recovers "
+                         "from the last synced snapshot and the client's "
+                         "replay")
+    ap.add_argument("--chaos-restart-after", type=int, default=2,
+                    help="push ops between the crash and the restart")
+    ap.add_argument("--elastic-workers", default="w0",
+                    help="comma-separated logical worker ids, each a "
+                         "PSClient over the shared transport; mini-batch m "
+                         "goes to active[m %% len(active)]")
+    ap.add_argument("--elastic-events", default="",
+                    help="membership events 'join:NAME@M', 'leave:NAME@M', "
+                         "'crash:NAME@M' at 0-based mini-batch M; a crashed "
+                         "worker's batch is replayed by a survivor")
     ap.add_argument("--mesh", default="single", choices=["single", "multi"],
                     help="production mesh for --backend shard_map: (16, 16) "
                          "data x model, or (2, 16, 16) pod x data x model")
@@ -235,17 +276,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "(default: nccl with a CUDA --device, gloo with "
                          "--device cpu; gloo runs several ranks on one "
                          "card, NCCL refuses that)")
-    for name, (default, item) in _UNPORTED.items():
-        flag = "--" + name.replace("_", "-")
-        if isinstance(default, bool):
-            ap.add_argument(flag, default=default,
-                            action=(argparse.BooleanOptionalAction if default
-                                    else "store_true"),
-                            help=f"not ported yet ({item})")
-        else:
-            ap.add_argument(flag, type=type(default), default=default,
-                            help=f"not ported yet ({item})")
     return ap
+
+
+def default_args(**overrides) -> argparse.Namespace:
+    """Programmatic entry: the parser's defaults with keyword overrides."""
+    args = build_parser().parse_args([])
+    for k, v in overrides.items():
+        if not hasattr(args, k):
+            raise TypeError(f"unknown driver arg: {k}")
+        setattr(args, k, v)
+    return args
 
 
 def _csv_ints(s: str):
@@ -259,16 +300,39 @@ def _parse_decay(s: str):
     return float(parts[0]), float(parts[1])
 
 
-def _reject_unported(args) -> None:
-    if args.backend == "ps":
-        raise NotImplementedError(
-            f"--backend ps is not ported yet ({_Q1} 7 (parameter server))")
-    for name, (default, item) in _UNPORTED.items():
-        value = getattr(args, name)
-        if value != default:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')}={value!r} is not ported yet "
-                f"({item})")
+def _parse_elastic_events(spec: str) -> Dict[int, list]:
+    """``"join:w1@4,leave:w0@8,crash:w1@12"`` -> {batch index: [(kind,
+    name), ...]}, applied at that 0-based mini-batch (DESIGN.md §17)."""
+    events: Dict[int, list] = {}
+    for tok in str(spec).split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        try:
+            kind, rest = tok.split(":")
+            name, at = rest.split("@")
+            at = int(at)
+        except ValueError:
+            raise ValueError(f"bad --elastic-events entry {tok!r}; expected "
+                             f"kind:NAME@M (e.g. 'join:w1@4')") from None
+        if kind not in ("join", "leave", "crash"):
+            raise ValueError(f"unknown elastic event kind {kind!r} in "
+                             f"{tok!r} (join/leave/crash)")
+        events.setdefault(at, []).append((kind, name))
+    return events
+
+
+def _with_lookahead(it):
+    """Pair each stream item with its successor (None at the end), so the
+    parameter-server client can prefetch the next batch's rows while the
+    current step runs."""
+    prev = None
+    for item in it:
+        if prev is not None:
+            yield prev, item
+        prev = item
+    if prev is not None:
+        yield prev, None
 
 
 def resolve_impl(args) -> str:
@@ -635,17 +699,47 @@ def _mesh_rank(rank: int, args, world: int, backend: str, out: str) -> None:
         dist.destroy_process_group()
 
 
-def _check_dynamic(args) -> bool:
-    """The reference's refusals of the dynamic and lifecycle flags, word
-    for word; returns whether the run has a dynamic vocabulary."""
+def _check_flags(args):
+    """The reference's refusals of the dynamic, lifecycle, parameter-server,
+    chaos and elastic flags, word for word and in its order.  Returns
+    (dynamic vocabulary, chaos on, elastic events, worker ids)."""
     dynamic = bool(args.dynamic_vocab)
     if dynamic and args.backend != "sim":
         raise ValueError("--dynamic-vocab currently requires --backend sim "
                          "(shard_map growth is on the ROADMAP backlog)")
+    ps = args.backend == "ps"
+    if ps and _parse_decay(args.decay)[1]:
+        raise ValueError("--backend ps with --decay kappa>0 is not supported "
+                         "yet: RM forgetting rescales EVERY phi row each "
+                         "batch, so a touched-row delta push would silently "
+                         "drop the decay on untouched server rows "
+                         "(per-segment decay billing rides the multi-host "
+                         "backlog item, ROADMAP)")
+    chaos_on = bool(args.chaos_drop or args.chaos_dup
+                    or args.chaos_delay_prob or args.chaos_crash)
+    elastic_events = _parse_elastic_events(args.elastic_events)
+    workers = [w.strip() for w in args.elastic_workers.split(",")
+               if w.strip()] or ["w0"]
+    if len(set(workers)) != len(workers):
+        raise ValueError(f"duplicate --elastic-workers ids: {workers}")
+    if not ps and (chaos_on or elastic_events or workers != ["w0"]):
+        raise ValueError("--chaos-* and --elastic-* flags require "
+                         "--backend ps (DESIGN.md §17)")
+    if elastic_events and args.staleness != 0:
+        raise ValueError("--elastic-events requires --staleness 0: crash "
+                         "replay parity holds only when every pull reflects "
+                         "every prior push (DESIGN.md §17)")
+    if args.chaos_crash and (len(workers) > 1 or elastic_events):
+        raise ValueError(
+            "--chaos-crash with multiple/elastic workers is unsupported: "
+            "shard recovery replays the RETAINED LOG OF ONE CLIENT, so a "
+            "multi-writer shard would come back missing the other "
+            "clients' post-fence deltas (DESIGN.md §17 records this "
+            "limitation; use a single worker for server-crash chaos)")
     if args.compact_every and not dynamic:
         raise ValueError("--compact-every needs --dynamic-vocab: a fixed-W "
                          "run has no VocabMap to compact (DESIGN.md §14)")
-    return dynamic
+    return dynamic, chaos_on, elastic_events, workers
 
 
 def train_loop(args) -> Dict[str, Any]:
@@ -661,6 +755,8 @@ def train_loop(args) -> Dict[str, Any]:
     from repro_torch.core.device import resolve_device
     from repro_torch.core.pobp import (DiagBuffer, init_train_state,
                                        make_train_step, mesh_data_index)
+    from repro_torch.core.sync import (CommMeter, LocalReducer, PSReducer,
+                                       SimReducer)
     from repro_torch.core.types import LDATrainState
     from repro_torch.data.batching import (docs_to_padded, prefetched,
                                            stack_shards)
@@ -668,8 +764,8 @@ def train_loop(args) -> Dict[str, Any]:
     from repro_torch.dist import checkpoint as ckpt
     from repro_torch.kernels import launch_counts
 
-    dynamic = _check_dynamic(args)
-    _reject_unported(args)
+    dynamic, chaos_on, elastic_events, worker_names = _check_flags(args)
+    ps = args.backend == "ps"
     if args.backend == "shard_map" and not dist.is_initialized():
         return _run_mesh(args)
     if args.crash_at and not args.ckpt_dir:
@@ -698,7 +794,7 @@ def train_loop(args) -> Dict[str, Any]:
 
     cfg, buckets = _build_cfg(args, vocab_size=w_cap if dynamic else None)
     dev = resolve_device(args.device)
-    shards = args.shards if args.backend == "sim" else 1
+    shards = args.shards if args.backend in ("sim", "ps") else 1
     if shards < 1 or args.docs_per_batch % shards:
         raise ValueError(f"--docs-per-batch {args.docs_per_batch} does not "
                          f"divide over --shards {shards}")
@@ -727,6 +823,17 @@ def train_loop(args) -> Dict[str, Any]:
               f"restart from scratch and crash again", flush=True)
 
     def build_step(c):
+        if ps:
+            # the sim step as one worker under the server's wire model:
+            # every vocabulary-row payload billed as a touched-row push and
+            # pull (the host-side exchange is the PSClient below)
+            meter = CommMeter()
+            inner = (LocalReducer(meter=meter, sync_dtype=args.sync_dtype)
+                     if shards == 1 else
+                     SimReducer(shards, meter=meter,
+                                sync_dtype=args.sync_dtype))
+            return make_train_step(c, shards, args.sync, args.sync_dtype,
+                                   reducer=PSReducer(inner), device=dev)
         if mesh is None:
             return make_train_step(c, shards, args.sync, args.sync_dtype,
                                    device=dev)
@@ -808,6 +915,61 @@ def train_loop(args) -> Dict[str, Any]:
                       f"(raise --minibatches or use a fresh --ckpt-dir)",
                       flush=True)
 
+    ps_server = ps_transport = None
+    ps_workers: Dict[str, Any] = {}
+    ps_active: list = []
+    ps_retired: list = []       # left or crashed workers, kept for stats
+    elastic_log: list = []
+    if ps:
+        from repro_torch.dist.faults import ChaosTransport, FaultPlan
+        from repro_torch.dist.paramserver import (ParamServer, PSClient,
+                                                  SimTransport,
+                                                  touched_rows_of)
+        # the server group holds the authoritative statistic; a resumed run
+        # rehydrates it from the restored state at version start_m (the
+        # checkpoint holds the server's phi, see ps_sync_state)
+        ps_server = ParamServer(state.phi_acc.float().cpu().numpy(),
+                                num_servers=args.ps_servers,
+                                version=start_m,
+                                pull_timeout=args.ps_pull_timeout)
+        ps_transport = SimTransport(ps_server, latency_s=args.ps_latency,
+                                    wire_dtype=args.sync_dtype)
+        if chaos_on:
+            crash_server, crash_at = FaultPlan.parse_crash(args.chaos_crash)
+            ps_transport = ChaosTransport(ps_transport, FaultPlan(
+                seed=args.chaos_seed, drop_push=args.chaos_drop,
+                drop_pull=args.chaos_drop, dup_push=args.chaos_dup,
+                delay_s=args.chaos_delay, delay_prob=args.chaos_delay_prob,
+                crash_server=crash_server, crash_at_push=crash_at,
+                restart_after_pushes=args.chaos_restart_after))
+
+        def make_worker(name: str) -> PSClient:
+            return PSClient(ps_transport, staleness=args.staleness,
+                            client_id=name,
+                            retry_deadline_s=2.0 * args.ps_pull_timeout,
+                            meter=meter)
+
+        ps_workers = {name: make_worker(name) for name in worker_names}
+        ps_active = list(worker_names)
+
+    def ps_sync_state() -> None:
+        """Drain the pipeline and adopt the server's phi as the state, in
+        the state's dtype (fences and the end of the stream); the snapshot
+        becomes the crash-recovery base, so every worker trims its replay
+        log."""
+        nonlocal state
+        for w in ps_workers.values():
+            w.flush()
+        phi_srv, _ = ps_server.snapshot()
+        ps_server.mark_synced()
+        for w in ps_workers.values():
+            w.mark_durable()
+        dtype = state.phi_acc.dtype
+        # the replica is let go before the server's copy lands on the device
+        state = dataclasses.replace(state, phi_acc=None)
+        state = dataclasses.replace(
+            state, phi_acc=torch.from_numpy(phi_srv).to(dev).to(dtype))
+
     warmup_s, warmup_launches = 0.0, {}
 
     def warm(step_fn, c) -> None:
@@ -869,6 +1031,11 @@ def train_loop(args) -> Dict[str, Any]:
 
     def extra_at(next_m: int) -> Dict[str, Any]:
         extra = {"next_m": next_m, "run": signature}
+        if ps:
+            # saves run with the pipeline drained and the state the
+            # server's (ps_sync_state): phi_acc is the server statistic
+            extra["ps"] = {**ps_server.manifest(),
+                           "staleness": args.staleness}
         if dynamic:
             # the consumed prefix's vocabulary; touch stamps of rows the
             # prefetch re-touched ahead come back by max-merge on replay.
@@ -974,72 +1141,170 @@ def train_loop(args) -> Dict[str, Any]:
         return prefetched(synthetic_stream(args, buckets, seg_start),
                           args.prefetch)
 
+    def elastic(m: int) -> list:
+        """Apply batch ``m``'s membership events (DESIGN.md §17): joins and
+        leaves repartition the round-robin stream before the batch is
+        assigned; returns the workers that crash after its step."""
+        victims = []
+        for kind, name in elastic_events.get(m, ()):
+            if kind == "join":
+                if name not in ps_workers:
+                    ps_workers[name] = make_worker(name)
+                if name not in ps_active:
+                    ps_active.append(name)
+                elastic_log.append({"m": m, "event": "join", "worker": name})
+            elif kind == "leave":
+                if name not in ps_active:
+                    raise ValueError(f"elastic leave of unknown worker "
+                                     f"{name!r} at batch {m}")
+                if len(ps_active) == 1:
+                    raise ValueError(f"elastic leave of {name!r} at batch "
+                                     f"{m} leaves no workers")
+                ps_workers[name].flush()
+                ps_retired.append(ps_workers.pop(name))
+                ps_active.remove(name)
+                elastic_log.append({"m": m, "event": "leave",
+                                    "worker": name})
+            else:
+                victims.append(name)
+        return victims
+
+    def ps_step(m: int, batch, nxt):
+        """Batch ``m`` as the assigned worker runs it: the touched rows
+        (from the batch's host arrays) pulled into the replica, the step,
+        a crashed worker's batch replayed by a survivor, the next batch's
+        prefetch on its worker, this batch's delta pushed."""
+        nonlocal state
+        victims = elastic(m)
+        cli = ps_workers[ps_active[m % len(ps_active)]]
+        rows = touched_rows_of(batch.word_ids, batch.counts)
+        # the replay's restore point: the step leaves phi_acc as it was
+        # but advances the generator in place
+        pre = (state, state.generator.get_state()) if victims else None
+        state = dataclasses.replace(
+            state, phi_acc=cli.begin_batch(m + 1, rows, state.phi_acc))
+        sb = stack_shards(batch, shards)
+        state, diag = step(state, sb.word_ids, sb.counts)
+        for name in victims:
+            if name not in ps_active:
+                continue                   # already left or crashed
+            if len(ps_active) == 1:
+                raise ValueError(f"elastic crash of {name!r} at batch {m} "
+                                 f"leaves no survivor")
+            assigned = ps_active[m % len(ps_active)] == name
+            ps_retired.append(ps_workers.pop(name))
+            ps_active.remove(name)
+            elastic_log.append({"m": m, "event": "crash", "worker": name,
+                                "replayed": assigned})
+            if assigned:
+                # the victim died before its push: a survivor re-pulls the
+                # same committed rows (the victim never pushed) and re-runs
+                # the batch from the restore point with the same draws, so
+                # the run equals an uncrashed one at S = 0
+                cli = ps_workers[ps_active[m % len(ps_active)]]
+                state, gen_state = pre
+                state.generator.set_state(gen_state)
+                state = dataclasses.replace(
+                    state, phi_acc=cli.begin_batch(m + 1, rows,
+                                                   state.phi_acc))
+                state, diag = step(state, sb.word_ids, sb.counts)
+        # the prefetch goes out before this push settles, on the worker
+        # the next batch is assigned to (events at m + 1 may reroute it:
+        # the mismatched pull is then drained)
+        if nxt is not None:
+            nb = nxt[0]
+            ps_workers[ps_active[(m + 1) % len(ps_active)]].prefetch(
+                m + 2, touched_rows_of(nb.word_ids, nb.counts))
+        cli.end_batch(m + 1, state.phi_acc, rows)
+        return diag
+
     buf = DiagBuffer(block=max(args.log_every, 64))
     ppl_trace = []
     tokens = 0.0
     t0 = time.time()
     seg_start = start_m
-    while seg_start < args.minibatches:
-        seg_end = (min(args.minibatches,
-                       (seg_start // compact_every + 1) * compact_every)
-                   if compact_every else args.minibatches)
-        for m, item in enumerate(make_stream(seg_start, seg_end),
-                                 start=seg_start):
-            if dynamic:
-                batch, ntok, live_b = item
-            else:
-                (batch, ntok), live_b = item, None
-            if dynamic and live_b >= cfg.vocab_size:
-                # a rung crossing: pad the state to the next rung (guard
-                # rows), rebuild and rewarm the step, and save the grown
-                # state, so a crash right here resumes on the new rung;
-                # the save holds live_done, the consumed prefix (this batch
-                # is not consumed yet)
-                sync_device()
-                t_g = time.time()
-                new_cap = next_capacity(live_b, cfg.vocab_size,
-                                        args.w_cap_min, args.w_growth)
-                new_rung(new_cap)
-                if args.ckpt_dir:
-                    save(m, m)
-                growth_s += time.time() - t_g
-                growth_events.append({"m": m, "w_cap": new_cap,
-                                      "live_w": live_b})
-                print(f"minibatch {m + 1:5d}  [grow] live_w={live_b} -> "
-                      f"W_cap={new_cap}", flush=True)
-            batch = stack_shards(batch, shards)
-            state, diag = step(state, batch.word_ids, batch.counts,
-                               *((live_b,) if dynamic else ()))
-            buf.append(diag["mean_r"], diag["iters"])
-            tokens += ntok
-            if live_b is not None:
-                live_done = live_b
-            consumed_m = m
-            step_no = m + 1
-            if args.log_every and step_no % args.log_every == 0:
-                dt = time.time() - t0
-                print(f"minibatch {step_no:5d}  "
-                      f"mean_r={float(diag['mean_r']):.4f}"
-                      f"  iters={int(diag['iters']):3d}"
-                      f"  tokens/s={tokens / max(dt, 1e-9):,.0f}", flush=True)
-            if args.eval_every and step_no % args.eval_every == 0:
-                ppl = eval_ppl()
-                ppl_trace.append((step_no, ppl))
-                if rank0:
-                    print(f"minibatch {step_no:5d}  held-out ppl={ppl:.2f}",
+    try:
+        while seg_start < args.minibatches:
+            seg_end = (min(args.minibatches,
+                           (seg_start // compact_every + 1) * compact_every)
+                       if compact_every else args.minibatches)
+            stream = make_stream(seg_start, seg_end)
+            if ps:
+                stream = _with_lookahead(stream)
+            for m, item in enumerate(stream, start=seg_start):
+                nxt = None
+                if ps:
+                    item, nxt = item
+                if dynamic:
+                    batch, ntok, live_b = item
+                else:
+                    (batch, ntok), live_b = item, None
+                if dynamic and live_b >= cfg.vocab_size:
+                    # a rung crossing: pad the state to the next rung
+                    # (guard rows), rebuild and rewarm the step, and save
+                    # the grown state, so a crash right here resumes on the
+                    # new rung; the save holds live_done, the consumed
+                    # prefix (this batch is not consumed yet)
+                    sync_device()
+                    t_g = time.time()
+                    new_cap = next_capacity(live_b, cfg.vocab_size,
+                                            args.w_cap_min, args.w_growth)
+                    new_rung(new_cap)
+                    if args.ckpt_dir:
+                        save(m, m)
+                    growth_s += time.time() - t_g
+                    growth_events.append({"m": m, "w_cap": new_cap,
+                                          "live_w": live_b})
+                    print(f"minibatch {m + 1:5d}  [grow] live_w={live_b} "
+                          f"-> W_cap={new_cap}", flush=True)
+                if ps:
+                    diag = ps_step(m, batch, nxt)
+                else:
+                    batch = stack_shards(batch, shards)
+                    state, diag = step(state, batch.word_ids, batch.counts,
+                                       *((live_b,) if dynamic else ()))
+                buf.append(diag["mean_r"], diag["iters"])
+                tokens += ntok
+                if live_b is not None:
+                    live_done = live_b
+                consumed_m = m
+                step_no = m + 1
+                if args.log_every and step_no % args.log_every == 0:
+                    dt = time.time() - t0
+                    print(f"minibatch {step_no:5d}  "
+                          f"mean_r={float(diag['mean_r']):.4f}"
+                          f"  iters={int(diag['iters']):3d}"
+                          f"  tokens/s={tokens / max(dt, 1e-9):,.0f}",
                           flush=True)
-            if args.crash_at and step_no == args.crash_at and start_m == 0:
-                # fresh runs only: a resumed run sails past the simulated
-                # failure, so rerunning the same command completes
-                raise SystemExit(f"[simulated crash] after minibatch "
-                                 f"{step_no}")
-            if args.ckpt_dir and args.ckpt_every and \
-                    step_no % args.ckpt_every == 0:
-                save(step_no, step_no)
-        seg_start = seg_end
-        if compact_every:
-            compaction_fence(seg_end)
-    sync_device()
+                if args.eval_every and step_no % args.eval_every == 0:
+                    ppl = eval_ppl()
+                    ppl_trace.append((step_no, ppl))
+                    if rank0:
+                        print(f"minibatch {step_no:5d}  held-out "
+                              f"ppl={ppl:.2f}", flush=True)
+                if args.crash_at and step_no == args.crash_at and \
+                        start_m == 0:
+                    # fresh runs only: a resumed run sails past the
+                    # simulated failure, so rerunning the command completes
+                    raise SystemExit(f"[simulated crash] after minibatch "
+                                     f"{step_no}")
+                if args.ckpt_dir and args.ckpt_every and \
+                        step_no % args.ckpt_every == 0:
+                    if ps:
+                        ps_sync_state()
+                    save(step_no, step_no)
+            seg_start = seg_end
+            if compact_every:
+                compaction_fence(seg_end)
+        sync_device()
+        if ps:
+            # drain and adopt the server's statistic (part of the run: a
+            # fleet pays it once at shutdown)
+            ps_sync_state()
+    finally:
+        if ps_transport is not None:
+            # no transport thread outlives the run, a crash included
+            ps_transport.close()
     wall = time.time() - t0
 
     rows = buf.rows()
@@ -1065,6 +1330,39 @@ def train_loop(args) -> Dict[str, Any]:
                                 if iters else 0),
         "phi_acc": phi.cpu() if rank0 else None,
     }
+    if ps:
+        # worker-side stats over every client that ever ran (retired
+        # workers did work too)
+        every = list(ps_workers.values()) + ps_retired
+        touched = [t for w in every for t in w.touched_history]
+        mean_touched = float(np.mean(touched)) if touched else 0.0
+        mt = max(int(round(mean_touched)), 1)
+        wire = ps_transport.total_bytes
+        result.update(
+            staleness=args.staleness,
+            ps_wire_bytes=int(wire),
+            ps_wire_per_minibatch=wire / max(args.minibatches - start_m, 1),
+            ps_pull_wait_s=sum(w.pull_wait_s for w in every),
+            ps_push_wait_s=sum(w.push_wait_s for w in every),
+            mean_touched_rows=mean_touched,
+            ps_bytes_by_link=ps_transport.bytes_by_link(),
+            ps_retries=sum(w.retries for w in every),
+            ps_replayed_pushes=sum(w.replayed_pushes for w in every),
+            ps_recoveries=sum(w.recoveries for w in every),
+            ps_retry_wire_bytes=sum(w.retry_wire_bytes for w in every),
+            ps_duplicates_dropped=ps_server.duplicates_dropped,
+            ps_recovery_log=list(ps_server.recovery_log),
+            chaos_events=ps_transport.event_counts() if chaos_on else {},
+            elastic_log=elastic_log,
+            ps_workers=sorted(ps_workers),
+            # the meter's push/pull model billed at the measured mean
+            # touched rows: the analytic check of the measured wire bytes
+            bytes_by_phase_touched=dict(meter.bytes_by_phase_at(mt)),
+            per_minibatch_bytes_touched=(
+                meter.per_minibatch_bytes(iters[-1], live_w=mt)
+                if iters else 0),
+            # the replica's copies, batch by batch (PSClient.copies)
+            ps_copies=[c for w in every for c in w.copies])
     if dynamic:
         result.update(
             w_cap=cfg.vocab_size,
@@ -1101,6 +1399,21 @@ def main(argv=None):
         print(f"[mesh] {len(res['ranks'])} ranks over "
               f"{res['dist_backend']}: iters and mean_r equal on every rank: "
               f"{same}")
+    if args.backend == "ps":
+        print(f"[ps] staleness={res['staleness']}  wire/minibatch="
+              f"{res['ps_wire_per_minibatch']:,.0f}B  mean_touched_rows="
+              f"{res['mean_touched_rows']:.0f}  pull_wait="
+              f"{res['ps_pull_wait_s']:.2f}s  push_wait="
+              f"{res['ps_push_wait_s']:.2f}s")
+        if res.get("chaos_events") or res.get("ps_retries"):
+            print(f"[chaos] events={res['chaos_events']}  "
+                  f"retries={res['ps_retries']}  "
+                  f"replayed={res['ps_replayed_pushes']}  "
+                  f"recoveries={res['ps_recoveries']}  "
+                  f"dup_dropped={res['ps_duplicates_dropped']}")
+        if res.get("elastic_log"):
+            print(f"[elastic] workers={res['ps_workers']}  "
+                  f"events={res['elastic_log']}")
     if args.dynamic_vocab:
         print(f"[vocab] live_w={res['live_w']}  W_cap={res['w_cap']}  "
               f"growths={len(res['growth_events'])} "

@@ -980,3 +980,38 @@ def test_lifecycle_driver_crash_resume_on_card(card, tmp_path):
     assert resumed["vocab_keys"] == full["vocab_keys"]
     assert not full["phi_acc"][full["live_w"]:].any()
     assert [f["m"] for f in full["fence_bytes"]] == [4, 8]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_topic_recycling_through_a_fence_on_card(card, tmp_path, dtype):
+    """A fence that recycles topics moves phi_acc to the host and back in
+    its storage dtype: on the card, with ``--recycle-tol 1`` (every topic
+    at or under the mean mass), each fence recycles; a crash after batch 3,
+    then the same command, resumes from the fence at 2 and ends equal to
+    the uninterrupted run bit for bit, recycling the same topics."""
+    from repro_torch.launch import lda_train
+
+    def args(ck, *extra):
+        return lda_train.build_parser().parse_args([
+            "--minibatches", "6", "--docs-per-batch", "32", "--vocab", "96",
+            "--topics", "16", "--lambda-k", "8", "--shards", "1",
+            "--dynamic-vocab", "--drift-mode", "slide",
+            "--vocab-growth-per-batch", "6", "--decay", "1,0.3",
+            "--compact-every", "2", "--compact-min-idle", "2",
+            "--compact-mass-tol", "60", "--recycle-tol", "1.0",
+            "--tol", "1e-9", "--log-every", "0", "--ckpt-every", "2",
+            "--phi-acc-dtype", dtype, "--ckpt-dir", str(ck),
+            "--device", "cuda", *extra])
+
+    full = lda_train.train_loop(args(tmp_path / "a"))
+    assert [e["m"] for e in full["compaction_events"]] == [2, 4, 6]
+    assert all(e["recycled"] for e in full["compaction_events"])
+    assert full["phi_acc"].dtype == getattr(torch, dtype)
+    with pytest.raises(SystemExit):
+        lda_train.train_loop(args(tmp_path / "b", "--crash-at", "3"))
+    resumed = lda_train.train_loop(args(tmp_path / "b", "--crash-at", "3"))
+    assert resumed["first_m"] == 2
+    assert resumed["mean_r"] == full["mean_r"][2:]
+    assert resumed["iters"] == full["iters"][2:]
+    assert torch.equal(resumed["phi_acc"], full["phi_acc"])
+    assert resumed["compaction_events"] == full["compaction_events"][1:]

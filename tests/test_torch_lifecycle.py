@@ -176,3 +176,39 @@ def test_compact_then_restore_equals_restore_then_compact(tmp_path):
     assert torch.equal(arr, compacted.phi_acc[:48])
     with pytest.raises(ValueError, match="shrink"):
         ckpt.restore_phi(d2, w_cap=48)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recycling_fence_resumes_bit_for_bit(tmp_path, dtype):
+    """The driver's fence with topic recycling (``--recycle-tol 1``: every
+    topic at or under the mean mass) in both storage dtypes: each fence
+    recycles, the host round trip keeps the dtype, and a crash after batch
+    3 resumes from the post-recycling checkpoint at 2 and ends equal to the
+    uninterrupted run bit for bit (``tests/test_torch_cuda.py`` runs the
+    same case on the card)."""
+    from repro_torch.launch import lda_train
+
+    def args(ck, *extra):
+        return lda_train.build_parser().parse_args([
+            "--minibatches", "6", "--docs-per-batch", "32", "--vocab", "96",
+            "--topics", "16", "--lambda-k", "8", "--shards", "1",
+            "--dynamic-vocab", "--drift-mode", "slide",
+            "--vocab-growth-per-batch", "6", "--decay", "1,0.3",
+            "--compact-every", "2", "--compact-min-idle", "2",
+            "--compact-mass-tol", "60", "--recycle-tol", "1.0",
+            "--tol", "1e-9", "--log-every", "0", "--ckpt-every", "2",
+            "--phi-acc-dtype", dtype, "--ckpt-dir", str(ck),
+            "--device", "cpu", *extra])
+
+    full = lda_train.train_loop(args(tmp_path / "a"))
+    assert [e["m"] for e in full["compaction_events"]] == [2, 4, 6]
+    assert all(e["recycled"] for e in full["compaction_events"])
+    assert full["phi_acc"].dtype == getattr(torch, dtype)
+    with pytest.raises(SystemExit):
+        lda_train.train_loop(args(tmp_path / "b", "--crash-at", "3"))
+    resumed = lda_train.train_loop(args(tmp_path / "b", "--crash-at", "3"))
+    assert resumed["first_m"] == 2
+    assert resumed["mean_r"] == full["mean_r"][2:]
+    assert resumed["iters"] == full["iters"][2:]
+    assert torch.equal(resumed["phi_acc"], full["phi_acc"])
+    assert resumed["compaction_events"] == full["compaction_events"][1:]

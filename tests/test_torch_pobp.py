@@ -591,14 +591,57 @@ def test_cli_checkpoint_restores_in_reference_and_serves_in_port(tmp_path):
     assert torch.equal(again["phi_acc"], res["phi_acc"])
 
 
+class _Checked(Exception):
+    """The reference's driver got past every refusal."""
+
+
+def _reference_refusal(flag):
+    """The ``ValueError`` the reference's ``train_loop`` raises for ``flag``
+    (its refusals come before it builds anything), or None when it would
+    train: its first call past them is stopped."""
+    with mock.patch.object(jp, "init_train_state", side_effect=_Checked):
+        try:
+            jcli.train_loop(jcli.build_parser().parse_args(
+                ["--minibatches", "1"] + flag))
+        except ValueError as e:
+            return str(e)
+        except _Checked:
+            return None
+    raise AssertionError("the reference's driver neither refused nor "
+                         "reached its state")
+
+
+def _pin_reference_outcome(flag):
+    """The port's driver does with ``flag`` what the reference's does: it
+    refuses with the reference's message, word for word, or it trains one
+    mini-batch (on the CPU, at a small size).  Returns the refusal."""
+    refusal = _reference_refusal(flag)
+    argv = ["--minibatches", "1", "--device", "cpu", "--docs-per-batch",
+            "16", "--vocab", "120", "--topics", "8", "--lambda-k", "4",
+            "--inner-iters", "3", "--log-every", "0", "--shards", "1"] + flag
+    if refusal is not None:
+        with pytest.raises(ValueError) as got:
+            cli.main(argv)
+        assert str(got.value) == refusal
+    else:
+        res = cli.main(argv)
+        assert len(res["iters"]) == 1 and np.isfinite(res["mean_r"]).all()
+    return refusal
+
+
 @pytest.mark.parametrize("flag", [
     ["--ps-latency", "0.1"], ["--backend", "ps"], ["--chaos-seed", "3"],
     ["--staleness", "1"], ["--ps-pull-timeout", "5"],
     ["--chaos-drop", "0.1"], ["--elastic-events", "join:w1@2"],
     ["--chaos-restart-after", "3"]])
 def test_cli_rejects_unported_flags(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        cli.main(["--minibatches", "1", "--device", "cpu"] + flag)
+    """Every parameter-server, chaos and elastic flag is ported: away from
+    ``--backend ps`` the chaos and elastic flags are refused as the
+    reference refuses them, the rest run as there (``--backend ps`` one
+    mini-batch through the server)."""
+    refusal = _pin_reference_outcome(flag)
+    assert (refusal is not None) == (flag[0] in ("--chaos-drop",
+                                                 "--elastic-events"))
 
 
 def test_cli_runs_dense_sync_with_decay(capsys):

@@ -337,10 +337,13 @@ def test_driver_refuses_lifecycle_flags_as_the_reference_does():
         with pytest.raises(ValueError) as theirs:
             jcli.train_loop(jcli.default_args(minibatches=1, **extra))
         assert str(mine.value) == str(theirs.value)
-    assert not any(k in cli._UNPORTED for k in (
-        "dynamic_vocab", "vocab_growth_per_batch", "drift_mode", "w_cap_min",
-        "w_growth", "compact_every", "compact_min_idle", "compact_mass_tol",
-        "recycle_tol"))
+    # every lifecycle flag is the port's own, with the reference's default
+    mine = vars(cli.build_parser().parse_args([]))
+    theirs = vars(jcli.build_parser().parse_args([]))
+    for k in ("dynamic_vocab", "vocab_growth_per_batch", "drift_mode",
+              "w_cap_min", "w_growth", "compact_every", "compact_min_idle",
+              "compact_mass_tol", "recycle_tol"):
+        assert mine[k] == theirs[k], k
 
 
 # ------------------------------------------------ against the reference
