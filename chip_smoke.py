@@ -28,11 +28,12 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      the port adds (the word-row scatter, bit for bit against its plain
      version on the CPU and timed in turns with ``index_add_`` with and
      without PyTorch's deterministic algorithms; the phi_tot refresh's
-     per-topic sum), each repeating bit for bit; and a live-W selection's
+     per-topic sum), each repeating bit for bit; a live-W selection's
      dead slots (the trailing slots of ``sel_w`` on one all-zero row that
      no token has) through the carry training sweep, the packed sweep and
      the pack, the sweeps repeating bit for bit, the dead slots' outputs
-     exactly 0;
+     exactly 0; and the Gibbs chain kernel (phase 12's) with injected and
+     with its own Philox noise, equal to its plain version exactly;
   3. the serving slice at PUBMED width (W = 141,043, K = 2000): a random
      phi statistic made on the card from ``--seed``, saved as a JAX-format
      checkpoint, served by ``SlabEngine.from_checkpoint`` for
@@ -142,7 +143,26 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      after it: ms and GB/s against the PCIe bound), the server's
      ``np.add.at`` per push, and the step walls beside phase 8 (a)'s.
      The kernels' launches in the JSON line include phase 9 (a)'s, phase
-     10 (a)'s and phase 11 (a)'s.
+     10 (a)'s and phase 11 (a)'s;
+ 12. the paper's comparators at PUBMED width (W = 141,043, K = 2000),
+     on phase 6's first mini-batch and held-out split: (a) ``run_gibbs``,
+     3 sweeps with the chain kernel drawing its own Philox noise from
+     ``--seed`` (the counts holding every token, n_k the column sums of
+     n_wk, every count a non-negative integer, one launch a sweep, a second
+     run equal bit for bit; ms a sweep, us a token, held-out perplexity
+     beside phase 6's); (b) ``run_vb``, 5 iterations from one injected
+     lambda (lambda - beta holding every token, gamma finite, a second run
+     equal bit for bit; ms an iteration, held-out perplexity); (c) the chain
+     kernel against its plain version with injected and Philox noise, equal
+     exactly, at W = 20,000, K = 2000, T = 4096 (timed, with its bounds and
+     its latency floor), at K = 1, 33 and 2049, with every draw a tie, and
+     at the main path's shape; (d) PGS and PVB over 4 shards of 128
+     documents, 2 sweeps and 2 iterations (``comm_bytes`` W*K*4*4 each,
+     the tokens held, the shared n_wk untouched by each shard's sweep); (e)
+     the reference accuracy bench's Table 4 analogue at its own settings
+     (W = 400, K = 16): POBP, GS and VB each below a random model's
+     held-out perplexity.  The JSON line's ``gibbs_sweep`` launches are
+     (a)'s; ``word_rows_sum`` adds (b)'s.
 
 Each phase prints its wall time.  The line before the last is the
 kernels' JSON record; the last line is
@@ -1234,7 +1254,7 @@ def train_slice(batches, *, W: int, K: int, seed: int, device,
             "power_sweep_tokens": sweeps if packed else 0,
             "pack_rows": sweeps if packed else 0,
             "word_rows_sum": 3 * len(batches),
-            "topic_sum": sweeps}
+            "topic_sum": sweeps, "gibbs_sweep": 0}
     print(f"[{tag}] launches {launches} (steps={len(batches)}, selective "
           f"sweeps={sweeps}, sweep_policy={sweep_policy})")
     if launches != want or readings[0][1] < 2:
@@ -1688,7 +1708,7 @@ def sim_slice(batches, *, W: int, K: int, seed: int, card: str,
             "power_sweep_carry_train": N * sweeps,
             "scatter_add_rows": N * sweeps, "power_sweep_tokens": 0,
             "pack_rows": 0, "word_rows_sum": N * 3 * len(batches),
-            "topic_sum": N * sweeps}
+            "topic_sum": N * sweeps, "gibbs_sweep": 0}
     print(f"[sim] launches {launches} ({N} x the single-shard counts of "
           f"{len(batches)} steps and {sweeps} selective sweeps)")
     if launches != want:
@@ -2491,6 +2511,428 @@ def ps_slice(*, seed: int, docs: int, card: str, sim: dict, sim_walls,
     return net
 
 
+# --------------------------------------------------------------- phase 12
+
+# operations a (token, topic) pair of a sweep: the score (3 smoothing
+# adds, 3 logs, an add and a subtraction, the noise add, the compare) and,
+# drawn in the kernel, Philox4x32-10 (10 rounds of 2 multiplies-low, 2
+# multiplies-high, 4 XORs, 2 key adds) and its Gumbel map (shift, convert,
+# add, multiply, 2 logs, 2 negations)
+GIBBS_SCORE_OPS, GIBBS_DRAW_OPS = 10, 108
+
+
+def gibbs_case(seed, *, T, D, K, W, device="cuda", ties=False):
+    """One sweep's inputs: T tokens in document order over D documents
+    (the last document one token, word W - 1 appearing once), a random z
+    and its counts, and [T, K] Gumbel noise, made from ``seed`` with numpy.
+    ``ties``: one document, one word, z = [0, 0, 1, 1, ...], noise 0, so
+    every draw is a tie the lowest topic wins.  Returns (cfg, doc_ids,
+    word_ids, (z, n_dk, n_wk, n_k), noise)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import gibbs
+    from repro_torch.core.types import LDAConfig
+
+    rng = np.random.default_rng(seed)
+    if ties:
+        doc = np.zeros(T, np.int32)
+        word = np.zeros(T, np.int32)
+        z = (np.arange(T) // 2 % K).astype(np.int32)
+        noise = np.zeros((T, K), np.float32)
+    else:
+        doc = np.sort(rng.integers(0, max(D - 1, 1), T)).astype(np.int32)
+        doc[-1] = D - 1
+        word = rng.integers(0, max(W - 1, 1), T).astype(np.int32)
+        word[rng.integers(T)] = W - 1
+        z = rng.integers(0, K, T).astype(np.int32)
+        noise = rng.gumbel(size=(T, K)).astype(np.float32)
+    cfg = LDAConfig(vocab_size=W, num_topics=K)
+    d = torch.from_numpy(doc).to(device)
+    w = torch.from_numpy(word).to(device)
+    state = gibbs.gibbs_init(None, d, w, D, cfg,
+                             z=torch.from_numpy(z).to(device))
+    return cfg, d, w, state, torch.from_numpy(noise).to(device)
+
+
+def top2_gap(gops, cfg, d, w, state, noise, t: int) -> float:
+    """The gap between the two best scores of token ``t`` of a sweep from
+    ``state`` on ``noise``: the plain version replays tokens [0, t), then
+    token t's assignment is removed and its scores formed."""
+    import torch
+
+    z, n_dk, n_wk, n_k = (x.clone() for x in state)
+    gops.gibbs_sweep_plain(z[:t], n_dk, n_wk, n_k, d[:t], w[:t], noise[:t],
+                           alpha=cfg.alpha, beta=cfg.beta, W=cfg.vocab_size)
+    a, b, wb = gops.chain_scalars(cfg.alpha, cfg.beta, cfg.vocab_size)
+    k, di, wi = int(z[t]), int(d[t]), int(w[t])
+    for row in (n_dk[di], n_wk[wi], n_k):
+        row[k] -= 1.0
+    scores = noise[t] + ((torch.log(n_dk[di] + a) + torch.log(n_wk[wi] + b))
+                         - torch.log(n_k + wb))
+    top = torch.topk(scores, min(2, scores.numel())).values
+    return float(top[0] - top[-1])
+
+
+def gibbs_bound(d, w, K, *, drawn: bool):
+    """The least time of one sweep on these tokens, and what bounds it: the
+    bytes it must move (each touched row of n_dk and n_wk read and written
+    once, n_k and z read and written, the ids read, the injected noise
+    read) over the card's memory rate, and its operations (`GIBBS_SCORE_OPS`
+    and, drawn in the kernel, `GIBBS_DRAW_OPS` a token and topic) over the
+    card's f32 rate.  Also a simpler count, two rows of K floats
+    a token over the memory rate."""
+    import torch
+
+    T = d.shape[0]
+    rows = int(torch.unique(d).numel()) + int(torch.unique(w).numel())
+    nbytes = 4 * (2 * rows * K + 2 * K + 4 * T + (0 if drawn else T * K))
+    ops = T * K * (GIBBS_SCORE_OPS + (GIBBS_DRAW_OPS if drawn else 0))
+    bound, by = bound_ms(nbytes, ops)
+    return bound, by, T * 2 * K * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def check_gibbs_sweep(gops, *, T, D, K, W, seed, ties=False, timed=False):
+    """The Gibbs chain kernel against its plain version on the card, with
+    injected noise and with its own Philox noise (the plain version makes
+    the same noise with `philox_gumbel`): z and the three counts equal
+    exactly, the counts consistent (n_k the column sums of n_wk, every
+    count a non-negative integer, T tokens held); if z differs, the first
+    token that differs and its top-2 score gap are printed.  Timed: the
+    kernel in both modes (medians of 20 in turns), the plain version (3
+    runs), the latency floor (T steps of the kernel's empty block argmax),
+    and the bounds of `gibbs_bound`; returns the kernel's record."""
+    import torch
+
+    cfg, d, w, state, noise = gibbs_case(seed, T=T, D=D, K=K, W=W,
+                                         ties=ties)
+    kw = dict(alpha=cfg.alpha, beta=cfg.beta, W=W)
+    philox_seed = (seed * 0x9E3779B97F4A7C15) % 2 ** 64
+    err = 0.0
+    for label, draw in (("injected", noise), ("philox", philox_seed)):
+        got = [x.clone() for x in state]
+        want = [x.clone() for x in state]
+        gops.gibbs_sweep(*got, d, w, draw, **kw, sweep=1)
+        gops.gibbs_sweep_plain(*want, d, w, draw, **kw, sweep=1)
+        torch.cuda.synchronize()
+        z, n_dk, n_wk, n_k = got
+        same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+        held = (torch.equal(n_k, n_wk.sum(0))
+                and all(bool((c >= 0).all()) and torch.equal(c, c.round())
+                        for c in (n_dk, n_wk, n_k))
+                and float(n_wk.sum(dtype=torch.float64)) == T
+                and float(n_dk.sum(dtype=torch.float64)) == T)
+        print(f"[gibbs] kernel vs plain T={T} D={D} K={K} W={W}"
+              f"{' (ties)' if ties else ''}, {label} noise: z, n_dk, n_wk, "
+              f"n_k equal {same}; counts consistent {held}")
+        if not same[0]:
+            t = int((z != want[0]).nonzero()[0])
+            gap = top2_gap(gops, cfg, d, w, state,
+                           noise if label == "injected" else
+                           gops.philox_gumbel(philox_seed, 1, T, K, "cuda"),
+                           t)
+            print(f"[gibbs] first token that differs: t={t}, kernel z="
+                  f"{int(z[t])}, plain z={int(want[0][t])}; top-2 score "
+                  f"gap there {gap:.3e}")
+        if not (all(same) and held):
+            fail(f"gibbs_sweep disagrees with its plain version at T={T} "
+                 f"K={K} W={W} ({label} noise)")
+        err = max(err, float((n_wk - want[2]).abs().max()))
+        del got, want
+    if not timed:
+        return None
+    fresh = lambda draw: lambda: (*[x.clone() for x in state], d, w, draw)  # noqa: E731
+    turns = time_turns({
+        "philox": (functools.partial(gops.gibbs_sweep, **kw, sweep=1),
+                   fresh(philox_seed)),
+        "injected": (functools.partial(gops.gibbs_sweep, **kw, sweep=1),
+                     fresh(noise))}, 20)
+    plain_ms = time_ms(functools.partial(gops.gibbs_sweep_plain, **kw,
+                                         sweep=1), fresh(philox_seed), 3)
+    floor_ms = time_ms(lambda: gops.reduce_floor(T, K, "cuda"), tuple, 20)
+    bound, bound_by, rows_ms = gibbs_bound(d, w, K, drawn=True)
+    bound_inj, _, _ = gibbs_bound(d, w, K, drawn=False)
+    ms = turns["philox"]
+    binds = "the latency floor" if floor_ms > bound else bound_by
+    print(f"[gibbs] gibbs_sweep T={T} K={K} W={W}: {ms:.4f} ms "
+          f"({ms * 1e3 / T:.3f} us a token) with its Philox noise, "
+          f"{turns['injected']:.4f} ms injected; plain {plain_ms:.4f} ms; "
+          f"bound {bound:.4f} ms ({bound_by}; injected {bound_inj:.4f}); "
+          f"two rows a token over HBM {rows_ms:.4f} ms; latency floor "
+          f"{floor_ms:.4f} ms ({floor_ms * 1e3 / T:.3f} us a step): "
+          f"{binds} binds")
+    return kernel_record(
+        "gibbs_sweep", "src/repro_torch/csrc/gibbs_sweep.cu",
+        "none (added by the port): the lax.scan of "
+        "src/repro/core/gibbs.py:73 (gibbs_sweep)", err, ms, plain_ms,
+        bound, bound_by, None, ms_injected=turns["injected"],
+        bound_ms_injected=bound_inj, bound_token_rows_ms=rows_ms,
+        latency_floor_ms=floor_ms, binds=binds, tokens=T)
+
+
+def count_gates(label, *, n_dk, n_wk, n_k, T) -> None:
+    """The collapsed counts' invariants: n_wk and n_dk each summing to T
+    exactly, n_k the column sums of n_wk exactly, every count a
+    non-negative integer."""
+    import torch
+
+    sums = (float(n_wk.sum(dtype=torch.float64)),
+            float(n_dk.sum(dtype=torch.float64)))
+    cols = bool(torch.equal(n_k, n_wk.sum(0)))
+    whole = all(bool((c >= 0).all()) and bool(torch.equal(c, c.round()))
+                for c in (n_dk, n_wk, n_k))
+    print(f"[{label}] n_wk sums to {sums[0]:.0f}, n_dk to {sums[1]:.0f} "
+          f"(T = {T}); n_k = n_wk's column sums: {cols}; counts "
+          f"non-negative integers: {whole}")
+    if not (sums == (T, T) and cols and whole):
+        fail(f"{label}: the Gibbs counts are inconsistent")
+
+
+def gibbs_slice(mb, heldout, *, W, K, seed, card, pobp_ppl, sweeps=3):
+    """Phase 12 (a): ``run_gibbs`` on one mini-batch at (W, K), the kernel
+    drawing its own noise from ``seed``, twice.  Gates: the counts'
+    invariants, one launch a sweep, the second run equal to the first bit
+    for bit (z and the three counts).  Prints ms a sweep and us a token
+    (CUDA events between sweeps 2..3 of both runs) and the held-out
+    perplexity beside ``pobp_ppl``.  Returns (launches, ms a sweep)."""
+    import torch
+
+    from repro_torch.core import gibbs
+    from repro_torch.core.perplexity import evaluate
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.kernels import launch_counts
+
+    cfg = LDAConfig(vocab_size=W, num_topics=K)
+    T = int(mb.counts.sum())
+    runs, sweep_ms = [], []
+    for r in range(2):
+        events, final = [], {}
+
+        def after(s, z, n_dk, n_wk, n_k):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            if s == sweeps - 1:
+                final.update(z=z.clone(), n_k=n_k.clone())
+
+        torch.cuda.synchronize()
+        if r == 0:
+            launch_counts(reset=True)            # the main path starts here
+        t0 = time.time()
+        n_wk, n_dk = gibbs.run_gibbs(
+            torch.Generator(device="cuda").manual_seed(seed), mb, cfg,
+            sweeps, callback=after, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if r == 0:
+            launches = launch_counts()           # ... and ends here
+        sweep_ms += [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        runs.append((final["z"], n_dk, n_wk, final["n_k"]))
+        print(f"[gibbs] (a) run {r + 1}: {sweeps} sweeps of {T} tokens in "
+              f"{wall:.3f} s (init and seed included)  [{card}]")
+    want = {k: 0 for k in launches}
+    want["gibbs_sweep"] = sweeps
+    print(f"[gibbs] (a) launches {launches}")
+    if launches != want:
+        fail(f"run_gibbs launched {launches}, expected {want}")
+    z, n_dk, n_wk, n_k = runs[0]
+    count_gates("gibbs", n_dk=n_dk, n_wk=n_wk, n_k=n_k, T=T)
+    same = [bool(torch.equal(a, b)) for a, b in zip(runs[0], runs[1])]
+    print(f"[gibbs] (a) second run from seed {seed}: z, n_dk, n_wk, n_k "
+          f"equal {same}")
+    if not all(same):
+        fail("run_gibbs from one seed does not repeat bit for bit")
+    del runs
+    ms = median(sweep_ms)
+    train, test = heldout
+    ppl = evaluate(n_wk, train, test, cfg,
+                   generator=torch.Generator(device="cuda").manual_seed(
+                       seed + 1), device="cuda")
+    print(f"[gibbs] (a) W={W} K={K} D={mb.num_docs} T={T}: "
+          f"{ms:.3f} ms a sweep ({ms * 1e3 / T:.3f} us a token; median of "
+          f"{len(sweep_ms)}: " + ", ".join(f"{x:.3f}" for x in sweep_ms)
+          + f" ms); held-out perplexity {ppl:.3f} (phase 6's POBP after its "
+          f"last step: {pobp_ppl:.3f})  [{card}]")
+    return launches["gibbs_sweep"], ms
+
+
+def vb_slice(mb, heldout, *, W, K, seed, card, iters=5):
+    """Phase 12 (b): ``run_vb`` on one mini-batch at (W, K), ``iters``
+    iterations from one injected initial lambda, twice.  Gates: lambda -
+    beta holding every token (rel 1e-4), gamma finite, the second run equal
+    bit for bit, ``word_rows_sum`` launched once an iteration.  Prints ms an
+    iteration and the held-out perplexity.  Returns the launches."""
+    import torch
+
+    from repro_torch.core import vb
+    from repro_torch.core.perplexity import evaluate
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.kernels import launch_counts
+
+    cfg = LDAConfig(vocab_size=W, num_topics=K)
+    T = float(mb.counts.sum())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lam0 = cfg.beta + (torch.rand((W, K), generator=g, device="cuda") + 0.5)
+    runs, walls = [], []
+    for r in range(2):
+        torch.cuda.synchronize()
+        if r == 0:
+            launch_counts(reset=True)            # the main path starts here
+        t0 = time.time()
+        runs.append(vb.run_vb(None, mb, cfg, iters, lam0=lam0,
+                              device="cuda"))
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        if r == 0:
+            launches = launch_counts()           # ... and ends here
+    del lam0
+    want = {k: 0 for k in launches}
+    want["word_rows_sum"] = iters
+    (phi, gamma), (phi2, gamma2) = runs
+    mass = float(phi.sum(dtype=torch.float64))
+    same = bool(torch.equal(phi, phi2)) and bool(torch.equal(gamma, gamma2))
+    finite = bool(torch.isfinite(gamma).all())
+    del runs, phi2, gamma2
+    train, test = heldout
+    ppl = evaluate(phi, train, test, cfg,
+                   generator=torch.Generator(device="cuda").manual_seed(
+                       seed + 1), device="cuda")
+    print(f"[vb] (b) W={W} K={K} D={mb.num_docs}: {iters} iterations in "
+          f"{walls[0] * 1e3:.3f} / {walls[1] * 1e3:.3f} ms = "
+          f"{walls[0] * 1e3 / iters:.3f} / {walls[1] * 1e3 / iters:.3f} ms an "
+          f"iteration; lambda - beta mass {mass:.3f} against {T:.0f} tokens "
+          f"(rel {abs(mass - T) / T:.2e}, tol 1e-4); gamma finite {finite}; "
+          f"second run equal {same}; launches {launches}; held-out "
+          f"perplexity {ppl:.3f}  [{card}]")
+    if not (abs(mass - T) <= 1e-4 * T and finite and same
+            and launches == want):
+        fail("run_vb does not hold its tokens, is not finite, does not "
+             "repeat, or did not launch word_rows_sum once an iteration")
+    return launches
+
+
+def parallel_slice(mb, *, W, K, seed, card, shards=4, sweeps=2):
+    """Phase 12 (d): PGS and PVB over one mini-batch split into ``shards``
+    shards.  Gates: ``comm_bytes`` = W * K * 4 * shards a sweep or an
+    iteration; PGS's global n_wk holding every token; the shared n_wk
+    untouched by each shard's sweep (its copy swept, checked around every
+    shard's call); PVB's lambda - beta holding every token, finite."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core import gibbs, vb
+    from repro_torch.core.types import LDAConfig, MiniBatch
+
+    cfg = LDAConfig(vocab_size=W, num_topics=K)
+    Dl = mb.num_docs // shards
+    parts = [MiniBatch(mb.word_ids[i * Dl:(i + 1) * Dl],
+                       mb.counts[i * Dl:(i + 1) * Dl]) for i in range(shards)]
+    T = float(sum(float(p.counts.sum()) for p in parts))
+    real, kept = gibbs.gibbs_sweep, []
+
+    def watched(draw, z, n_dk, n_wk, n_k, *rest, **kw):
+        before = n_wk.clone()
+        out = real(draw, z, n_dk, n_wk, n_k, *rest, **kw)
+        kept.append(bool(torch.equal(n_wk, before)) and out[2] is not n_wk)
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with mock.patch.object(gibbs, "gibbs_sweep", watched):
+        phi, nbytes = gibbs.run_parallel_gibbs(
+            torch.Generator(device="cuda").manual_seed(seed + 2), parts, cfg,
+            sweeps, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    mass = float(phi.sum(dtype=torch.float64))
+    want = W * K * 4 * shards * sweeps
+    print(f"[pgs] (d) {shards} shards x {Dl} documents, {sweeps} sweeps in "
+          f"{wall:.3f} s: comm_bytes {nbytes:,} (W*K*4*{shards}*{sweeps} = "
+          f"{want:,}); n_wk_glob sums to {mass:.0f} (T = {T:.0f}); shared "
+          f"n_wk untouched by each of {len(kept)} shard sweeps: {all(kept)}"
+          f"  [{card}]")
+    if not (nbytes == want and mass == T and all(kept)
+            and len(kept) == shards * sweeps):
+        fail("run_parallel_gibbs: bytes, tokens or the shared counts wrong")
+    del phi
+    torch.cuda.synchronize()
+    t0 = time.time()
+    phi, nbytes = vb.run_parallel_vb(
+        torch.Generator(device="cuda").manual_seed(seed + 3), parts, cfg,
+        sweeps, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    mass = float(phi.sum(dtype=torch.float64))
+    print(f"[pvb] (d) {shards} shards, {sweeps} iterations in {wall:.3f} s: "
+          f"comm_bytes {nbytes:,} (expected {want:,}); lambda - beta mass "
+          f"{mass:.3f} (rel {abs(mass - T) / T:.2e} of T, tol 1e-4)  [{card}]")
+    if not (nbytes == want and abs(mass - T) <= 1e-4 * T
+            and bool(torch.isfinite(phi).all())):
+        fail("run_parallel_vb: bytes or tokens wrong")
+
+
+def accuracy_slice(*, card, device="cuda"):
+    """Phase 12 (e): the reference accuracy bench's Table 4 analogue, its
+    settings copied by value (``benchmarks/common.py:16-30``,
+    ``benchmarks/run.py:215-262``): 240 documents of mean length 80 from
+    ``lda_corpus(0, 240, 400, 16)``, split 80/20 by token; POBP by
+    ``run_stream`` over 60-document mini-batches in 2 shards with power
+    sync (lambda_w 0.1, 8 power topics, 60 inner iterations, tolerance
+    0.03, seed 1); GS 50 sweeps; VB 25 iterations; a zero phi as
+    "random"; every model scored by held-out perplexity with one fold-in
+    seed.  Gate: POBP, GS and VB each below random."""
+    import torch
+
+    from repro_torch.core import gibbs, vb
+    from repro_torch.core.perplexity import evaluate
+    from repro_torch.core.pobp import run_stream
+    from repro_torch.core.types import LDAConfig
+    from repro_torch.data.batching import (docs_to_padded,
+                                           sharded_minibatch_stream,
+                                           train_test_split_counts)
+    from repro_torch.data.synthetic import lda_corpus
+
+    docs, _, _ = lda_corpus(0, 240, 400, 16, doc_len_mean=80)
+    train, test = train_test_split_counts(list(docs), 0)
+    tr_b, te_b = docs_to_padded(train), docs_to_padded(test)
+    cfg = LDAConfig(vocab_size=400, num_topics=16, lambda_w=0.1,
+                    lambda_k_abs=8, inner_iters=60, residual_tol=0.03)
+
+    def score(phi):
+        return evaluate(phi, tr_b, te_b, cfg, device=device,
+                        generator=torch.Generator(device=device).manual_seed(5))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    out = {}
+    (phi, _, _), dt = timed(lambda: run_stream(
+        sharded_minibatch_stream(train, 60, 2), cfg, num_shards=2,
+        sync_mode="power", seed=1, device=device))
+    out["POBP"] = (score(phi), dt)
+    (phi_g, _), dt = timed(lambda: gibbs.run_gibbs(
+        torch.Generator(device=device).manual_seed(2), tr_b, cfg, 50,
+        device=device))
+    out["GS"] = (score(phi_g), dt)
+    (phi_v, _), dt = timed(lambda: vb.run_vb(
+        torch.Generator(device=device).manual_seed(3), tr_b, cfg, 25,
+        device=device))
+    out["VB"] = (score(phi_v), dt)
+    rand = score(torch.zeros_like(phi))
+    print("[accuracy] (e) held-out perplexity, 240 documents, W=400, K=16: "
+          + ", ".join(f"{k} {p:.3f} ({dt:.3f} s)" for k, (p, dt)
+                      in out.items()) + f", random {rand:.3f}; gap to GS "
+          f"{(out['GS'][0] - out['POBP'][0]) / out['GS'][0] * 100:.1f}%"
+          f"  [{card}]")
+    if not all(p < rand for p, _ in out.values()):
+        fail("a comparator does not score below a random model")
+
+
 def profile_run(fn, label: str, card: str, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the card's busy
     share of the wall time (the summed time of the events that ran on the
@@ -2571,6 +3013,7 @@ def main(argv=None) -> None:
 
     from repro_torch.kernels import build
     from repro_torch.kernels.bp_update import ops as bp_ops
+    from repro_torch.kernels.gibbs_sweep import ops as gibbs_ops
     from repro_torch.kernels.power_pack import ops as pack_ops
     from repro_torch.kernels.power_sweep import ops, packed
     from repro_torch.kernels.segment_sum import ops as seg_ops
@@ -2578,7 +3021,8 @@ def main(argv=None) -> None:
     # ---- 1. build
     t0 = time.time()
     libs = build.build_all(["power_sweep_carry", "bp_update", "power_pack",
-                            "power_sweep_tokens", "segment_sum"])
+                            "power_sweep_tokens", "segment_sum",
+                            "gibbs_sweep"])
     card = card_line()
     print(card)
     print(f"[build] {len(libs)} kernel(s) in {time.time() - t0:.1f}s")
@@ -2700,6 +3144,9 @@ def main(argv=None) -> None:
                               timed=True, skewed=True)
     train_recs["power_sweep_tokens"].update(
         {f"{key}_skewed": skew[key] for key in ("ms", "plain_ms", "bound_ms")})
+    # the Gibbs chain (phase 12's comparators): injected and Philox noise
+    check_gibbs_sweep(gibbs_ops, T=1024, D=16, K=2000, W=20000,
+                      seed=args.seed)
     print(f"[time] phase 2: {time.time() - t0:.1f}s")
 
     # ---- 3. the serving slice at PUBMED width
@@ -2918,6 +3365,31 @@ def main(argv=None) -> None:
     del drv_a
     print(f"[time] phase 11: {time.time() - t0:.1f}s")
 
+    # ---- 12. the paper's comparators at PUBMED width: Gibbs and VB on
+    # phase 6's first mini-batch, the chain kernel against its plain
+    # version, PGS and PVB over 4 shards, the accuracy comparison
+    t0 = time.time()
+    gibbs_launches, gibbs_ms = gibbs_slice(
+        batches[0], (train, test), W=W, K=K, seed=args.seed, card=card,
+        pobp_ppl=ppl)
+    vb_launches = vb_slice(batches[0], (train, test), W=W, K=K,
+                           seed=args.seed, card=card)
+    gibbs_rec = check_gibbs_sweep(gibbs_ops, T=4096, D=64, K=2000, W=20000,
+                                  seed=args.seed, timed=True)
+    # one topic, a warp and one, past 2048 topics, every draw a tie, and
+    # the main path's shape (phase 6's first mini-batch's token count)
+    for T, D_, K_, W_, ties in ((300, 10, 1, 50, False),
+                                (300, 10, 33, 50, False),
+                                (200, 6, 2049, 100, False),
+                                (64, 1, 37, 1, True),
+                                (int(batches[0].counts.sum()), D, K, W,
+                                 False)):
+        check_gibbs_sweep(gibbs_ops, T=T, D=D_, K=K_, W=W_,
+                          seed=args.seed + T + K_, ties=ties)
+    parallel_slice(batches[0], W=W, K=K, seed=args.seed, card=card)
+    accuracy_slice(card=card)
+    print(f"[time] phase 12: {time.time() - t0:.1f}s")
+
     rec["launches"] = launches
     kernels = [rec]
     # device ms a launch on the main path, from the profiled steps
@@ -2946,6 +3418,12 @@ def main(argv=None) -> None:
             life_launches[name] + ps_launches[name]
         r["ms_main_path"] = main_ms[name]
         kernels.append(r)
+    # VB's statistic (phase 12 (b)) launches the word scatter too
+    train_recs["word_rows_sum"]["launches"] += vb_launches["word_rows_sum"]
+    # the chain's main path: phase 12 (a), ms a sweep at its shape
+    gibbs_rec["launches"] = gibbs_launches
+    gibbs_rec["ms_main_path"] = gibbs_ms
+    kernels.append(gibbs_rec)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

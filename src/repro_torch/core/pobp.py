@@ -166,6 +166,67 @@ def _dense_sweep_sharded(batch: MiniBatch, mu, phi_eff_wk, phi_tot,
 
 
 # --------------------------------------------------------------------------
+# selective sweep, the seed-layout oracle: Fig. 4 lines 15-21
+# --------------------------------------------------------------------------
+
+def selective_sweep(batch: MiniBatch, mu, theta, phi_eff_wk, phi_tot,
+                    sel_w, sel_k, cfg: LDAConfig):
+    """Update messages only at (power word, power topic) coordinates.
+
+    SEED-LAYOUT ORACLE, in plain PyTorch ops: it works on the [D, L, K]
+    batch-major messages and returns a new tensor for each output.  The
+    training loop runs the token-major `selective_sweep_tokens` below, the
+    same sweep within float associativity; this version stays as its
+    semantics oracle.  sel_w [P] power word ids; sel_k [P, Pk] power topic
+    ids a power word.  Token deltas scatter straight into the packed
+    [P, Pk] sync buffers.
+
+    Returns (mu_new, theta_new, delta_phi_packed, r_packed).
+    """
+    D, L = batch.word_ids.shape
+    P, Pk = sel_k.shape
+    K = mu.shape[-1]
+    p_tok = pw.word_to_row(sel_w, cfg.vocab_size)[batch.word_ids.long()]
+    is_power = p_tok >= 0                                        # [D, L]
+    p_safe = torch.where(is_power, p_tok, 0).long()
+    k_tok = sel_k.long()[p_safe]                                 # [D, L, Pk]
+
+    c = batch.counts[..., None]                                  # [D, L, 1]
+    mu_sel = torch.gather(mu, -1, k_tok)                         # [D, L, Pk]
+    sel_mass = mu_sel.sum(-1, keepdim=True)                      # conserved
+    self_c = c * mu_sel
+    theta_sel = torch.gather(theta[:, None, :].expand(D, L, K), -1, k_tok)
+    phi_pack = phi_eff_wk[sel_w.long()[:, None], sel_k.long()]  # [P, Pk]
+    phi_sel = phi_pack[p_safe]                                   # [D, L, Pk]
+    pt_sel = phi_tot[k_tok]                                      # [D, L, Pk]
+
+    th = theta_sel - self_c + cfg.alpha
+    ph = phi_sel - self_c + cfg.beta
+    pt = pt_sel - self_c + cfg.vocab_size * cfg.beta
+    u = th * ph / pt
+    # renormalize within the selected coordinates, conserving their old mass
+    # (unselected message entries stay put, so sum_k mu == 1 is invariant)
+    mu_new_sel = u * sel_mass / u.sum(-1, keepdim=True).clamp_min(1e-30)
+    mu_new_sel = torch.where(is_power[..., None], mu_new_sel, mu_sel)
+
+    d_mu = mu_new_sel - mu_sel                                   # [D, L, Pk]
+    mu_new = mu.scatter(-1, k_tok, mu_new_sel)
+
+    # theta update: scatter c * d_mu into [D, K] at the selected coordinates
+    d_idx = torch.arange(D, device=mu.device)[:, None, None].expand(D, L, Pk)
+    theta_new = theta.index_put((d_idx, k_tok), c * d_mu, accumulate=True)
+
+    # packed sync buffers: scatter straight to [P, Pk] (row P drops padding)
+    p_drop = torch.where(is_power, p_tok, P).reshape(-1).long()  # [D*L]
+    dv = (c * d_mu).reshape(-1, Pk)
+    rv = (c * d_mu.abs()).reshape(-1, Pk)
+    zeros = torch.zeros((P + 1, Pk), dtype=mu.dtype, device=mu.device)
+    delta_phi_packed = zeros.clone().index_add_(0, p_drop, dv)[:P]
+    r_packed = zeros.index_add_(0, p_drop, rv)[:P]
+    return mu_new, theta_new, delta_phi_packed, r_packed
+
+
+# --------------------------------------------------------------------------
 # token-major selective sweep: Fig. 4 lines 15-21
 # --------------------------------------------------------------------------
 

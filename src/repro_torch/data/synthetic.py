@@ -117,6 +117,21 @@ def lda_corpus_from_phi(seed: int, num_docs: int, phi: np.ndarray,
     return _docs_from_token_lists(token_lists, phi.shape[1])
 
 
+def zipf_corpus(seed: int, num_docs: int, vocab_size: int,
+                doc_len_mean: int = 160, zipf_s: float = 1.07):
+    """Zipf word marginals (power-law, the regime of Fig. 6).  Returns
+    (docs, stats)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    p = ranks ** (-zipf_s)
+    p /= p.sum()
+    token_lists = []
+    for _ in range(num_docs):
+        n = max(4, int(rng.poisson(doc_len_mean)))
+        token_lists.append(rng.choice(vocab_size, size=n, p=p))
+    return _docs_from_token_lists(token_lists, vocab_size)
+
+
 # ------------------------------------------------------------ drifting streams
 
 # new words past which the per-word scores are drawn in worker processes,

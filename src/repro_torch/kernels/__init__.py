@@ -37,6 +37,7 @@ def launch_counts(reset: bool = False) -> dict:
     """Each kernel wrapper's launch count (the plain integer on the
     wrapper), by kernel name; every count set to 0 first when ``reset``."""
     from repro_torch.kernels.bp_update import ops as bp_ops
+    from repro_torch.kernels.gibbs_sweep import ops as gibbs_ops
     from repro_torch.kernels.power_pack import ops as pack_ops
     from repro_torch.kernels.power_sweep import ops as sweep_ops
     from repro_torch.kernels.power_sweep import packed
@@ -45,7 +46,7 @@ def launch_counts(reset: bool = False) -> dict:
     wrappers = (bp_ops.bp_update, sweep_ops.power_sweep_carry,
                 sweep_ops.power_sweep_carry_train, packed.power_sweep_tokens,
                 pack_ops.pack_rows, pack_ops.scatter_add_rows,
-                seg_ops.word_rows_sum, seg_ops.topic_sum)
+                seg_ops.word_rows_sum, seg_ops.topic_sum, gibbs_ops.gibbs_sweep)
     if reset:
         for fn in wrappers:
             fn.launches = 0

@@ -1,0 +1,214 @@
+"""The collapsed Gibbs chain: its CUDA kernel's wrapper and its plain
+PyTorch version.
+
+`gibbs_sweep` runs one full sequential sweep of the reference's
+``core/gibbs.py::gibbs_sweep`` (the ``lax.scan`` over every token), IN
+PLACE on the topic assignments and the three count tensors, where the
+reference returns new arrays.  The draw of each token is Gumbel-max, as
+the reference's ``jax.random.categorical`` is: ``argmax(g + logits)``, the
+lowest topic on a tie.  The noise ``g`` is injected as a float32 [T, K]
+tensor, or drawn from a 64-bit seed by Philox4x32-10 (`philox_gumbel` makes
+the same numbers in PyTorch; the mapping is in ``csrc/gibbs_sweep.cu``).
+On a CUDA tensor the wrapper launches the kernel and raises if it cannot
+build or launch; on a CPU tensor it runs the plain version, a loop over
+the tokens.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build, check_args, count_launch
+
+_SOURCE = "gibbs_sweep"
+_MASK = 0xFFFFFFFF
+_max_topics: dict[int, int] = {}   # device index -> the largest K a sweep takes
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(_SOURCE)
+    if lib.gibbs_sweep.argtypes is None:
+        ptr, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                              ctypes.c_float)
+        lib.gibbs_sweep.argtypes = ([ptr] * 7 + [u32] * 3 + [i32] * 2
+                                    + [f32] * 3 + [ptr])
+        lib.gibbs_sweep.restype = ctypes.c_int
+        lib.gibbs_reduce_floor.argtypes = [ptr, i32, i32, ptr]
+        lib.gibbs_reduce_floor.restype = ctypes.c_int
+        lib.gibbs_sweep_max_topics.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.gibbs_sweep_max_topics.restype = ctypes.c_int
+        lib.gibbs_sweep_error_string.argtypes = [ctypes.c_int]
+        lib.gibbs_sweep_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err:
+        msg = lib.gibbs_sweep_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def chain_scalars(alpha: float, beta: float, W: int):
+    """alpha, beta and W * beta as float32 values (Python floats), rounded
+    as the reference's weak-typed scalars are: W * beta formed in double,
+    then rounded once."""
+    return (float(np.float32(alpha)), float(np.float32(beta)),
+            float(np.float32(int(W) * beta)))
+
+
+# ----------------------------------------------------------------- noise
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(high, low) 32-bit words of ``m * x`` for a 32-bit constant ``m`` and
+    int64 ``x`` in [0, 2^32), without overflowing int64: x in 16-bit
+    halves."""
+    p_lo, p_hi = m * (x & 0xFFFF), m * (x >> 16)     # each < 2^48
+    s = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (s >> 32), s & _MASK
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 (Salmon et al., SC'11) on int64 tensors of 32-bit
+    counter words and a 64-bit key (k0, k1): the four output words."""
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _MASK, (k1 + _PHILOX_W[1]) & _MASK
+    return c0, c1, c2, c3
+
+
+def philox_gumbel(seed: int, sweep: int, T: int, K: int, device
+                  ) -> torch.Tensor:
+    """The kernel's own noise as a float32 [T, K] tensor: Philox4x32-10
+    with key (seed's low and high 32 bits) and counter (k, t, sweep, 0),
+    its first output word x mapped to u = ((x >> 9) + 0.5) * 2^-23 and
+    g = -log(-log(u)).  In int64 tensor ops, T * K elements at a time."""
+    k = torch.arange(K, dtype=torch.int64, device=device)
+    t = torch.arange(T, dtype=torch.int64, device=device)
+    zeros = torch.zeros((T, K), dtype=torch.int64, device=device)
+    x, *_ = philox4x32(k[None, :] + zeros, t[:, None] + zeros,
+                       zeros + (int(sweep) & _MASK), zeros,
+                       int(seed) & _MASK, (int(seed) >> 32) & _MASK)
+    u = ((x >> 9).to(torch.float32) + 0.5) * 2.0 ** -23
+    return -torch.log(-torch.log(u))
+
+
+# ----------------------------------------------------------------- sweep
+
+def gibbs_sweep_plain(z, n_dk, n_wk, n_k, doc_ids, word_ids, noise_or_seed,
+                      *, alpha: float, beta: float, W: int, sweep: int = 0):
+    """One sweep in plain PyTorch ops, a loop over the tokens in order, IN
+    PLACE; ``noise_or_seed`` a float32 [T, K] tensor, or an int seed whose
+    `philox_gumbel` noise is made first.  Returns (z, n_dk, n_wk, n_k)."""
+    T, K = z.shape[0], n_k.shape[0]
+    if isinstance(noise_or_seed, torch.Tensor):
+        noise = noise_or_seed
+    else:
+        noise = philox_gumbel(noise_or_seed, sweep, T, K, n_k.device)
+    a, b, wb = chain_scalars(alpha, beta, W)
+    one = torch.ones(1, dtype=n_k.dtype, device=n_k.device)
+    docs, words = doc_ids.tolist(), word_ids.tolist()
+    for t in range(T):
+        rows = (n_dk[docs[t]], n_wk[words[t]], n_k)
+        for row in rows:
+            row.index_add_(0, z[t:t + 1].long(), -one)
+        logits = (torch.log(rows[0] + a) + torch.log(rows[1] + b)
+                  ) - torch.log(n_k + wb)
+        new = torch.argmax(noise[t] + logits).reshape(1)
+        for row in rows:
+            row.index_add_(0, new, one)
+        z[t:t + 1] = new
+    return z, n_dk, n_wk, n_k
+
+
+def _topic_limit(lib: ctypes.CDLL, device: torch.device) -> int:
+    got = _max_topics.get(device.index)
+    if got is None:
+        out = ctypes.c_int(0)
+        _raise_on(lib, lib.gibbs_sweep_max_topics(ctypes.byref(out)),
+                  f"reading the shared memory of {device}")
+        got = _max_topics[device.index] = out.value
+    return got
+
+
+def gibbs_sweep(z, n_dk, n_wk, n_k, doc_ids, word_ids, noise_or_seed, *,
+                alpha: float, beta: float, W: int, sweep: int = 0):
+    """One sequential collapsed-Gibbs sweep over the T tokens, IN PLACE.
+
+    z [T] int32 topics in [0, K); n_dk [D, K], n_wk [W, K] and n_k [K]
+    float32 counts of z (n_k the column sums of n_wk); doc_ids, word_ids
+    [T] int32 in range; ``noise_or_seed`` a float32 [T, K] noise tensor,
+    or an int in [0, 2^64) that keys the Philox noise with ``sweep``.
+    Returns (z, n_dk, n_wk, n_k).  A CPU tensor runs the plain version; a
+    CUDA tensor launches the kernel (one CTA walks the chain), counted in
+    ``gibbs_sweep.launches``: it chooses the plain version's topics on the
+    same noise, so the two agree bit for bit.  Ids and z must be in range:
+    the kernel reads them unchecked.
+    """
+    if n_k.device.type == "cpu":
+        return gibbs_sweep_plain(z, n_dk, n_wk, n_k, doc_ids, word_ids,
+                                 noise_or_seed, alpha=alpha, beta=beta, W=W,
+                                 sweep=sweep)
+    if n_k.device.type != "cuda":
+        raise ValueError(f"gibbs_sweep runs on CPU or CUDA tensors, not "
+                         f"{n_k.device}")
+    T, (K,), D = z.shape[0], n_k.shape, n_dk.shape[0]
+    want = {"z": (z, torch.int32, (T,)),
+            "n_dk": (n_dk, torch.float32, (D, K)),
+            "n_wk": (n_wk, torch.float32, (int(W), K)),
+            "n_k": (n_k, torch.float32, (K,)),
+            "doc_ids": (doc_ids, torch.int32, (T,)),
+            "word_ids": (word_ids, torch.int32, (T,))}
+    injected = isinstance(noise_or_seed, torch.Tensor)
+    if injected:
+        want["noise"] = (noise_or_seed, torch.float32, (T, K))
+        seed = 0
+    else:
+        seed = int(noise_or_seed)
+        if not 0 <= seed < 2 ** 64:
+            raise ValueError(f"seed must lie in [0, 2^64), got {seed}")
+    check_args("n_k", want)
+    dev = n_k.device
+    a, b, wb = chain_scalars(alpha, beta, W)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        limit = _topic_limit(lib, dev)
+        if K > limit:
+            raise ValueError(f"K={K}: gibbs_sweep takes K <= {limit} on "
+                             f"{dev} (n_k in shared memory)")
+        err = lib.gibbs_sweep(
+            z.data_ptr(), n_dk.data_ptr(), n_wk.data_ptr(), n_k.data_ptr(),
+            doc_ids.data_ptr(), word_ids.data_ptr(),
+            noise_or_seed.data_ptr() if injected else None,
+            seed & _MASK, seed >> 32, int(sweep) & _MASK, T, K, a, b, wb,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "gibbs_sweep kernel launch")
+    count_launch(gibbs_sweep)
+    return z, n_dk, n_wk, n_k
+
+
+gibbs_sweep.launches = 0
+
+
+def reduce_floor(T: int, K: int, device) -> torch.Tensor:
+    """Launch the chain's skeleton on ``device`` (a CUDA device): T steps of
+    the sweep's block argmax over K topics, with its barriers and no loads;
+    T times a step is the sweep's latency floor.  Not counted in
+    ``gibbs_sweep.launches``: it computes nothing of the chain.  Returns
+    the int32 [1] tensor the last step writes."""
+    dev = torch.device(device)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.gibbs_reduce_floor(out.data_ptr(), int(T), int(K),
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "gibbs_reduce_floor kernel launch")
+    return out

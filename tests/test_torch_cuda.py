@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch.core import pobp
-from repro_torch.core.types import LDAConfig
+from repro_torch.core.types import LDAConfig, MiniBatch
 from repro_torch.data.batching import docs_to_padded
 from repro_torch.data.synthetic import lda_corpus
 from repro_torch.kernels.bp_update import ops as bp_ops
@@ -1015,3 +1015,145 @@ def test_topic_recycling_through_a_fence_on_card(card, tmp_path, dtype):
     assert resumed["iters"] == full["iters"][2:]
     assert torch.equal(resumed["phi_acc"], full["phi_acc"])
     assert resumed["compaction_events"] == full["compaction_events"][1:]
+
+
+# ------------------------------------------------- the comparators (Gibbs, VB)
+
+def _gibbs_case(seed, *, T, D, K, W, ties=False):
+    """Tokens in document order on the card: the last document holds one
+    token, word W - 1 appears once; a random z and its counts.  With
+    ``ties`` every token is on one document and one word, z = [0, 0, 1, 1,
+    ...], and the noise is 0: every draw is a tie that the lowest topic
+    wins."""
+    from repro_torch.core import gibbs
+
+    rng = np.random.default_rng(seed)
+    if ties:
+        doc = np.zeros(T, np.int32)
+        word = np.zeros(T, np.int32)
+        z = (np.arange(T) // 2 % K).astype(np.int32)
+        noise = np.zeros((T, K), np.float32)
+    else:
+        doc = np.sort(rng.integers(0, D - 1, T)).astype(np.int32)
+        doc[-1] = D - 1
+        word = rng.integers(0, W - 1, T).astype(np.int32)
+        word[rng.integers(T)] = W - 1
+        z = rng.integers(0, K, T).astype(np.int32)
+        noise = rng.gumbel(size=(T, K)).astype(np.float32)
+    cfg = LDAConfig(vocab_size=W, num_topics=K, alpha=ALPHA)
+    d, w = torch.from_numpy(doc).cuda(), torch.from_numpy(word).cuda()
+    state = gibbs.gibbs_init(None, d, w, D, cfg,
+                             z=torch.from_numpy(z).cuda())
+    return cfg, d, w, state, torch.from_numpy(noise).cuda()
+
+
+def _check_counts(z, n_dk, n_wk, n_k, T):
+    assert torch.equal(n_k, n_wk.sum(0))
+    for c in (n_dk, n_wk, n_k):
+        assert bool((c >= 0).all()) and torch.equal(c, c.round())
+    assert float(n_wk.sum()) == float(n_dk.sum()) == T
+    assert int(z.min()) >= 0 and int(z.max()) < n_k.shape[0]
+
+
+@pytest.mark.parametrize("T,D,K,W,ties", [
+    (4096, 64, 2000, 20000, False),    # the comparators slice's shape
+    (300, 10, 1, 50, False),           # one topic
+    (300, 10, 33, 50, False),          # a warp and one topic
+    (200, 6, 2049, 100, False),        # past 2048: two topics a thread
+    (64, 1, 37, 1, True)])             # every draw a tie
+def test_gibbs_sweep_kernel_matches_plain_version_on_card(card, T, D, K, W,
+                                                          ties):
+    """Injected noise and the kernel's own Philox noise: z and all three
+    counts equal to the plain version's exactly, the counts consistent."""
+    from repro_torch.kernels.gibbs_sweep import ops as gops
+
+    cfg, d, w, state, noise = _gibbs_case(T + K, T=T, D=D, K=K, W=W,
+                                          ties=ties)
+    kw = dict(alpha=cfg.alpha, beta=cfg.beta, W=W)
+    for draw, sweep in ((noise, 0), (987654321987654321, 3)):
+        got = [x.clone() for x in state]
+        want = [x.clone() for x in state]
+        before = gops.gibbs_sweep.launches
+        gops.gibbs_sweep(*got, d, w, draw, **kw, sweep=sweep)
+        gops.gibbs_sweep_plain(*want, d, w, draw, **kw, sweep=sweep)
+        torch.cuda.synchronize()
+        assert gops.gibbs_sweep.launches == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        _check_counts(*got, T)
+        if ties and draw is noise:
+            # token 0 leaves topic 0 one count short of topics 1..31: the
+            # tie among them goes to the lowest
+            assert int(got[0][0]) == 1
+
+
+def test_gibbs_philox_draws_repeat_on_card(card):
+    """One state, one seed, one sweep index: two launches equal bit for
+    bit; another sweep index or seed draws other topics."""
+    from repro_torch.kernels.gibbs_sweep import ops as gops
+
+    cfg, d, w, state, _ = _gibbs_case(5, T=2000, D=20, K=500, W=3000)
+    kw = dict(alpha=cfg.alpha, beta=cfg.beta, W=3000)
+    runs = []
+    for seed, sweep in ((11, 0), (11, 0), (11, 1), (12, 0)):
+        s = [x.clone() for x in state]
+        gops.gibbs_sweep(*s, d, w, seed, **kw, sweep=sweep)
+        runs.append(s)
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    assert not torch.equal(runs[0][0], runs[2][0])
+    assert not torch.equal(runs[0][0], runs[3][0])
+
+
+def test_run_gibbs_on_card_repeats_and_launches_once_a_sweep(card):
+    from repro_torch.core import gibbs
+    from repro_torch.kernels.gibbs_sweep import ops as gops
+
+    docs, _, _ = lda_corpus(3, 64, 500, 20, doc_len_mean=60)
+    mb = docs_to_padded(docs)
+    cfg = LDAConfig(vocab_size=500, num_topics=20)
+    runs, seen = [], []
+    for _ in range(2):
+        before = gops.gibbs_sweep.launches
+        runs.append(gibbs.run_gibbs(
+            torch.Generator(device="cuda").manual_seed(7), mb, cfg, 3,
+            callback=lambda s, *st: seen.append(
+                bool(torch.equal(st[3], st[2].sum(0))))))
+        assert gops.gibbs_sweep.launches == before + 3
+    assert all(seen) and len(seen) == 6
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    T = float(mb.counts.sum())
+    assert float(runs[0][0].sum()) == float(runs[0][1].sum()) == T
+    phi, nbytes = gibbs.run_parallel_gibbs(
+        torch.Generator(device="cuda").manual_seed(8),
+        [docs_to_padded(docs[:32]), docs_to_padded(docs[32:])], cfg, 2)
+    assert nbytes == 500 * 20 * 4 * 2 * 2 and float(phi.sum()) == T
+
+
+def test_vb_on_card_repeats_bit_for_bit_and_tracks_cpu(card):
+    """run_vb from one injected lambda twice on the card: equal bit for bit
+    (the statistic through the fixed-order word_rows_sum kernel).  One
+    sweep on the card within rtol 1e-5 of the same sweep on the CPU
+    (digamma and the sums over K and L in other orders; a floor of 1e-6 of
+    the largest entry): over several iterations VB's fixed point amplifies
+    those ulps (4 iterations at these shapes part by up to 1.2e-3 at small
+    entries), so the run is held to itself, not to the CPU."""
+    from repro_torch.core import vb
+    from repro_torch.kernels.segment_sum import ops as seg
+
+    docs, _, _ = lda_corpus(4, 48, 800, 16, doc_len_mean=50)
+    mb = docs_to_padded(docs)
+    cfg = LDAConfig(vocab_size=800, num_topics=16)
+    lam0 = 0.01 + 0.5 + torch.rand((800, 16),
+                                   generator=torch.Generator().manual_seed(0))
+    before = seg.word_rows_sum.launches
+    a = vb.run_vb(None, mb, cfg, 4, lam0=lam0)
+    b = vb.run_vb(None, mb, cfg, 4, lam0=lam0)
+    assert seg.word_rows_sum.launches == before + 8
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert bool(torch.isfinite(a[1]).all())
+    card_mb = MiniBatch(mb.word_ids.cuda(), mb.counts.cuda())
+    for got, want in zip(vb.vb_sweep(card_mb, lam0.cuda(), cfg),
+                         vb.vb_sweep(mb, lam0, cfg)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()))
