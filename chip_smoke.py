@@ -32,8 +32,16 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      dead slots (the trailing slots of ``sel_w`` on one all-zero row that
      no token has) through the carry training sweep, the packed sweep and
      the pack, the sweeps repeating bit for bit, the dead slots' outputs
-     exactly 0; and the Gibbs chain kernel (phase 12's) with injected and
-     with its own Philox noise, equal to its plain version exactly;
+     exactly 0; the phi_tot refresh's sum also at one row, rows that do
+     not divide evenly, Pk of 1 and K = 10,000; and the Gibbs chain kernel
+     (phase 12's) with injected noise and with its Philox pre-pass's,
+     equal to its plain version exactly: timed at W = 20,000, T = 4096,
+     K = 2000 with its bounds, the floor of its one-barrier argmax and its
+     block sizes in turns, then at K = 1, 33, 2049, 10,000 and past its
+     shared-memory caches, every draw a tie, a shuffled token order, words
+     repeated in consecutive tokens and across documents, one-token
+     documents and noise off 16-byte boundaries; the Philox pre-pass
+     equal to its plain version, timed with its peak memory;
   3. the serving slice at PUBMED width (W = 141,043, K = 2000): a random
      phi statistic made on the card from ``--seed``, saved as a JAX-format
      checkpoint, served by ``SlabEngine.from_checkpoint`` for
@@ -146,23 +154,23 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      10 (a)'s and phase 11 (a)'s;
  12. the paper's comparators at PUBMED width (W = 141,043, K = 2000),
      on phase 6's first mini-batch and held-out split: (a) ``run_gibbs``,
-     3 sweeps with the chain kernel drawing its own Philox noise from
+     3 sweeps with the chain kernel on the Philox pre-pass's noise from
      ``--seed`` (the counts holding every token, n_k the column sums of
-     n_wk, every count a non-negative integer, one launch a sweep, a second
-     run equal bit for bit; ms a sweep, us a token, held-out perplexity
-     beside phase 6's); (b) ``run_vb``, 5 iterations from one injected
-     lambda (lambda - beta holding every token, gamma finite, a second run
-     equal bit for bit; ms an iteration, held-out perplexity); (c) the chain
-     kernel against its plain version with injected and Philox noise, equal
-     exactly, at W = 20,000, K = 2000, T = 4096 (timed, with its bounds and
-     its latency floor), at K = 1, 33 and 2049, with every draw a tie, and
-     at the main path's shape; (d) PGS and PVB over 4 shards of 128
+     n_wk, every count a non-negative integer, one chain and one pre-pass
+     launch a sweep, a second run equal bit for bit; ms a sweep, us a
+     token, held-out perplexity beside phase 6's); (b) ``run_vb``, 5
+     iterations from one injected lambda (lambda - beta holding every
+     token, gamma finite, a second run equal bit for bit; ms an iteration,
+     held-out perplexity); (c) the chain kernel against its plain version
+     with injected and Philox noise, equal exactly, at the main path's
+     shape (phase 2 holds the other shapes); (d) PGS and PVB over 4 shards
+     of 128
      documents, 2 sweeps and 2 iterations (``comm_bytes`` W*K*4*4 each,
      the tokens held, the shared n_wk untouched by each shard's sweep); (e)
      the reference accuracy bench's Table 4 analogue at its own settings
      (W = 400, K = 16): POBP, GS and VB each below a random model's
-     held-out perplexity.  The JSON line's ``gibbs_sweep`` launches are
-     (a)'s; ``word_rows_sum`` adds (b)'s.
+     held-out perplexity.  The JSON line's ``gibbs_sweep`` and
+     ``gibbs_noise`` launches are (a)'s; ``word_rows_sum`` adds (b)'s.
 
 Each phase prints its wall time.  The line before the last is the
 kernels' JSON record; the last line is
@@ -291,6 +299,7 @@ def kernel_record(name, source, replaces, err, ms, plain_ms, bound, bound_by,
             "replaces": replaces, **extra, "launches": None,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by,
+            "share_of_bound": bound / ms if ms else None,
             "library_ms": library_ms}
 
 
@@ -1254,7 +1263,7 @@ def train_slice(batches, *, W: int, K: int, seed: int, device,
             "power_sweep_tokens": sweeps if packed else 0,
             "pack_rows": sweeps if packed else 0,
             "word_rows_sum": 3 * len(batches),
-            "topic_sum": sweeps, "gibbs_sweep": 0}
+            "topic_sum": sweeps, "gibbs_sweep": 0, "gibbs_noise": 0}
     print(f"[{tag}] launches {launches} (steps={len(batches)}, selective "
           f"sweeps={sweeps}, sweep_policy={sweep_policy})")
     if launches != want or readings[0][1] < 2:
@@ -1708,7 +1717,7 @@ def sim_slice(batches, *, W: int, K: int, seed: int, card: str,
             "power_sweep_carry_train": N * sweeps,
             "scatter_add_rows": N * sweeps, "power_sweep_tokens": 0,
             "pack_rows": 0, "word_rows_sum": N * 3 * len(batches),
-            "topic_sum": N * sweeps, "gibbs_sweep": 0}
+            "topic_sum": N * sweeps, "gibbs_sweep": 0, "gibbs_noise": 0}
     print(f"[sim] launches {launches} ({N} x the single-shard counts of "
           f"{len(batches)} steps and {sweeps} selective sweeps)")
     if launches != want:
@@ -2515,17 +2524,20 @@ def ps_slice(*, seed: int, docs: int, card: str, sim: dict, sim_walls,
 
 # operations a (token, topic) pair of a sweep: the score (3 smoothing
 # adds, 3 logs, an add and a subtraction, the noise add, the compare) and,
-# drawn in the kernel, Philox4x32-10 (10 rounds of 2 multiplies-low, 2
+# drawn by the pre-pass, Philox4x32-10 (10 rounds of 2 multiplies-low, 2
 # multiplies-high, 4 XORs, 2 key adds) and its Gumbel map (shift, convert,
 # add, multiply, 2 logs, 2 negations)
 GIBBS_SCORE_OPS, GIBBS_DRAW_OPS = 10, 108
 
 
-def gibbs_case(seed, *, T, D, K, W, device="cuda", ties=False):
-    """One sweep's inputs: T tokens in document order over D documents
-    (the last document one token, word W - 1 appearing once), a random z
-    and its counts, and [T, K] Gumbel noise, made from ``seed`` with numpy.
-    ``ties``: one document, one word, z = [0, 0, 1, 1, ...], noise 0, so
+def gibbs_case(seed, *, T, D, K, W, device="cuda", kind="docs"):
+    """One sweep's inputs: T tokens over D documents, a random z and its
+    counts, and [T, K] Gumbel noise, made from ``seed`` with numpy.
+    ``kind``: "docs", tokens in document order (the last document one
+    token, word W - 1 appearing once); "shuffled", the same in a random
+    order; "repeats", words in runs of 3 consecutive tokens, runs crossing
+    document boundaries; "singletons", one token a document (D = T);
+    "ties", one document, one word, z = [0, 0, 1, 1, ...], noise 0, so
     every draw is a tie the lowest topic wins.  Returns (cfg, doc_ids,
     word_ids, (z, n_dk, n_wk, n_k), noise)."""
     import numpy as np
@@ -2535,16 +2547,25 @@ def gibbs_case(seed, *, T, D, K, W, device="cuda", ties=False):
     from repro_torch.core.types import LDAConfig
 
     rng = np.random.default_rng(seed)
-    if ties:
+    if kind == "ties":
         doc = np.zeros(T, np.int32)
         word = np.zeros(T, np.int32)
         z = (np.arange(T) // 2 % K).astype(np.int32)
         noise = np.zeros((T, K), np.float32)
     else:
-        doc = np.sort(rng.integers(0, max(D - 1, 1), T)).astype(np.int32)
-        doc[-1] = D - 1
+        if kind == "singletons":
+            D = T
+            doc = np.arange(T, dtype=np.int32)
+        else:
+            doc = np.sort(rng.integers(0, max(D - 1, 1), T)).astype(np.int32)
+            doc[-1] = D - 1
         word = rng.integers(0, max(W - 1, 1), T).astype(np.int32)
         word[rng.integers(T)] = W - 1
+        if kind == "repeats":
+            word = np.repeat(word[::3], 3)[:T]
+        if kind == "shuffled":
+            perm = rng.permutation(T)
+            doc, word = doc[perm], word[perm]
         z = rng.integers(0, K, T).astype(np.int32)
         noise = rng.gumbel(size=(T, K)).astype(np.float32)
     cfg = LDAConfig(vocab_size=W, num_topics=K)
@@ -2574,46 +2595,56 @@ def top2_gap(gops, cfg, d, w, state, noise, t: int) -> float:
     return float(top[0] - top[-1])
 
 
-def gibbs_bound(d, w, K, *, drawn: bool):
-    """The least time of one sweep on these tokens, and what bounds it: the
-    bytes it must move (each touched row of n_dk and n_wk read and written
-    once, n_k and z read and written, the ids read, the injected noise
-    read) over the card's memory rate, and its operations (`GIBBS_SCORE_OPS`
-    and, drawn in the kernel, `GIBBS_DRAW_OPS` a token and topic) over the
-    card's f32 rate.  Also a simpler count, two rows of K floats
-    a token over the memory rate."""
+def gibbs_bound(d, w, K):
+    """The least time of one chain sweep on these tokens and its noise, and
+    what bounds it: the bytes it must move (each touched row of n_dk and
+    n_wk read and written once, n_k and z read and written, the ids and
+    the [T, K] noise read) over the card's memory rate, and its operations
+    (`GIBBS_SCORE_OPS` a token and topic) over the card's f32 rate.  Also a
+    simpler count, two rows of K floats a token over the memory rate."""
     import torch
 
     T = d.shape[0]
     rows = int(torch.unique(d).numel()) + int(torch.unique(w).numel())
-    nbytes = 4 * (2 * rows * K + 2 * K + 4 * T + (0 if drawn else T * K))
-    ops = T * K * (GIBBS_SCORE_OPS + (GIBBS_DRAW_OPS if drawn else 0))
-    bound, by = bound_ms(nbytes, ops)
+    nbytes = 4 * (2 * rows * K + 2 * K + 4 * T + T * K)
+    bound, by = bound_ms(nbytes, T * K * GIBBS_SCORE_OPS)
     return bound, by, T * 2 * K * 4 / HBM_BYTES_PER_S * 1e3
 
 
-def check_gibbs_sweep(gops, *, T, D, K, W, seed, ties=False, timed=False):
+def check_gibbs_sweep(gops, *, T, D, K, W, seed, kind="docs", timed=False,
+                      noise_view=False):
     """The Gibbs chain kernel against its plain version on the card, with
     injected noise and with its own Philox noise (the plain version makes
     the same noise with `philox_gumbel`): z and the three counts equal
     exactly, the counts consistent (n_k the column sums of n_wk, every
     count a non-negative integer, T tokens held); if z differs, the first
-    token that differs and its top-2 score gap are printed.  Timed: the
-    kernel in both modes (medians of 20 in turns), the plain version (3
-    runs), the latency floor (T steps of the kernel's empty block argmax),
-    and the bounds of `gibbs_bound`; returns the kernel's record."""
+    token that differs and its top-2 score gap are printed.  ``noise_view``
+    injects the noise at a 4-byte offset (the chain's 4-byte path).
+    Timed: the kernel in both modes (medians of 20 in turns), the plain
+    version (3 runs), the latency floor (T steps of the kernel's
+    one-barrier block argmax), the block sizes 256, 512 and 1024 in turns
+    (5 each), and the bounds of `gibbs_bound`; returns the kernel's
+    record."""
+    from unittest import mock
+
     import torch
 
     cfg, d, w, state, noise = gibbs_case(seed, T=T, D=D, K=K, W=W,
-                                         ties=ties)
+                                         kind=kind)
+    T, D = d.shape[0], state[1].shape[0]
     kw = dict(alpha=cfg.alpha, beta=cfg.beta, W=W)
     philox_seed = (seed * 0x9E3779B97F4A7C15) % 2 ** 64
+    injected = noise
+    if noise_view:
+        injected = torch.empty(T * K + 1, device="cuda")[1:].view(T, K)
+        injected.copy_(noise)
     err = 0.0
-    for label, draw in (("injected", noise), ("philox", philox_seed)):
+    for label, draw in (("injected", injected), ("philox", philox_seed)):
         got = [x.clone() for x in state]
         want = [x.clone() for x in state]
         gops.gibbs_sweep(*got, d, w, draw, **kw, sweep=1)
-        gops.gibbs_sweep_plain(*want, d, w, draw, **kw, sweep=1)
+        gops.gibbs_sweep_plain(*want, d, w, noise if draw is injected
+                               else draw, **kw, sweep=1)
         torch.cuda.synchronize()
         z, n_dk, n_wk, n_k = got
         same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
@@ -2622,9 +2653,10 @@ def check_gibbs_sweep(gops, *, T, D, K, W, seed, ties=False, timed=False):
                         for c in (n_dk, n_wk, n_k))
                 and float(n_wk.sum(dtype=torch.float64)) == T
                 and float(n_dk.sum(dtype=torch.float64)) == T)
-        print(f"[gibbs] kernel vs plain T={T} D={D} K={K} W={W}"
-              f"{' (ties)' if ties else ''}, {label} noise: z, n_dk, n_wk, "
-              f"n_k equal {same}; counts consistent {held}")
+        print(f"[gibbs] kernel vs plain T={T} D={D} K={K} W={W} ({kind}"
+              f"{', noise at a 4-byte offset' if noise_view else ''}), "
+              f"{label} noise: z, n_dk, n_wk, n_k equal {same}; counts "
+              f"consistent {held}")
         if not same[0]:
             t = int((z != want[0]).nonzero()[0])
             gap = top2_gap(gops, cfg, d, w, state,
@@ -2636,7 +2668,7 @@ def check_gibbs_sweep(gops, *, T, D, K, W, seed, ties=False, timed=False):
                   f"gap there {gap:.3e}")
         if not (all(same) and held):
             fail(f"gibbs_sweep disagrees with its plain version at T={T} "
-                 f"K={K} W={W} ({label} noise)")
+                 f"K={K} W={W} ({kind}, {label} noise)")
         err = max(err, float((n_wk - want[2]).abs().max()))
         del got, want
     if not timed:
@@ -2647,27 +2679,81 @@ def check_gibbs_sweep(gops, *, T, D, K, W, seed, ties=False, timed=False):
                    fresh(philox_seed)),
         "injected": (functools.partial(gops.gibbs_sweep, **kw, sweep=1),
                      fresh(noise))}, 20)
+    def at_block(n):
+        def run(*args):
+            with mock.patch.object(gops, "block_threads", lambda K: n):
+                return gops.gibbs_sweep(*args, **kw, sweep=1)
+        return run
+
+    blocks = time_turns({f"threads={n}": (at_block(n), fresh(noise))
+                         for n in (256, 512, 1024)}, 5)
     plain_ms = time_ms(functools.partial(gops.gibbs_sweep_plain, **kw,
                                          sweep=1), fresh(philox_seed), 3)
     floor_ms = time_ms(lambda: gops.reduce_floor(T, K, "cuda"), tuple, 20)
-    bound, bound_by, rows_ms = gibbs_bound(d, w, K, drawn=True)
-    bound_inj, _, _ = gibbs_bound(d, w, K, drawn=False)
-    ms = turns["philox"]
+    bound, bound_by, rows_ms = gibbs_bound(d, w, K)
+    ms = turns["injected"]
     binds = "the latency floor" if floor_ms > bound else bound_by
-    print(f"[gibbs] gibbs_sweep T={T} K={K} W={W}: {ms:.4f} ms "
-          f"({ms * 1e3 / T:.3f} us a token) with its Philox noise, "
-          f"{turns['injected']:.4f} ms injected; plain {plain_ms:.4f} ms; "
-          f"bound {bound:.4f} ms ({bound_by}; injected {bound_inj:.4f}); "
-          f"two rows a token over HBM {rows_ms:.4f} ms; latency floor "
-          f"{floor_ms:.4f} ms ({floor_ms * 1e3 / T:.3f} us a step): "
-          f"{binds} binds")
+    print(f"[gibbs] gibbs_sweep T={T} K={K} W={W} ({gops.block_threads(K)} "
+          f"threads): {ms:.4f} ms ({ms * 1e3 / T:.3f} us a token) on its "
+          f"noise, {turns['philox']:.4f} ms with the Philox pre-pass; plain "
+          f"{plain_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}; "
+          f"{bound / ms:.2%} of it reached); two rows a token over HBM "
+          f"{rows_ms:.4f} ms; latency floor {floor_ms:.4f} ms "
+          f"({floor_ms * 1e3 / T:.3f} us a step, {floor_ms / ms:.1%} of the "
+          f"chain's time): {binds} binds")
+    print("[gibbs] block sizes (injected noise, medians of 5 in turns): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in blocks.items()))
     return kernel_record(
         "gibbs_sweep", "src/repro_torch/csrc/gibbs_sweep.cu",
         "none (added by the port): the lax.scan of "
         "src/repro/core/gibbs.py:73 (gibbs_sweep)", err, ms, plain_ms,
-        bound, bound_by, None, ms_injected=turns["injected"],
-        bound_ms_injected=bound_inj, bound_token_rows_ms=rows_ms,
-        latency_floor_ms=floor_ms, binds=binds, tokens=T)
+        bound, bound_by, None, ms_philox_with_prepass=turns["philox"],
+        bound_token_rows_ms=rows_ms, latency_floor_ms=floor_ms, binds=binds,
+        tokens=T, block_threads=gops.block_threads(K),
+        ms_by_block_threads=blocks)
+
+
+def check_gibbs_noise(gops, *, T, K, seed, timed=False):
+    """The Philox pre-pass against its plain version (`philox_gumbel` on
+    the card): equal exactly, at tokens offset by 5 as a chunk of a sweep
+    is.  Timed: medians of 20 of both, the bound (T * K * 4 bytes written,
+    `GIBBS_DRAW_OPS` a value over the f32 rate) and the pre-pass's peak
+    device memory beyond what was allocated before it; returns its
+    record."""
+    import torch
+
+    philox_seed = (seed * 0x9E3779B97F4A7C15 + 1) % 2 ** 64
+    got = gops.gibbs_noise(philox_seed, 2, T, K, "cuda", t0=5)
+    want = gops.philox_gumbel(philox_seed, 2, T, K, "cuda", t0=5)
+    err = float((got - want).abs().max())
+    same = bool(torch.equal(got, want))
+    print(f"[gibbs] gibbs_noise T={T} K={K} (tokens from 5): equal to "
+          f"philox_gumbel {same} (max|d| {err:.3e})")
+    if not same:
+        fail(f"gibbs_noise disagrees with philox_gumbel at T={T} K={K}")
+    del got, want
+    if not timed:
+        return None
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gops.gibbs_noise(philox_seed, 0, T, K, "cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    args = lambda: (philox_seed, 0, T, K, "cuda")      # noqa: E731
+    ms = time_ms(gops.gibbs_noise, args)
+    plain_ms = time_ms(gops.philox_gumbel, args, 3)
+    bound, bound_by = bound_ms(4 * T * K, T * K * GIBBS_DRAW_OPS)
+    print(f"[gibbs] gibbs_noise T={T} K={K}: {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  bound {bound:.4f} ms ({bound_by}; "
+          f"{bound / ms:.2%} of it reached)  peak device memory "
+          f"{peak / 2**20:.1f} MiB")
+    return kernel_record(
+        "gibbs_noise", "src/repro_torch/csrc/gibbs_sweep.cu",
+        "none (added by the port): the Gumbel draws of "
+        "jax.random.categorical at src/repro/core/gibbs.py:65 over the keys "
+        "of jax.random.split at :71", err, ms, plain_ms, bound, bound_by,
+        None, tokens=T, peak_mib=peak / 2**20)
 
 
 def count_gates(label, *, n_dk, n_wk, n_k, T) -> None:
@@ -2689,12 +2775,13 @@ def count_gates(label, *, n_dk, n_wk, n_k, T) -> None:
 
 
 def gibbs_slice(mb, heldout, *, W, K, seed, card, pobp_ppl, sweeps=3):
-    """Phase 12 (a): ``run_gibbs`` on one mini-batch at (W, K), the kernel
-    drawing its own noise from ``seed``, twice.  Gates: the counts'
-    invariants, one launch a sweep, the second run equal to the first bit
-    for bit (z and the three counts).  Prints ms a sweep and us a token
-    (CUDA events between sweeps 2..3 of both runs) and the held-out
-    perplexity beside ``pobp_ppl``.  Returns (launches, ms a sweep)."""
+    """Phase 12 (a): ``run_gibbs`` on one mini-batch at (W, K), the chain
+    on the Philox pre-pass's noise from ``seed``, twice.  Gates: the
+    counts' invariants, one chain and one pre-pass launch a sweep, the
+    second run equal to the first bit for bit (z and the three counts).
+    Prints ms a sweep and us a token (CUDA events between sweeps 2..3 of
+    both runs) and the held-out perplexity beside ``pobp_ppl``.  Returns
+    (the launch counts, ms a sweep)."""
     import torch
 
     from repro_torch.core import gibbs
@@ -2731,7 +2818,7 @@ def gibbs_slice(mb, heldout, *, W, K, seed, card, pobp_ppl, sweeps=3):
         print(f"[gibbs] (a) run {r + 1}: {sweeps} sweeps of {T} tokens in "
               f"{wall:.3f} s (init and seed included)  [{card}]")
     want = {k: 0 for k in launches}
-    want["gibbs_sweep"] = sweeps
+    want["gibbs_sweep"] = want["gibbs_noise"] = sweeps   # a chunk a sweep
     print(f"[gibbs] (a) launches {launches}")
     if launches != want:
         fail(f"run_gibbs launched {launches}, expected {want}")
@@ -2753,7 +2840,7 @@ def gibbs_slice(mb, heldout, *, W, K, seed, card, pobp_ppl, sweeps=3):
           f"{len(sweep_ms)}: " + ", ".join(f"{x:.3f}" for x in sweep_ms)
           + f" ms); held-out perplexity {ppl:.3f} (phase 6's POBP after its "
           f"last step: {pobp_ppl:.3f})  [{card}]")
-    return launches["gibbs_sweep"], ms
+    return launches, ms
 
 
 def vb_slice(mb, heldout, *, W, K, seed, card, iters=5):
@@ -3083,7 +3170,8 @@ def main(argv=None) -> None:
     # loads), a vocabulary of few words, K = 10,000, Pk of 1 and K
     for D, L, K, W in ((3, 7, 37, 5), (4, 16, 100, 3000), (8, 16, 10000, 50)):
         check_word_rows_sum(seg_ops, gen, D=D, L=L, K=K, W=W, timed=False)
-    for P, Pk, K in ((9, 1, 100), (9, 37, 37), (300, 50, 10000)):
+    for P, Pk, K in ((9, 1, 100), (9, 37, 37), (300, 50, 10000),
+                     (1, 50, 2000), (1001, 7, 300), (50, 2000, 2000)):
         check_topic_sum(seg_ops, gen, P=P, Pk=Pk, K=K, timed=False)
     # the dense sweep on both paths: the two-pass path at K = 2000 and past
     # the register path (K = 10,000); K = 100 and an odd K = 1999 (scalar
@@ -3144,9 +3232,34 @@ def main(argv=None) -> None:
                               timed=True, skewed=True)
     train_recs["power_sweep_tokens"].update(
         {f"{key}_skewed": skew[key] for key in ("ms", "plain_ms", "bound_ms")})
-    # the Gibbs chain (phase 12's comparators): injected and Philox noise
-    check_gibbs_sweep(gibbs_ops, T=1024, D=16, K=2000, W=20000,
-                      seed=args.seed)
+    # the Gibbs chain (phase 12's comparators), injected and Philox noise:
+    # timed at W = 20,000, T = 4096, K = 2000; then one topic, a warp and
+    # one, past 2048 topics, the reference's K = 10,000 and a K past the
+    # shared-memory caches (the device-memory path, 16- and 4-byte), every
+    # draw a tie, a shuffled token order, words repeated in consecutive
+    # tokens and across documents, one-token documents, noise at a 4-byte
+    # offset; the Philox pre-pass against its plain version, timed at the
+    # main path's token count
+    gibbs_rec = check_gibbs_sweep(gibbs_ops, T=4096, D=64, K=2000, W=20000,
+                                  seed=args.seed, timed=True)
+    past = gibbs_ops.cached_topic_limit("cuda") // 4 * 4 + 4
+    for T, D_, K_, W_, kind in ((300, 10, 1, 50, "docs"),
+                                (300, 10, 33, 50, "docs"),
+                                (200, 6, 2049, 100, "docs"),
+                                (128, 4, 10000, 100, "docs"),
+                                (64, 3, past, 40, "docs"),
+                                (64, 3, past + 1, 40, "docs"),
+                                (64, 1, 37, 1, "ties"),
+                                (800, 12, 500, 300, "shuffled"),
+                                (900, 12, 2000, 60, "repeats"),
+                                (400, 0, 64, 500, "singletons")):
+        check_gibbs_sweep(gibbs_ops, T=T, D=D_, K=K_, W=W_,
+                          seed=args.seed + T + K_, kind=kind)
+    check_gibbs_sweep(gibbs_ops, T=600, D=8, K=2000, W=5000, seed=args.seed,
+                      noise_view=True)
+    noise_rec = check_gibbs_noise(gibbs_ops, T=32768, K=2000, seed=args.seed,
+                                  timed=True)
+    check_gibbs_noise(gibbs_ops, T=7, K=33, seed=args.seed)
     print(f"[time] phase 2: {time.time() - t0:.1f}s")
 
     # ---- 3. the serving slice at PUBMED width
@@ -3263,7 +3376,7 @@ def main(argv=None) -> None:
         "one training step (batch 1 again)", card,
         watch=("bp_update", "carry_train_kernel", "carry_dr_fold_kernel",
                "scatter_add_rows_kernel", "word_rows_sum_kernel",
-               "topic_sum_partial_kernel", "topic_sum_final_kernel"))
+               "topic_sum_kernel"))
     print(f"[profile] that step ran {diag['iters']} iterations")
     if "bp_update" in carry_watch:
         # the dense sweep's bound on that step's own tokens
@@ -3374,18 +3487,10 @@ def main(argv=None) -> None:
         pobp_ppl=ppl)
     vb_launches = vb_slice(batches[0], (train, test), W=W, K=K,
                            seed=args.seed, card=card)
-    gibbs_rec = check_gibbs_sweep(gibbs_ops, T=4096, D=64, K=2000, W=20000,
-                                  seed=args.seed, timed=True)
-    # one topic, a warp and one, past 2048 topics, every draw a tie, and
-    # the main path's shape (phase 6's first mini-batch's token count)
-    for T, D_, K_, W_, ties in ((300, 10, 1, 50, False),
-                                (300, 10, 33, 50, False),
-                                (200, 6, 2049, 100, False),
-                                (64, 1, 37, 1, True),
-                                (int(batches[0].counts.sum()), D, K, W,
-                                 False)):
-        check_gibbs_sweep(gibbs_ops, T=T, D=D_, K=K_, W=W_,
-                          seed=args.seed + T + K_, ties=ties)
+    # the chain at the main path's shape (phase 6's first mini-batch's
+    # token count)
+    T = int(batches[0].counts.sum())
+    check_gibbs_sweep(gibbs_ops, T=T, D=D, K=K, W=W, seed=args.seed + T + K)
     parallel_slice(batches[0], W=W, K=K, seed=args.seed, card=card)
     accuracy_slice(card=card)
     print(f"[time] phase 12: {time.time() - t0:.1f}s")
@@ -3403,8 +3508,7 @@ def main(argv=None) -> None:
                    carry_watch, "carry_train_kernel", "carry_dr_fold_kernel"),
                "scatter_add_rows": carry_watch.get("scatter_add_rows_kernel"),
                "word_rows_sum": carry_watch.get("word_rows_sum_kernel"),
-               "topic_sum": summed(carry_watch, "topic_sum_partial_kernel",
-                                   "topic_sum_final_kernel"),
+               "topic_sum": carry_watch.get("topic_sum_kernel"),
                "pack_rows": packed_watch.get("pack_rows_kernel"),
                "power_sweep_tokens": summed(
                    packed_watch, "packed_sweep_kernel",
@@ -3420,10 +3524,12 @@ def main(argv=None) -> None:
         kernels.append(r)
     # VB's statistic (phase 12 (b)) launches the word scatter too
     train_recs["word_rows_sum"]["launches"] += vb_launches["word_rows_sum"]
-    # the chain's main path: phase 12 (a), ms a sweep at its shape
-    gibbs_rec["launches"] = gibbs_launches
+    # the chain's main path: phase 12 (a), ms a sweep at its shape, the
+    # pre-pass's noise included
+    gibbs_rec["launches"] = gibbs_launches["gibbs_sweep"]
     gibbs_rec["ms_main_path"] = gibbs_ms
-    kernels.append(gibbs_rec)
+    noise_rec["launches"] = gibbs_launches["gibbs_noise"]
+    kernels += [gibbs_rec, noise_rec]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.dist.paramserver import Transport, TransportError
+from repro_torch.dist.paramserver import (ServerUnavailableError, Transport,
+                                          TransportError)
 
 _KIND_ID = {"push": 1, "pull": 2}
 
@@ -74,7 +75,11 @@ class FaultPlan:
     ``crash_server``/``crash_at_push`` schedule one server loss when the
     push op counter reaches the index; ``restart_after_pushes`` later
     the server restarts from its last synced snapshot and waits for
-    client delta replay.
+    client delta replay.  A worker blocked on a pull from the downed
+    shard issues no pushes, so ``restart_after_pushes`` pulls addressed
+    to that shard with no push between them also bring the restart (the
+    reference counts pushes only, and such a worker waits out its retry
+    deadline).
     """
 
     seed: int = 0
@@ -166,6 +171,7 @@ class ChaosTransport(Transport):
         self._pull_idx = 0
         self._crashed = False
         self._restarted = False
+        self._stalled_pulls = 0    # pulls to the downed shard since a push
         self._dup_futures: List[Future] = []
 
     # ---- delegated accounting / recovery surface ----
@@ -211,12 +217,33 @@ class ChaosTransport(Transport):
                                 "push_op": push_index})
 
     # ---- the op surface ----
+    def _stalled_pull(self, pull_index: int, rows: np.ndarray) -> bool:
+        """Whether pull `pull_index` on ``rows`` brings the scheduled
+        restart: it addresses the downed shard, and it is the
+        ``restart_after_pushes``-th such pull with no push between.  The
+        shard then restarts and the pull fails as the downed shard would
+        have failed it, so the client replays its deltas and pulls again.
+        Keyed by op indices alone, so the event log replays."""
+        plan = self.plan
+        if (not self._crashed or self._restarted
+                or plan.crash_server not in self.inner.servers_of(rows)):
+            return False
+        self._stalled_pulls += 1
+        if self._stalled_pulls < plan.restart_after_pushes:
+            return False
+        self._restarted = True
+        self.inner.restart_server(plan.crash_server)
+        self.events.append({"event": "restart", "server": plan.crash_server,
+                            "pull_op": pull_index})
+        return True
+
     def push_batch(self, version: int, rows: np.ndarray,
                    deltas: np.ndarray, *, client_id: Optional[str] = None,
                    seq: Optional[int] = None,
                    replay: bool = False) -> Future:
         i = self._push_idx
         self._push_idx += 1
+        self._stalled_pulls = 0
         self._tick_crash_schedule(i)
         d = self.plan.decide("push", i)
         if d.delay_s:
@@ -254,6 +281,9 @@ class ChaosTransport(Transport):
             return _failed_future(FaultInjectedError(
                 f"pull op {i} (min_version {min_version}) dropped by fault "
                 f"plan seed={self.plan.seed}"))
+        if self._stalled_pull(i, rows):
+            return _failed_future(ServerUnavailableError(
+                self.plan.crash_server, "pull rejected"))
         return self.inner.pull(rows, min_version)
 
     def event_counts(self) -> Dict[str, int]:

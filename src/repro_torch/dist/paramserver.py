@@ -362,6 +362,11 @@ class Transport:
         """-> Future[(values [len(rows), K], served_version)]."""
         raise NotImplementedError
 
+    def servers_of(self, rows: np.ndarray) -> frozenset:
+        """The server shards that own ``rows``: those an op on them
+        addresses."""
+        raise NotImplementedError
+
     def close(self) -> None:
         pass
 
@@ -479,6 +484,9 @@ class SimTransport(Transport):
             by_server[s] = (rows[mask], idx_all[mask])
         return self._pool.submit(self._do_pull, by_server, rows.size, k,
                                  min_version)
+
+    def servers_of(self, rows: np.ndarray) -> frozenset:
+        return frozenset(self.server.shards.split(rows))
 
     def close(self) -> None:
         self._pool.shutdown(wait=True)

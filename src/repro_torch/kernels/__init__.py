@@ -46,7 +46,8 @@ def launch_counts(reset: bool = False) -> dict:
     wrappers = (bp_ops.bp_update, sweep_ops.power_sweep_carry,
                 sweep_ops.power_sweep_carry_train, packed.power_sweep_tokens,
                 pack_ops.pack_rows, pack_ops.scatter_add_rows,
-                seg_ops.word_rows_sum, seg_ops.topic_sum, gibbs_ops.gibbs_sweep)
+                seg_ops.word_rows_sum, seg_ops.topic_sum, gibbs_ops.gibbs_sweep,
+                gibbs_ops.gibbs_noise)
     if reset:
         for fn in wrappers:
             fn.launches = 0

@@ -1,5 +1,5 @@
-"""The collapsed Gibbs chain: its CUDA kernel's wrapper and its plain
-PyTorch version.
+"""The collapsed Gibbs chain: its CUDA kernels' wrappers and their plain
+PyTorch versions.
 
 `gibbs_sweep` runs one full sequential sweep of the reference's
 ``core/gibbs.py::gibbs_sweep`` (the ``lax.scan`` over every token), IN
@@ -7,11 +7,12 @@ PLACE on the topic assignments and the three count tensors, where the
 reference returns new arrays.  The draw of each token is Gumbel-max, as
 the reference's ``jax.random.categorical`` is: ``argmax(g + logits)``, the
 lowest topic on a tie.  The noise ``g`` is injected as a float32 [T, K]
-tensor, or drawn from a 64-bit seed by Philox4x32-10 (`philox_gumbel` makes
-the same numbers in PyTorch; the mapping is in ``csrc/gibbs_sweep.cu``).
-On a CUDA tensor the wrapper launches the kernel and raises if it cannot
-build or launch; on a CPU tensor it runs the plain version, a loop over
-the tokens.
+tensor, or drawn from a 64-bit seed by Philox4x32-10: on the card by
+`gibbs_noise`, a pre-pass over every SM ahead of the chain, whose plain
+version `philox_gumbel` makes the same numbers in PyTorch (the mapping is
+in ``csrc/gibbs_sweep.cu``).  On a CUDA tensor a wrapper launches its
+kernel and raises if it cannot build or launch; on a CPU tensor it runs
+the plain version (for the chain, a loop over the tokens).
 """
 
 from __future__ import annotations
@@ -25,21 +26,28 @@ from repro_torch.kernels import build, check_args, count_launch
 
 _SOURCE = "gibbs_sweep"
 _MASK = 0xFFFFFFFF
-_max_topics: dict[int, int] = {}   # device index -> the largest K a sweep takes
+# the pre-pass draws at most this many bytes of noise at a time; a sweep of
+# more tokens runs the pre-pass and the chain once a chunk of tokens
+NOISE_CHUNK_BYTES = 1 << 30
+_limits: dict = {}   # (name, device index) -> a topic limit of the kernel
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     if lib.gibbs_sweep.argtypes is None:
-        ptr, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                              ctypes.c_float)
-        lib.gibbs_sweep.argtypes = ([ptr] * 7 + [u32] * 3 + [i32] * 2
-                                    + [f32] * 3 + [ptr])
+        ptr, i32, u32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_uint, ctypes.c_longlong,
+                                   ctypes.c_float)
+        lib.gibbs_sweep.argtypes = ([ptr] * 7 + [i64] + [i32] * 3
+                                    + [f32] * 3 + [ptr, i32, ptr])
         lib.gibbs_sweep.restype = ctypes.c_int
-        lib.gibbs_reduce_floor.argtypes = [ptr, i32, i32, ptr]
+        lib.gibbs_noise.argtypes = [ptr] + [u32] * 3 + [i32] * 4 + [ptr]
+        lib.gibbs_noise.restype = ctypes.c_int
+        lib.gibbs_reduce_floor.argtypes = [ptr, i32, i32, i32, ptr]
         lib.gibbs_reduce_floor.restype = ctypes.c_int
-        lib.gibbs_sweep_max_topics.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.gibbs_sweep_max_topics.restype = ctypes.c_int
+        for name in ("gibbs_sweep_max_topics", "gibbs_sweep_cached_topics"):
+            getattr(lib, name).argtypes = [ctypes.POINTER(ctypes.c_int)]
+            getattr(lib, name).restype = ctypes.c_int
         lib.gibbs_sweep_error_string.argtypes = [ctypes.c_int]
         lib.gibbs_sweep_error_string.restype = ctypes.c_char_p
     return lib
@@ -85,14 +93,15 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def philox_gumbel(seed: int, sweep: int, T: int, K: int, device
-                  ) -> torch.Tensor:
-    """The kernel's own noise as a float32 [T, K] tensor: Philox4x32-10
-    with key (seed's low and high 32 bits) and counter (k, t, sweep, 0),
-    its first output word x mapped to u = ((x >> 9) + 0.5) * 2^-23 and
-    g = -log(-log(u)).  In int64 tensor ops, T * K elements at a time."""
+def philox_gumbel(seed: int, sweep: int, T: int, K: int, device, *,
+                  t0: int = 0) -> torch.Tensor:
+    """The kernel's own noise as a float32 [T, K] tensor, of tokens t0 ..
+    t0 + T - 1: Philox4x32-10 with key (seed's low and high 32 bits) and
+    counter (k, t, sweep, 0), its first output word x mapped to
+    u = ((x >> 9) + 0.5) * 2^-23 and g = -log(-log(u)).  In int64 tensor
+    ops, T * K elements at a time: the plain version of `gibbs_noise`."""
     k = torch.arange(K, dtype=torch.int64, device=device)
-    t = torch.arange(T, dtype=torch.int64, device=device)
+    t = torch.arange(t0, t0 + T, dtype=torch.int64, device=device)
     zeros = torch.zeros((T, K), dtype=torch.int64, device=device)
     x, *_ = philox4x32(k[None, :] + zeros, t[:, None] + zeros,
                        zeros + (int(sweep) & _MASK), zeros,
@@ -129,14 +138,69 @@ def gibbs_sweep_plain(z, n_dk, n_wk, n_k, doc_ids, word_ids, noise_or_seed,
     return z, n_dk, n_wk, n_k
 
 
-def _topic_limit(lib: ctypes.CDLL, device: torch.device) -> int:
-    got = _max_topics.get(device.index)
+def _topic_limit(lib: ctypes.CDLL, name: str, device: torch.device) -> int:
+    got = _limits.get((name, device.index))
     if got is None:
         out = ctypes.c_int(0)
-        _raise_on(lib, lib.gibbs_sweep_max_topics(ctypes.byref(out)),
-                  f"reading the shared memory of {device}")
-        got = _max_topics[device.index] = out.value
+        _raise_on(lib, getattr(lib, name)(ctypes.byref(out)),
+                  f"reading {name} on {device}")
+        got = _limits[(name, device.index)] = out.value
     return got
+
+
+def cached_topic_limit(device) -> int:
+    """The largest K whose per-topic caches fit the chain's shared memory
+    on ``device`` (a CUDA device); past it the chain keeps them in device
+    memory."""
+    dev = torch.device(device)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        return _topic_limit(lib, "gibbs_sweep_cached_topics", dev)
+
+
+def block_threads(K: int) -> int:
+    """The chain's block size at K topics: a power of two with about 8
+    topics a thread (two chunks of 4), at least a warp and at most 512
+    threads.  At K = 2000, 256 threads ran faster than 512 and 1024 on an
+    H100 (``chip_smoke.py`` phase 2 times the three in turns)."""
+    return min(512, max(32, 1 << (-(-int(K) // 8) - 1).bit_length()))
+
+
+def gibbs_noise(seed: int, sweep: int, T: int, K: int, device, *,
+                t0: int = 0, out=None) -> torch.Tensor:
+    """The chain's Philox noise of tokens t0 .. t0 + T - 1 as a float32
+    [T, K] tensor (into ``out`` when given).  On a CUDA device it launches
+    the pre-pass kernel, a grid over every SM, counted in
+    ``gibbs_noise.launches``; on the CPU it is `philox_gumbel`."""
+    dev = torch.device(device)
+    seed, T, K = int(seed), int(T), int(K)
+    if not 0 <= seed < 2 ** 64:
+        raise ValueError(f"seed must lie in [0, 2^64), got {seed}")
+    if dev.type == "cpu":
+        got = philox_gumbel(seed, sweep, T, K, dev, t0=t0)
+        return got if out is None else out.copy_(got)
+    if dev.type != "cuda":
+        raise ValueError(f"gibbs_noise runs on CPU or CUDA devices, not {dev}")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if out is None:
+        out = torch.empty((T, K), dtype=torch.float32, device=dev)
+    if out.device != dev:
+        raise ValueError(f"out is on {out.device}, not {dev}")
+    check_args("out", {"out": (out, torch.float32, (T, K))})
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.gibbs_noise(out.data_ptr(), seed & _MASK, seed >> 32,
+                              int(sweep) & _MASK, int(t0), T, K,
+                              torch.cuda.get_device_properties(dev)
+                              .multi_processor_count,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "gibbs_noise kernel launch")
+    count_launch(gibbs_noise)
+    return out
+
+
+gibbs_noise.launches = 0
 
 
 def gibbs_sweep(z, n_dk, n_wk, n_k, doc_ids, word_ids, noise_or_seed, *,
@@ -148,10 +212,14 @@ def gibbs_sweep(z, n_dk, n_wk, n_k, doc_ids, word_ids, noise_or_seed, *,
     [T] int32 in range; ``noise_or_seed`` a float32 [T, K] noise tensor,
     or an int in [0, 2^64) that keys the Philox noise with ``sweep``.
     Returns (z, n_dk, n_wk, n_k).  A CPU tensor runs the plain version; a
-    CUDA tensor launches the kernel (one CTA walks the chain), counted in
-    ``gibbs_sweep.launches``: it chooses the plain version's topics on the
-    same noise, so the two agree bit for bit.  Ids and z must be in range:
-    the kernel reads them unchecked.
+    CUDA tensor launches the chain kernel (one CTA of `block_threads(K)`
+    threads), counted in ``gibbs_sweep.launches``.
+    With a seed the `gibbs_noise` pre-pass draws the noise first, and the
+    sweep runs as one pre-pass and one chain launch a chunk of
+    `NOISE_CHUNK_BYTES` of noise (one of each at up to 2^28 / K tokens).
+    The kernel chooses the plain version's topics on the same noise, so
+    the two agree bit for bit.  Ids and z must be in range: the kernel
+    reads them unchecked.
     """
     if n_k.device.type == "cpu":
         return gibbs_sweep_plain(z, n_dk, n_wk, n_k, doc_ids, word_ids,
@@ -170,28 +238,39 @@ def gibbs_sweep(z, n_dk, n_wk, n_k, doc_ids, word_ids, noise_or_seed, *,
     injected = isinstance(noise_or_seed, torch.Tensor)
     if injected:
         want["noise"] = (noise_or_seed, torch.float32, (T, K))
-        seed = 0
     else:
         seed = int(noise_or_seed)
         if not 0 <= seed < 2 ** 64:
             raise ValueError(f"seed must lie in [0, 2^64), got {seed}")
     check_args("n_k", want)
+    threads = block_threads(K)
     dev = n_k.device
     a, b, wb = chain_scalars(alpha, beta, W)
     lib = _lib()
     with torch.cuda.device(dev):
-        limit = _topic_limit(lib, dev)
+        limit = _topic_limit(lib, "gibbs_sweep_max_topics", dev)
         if K > limit:
-            raise ValueError(f"K={K}: gibbs_sweep takes K <= {limit} on "
-                             f"{dev} (n_k in shared memory)")
-        err = lib.gibbs_sweep(
-            z.data_ptr(), n_dk.data_ptr(), n_wk.data_ptr(), n_k.data_ptr(),
-            doc_ids.data_ptr(), word_ids.data_ptr(),
-            noise_or_seed.data_ptr() if injected else None,
-            seed & _MASK, seed >> 32, int(sweep) & _MASK, T, K, a, b, wb,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, err, "gibbs_sweep kernel launch")
-    count_launch(gibbs_sweep)
+            raise ValueError(f"K={K}: gibbs_sweep takes K <= {limit}")
+        if T == 0:
+            return z, n_dk, n_wk, n_k
+        scratch = torch.empty(2 * K, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        chunk = (T if injected
+                 else max(1, min(T, NOISE_CHUNK_BYTES // (4 * K))))
+        noise = noise_or_seed if injected else torch.empty(
+            (chunk, K), dtype=torch.float32, device=dev)
+        for t0 in range(0, T, chunk):
+            t1 = min(T, t0 + chunk)
+            if not injected:
+                gibbs_noise(seed, sweep, t1 - t0, K, dev, t0=t0,
+                            out=noise[:t1 - t0])
+            err = lib.gibbs_sweep(
+                z.data_ptr(), n_dk.data_ptr(), n_wk.data_ptr(),
+                n_k.data_ptr(), doc_ids.data_ptr(), word_ids.data_ptr(),
+                noise.data_ptr(), 0 if injected else t0, t0, t1, K, a, b,
+                wb, scratch.data_ptr(), threads, stream)
+            _raise_on(lib, err, "gibbs_sweep kernel launch")
+            count_launch(gibbs_sweep)
     return z, n_dk, n_wk, n_k
 
 
@@ -200,15 +279,16 @@ gibbs_sweep.launches = 0
 
 def reduce_floor(T: int, K: int, device) -> torch.Tensor:
     """Launch the chain's skeleton on ``device`` (a CUDA device): T steps of
-    the sweep's block argmax over K topics, with its barriers and no loads;
-    T times a step is the sweep's latency floor.  Not counted in
-    ``gibbs_sweep.launches``: it computes nothing of the chain.  Returns
-    the int32 [1] tensor the last step writes."""
+    the sweep's one-barrier block argmax over K topics with its block size,
+    no loads and no logs; T times a step is the sweep's latency floor.  Not
+    counted in ``gibbs_sweep.launches``: it computes nothing of the chain.
+    Returns the int32 [1] tensor the last step writes."""
     dev = torch.device(device)
     out = torch.empty(1, dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
-        err = lib.gibbs_reduce_floor(out.data_ptr(), int(T), int(K),
-                                     torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.gibbs_reduce_floor(
+            out.data_ptr(), int(T), int(K), block_threads(K),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "gibbs_reduce_floor kernel launch")
     return out

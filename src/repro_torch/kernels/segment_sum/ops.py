@@ -15,6 +15,7 @@ on a CPU tensor each runs its plain version.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -22,7 +23,10 @@ from repro_torch.kernels import build, check_args, count_launch
 
 _SOURCE = "segment_sum"
 _MAX_TOPIC_WARPS = 8
+_TOPIC_STAGE = 1024                # topic_sum: pairs a warp stages at a time
 _smem_optin: dict[int, int] = {}   # device index -> shared memory a block may have
+# (device index, stream) -> topic_sum's group counters, zero between launches
+_topic_counters: dict = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -31,7 +35,7 @@ def _lib() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.word_rows_sum.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
         lib.word_rows_sum.restype = ctypes.c_int
-        lib.topic_sum.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+        lib.topic_sum.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
         lib.topic_sum.restype = ctypes.c_int
         lib.segment_sum_smem_optin.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.segment_sum_smem_optin.restype = ctypes.c_int
@@ -108,20 +112,38 @@ def topic_sum_plain(sel_k, vals, base):
         0, sel_k.reshape(-1).long(), vals.reshape(-1))
 
 
-def _topic_warps(lib: ctypes.CDLL, device: torch.device, K: int) -> int:
-    """Warps of a first-pass CTA at K topics: each keeps a [K] row in shared
-    memory, up to 8 within what a block may opt in to."""
+def _topic_plan(lib: ctypes.CDLL, device: torch.device, K: int, Pk: int):
+    """(warps, stage) of a topic_sum CTA at K topics and Pk pairs a row:
+    each warp keeps a [K] row in shared memory and stages ``stage`` pairs
+    (at least a row's, a multiple of 4), up to 8 warps within what a block
+    may opt in to; without room to stage, warps add straight from device
+    memory (stage 0), as far as one [K] row fits."""
     optin = _smem_optin.get(device.index)
     if optin is None:
         got = ctypes.c_int(0)
         _raise_on(lib, lib.segment_sum_smem_optin(ctypes.byref(got)),
                   f"reading the shared memory of {device}")
         optin = _smem_optin[device.index] = got.value
-    warps = min(_MAX_TOPIC_WARPS, optin // (4 * max(K, 1)))
-    if warps < 1:
-        raise ValueError(f"K={K}: topic_sum takes K <= {optin // 4} on "
-                         f"{device} (its shared memory)")
-    return warps
+    stage = -(-max(int(Pk), _TOPIC_STAGE) // 4) * 4 if Pk > 0 else 0
+    for st in ((stage, 0) if stage else (0,)):
+        warps = min(_MAX_TOPIC_WARPS,
+                    optin // (4 * (max(K, 1) + (2 * (st + 4) if st else 0))))
+        if warps >= 1:
+            return warps, st
+    raise ValueError(f"K={K}: topic_sum takes K <= {optin // 4} on "
+                     f"{device} (its shared memory)")
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The group counters of topic_sum's launches on ``stream``: zeros the
+    kernel leaves zero, one tensor a stream (launches on one stream run in
+    order)."""
+    key = (device.index, stream)
+    got = _topic_counters.get(key)
+    if got is None or got.numel() < n:
+        got = _topic_counters[key] = torch.zeros(n, dtype=torch.int32,
+                                                 device=device)
+    return got
 
 
 def topic_sum(sel_k, vals, base):
@@ -131,10 +153,10 @@ def topic_sum(sel_k, vals, base):
     sel_k [P, Pk] int32, topics in [0, K) and distinct within a row (top-k
     selections); vals [P, Pk] float32; base [K] float32.  Returns a new [K]
     tensor.  A CPU tensor runs the plain version; a CUDA tensor launches
-    the kernel (two device kernels), counted once in
-    ``topic_sum.launches``; it sums in a fixed order (rows in blocks, the
-    blocks in order), so it repeats bit for bit.  sel_k must be in range:
-    the kernel reads it unchecked.
+    the kernel once, counted in ``topic_sum.launches``; it sums in a fixed
+    order (rows in blocks, warps, CTAs, groups of CTAs, each in order), so
+    it repeats bit for bit.  sel_k must be in range: the kernel
+    reads it unchecked.
     """
     if base.device.type == "cpu":
         return topic_sum_plain(sel_k, vals, base)
@@ -150,14 +172,19 @@ def topic_sum(sel_k, vals, base):
     lib = _lib()
     out = torch.empty_like(base)
     with torch.cuda.device(dev):
-        warps = _topic_warps(lib, dev, K)
-        grid = max(1, min(torch.cuda.get_device_properties(dev)
-                          .multi_processor_count, -(-P // warps)))
-        partial = torch.empty((grid, K), dtype=torch.float32, device=dev)
+        warps, stage = _topic_plan(lib, dev, K, Pk)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid = max(1, min(sms, -(-P // warps)))
+        group = math.isqrt(grid - 1) + 1                 # ceil(sqrt(grid))
+        groups = -(-grid // group)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        partial = torch.empty((grid + groups, K), dtype=torch.float32,
+                              device=dev)
         err = lib.topic_sum(sel_k.data_ptr(), vals.data_ptr(),
                             base.data_ptr(), partial.data_ptr(),
-                            out.data_ptr(), P, Pk, K, grid, warps,
-                            torch.cuda.current_stream(dev).cuda_stream)
+                            out.data_ptr(),
+                            _counters(dev, stream, sms + 2).data_ptr(), P, Pk,
+                            K, grid, warps, group, stage, stream)
     _raise_on(lib, err, "topic_sum kernel launch")
     count_launch(topic_sum)
     return out

@@ -675,7 +675,12 @@ def test_word_rows_sum_matches_cpu_bit_for_bit_on_card(card, T, K, W):
 
 
 @pytest.mark.parametrize("P,Pk,K", [(14104, 50, 2000), (9, 1, 100),
-                                    (9, 37, 37), (300, 50, 10000)])
+                                    (9, 37, 37), (300, 50, 10000),
+                                    (1, 50, 2000),       # one row
+                                    (1001, 7, 300),      # rows not even
+                                    (14104, 1, 2000),    # one pair a row
+                                    (50, 2000, 2000),    # rows past 64
+                                    (3, 50, 58000)])     # no room to stage
 def test_topic_sum_matches_plain_version_on_card(card, P, Pk, K):
     from repro_torch.kernels.segment_sum import ops as seg
 
@@ -689,6 +694,36 @@ def test_topic_sum_matches_plain_version_on_card(card, P, Pk, K):
     again = seg.topic_sum(sel_k.cuda(), vals.cuda(), base.cuda())
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
     assert torch.equal(got, again)
+    before = seg.topic_sum.launches
+    seg.topic_sum(sel_k.cuda(), vals.cuda(), base.cuda())
+    assert seg.topic_sum.launches == before + 1
+
+
+def test_topic_sum_repeats_on_another_stream_and_refuses_a_k_past_its_memory(
+        card):
+    """Two streams keep counters of their own: a launch on a side stream
+    equals one on the default stream bit for bit; a K whose [K] row does
+    not fit a block's shared memory raises."""
+    from repro_torch.kernels.segment_sum import ops as seg
+
+    rng = np.random.default_rng(3)
+    sel_k = torch.from_numpy(np.argsort(rng.random((700, 500)), axis=1)[
+        :, :40].astype(np.int32).copy()).cuda()
+    vals = torch.from_numpy(rng.standard_normal((700, 40)).astype(
+        np.float32)).cuda()
+    base = torch.zeros(500, device="cuda")
+    first = seg.topic_sum(sel_k, vals, base)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = seg.topic_sum(sel_k, vals, base)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(first, again)
+    K = 60000
+    with pytest.raises(ValueError, match="topic_sum takes K"):
+        seg.topic_sum(torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
+                      torch.zeros((1, 1), device="cuda"),
+                      torch.zeros(K, device="cuda"))
 
 
 def test_restored_cuda_generator_draws_the_same_init(card):
@@ -1019,25 +1054,36 @@ def test_topic_recycling_through_a_fence_on_card(card, tmp_path, dtype):
 
 # ------------------------------------------------- the comparators (Gibbs, VB)
 
-def _gibbs_case(seed, *, T, D, K, W, ties=False):
-    """Tokens in document order on the card: the last document holds one
-    token, word W - 1 appears once; a random z and its counts.  With
-    ``ties`` every token is on one document and one word, z = [0, 0, 1, 1,
-    ...], and the noise is 0: every draw is a tie that the lowest topic
-    wins."""
+def _gibbs_case(seed, *, T, D, K, W, kind="docs"):
+    """Tokens on the card, a random z and its counts, and Gumbel noise.
+    ``kind``: "docs", tokens in document order (the last document holds
+    one token, word W - 1 appears once); "shuffled", the same in a random
+    order; "repeats", words in runs of 3 consecutive tokens, runs crossing
+    document boundaries; "singletons", one token a document (D = T);
+    "ties", every token on one document and one word, z = [0, 0, 1, 1,
+    ...] and noise 0: every draw is a tie that the lowest topic wins."""
     from repro_torch.core import gibbs
 
     rng = np.random.default_rng(seed)
-    if ties:
+    if kind == "ties":
         doc = np.zeros(T, np.int32)
         word = np.zeros(T, np.int32)
         z = (np.arange(T) // 2 % K).astype(np.int32)
         noise = np.zeros((T, K), np.float32)
     else:
-        doc = np.sort(rng.integers(0, D - 1, T)).astype(np.int32)
-        doc[-1] = D - 1
+        if kind == "singletons":
+            D = T
+            doc = np.arange(T, dtype=np.int32)
+        else:
+            doc = np.sort(rng.integers(0, D - 1, T)).astype(np.int32)
+            doc[-1] = D - 1
         word = rng.integers(0, W - 1, T).astype(np.int32)
         word[rng.integers(T)] = W - 1
+        if kind == "repeats":
+            word = np.repeat(word[::3], 3)[:T]
+        if kind == "shuffled":
+            perm = rng.permutation(T)
+            doc, word = doc[perm], word[perm]
         z = rng.integers(0, K, T).astype(np.int32)
         noise = rng.gumbel(size=(T, K)).astype(np.float32)
     cfg = LDAConfig(vocab_size=W, num_topics=K, alpha=ALPHA)
@@ -1055,36 +1101,129 @@ def _check_counts(z, n_dk, n_wk, n_k, T):
     assert int(z.min()) >= 0 and int(z.max()) < n_k.shape[0]
 
 
-@pytest.mark.parametrize("T,D,K,W,ties", [
-    (4096, 64, 2000, 20000, False),    # the comparators slice's shape
-    (300, 10, 1, 50, False),           # one topic
-    (300, 10, 33, 50, False),          # a warp and one topic
-    (200, 6, 2049, 100, False),        # past 2048: two topics a thread
-    (64, 1, 37, 1, True)])             # every draw a tie
-def test_gibbs_sweep_kernel_matches_plain_version_on_card(card, T, D, K, W,
-                                                          ties):
-    """Injected noise and the kernel's own Philox noise: z and all three
-    counts equal to the plain version's exactly, the counts consistent."""
+def _past_cache():
+    """A K past the chain's shared-memory caches (the device-memory path),
+    a multiple of 4 (its 16-byte loads)."""
     from repro_torch.kernels.gibbs_sweep import ops as gops
 
+    return gops.cached_topic_limit("cuda") // 4 * 4 + 4
+
+
+@pytest.mark.parametrize("T,D,K,W,kind", [
+    (4096, 64, 2000, 20000, "docs"),   # the comparators slice's shape
+    (300, 10, 1, 50, "docs"),          # one topic
+    (300, 10, 33, 50, "docs"),         # a warp and one topic
+    (200, 6, 2049, 100, "docs"),       # past 2048: 4-byte copies
+    (128, 4, 10000, 100, "docs"),      # the reference's second K
+    (64, 3, "past", 40, "docs"),       # past the shared-memory caches
+    (64, 3, "past+1", 40, "docs"),     # ... and its 4-byte loads
+    (64, 1, 37, 1, "ties"),            # every draw a tie
+    (64, 1, 2000, 1, "ties"),          # ties on the 16-byte path
+    (800, 12, 500, 300, "shuffled"),   # any token order
+    (900, 12, 2000, 60, "repeats"),    # a word's repeated tokens, across docs
+    (400, 0, 64, 500, "singletons")])  # one-token documents
+def test_gibbs_sweep_kernel_matches_plain_version_on_card(card, T, D, K, W,
+                                                          kind):
+    """Injected noise and the kernel's own Philox noise: z and all three
+    counts equal to the plain version's exactly, the counts consistent; a
+    sweep is one chain launch (and, with a seed, one pre-pass launch)."""
+    from repro_torch.kernels.gibbs_sweep import ops as gops
+
+    if isinstance(K, str):
+        K = _past_cache() + (1 if K.endswith("+1") else 0)
     cfg, d, w, state, noise = _gibbs_case(T + K, T=T, D=D, K=K, W=W,
-                                          ties=ties)
+                                          kind=kind)
     kw = dict(alpha=cfg.alpha, beta=cfg.beta, W=W)
     for draw, sweep in ((noise, 0), (987654321987654321, 3)):
         got = [x.clone() for x in state]
         want = [x.clone() for x in state]
-        before = gops.gibbs_sweep.launches
+        before = (gops.gibbs_sweep.launches, gops.gibbs_noise.launches)
         gops.gibbs_sweep(*got, d, w, draw, **kw, sweep=sweep)
         gops.gibbs_sweep_plain(*want, d, w, draw, **kw, sweep=sweep)
         torch.cuda.synchronize()
-        assert gops.gibbs_sweep.launches == before + 1
+        assert (gops.gibbs_sweep.launches, gops.gibbs_noise.launches) == \
+            (before[0] + 1, before[1] + (draw is not noise))
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         _check_counts(*got, T)
-        if ties and draw is noise:
+        if kind == "ties" and draw is noise:
             # token 0 leaves topic 0 one count short of topics 1..31: the
             # tie among them goes to the lowest
             assert int(got[0][0]) == 1
+
+
+def test_gibbs_sweep_with_noise_off_16_byte_boundaries_on_card(card):
+    """Injected noise that starts 4 bytes into its allocation takes the
+    chain's 4-byte path and still equals the plain version exactly."""
+    from repro_torch.kernels.gibbs_sweep import ops as gops
+
+    cfg, d, w, state, noise = _gibbs_case(4, T=600, D=8, K=2000, W=5000)
+    view = torch.empty(600 * 2000 + 1, device="cuda")[1:].view(600, 2000)
+    view.copy_(noise)
+    got = [x.clone() for x in state]
+    want = [x.clone() for x in state]
+    kw = dict(alpha=cfg.alpha, beta=cfg.beta, W=5000)
+    gops.gibbs_sweep(*got, d, w, view, **kw)
+    gops.gibbs_sweep_plain(*want, d, w, noise, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("threads", [32, 256, 512, 1024])
+def test_gibbs_sweep_block_sizes_agree_on_card(card, monkeypatch, threads):
+    """Every block size chooses the plain version's topics (many chunks a
+    thread, two, one, and threads with none)."""
+    from repro_torch.kernels.gibbs_sweep import ops as gops
+
+    monkeypatch.setattr(gops, "block_threads", lambda K: threads)
+    cfg, d, w, state, noise = _gibbs_case(9, T=500, D=10, K=2000, W=700)
+    got = [x.clone() for x in state]
+    want = [x.clone() for x in state]
+    kw = dict(alpha=cfg.alpha, beta=cfg.beta, W=700)
+    gops.gibbs_sweep(*got, d, w, noise, **kw)
+    gops.gibbs_sweep_plain(*want, d, w, noise, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_gibbs_noise_pre_pass_equals_philox_gumbel_on_card(card):
+    """The pre-pass draws philox_gumbel's numbers exactly, at any token
+    offset; a sweep past NOISE_CHUNK_BYTES runs one pre-pass and one chain
+    launch a chunk and still equals the plain version."""
+    from repro_torch.kernels.gibbs_sweep import ops as gops
+
+    for T, K, t0 in ((300, 2000, 0), (17, 33, 5), (5, 10000, 100)):
+        before = gops.gibbs_noise.launches
+        got = gops.gibbs_noise(1234567890123, 3, T, K, "cuda", t0=t0)
+        assert gops.gibbs_noise.launches == before + 1
+        assert torch.equal(got, gops.philox_gumbel(1234567890123, 3, T, K,
+                                                   "cuda", t0=t0))
+    cfg, d, w, state, _ = _gibbs_case(2, T=300, D=6, K=64, W=90)
+    got = [x.clone() for x in state]
+    want = [x.clone() for x in state]
+    kw = dict(alpha=cfg.alpha, beta=cfg.beta, W=90)
+    chunk = gops.NOISE_CHUNK_BYTES
+    gops.NOISE_CHUNK_BYTES = 64 * 4 * 100              # 100 tokens a chunk
+    try:
+        before = (gops.gibbs_sweep.launches, gops.gibbs_noise.launches)
+        gops.gibbs_sweep(*got, d, w, 77, **kw, sweep=2)
+        assert (gops.gibbs_sweep.launches, gops.gibbs_noise.launches) == \
+            (before[0] + 3, before[1] + 3)
+    finally:
+        gops.NOISE_CHUNK_BYTES = chunk
+    gops.gibbs_sweep_plain(*want, d, w, 77, **kw, sweep=2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_gibbs_sweep_refuses_an_over_range_k_on_card(card):
+    from repro_torch.kernels.gibbs_sweep import ops as gops
+
+    K = 65537
+    z = torch.zeros(1, dtype=torch.int32, device="cuda")
+    ids = torch.zeros(1, dtype=torch.int32, device="cuda")
+    n_dk = torch.zeros((1, K), device="cuda")
+    n_k = torch.zeros(K, device="cuda")
+    with pytest.raises(ValueError, match="K <= 65536"):
+        gops.gibbs_sweep(z, n_dk, n_dk.clone(), n_k, ids, ids, 5,
+                         alpha=0.1, beta=0.01, W=1)
 
 
 def test_gibbs_philox_draws_repeat_on_card(card):
@@ -1120,6 +1259,10 @@ def test_run_gibbs_on_card_repeats_and_launches_once_a_sweep(card):
                 bool(torch.equal(st[3], st[2].sum(0))))))
         assert gops.gibbs_sweep.launches == before + 3
     assert all(seen) and len(seen) == 6
+    # the Philox noise: one pre-pass launch a sweep
+    before = gops.gibbs_noise.launches
+    gibbs.run_gibbs(torch.Generator(device="cuda").manual_seed(7), mb, cfg, 2)
+    assert gops.gibbs_noise.launches == before + 2
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
     T = float(mb.counts.sum())

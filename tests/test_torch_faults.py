@@ -17,13 +17,14 @@ push fails fast and no transport thread outlives its test.
 """
 
 import threading
+import time
 from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings, strategies as st
+from hypothesis import example, given, settings, strategies as st
 
 from repro.dist import faults as jfaults
 from repro.dist import paramserver as jps
@@ -243,21 +244,115 @@ def test_retry_wire_bytes_are_billed_on_top_of_clean():
 
 # ----------------------------------------- eventual-delivery property
 
+def _crash_plan(drop, dup, seed, crash):
+    return dict(seed=seed, drop_push=drop, drop_pull=drop, dup_push=dup,
+                crash_server=None if crash is None else crash[0],
+                crash_at_push=None if crash is None else crash[1])
+
+
 @settings(max_examples=10, deadline=None)
 @given(drop=st.floats(0.0, 0.6), dup=st.floats(0.0, 1.0),
        seed=st.integers(0, 1000),
        crash=st.sampled_from([None, (0, 3), (2, 5)]))
+@example(drop=0.375, dup=0.0, seed=67, crash=(2, 5))
 def test_any_eventually_delivering_schedule_is_bitexact(drop, dup, seed,
                                                         crash):
     """The §17 pin as a property: any (drop < 1, dup, crash/restart)
-    schedule commits the same phi as the clean run at S = 0."""
+    schedule commits the same phi as the clean run at S = 0.  The pinned
+    example crashes shard 2 while the worker's next op is a pull from it:
+    the reference never restarts the shard there."""
     clean, v0, _, _, _ = _committed_phi(n_batches=5, sync_at=(2,))
-    plan_kw = dict(seed=seed, drop_push=drop, drop_pull=drop, dup_push=dup,
-                   crash_server=None if crash is None else crash[0],
-                   crash_at_push=None if crash is None else crash[1])
-    chaos, v1, _, _, _ = _committed_phi(plan_kw, n_batches=5, sync_at=(2,))
+    chaos, v1, _, _, _ = _committed_phi(_crash_plan(drop, dup, seed, crash),
+                                        n_batches=5, sync_at=(2,))
     assert v1 == v0
     np.testing.assert_array_equal(chaos, clean)
+
+
+def test_a_worker_blocked_on_a_pull_brings_the_restart():
+    """Shard 2 goes down at push op 5 while the worker's next op is a pull
+    from it, so no push comes to bring the scheduled restart.  The port
+    restarts the shard on the second pull it rejects with no push between
+    (``restart_after_pushes`` = 2), logs it by pull op, and commits the
+    clean run's phi bit for bit well within the client's retry deadline;
+    the reference, given the same plan, only backs off."""
+    plan_kw = _crash_plan(0.375, 0.0, 67, (2, 5))
+    clean, v0, _, _, _ = _committed_phi(n_batches=5, sync_at=(2,))
+    t0 = time.time()
+    chaos, v1, stats, server, t = _committed_phi(plan_kw, n_batches=5,
+                                                 sync_at=(2,))
+    assert time.time() - t0 < 0.5 * 10.0       # the workload's deadline
+    assert v1 == v0
+    np.testing.assert_array_equal(chaos.view(np.uint32), clean.view(np.uint32))
+    crash, restart = ([e for e in t.events if e["event"] == kind]
+                      for kind in ("crash", "restart"))
+    assert crash == [{"event": "crash", "server": 2, "push_op": 5}]
+    assert len(restart) == 1 and restart[0]["server"] == 2
+    assert "pull_op" in restart[0] and "push_op" not in restart[0]
+    events = [e["event"] for e in server.recovery_log]
+    assert events[:2] == ["crash", "restart"] and "recovered" in events
+    assert stats["recoveries"] >= 1
+    # the events replay: the same plan on the same workload logs the same
+    again = _committed_phi(plan_kw, n_batches=5, sync_at=(2,))[4]
+    assert again.events == t.events
+    # the reference waits on the downed shard with no restart to come
+    server_ref = jps.ParamServer(np.zeros((12, 3), np.float32),
+                                 num_servers=3, pull_timeout=TIMEOUT)
+    tr = jfaults.ChaosTransport(jps.SimTransport(server_ref),
+                                jfaults.FaultPlan(**plan_kw))
+    client = jps.PSClient(tr, staleness=0, client_id="w0",
+                          retry_deadline_s=0.5, backoff0_s=1e-4,
+                          backoff_max_s=2e-3)
+    try:
+        phi = jnp.zeros((12, 3))
+        rng = np.random.default_rng(0)
+        with pytest.raises(TimeoutError, match="exceeded retry deadline"):
+            for m in range(1, 6):
+                rows = np.sort(rng.choice(12, size=4, replace=False))
+                phi = client.begin_batch(m, rows, phi)
+                phi = phi.at[jnp.asarray(rows)].add(jnp.asarray(
+                    rng.normal(size=(4, 3)).astype(np.float32)))
+                client.end_batch(m, phi, rows)
+                if m == 2:
+                    client.flush()
+                    server_ref.mark_synced()
+                    client.mark_durable()
+    finally:
+        tr.close()
+    assert [e["event"] for e in tr.events].count("restart") == 0
+    assert not server_ref.is_up(2)
+
+
+def test_stalled_pulls_count_only_on_the_downed_shard_between_pushes():
+    """The pull-side restart counts pulls that address the downed shard,
+    and a push starts the count again; before the crash and after the
+    restart pulls count for nothing."""
+    server = ps.ParamServer(np.zeros((9, 2), np.float32), num_servers=3,
+                            pull_timeout=0.05)
+    t = faults.ChaosTransport(ps.SimTransport(server), faults.FaultPlan(
+        crash_server=1, crash_at_push=1, restart_after_pushes=3))
+    down, up = np.array([3, 4]), np.array([0, 7])
+    d = np.ones((2, 2), np.float32)
+    try:
+        t.pull(down, 0).result()                        # before the crash
+        t.push_batch(1, up, d, client_id="w0", seq=0).result()
+        t.push_batch(2, up, d, client_id="w0", seq=1).result()   # crash
+        assert t.event_counts() == {"crash": 1}
+        for rows in (down, up, down):                   # 2 on the shard
+            t.pull(rows, 0).exception()
+        t.push_batch(3, up, d, client_id="w0", seq=2).result()   # resets
+        assert "restart" not in t.event_counts()
+        t.pull(down, 0).exception()
+        t.pull(down, 0).exception()
+        assert "restart" not in t.event_counts()
+        err = t.pull(down, 0).exception()               # the third
+        assert isinstance(err, ps.ServerUnavailableError) and err.server == 1
+        assert t.events[-1] == {"event": "restart", "server": 1,
+                                "pull_op": 6}
+        assert server.needs_replay() == {1}
+        t.pull(down, 0).exception()
+        assert t.event_counts()["restart"] == 1
+    finally:
+        t.close()
 
 
 def _slept(mod, attempt, **kw):

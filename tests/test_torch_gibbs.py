@@ -205,6 +205,37 @@ def test_philox_noise_known_answers_and_draws():
     assert abs(float(big.mean()) - 0.5772) < 0.01
 
 
+@pytest.mark.parametrize("t0,T", [(0, 1), (5, 30), (49, 1)])
+def test_noise_pre_pass_at_a_token_offset_is_the_sweeps_rows(t0, T):
+    """The pre-pass's noise of tokens t0 .. t0 + T - 1 (its plain version
+    on the CPU) is rows t0 .. of the sweep's [T, K] noise: a sweep drawn a
+    chunk of tokens at a time sees the same numbers."""
+    seed = 987654321987654321
+    whole = ops.philox_gumbel(seed, 4, 50, 33, "cpu")
+    before = ops.gibbs_noise.launches
+    got = ops.gibbs_noise(seed, 4, T, 33, "cpu", t0=t0)
+    assert torch.equal(got, whole[t0:t0 + T])
+    assert ops.gibbs_noise.launches == before    # no kernel on the CPU
+    out = torch.empty((T, 33))
+    assert ops.gibbs_noise(seed, 4, T, 33, "cpu", t0=t0, out=out) is out
+    assert torch.equal(out, whole[t0:t0 + T])
+    with pytest.raises(ValueError, match="seed"):
+        ops.gibbs_noise(-1, 0, 1, 1, "cpu")
+
+
+@pytest.mark.parametrize("K,threads", [(1, 32), (33, 32), (256, 32),
+                                       (257, 64), (2000, 256), (2049, 512),
+                                       (4096, 512), (10000, 512)])
+def test_chain_block_size_is_a_power_of_two_near_eight_topics_a_thread(
+        K, threads):
+    """About 8 topics a thread: up to K = 4096 the chain's threads own one
+    or two chunks of 4 topics (its loop-free forms)."""
+    got = ops.block_threads(K)
+    assert got == threads and got & (got - 1) == 0
+    assert got == 512 or got == 32 or -(-K // 8) <= got < -(-K // 8) * 2
+    assert K > 4096 or -(-K // (4 * got)) <= 2
+
+
 def test_sweep_plain_version_takes_a_seed_as_its_philox_noise():
     _, mb = _batch(14)
     _, cfg = _cfgs()
