@@ -170,7 +170,17 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      the reference accuracy bench's Table 4 analogue at its own settings
      (W = 400, K = 16): POBP, GS and VB each below a random model's
      held-out perplexity.  The JSON line's ``gibbs_sweep`` and
-     ``gibbs_noise`` launches are (a)'s; ``word_rows_sum`` adds (b)'s.
+     ``gibbs_noise`` launches are (a)'s; ``word_rows_sum`` adds (b)'s;
+ 13. LM serving (the LM lab's plain PyTorch path, no kernel of its own):
+     ``serve --mode lm`` (``serve_lm``) at full width and depth for
+     smollm-360m (8 streams, prompt 128, 128 new tokens) and
+     deepseek-v2-lite-16b (8 streams, prompt 32, 32 new tokens), each
+     twice from ``--seed`` (logits finite, greedy tokens in the
+     vocabulary, the second run equal bit for bit; tokens/s, ms a decode
+     step, peak memory, one decode step profiled); then, for each of the
+     ten ``--arch`` ids at ``reduced()`` and for smollm-360m at full
+     width, a prefill of 16 tokens and a decode of the 17th against a
+     full forward over 17.
 
 Each phase prints its wall time.  The line before the last is the
 kernels' JSON record; the last line is
@@ -3020,6 +3030,207 @@ def accuracy_slice(*, card, device="cuda"):
         fail("a comparator does not score below a random model")
 
 
+# --------------------------------------------------------------- phase 13
+
+LM_STREAMS = 8
+# (arch, prompt tokens, new tokens) served at full width and depth
+LM_SERVED = (("smollm-360m", 128, 128), ("deepseek-v2-lite-16b", 32, 32))
+LM_IDS = ("granite-3-2b", "mistral-large-123b", "qwen2-72b", "smollm-360m",
+          "llama-3.2-vision-11b", "mamba2-780m", "deepseek-v2-lite-16b",
+          "olmoe-1b-7b", "zamba2-2.7b", "seamless-m4t-medium")
+
+
+def lm_serve_slice(arch: str, *, prompt: int, gen: int, seed: int,
+                   card: str) -> None:
+    """``serve --mode lm`` (its ``serve_lm``) at full width and depth, twice
+    from ``seed``: logits finite at every step, greedy tokens inside the
+    vocabulary, the second run's tokens and one more decode step's logits
+    equal to the first's bit for bit; tokens/s, ms a decode step (median
+    and range) and peak device memory of each run, and that extra step of
+    the first run under the profiler (busy share, device events)."""
+    import torch
+    from repro_torch.launch import serve
+
+    args = serve.parse_args([
+        "--mode", "lm", "--arch", arch, "--batch", str(LM_STREAMS),
+        "--prompt-len", str(prompt), "--gen", str(gen), "--seed", str(seed),
+        "--device", "cuda"])
+    runs, last = [], []
+    for rep in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if rep == 0:
+            def trace(fn):
+                (logits, _), _ = profile_run(
+                    fn, f"one {arch} decode step ({LM_STREAMS} streams, "
+                    f"cache {prompt + gen})", card)
+                last.append(logits)
+        else:
+            def trace(fn):
+                last.append(fn()[0])
+        t0 = time.time()
+        res = serve.serve_lm(args, trace_step=trace)
+        wall = time.time() - t0
+        steps = sorted(s * 1e3 for s in res["step_s"])
+        print(f"[lm] {arch} run {rep + 1}: {LM_STREAMS} streams, prompt "
+              f"{prompt}, {gen} new tokens: {res['tok_per_s']:.1f} tok/s; "
+              f"ms a decode step median {steps[len(steps) // 2]:.3f} "
+              f"(range {steps[0]:.3f} - {steps[-1]:.3f}, {len(steps)} "
+              f"steps); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{wall:.1f}s with init  [{card}]")
+        if not res["finite"]:
+            fail(f"{arch}: a decode step's logits were not finite")
+        toks = res["tokens"]
+        if int(toks.min()) < 0 or int(toks.max()) >= res["vocab_size"]:
+            fail(f"{arch}: a greedy token outside the vocabulary "
+                 f"[0, {res['vocab_size']})")
+        runs.append(toks)
+    if not (torch.equal(runs[0], runs[1]) and torch.equal(last[0], last[1])):
+        fail(f"{arch}: a second serve_lm run from seed {seed} differs")
+    print(f"[lm] {arch}: the second run equal bit for bit (tokens, and the "
+          f"logits of one more step over the full cache)")
+
+
+# a routing decision that the decode path and the full forward take
+# differently must be a near-tie: its top-k gate margin below this
+ROUTER_TIE = 1e-2
+
+
+class RouteLog:
+    """While open, records the experts each MoE layer chose for each token
+    ([B, T, k], sorted) and the top-k gate margins ([B, T], the k-th
+    largest gate less the next), through ``moe.top_k``."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.top_k, self.layers = moe, moe.top_k, []
+
+        def spy(x, k):
+            v, i = self.top_k(x, k + 1)
+            self.layers.append((i[..., :k].sort(-1).values,
+                                v[..., k - 1] - v[..., k]))
+            return v[..., :k], i[..., :k]
+        moe.top_k = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k = self.top_k
+
+
+def route_flips(full: RouteLog, prefill: RouteLog, decode: RouteLog):
+    """Rows in which the full forward routed a token (the prefill's tokens
+    and the decoded one) to other experts than the prefill and decode did,
+    and the largest margin among the differences no earlier one explains
+    (an earlier layer of the same row, at this token or before)."""
+    import torch
+
+    flipped, worst, seen = set(), 0.0, []
+    for (fc, fm), (pc, pm), (dc, dm) in zip(full.layers, prefill.layers,
+                                            decode.layers):
+        other = torch.cat([pc, dc], 1)
+        margin = torch.minimum(fm, torch.cat([pm, dm], 1))
+        here = [tuple(ix) for ix in
+                (fc != other).any(-1).nonzero().tolist()]
+        for b, t in here:
+            if not any(sb == b and st <= t for sb, st in seen):
+                worst = max(worst, float(margin[b, t]))
+            flipped.add(b)
+        seen += here
+    return flipped, worst
+
+
+def lm_decode_vs_forward(arch: str, *, full: bool, seed: int) -> None:
+    """Prefill 16 tokens through ``forward(mode="prefill")``, grow the
+    caches, decode token 17, and hold its logits against a full forward
+    over 17 tokens: the reference's own tolerance (``tests/test_archs.py``:
+    rtol 0.1, atol 0.15, top-1 agreement >= 0.5, MoE at capacity factor 8
+    so that no queue drops differ).  MoE routing is discrete: a row in
+    which the two paths routed a token differently is held only by the
+    top-1 agreement, and that difference must have been a near-tie
+    (``ROUTER_TIE``).  At full width only the top-1 agreement is held; the
+    gap is printed."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_map
+
+    cfg = get_config(arch)
+    if not full:
+        cfg = cfg.reduced()
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    mod = registry.build(cfg)
+    params = mod.init(cfg, seed=seed, device="cuda")
+    B, S = 2, 16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+
+    def embeds(n):
+        return torch.randn((B, n, cfg.d_model), generator=gen,
+                           device="cuda").bfloat16()
+
+    if cfg.family == "audio":           # the encoder's memory spans 17 frames
+        frames = embeds(S + 1)
+        fwd = lambda t: mod.forward(params, t, frames, cfg,  # noqa: E731
+                                    mode="prefill")
+    else:
+        image = embeds(cfg.frontend_tokens) if cfg.family == "vlm" else None
+        fwd = lambda t: mod.forward(params, t, cfg,  # noqa: E731
+                                    image_embeds=image, mode="prefill")
+
+    def grown(c, t):
+        out = t.clone()
+        out[tuple(slice(0, n) for n in c.shape)] = c
+        return out
+
+    with RouteLog() as full_log:
+        full_logits, _, _ = fwd(tokens)
+    with RouteLog() as prefill_log:
+        _, caches, _ = fwd(tokens[:, :S])
+    caches = tree_map(grown, caches, registry.cache_zeros(cfg, B, S + 1,
+                                                         device="cuda"))
+    with RouteLog() as decode_log:
+        logits, _ = mod.decode_step(params, tokens[:, S:], caches, S, cfg)
+    flipped, worst = route_flips(full_log, prefill_log, decode_log)
+    a = logits[:, 0, :cfg.vocab_size].float()
+    b = full_logits[:, S, :cfg.vocab_size].float()
+    rows = [r for r in range(B) if r not in flipped]
+    gap = float((a - b).abs().max())
+    top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    within = bool(torch.allclose(a[rows], b[rows], rtol=0.1, atol=0.15))
+    print(f"[lm] decode vs forward {arch} "
+          f"({'full width' if full else 'reduced'}): max |gap| {gap:.4f} "
+          f"(logits up to {float(b.abs().max()):.3f}), rows routed alike "
+          f"{len(rows)} of {B}, within rtol 0.1 atol 0.15: {within}, top-1 "
+          f"agreement {top1:.2f}")
+    if flipped:
+        print(f"[lm]   rows {sorted(flipped)} routed a token to other experts "
+              f"in the two paths; the first such choice's gate margin "
+              f"{worst:.2e} (a near-tie below {ROUTER_TIE})")
+    if top1 < 0.5 or worst >= ROUTER_TIE or not (full or within):
+        fail(f"{arch}: decode after prefill disagrees with the full forward")
+
+
+def lm_slice(*, seed: int, card: str) -> None:
+    """Phase 13: LM serving through ``serve --mode lm`` at full width and
+    depth, then decode against forward for every id."""
+    import torch
+
+    for arch, prompt, gen in LM_SERVED:
+        lm_serve_slice(arch, prompt=prompt, gen=gen, seed=seed, card=card)
+        torch.cuda.empty_cache()
+    for arch in LM_IDS:
+        lm_decode_vs_forward(arch, full=False, seed=seed)
+    lm_decode_vs_forward("smollm-360m", full=True, seed=seed)
+
+
 def profile_run(fn, label: str, card: str, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the card's busy
     share of the wall time (the summed time of the events that ran on the
@@ -3055,7 +3266,8 @@ def profile_run(fn, label: str, card: str, watch=()):
     busy = sum(dev_us.values()) / 1e6
     print(f"[profile] {label} in {wall * 1e3:.3f} ms wall: "
           f"device busy {busy * 1e3:.3f} ms ({busy / wall:.1%}), idle "
-          f"{1 - busy / wall:.1%}  [{card}]")
+          f"{1 - busy / wall:.1%}; {sum(dev_n.values())} device events "
+          f"(kernels, copies, fills)  [{card}]")
     for name, t in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile]   {t / 1e3:9.3f} ms  {t / 1e6 / busy:6.1%}  "
               f"{name[:90]}")
@@ -3494,6 +3706,14 @@ def main(argv=None) -> None:
     parallel_slice(batches[0], W=W, K=K, seed=args.seed, card=card)
     accuracy_slice(card=card)
     print(f"[time] phase 12: {time.time() - t0:.1f}s")
+
+    # ---- 13. LM serving: smollm-360m and deepseek-v2-lite-16b served at
+    # full width and depth, decode against forward for all ten ids
+    del batches, train, test
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    lm_slice(seed=args.seed, card=card)
+    print(f"[time] phase 13: {time.time() - t0:.1f}s")
 
     rec["launches"] = launches
     kernels = [rec]

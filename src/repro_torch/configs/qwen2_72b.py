@@ -1,0 +1,21 @@
+"""qwen2-72b [dense]: 80L d_model=8192 64H (GQA kv=8) d_ff=29568
+vocab=152064 — GQA, QKV bias [arXiv:2407.10671; hf]."""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-72b",
+    family="dense",
+    vocab_size=152064,
+    d_model=8192,
+    n_layers=80,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=29568,
+    head_dim=128,
+    rope_theta=1000000.0,
+    qkv_bias=True,
+    attn_type="gqa",
+    norm="rms",
+    act="silu",
+)

@@ -12,7 +12,13 @@ picks the card or, when asked, the CPU.
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lda \\
       --ckpt-dir /tmp/lda_ck --requests 256 --device cuda
 
-LM mode is not ported yet (ROADMAP Queue 1, item 10).
+LM mode: greedy decode of ``--batch`` streams with KV caches for any
+``--arch`` id (``--reduced`` for its small variant): the prompt goes in
+through decode steps, then ``--gen`` greedy tokens come out.  Params and
+prompts are random from ``--seed``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+      --arch smollm-360m --reduced --gen 16 --device cpu
 """
 
 from __future__ import annotations
@@ -193,7 +199,68 @@ def serve_lda(args):
     return results, s
 
 
-def main(argv=None):
+def serve_lm(args, *, trace_step=None):
+    """Greedy decode of ``args.batch`` streams: ``prompt_len + gen - 1``
+    decode steps into caches of ``prompt_len + gen`` positions, the prompt
+    fed through decode steps, then argmax tokens.  Each step ends in a
+    device sync, so its wall time is the step's.  With ``trace_step``, one
+    more decode step (the last cache position) runs as
+    ``trace_step(fn)`` after the timed loop.  Returns the new tokens
+    [B, gen] (on the host), each step's seconds, the wall seconds, tokens
+    per second and whether every step's logits were finite."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.device import resolve_device
+    from repro_torch.models import registry
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    mod = registry.build(cfg)
+    params = mod.init(cfg, seed=args.seed, device=dev)
+    B, S = args.batch, args.prompt_len
+    total = S + args.gen
+    prompt = torch.randint(
+        0, cfg.vocab_size, (B, S), dtype=torch.int32, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(args.seed + 1))
+    caches = registry.cache_zeros(cfg, B, total, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    tok, out_toks, step_s = prompt[:, :1], [], []
+    sync()
+    t0 = time.time()
+    for i in range(total - 1):
+        ts = time.time()
+        logits, caches = mod.decode_step(params, tok, caches, i, cfg)
+        finite &= torch.isfinite(logits).all()
+        if i + 1 < S:
+            tok = prompt[:, i + 1:i + 2]
+        else:
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            out_toks.append(tok[:, 0])
+        sync()
+        step_s.append(time.time() - ts)
+    dt = time.time() - t0
+    tokens = (torch.stack(out_toks, 1).cpu() if out_toks
+              else torch.zeros((B, 0), dtype=torch.int32))
+    print(f"[serve-lm] {B} streams x {args.gen} new tokens in {dt:.2f}s "
+          f"({B * args.gen / max(dt, 1e-9):.1f} tok/s); "
+          f"sample: {tokens[0, :8].tolist()}")
+    if trace_step is not None:
+        trace_step(lambda: mod.decode_step(params, tok, caches, total - 1,
+                                           cfg))
+    return {"tokens": tokens, "step_s": step_s, "wall_s": dt,
+            "tok_per_s": B * args.gen / max(dt, 1e-9),
+            "finite": bool(finite), "vocab_size": cfg.vocab_size}
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="lda", choices=["lda", "lm"])
     ap.add_argument("--device", default="cuda",
@@ -247,20 +314,25 @@ def main(argv=None):
     ap.add_argument("--doc-len-means", default="12,24,40")
     ap.add_argument("--requests", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batch", type=int, default=32,
-                    help="bucket: docs per fold-in batch")
-    # lm mode's flags, accepted so that --mode lm reaches its error
+    # shared / lm
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="lda: docs per fold-in batch of the bucket engine "
+                         "(default 32); lm: decode streams (default 8)")
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--gen", type=int, default=8)
     args = ap.parse_args(argv)
-    if args.mode == "lm":
-        ap.error("--mode lm is not ported yet (ROADMAP Queue 1, item 10: "
-                 "the LM architecture lab)")
-    if not args.ckpt_dir:
+    if args.batch is None:
+        args.batch = 32 if args.mode == "lda" else 8
+    if args.mode == "lda" and not args.ckpt_dir:
         ap.error("--mode lda needs --ckpt-dir")
-    serve_lda(args)
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    return serve_lm(args) if args.mode == "lm" else serve_lda(args)
 
 
 if __name__ == "__main__":

@@ -1300,3 +1300,63 @@ def test_vb_on_card_repeats_bit_for_bit_and_tracks_cpu(card):
                          vb.vb_sweep(mb, lam0, cfg)):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
                                    atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    ("smollm-360m", torch.bfloat16), ("zamba2-2.7b", torch.bfloat16),
+    ("llama-3.2-vision-11b", torch.bfloat16),
+    ("deepseek-v2-lite-16b", torch.float32)])
+def test_lm_decode_on_card_matches_cpu_and_repeats(card, arch, dtype):
+    """A reduced model's prefill of 8 tokens and 6 decode steps on the card
+    (teacher-forced with the CPU run's greedy tokens): every step's logits
+    against the same steps on the CPU from the same params, and a second
+    run on the card equal bit for bit.  bf16 is held to the reference's own
+    decode tolerance (rtol 0.1, atol 0.15); the MoE model runs in float32
+    (params and caches), where the two devices' sums agree to ~1e-6 and
+    route every token alike (a bf16 near-tie may route it elsewhere), and
+    is held to rtol 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_map
+
+    cfg = get_config(arch).reduced()
+    mod = registry.build(cfg)
+    params = mod.init(cfg, seed=3, device="cpu")
+    if dtype == torch.float32:
+        params = tree_map(lambda t: t.float(), params)
+    gen = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+    image = torch.randn((2, cfg.frontend_tokens, cfg.d_model), generator=gen)
+
+    def grown(c, t):
+        out = t.to(c.dtype if dtype == torch.float32 else t.dtype).clone()
+        out[tuple(slice(0, n) for n in c.shape)] = c
+        return out
+
+    def run(device, feed=None):
+        p = tree_map(lambda t: t.to(device), params)
+        logits, caches, _ = mod.forward(
+            p, prompt.to(device), cfg, mode="prefill",
+            image_embeds=image.to(device) if cfg.family == "vlm" else None)
+        caches = tree_map(grown, caches,
+                          registry.cache_zeros(cfg, 2, 14, device=device))
+        outs, toks = [logits.float().cpu()], []
+        tok = logits[:, -1].argmax(-1)[:, None]
+        for i in range(6):
+            if feed is not None:
+                tok = feed[i].to(device)
+            toks.append(tok.cpu())
+            lg, caches = mod.decode_step(p, tok, caches, 8 + i, cfg)
+            outs.append(lg.float().cpu())
+            tok = lg[:, -1].argmax(-1)[:, None]
+        return outs, toks
+
+    cpu, toks = run("cpu")
+    a, _ = run("cuda", feed=toks)
+    b, _ = run("cuda", feed=toks)
+    tol = (dict(rtol=0.1, atol=0.15) if dtype == torch.bfloat16
+           else dict(rtol=1e-4, atol=1e-4))
+    for i, (x, y, want) in enumerate(zip(a, b, cpu)):
+        assert torch.equal(x, y), i
+        torch.testing.assert_close(x[..., :cfg.vocab_size],
+                                   want[..., :cfg.vocab_size], **tol)

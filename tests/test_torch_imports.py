@@ -205,3 +205,34 @@ def test_lifecycle_slice_modules_stand_alone(no_card):
     state, diag = step(pobp.init_train_state(cfg, device="cpu"),
                        mb.word_ids, mb.counts, 40)
     assert state.m == 1 and not state.phi_acc[40:].any()
+
+
+def test_lm_slice_modules_stand_alone(no_card):
+    """The LM lab's modules (configs, models, the converter, the LM
+    serving loop) are among the files checked above and import nothing of
+    JAX; their entry points default to the card too."""
+    from repro_torch import configs, convert
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.models import (attention, common, encdec, lm, mlp, moe,
+                                    registry, ssm)
+
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "src/repro_torch/configs/zamba2_2_7b.py" in names
+    for mod in (configs, base, convert, serve, attention, common, encdec,
+                lm, mlp, moe, registry, ssm):
+        rel = str(Path(mod.__file__).resolve().relative_to(ROOT))
+        assert rel in names
+        assert not [m for m in _imported_modules(Path(mod.__file__))
+                    if _forbidden(m)]
+    cfg = configs.get_config("smollm-360m").reduced()
+    for build in (lambda: lm.init(cfg),
+                  lambda: encdec.init(configs.get_config(
+                      "seamless-m4t-medium").reduced()),
+                  lambda: registry.cache_zeros(cfg, 1, 4),
+                  lambda: convert.lm_params_from_reference({}, cfg),
+                  lambda: serve.main(["--mode", "lm", "--reduced"])):
+        with pytest.raises(RuntimeError, match="is_available"):
+            build()
+    # the meta device draws nothing and needs no card
+    assert lm.init(cfg, device="meta")["embed"].device.type == "meta"

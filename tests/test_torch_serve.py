@@ -16,8 +16,11 @@ import torch
 from repro.dist import checkpoint as jckpt
 from repro.serve import FoldInEngine as JFoldInEngine
 from repro.serve import SlabEngine as JSlabEngine
+from repro_torch.configs import ARCH_IDS
 from repro_torch.data.synthetic import lda_corpus
 from repro_torch.launch import serve as serve_mod
+
+from torch_lm_pairs import one_torch_thread
 from repro_torch.serve import (FoldInEngine, OOVTrigger, Shed, SlabEngine,
                                ThetaCache)
 
@@ -323,8 +326,46 @@ def test_serve_cli_on_cpu_reports_latency(ckpt_dir, capsys, admission):
     assert "docs/s" in out and "p99=" in out and "on cpu" in out
 
 
-def test_serve_cli_lm_mode_names_roadmap_item(capsys):
-    with pytest.raises(SystemExit) as e:
-        serve_mod.main(["--mode", "lm", "--arch", "smollm-360m"])
-    assert e.value.code != 0
-    assert "Queue 1, item 10" in capsys.readouterr().err
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_serve_cli_lm_mode_runs_on_cpu(capsys, arch):
+    """``--mode lm --reduced --device cpu`` serves every architecture: the
+    reference's ``[serve-lm]`` line, greedy tokens inside the vocabulary,
+    finite logits; for a dense and an MoE id, the same tokens again from
+    the same seed."""
+    argv = ["--mode", "lm", "--arch", arch, "--reduced", "--device", "cpu",
+            "--batch", "3", "--prompt-len", "5", "--gen", "4", "--seed", "2"]
+    with one_torch_thread():
+        res = serve_mod.main(argv)
+    out = capsys.readouterr().out
+    assert "[serve-lm] 3 streams x 4 new tokens in" in out
+    assert "tok/s); sample: [" in out
+    assert res["tokens"].shape == (3, 4) and res["finite"]
+    assert 0 <= int(res["tokens"].min()) <= int(res["tokens"].max()) \
+        < res["vocab_size"]
+    assert len(res["step_s"]) == 5 + 4 - 1
+    if arch in ("smollm-360m", "olmoe-1b-7b"):
+        with one_torch_thread():
+            assert torch.equal(serve_mod.main(argv)["tokens"], res["tokens"])
+
+
+def test_serve_cli_lm_mode_defaults(monkeypatch):
+    """Without ``--batch`` the LM mode decodes 8 streams (the bucket
+    engine's 32 documents a batch stay LDA's default)."""
+    seen = {}
+    monkeypatch.setattr(serve_mod, "serve_lm",
+                        lambda args: seen.setdefault("lm", args))
+    monkeypatch.setattr(serve_mod, "serve_lda",
+                        lambda args: seen.setdefault("lda", args))
+    serve_mod.main(["--mode", "lm"])
+    serve_mod.main(["--mode", "lda", "--ckpt-dir", "x"])
+    lm, lda = seen["lm"], seen["lda"]
+    assert (lm.batch, lm.prompt_len, lm.gen, lm.arch, lm.device) == \
+        (8, 8, 8, "smollm-360m", "cuda")
+    assert lda.batch == 32
+
+
+def test_serve_cli_lm_mode_default_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        serve_mod.main(["--mode", "lm", "--arch", "olmoe-1b-7b",
+                        "--reduced"])
