@@ -180,9 +180,34 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      step, peak memory, one decode step profiled); then, for each of the
      ten ``--arch`` ids at ``reduced()`` and for smollm-360m at full
      width, a prefill of 16 tokens and a decode of the 17th against a
-     full forward over 17.
+     full forward over 17;
+ 14. LM training through ``launch/train.py`` (``lm_train_slice``): (a)
+     smollm-360m at full width and depth, 2 lockstep shards of 4 x 4096
+     tokens, PowerSync (its pack and two scatters on the power-pack
+     kernels), 12 steps, a checkpoint every 4: losses finite and falling;
+     ms a step (median and range of steps 3-12, the loss read a step),
+     tokens/s, peak device memory, the bytes a step by phase, step 2
+     profiled; (b) ``--crash-at 8``, then the same command again: steps
+     9-12 equal to (a)'s bit for bit, else within the reference's rtol =
+     atol = 2e-4 (which held is printed); (c) (a)'s cell with ``--sync
+     dense``: PowerSync's payload under 0.25 x the dense bytes, the two
+     loss curves and step walls side by side; (d) mamba2-780m at full
+     width and depth, 2 x 4 x 2048, remat ``"full"``, 6 steps: losses
+     finite and falling, ms a step, tokens/s, peak memory; (e) the ten ids
+     at ``reduced()``: ``loss_fn`` and its grads in float32 on the card
+     against the CPU (loss rtol 1e-4, each grad leaf a relative L2 error
+     of at most 1e-3), and PowerSync over 2 shards on the card through
+     the kernels against their plain versions (synced within 1e-6, the
+     residuals and sent masks equal), on a tree of odd leaves and on a
+     tree of smollm-360m's full-width leaf shapes.  The counts are reset
+     before each of (a)-(d) and read right after it; each run's
+     ``pack_rows`` launches must be exactly steps x 2 shards x the leaves
+     PowerSync packs, its ``scatter_add_rows`` launches twice that ((c)'s
+     zero).  The JSON line's launches of the two kernels include (a)'s.
 
-Each phase prints its wall time.  The line before the last is the
+Phase 10 draws each host batch of its drifting streams once
+(``drawn_once``): its runs read the same batches.  Each phase prints its
+wall time.  The line before the last is the
 kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
@@ -191,6 +216,7 @@ the repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import shutil
@@ -1926,6 +1952,38 @@ def expect_crash(args) -> None:
         fail("--crash-at 3 did not end the run")
 
 
+@contextlib.contextmanager
+def drawn_once():
+    """While open, each batch of the drifting streams (``data/synthetic``'s
+    ``drifting_vocab_docs`` and ``drifting_news_stream``, pure functions of
+    their arguments) is drawn on the host once and handed out again as a
+    copy to every later run that asks for it: phase 10's runs read the
+    same batches, and a draw at PUBMED width takes seconds."""
+    import copy
+
+    from repro_torch.data import synthetic
+
+    real = {name: getattr(synthetic, name)
+            for name in ("drifting_vocab_docs", "drifting_news_stream")}
+    drawn: dict = {}
+
+    def once(name):
+        def draw(*args, score_cache=None, **kw):
+            key = (name, args, tuple(sorted(kw.items())))
+            if key not in drawn:
+                drawn[key] = real[name](*args, score_cache=score_cache, **kw)
+            return copy.deepcopy(drawn[key])
+        return draw
+
+    try:
+        for name in real:
+            setattr(synthetic, name, once(name))
+        yield drawn
+    finally:
+        for name, fn in real.items():
+            setattr(synthetic, name, fn)
+
+
 def lifecycle_slice(*, seed: int, docs: int, card: str, W=141043, K=2000,
                     drift=8192, rung=131072, device="cuda"):
     """Phase 10: the driver's dynamic vocabulary and stream lifecycle on the
@@ -3231,6 +3289,390 @@ def lm_slice(*, seed: int, card: str) -> None:
     lm_decode_vs_forward("smollm-360m", full=True, seed=seed)
 
 
+# --------------------------------------------------------------- phase 14
+
+# (arch, batch, seq, steps) trained at full width and depth, two shards
+LM_TRAIN_MAIN = ("smollm-360m", 8, 4096, 12)
+LM_TRAIN_SSM = ("mamba2-780m", 8, 2048, 6)
+LM_RESUME_TOL = 2e-4      # the reference's crash-resume tolerance
+
+
+def lm_train_args(ckpt_dir, *, arch, batch, seq, steps, seed, extra=()):
+    from repro_torch.launch import train
+
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
+            "--seq", str(seq), "--shards", "2", "--sync", "power",
+            "--log-every", "4", "--seed", str(seed), "--device", "cuda"]
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", str(ckpt_dir), "--ckpt-every", "4"]
+    return train.build_parser().parse_args(argv + list(extra))
+
+
+def timed_train(args, io: dict, trace_step=None):
+    """``train.train_loop(args)`` with each step's wall (host clock, ended
+    by the read of its loss) and the checkpoint saves' and restores'
+    seconds in ``io``.  Returns (losses, meter)."""
+    from unittest import mock
+
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.launch import train
+
+    def clocked(fn, key):
+        def run(*a, **kw):
+            t0 = time.time()
+            out = fn(*a, **kw)
+            io.setdefault(key, []).append(time.time() - t0)
+            return out
+        return run
+
+    walls = io.setdefault("walls", [])
+    with mock.patch.object(ckpt, "save", clocked(ckpt.save, "save_s")), \
+            mock.patch.object(ckpt, "restore", clocked(ckpt.restore,
+                                                       "restore_s")):
+        return train.train_loop(args, step_walls=walls,
+                                trace_step=trace_step)
+
+
+def step_reading(walls, tokens: int, first: int = 2) -> str:
+    """Median and range of the step walls from step ``first`` (0-based)
+    on, and tokens/s at the median."""
+    ms = sorted(w * 1e3 for w in walls[first:])
+    mid = ms[len(ms) // 2]
+    return (f"ms a step median {mid:.1f} (range {ms[0]:.1f} - {ms[-1]:.1f}, "
+            f"{len(ms)} steps), {tokens / mid * 1e3:.0f} tokens/s")
+
+
+def lm_train_slice(*, seed: int, card: str) -> dict:
+    """Phase 14: LM training through ``launch/train.py`` at full width and
+    depth: (a) smollm-360m, 2 shards, PowerSync, a checkpoint every 4
+    steps; (b) its crash at 8 and the rerun, equal to (a); (c) (a)'s cell
+    with the dense sync; (d) mamba2-780m.  Returns the kernels' launches
+    of (a), the main path, and the device ms a launch of the power-pack
+    kernels in (a)'s profiled step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts
+
+    root = ROOT / "build" / "chip_smoke_lm_train"
+    shutil.rmtree(root, ignore_errors=True)
+    arch, B, S, steps = LM_TRAIN_MAIN
+    tokens = B * S
+    try:
+        # (a) the main cell
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)                # the main path starts here
+        io_a = {}
+
+        watched = {}
+
+        def profiled(run):
+            out, got = profile_run(
+                run, f"one {arch} training step (2 shards x {B // 2} x "
+                f"{S}, PowerSync)", card,
+                watch=("pack_rows_kernel", "scatter_add_rows_kernel"))
+            watched.update(got)
+            return out
+
+        losses_a, meter_a = timed_train(
+            lm_train_args(root / "a", arch=arch, batch=B, seq=S, steps=steps,
+                          seed=seed), io_a, trace_step=(1, profiled))
+        peak_a = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[lm-train] (a) {arch} full width, 2 shards x {B // 2} x {S}, "
+              f"PowerSync, {steps} steps: losses {losses_a[0]:.4f} -> "
+              f"{losses_a[-1]:.4f}; {step_reading(io_a['walls'], tokens)} "
+              f"(steps 3-{steps}; step 2 profiled); peak device memory "
+              f"{peak_a:.2f} GiB; checkpoint saves "
+              + ", ".join(f"{s:.2f}" for s in io_a.get("save_s", []))
+              + f" s  [{card}]")
+        launches = launch_counts()               # ... and ends here
+        print(f"[lm-train] (a) bytes a step by phase: "
+              f"{meter_a.bytes_by_phase}")
+        if not all(np.isfinite(losses_a)) or not losses_a[-1] < losses_a[0]:
+            fail(f"(a) {arch}: losses not finite or not falling: {losses_a}")
+        gate_pack_launches("(a)", launches, arch=arch, steps=steps)
+
+        # (b) crash at 8, then the same command again
+        io_b = {}
+        launch_counts(reset=True)
+        args_b = lm_train_args(root / "b", arch=arch, batch=B, seq=S,
+                               steps=steps, seed=seed,
+                               extra=("--crash-at", "8"))
+        try:
+            crashed, _ = timed_train(args_b, io_b)
+        except SystemExit as e:
+            print(f"[lm-train] (b) {e}")
+        else:
+            fail("(b) --crash-at 8 did not end the run")
+        args_b.crash_at = 0
+        resumed, _ = timed_train(args_b, io_b)
+        tail_a = losses_a[8:]
+        tail_b = resumed[-len(tail_a):]
+        exact = tail_a == tail_b
+        close = np.allclose(tail_b, tail_a, rtol=LM_RESUME_TOL,
+                            atol=LM_RESUME_TOL)
+        print(f"[lm-train] (b) crash at 8, resumed from step 4: steps 9-12 "
+              f"losses {tail_b} against (a)'s {tail_a}: "
+              + ("equal bit for bit" if exact else
+                 f"max gap {np.abs(np.subtract(tail_b, tail_a)).max():.3e} "
+                 f"(not bit for bit)")
+              + f"; restore {io_b.get('restore_s', [0])[0]:.2f} s")
+        if not (exact or close):
+            fail(f"(b) resumed losses {tail_b} differ from (a)'s {tail_a} "
+                 f"past rtol = atol = {LM_RESUME_TOL}")
+        # the crashed run's 8 steps, then the resumed run's from the
+        # checkpoint at step 4 (the crash comes before step 8's save)
+        gate_pack_launches("(b)", launch_counts(), arch=arch,
+                           steps=8 + steps - 4)
+        shutil.rmtree(root, ignore_errors=True)
+
+        # (c) (a)'s cell with the dense all-reduce
+        io_c = {}
+        launch_counts(reset=True)
+        losses_c, meter_c = timed_train(
+            lm_train_args(None, arch=arch, batch=B, seq=S, steps=steps,
+                          seed=seed, extra=("--sync", "dense")), io_c)
+        payload = meter_a.phase_bytes("powersync_payload")
+        dense = meter_c.phase_bytes("dense_grads")
+        print(f"[lm-train] (c) dense sync: {step_reading(io_c['walls'], tokens)}"
+              f"; PowerSync's {step_reading(io_a['walls'], tokens)}")
+        print(f"[lm-train] (c) payload {payload} bytes a step = "
+              f"{payload / dense:.4f} x dense_grads {dense} (norms "
+              f"{meter_a.phase_bytes('powersync_norms')}, small leaves "
+              f"{meter_a.phase_bytes('powersync_dense')})")
+        print("[lm-train] (c) step  power   dense")
+        for i, (lp, ld) in enumerate(zip(losses_a, losses_c)):
+            print(f"[lm-train] (c) {i + 1:4d}  {lp:.4f}  {ld:.4f}")
+        if not payload < 0.25 * dense:
+            fail(f"(c) PowerSync payload {payload} is not under 0.25 x the "
+                 f"dense bytes {dense}")
+        if not all(np.isfinite(losses_c)):
+            fail(f"(c) dense-sync losses not finite: {losses_c}")
+        gate_pack_launches("(c)", launch_counts(), arch=arch, steps=0)
+
+        # (d) the SSD scan's backward at full width
+        arch_d, B_d, S_d, steps_d = LM_TRAIN_SSM
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        io_d = {}
+        launch_counts(reset=True)
+        losses_d, _ = timed_train(
+            lm_train_args(None, arch=arch_d, batch=B_d, seq=S_d,
+                          steps=steps_d, seed=seed), io_d)
+        print(f"[lm-train] (d) {arch_d} full width, 2 shards x {B_d // 2} x "
+              f"{S_d}, PowerSync, remat 'full', {steps_d} steps: losses "
+              f"{losses_d[0]:.4f} -> {losses_d[-1]:.4f}; "
+              f"{step_reading(io_d['walls'], B_d * S_d)}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+        if not all(np.isfinite(losses_d)) or not losses_d[-1] < losses_d[0]:
+            fail(f"(d) {arch_d}: losses not finite or not falling: "
+                 f"{losses_d}")
+        gate_pack_launches("(d)", launch_counts(), arch=arch_d,
+                           steps=steps_d)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    # (e) the ten ids at reduced(): loss_fn and its grads on the card
+    # against the CPU; PowerSync's kernels against their plain versions on
+    # a stacked grad tree of odd leaves, then at (a)'s leaf shapes
+    for arch_e in LM_IDS:
+        lm_grads_card_vs_cpu(arch_e, seed=seed)
+    powersync_card_vs_plain(*odd_grad_tree(seed=seed), label="odd leaves")
+    powersync_card_vs_plain(*full_grad_tree(arch, seed=seed),
+                            label=f"{arch}'s leaves")
+    return launches, watched
+
+
+def powersync_kernel_leaves(arch: str) -> int:
+    """The leaves of ``arch``'s full-width params that PowerSync packs
+    (>= 2-D and past ``min_dense_size``): each takes one ``pack_rows`` and
+    two ``scatter_add_rows`` a shard a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim.powersync import PowerSyncConfig
+
+    cfg = get_config(arch)
+    small = PowerSyncConfig().min_dense_size
+    return sum(1 for _, p in tree_leaves(registry.build(cfg).init(
+        cfg, seed=0, device="meta")) if p.dim() >= 2 and p.numel() > small)
+
+
+def gate_pack_launches(run: str, launches: dict, *, arch: str,
+                       steps: int) -> None:
+    """Fail unless ``run``'s launches of the power-pack kernels are exactly
+    PowerSync's: steps x 2 shards x packed leaves for ``pack_rows``, twice
+    that for ``scatter_add_rows``."""
+    want = steps * 2 * powersync_kernel_leaves(arch)
+    got = (launches["pack_rows"], launches["scatter_add_rows"])
+    print(f"[lm-train] {run} kernel launches: pack_rows {got[0]}, "
+          f"scatter_add_rows {got[1]} (steps x shards x packed leaves = "
+          f"{want}, twice that for the scatter)")
+    if got != (want, 2 * want):
+        fail(f"{run}: PowerSync launched the power-pack kernels {got} "
+             f"times, expected {(want, 2 * want)}")
+
+
+def lm_batch(cfg, B: int, S: int, seed: int, device):
+    """The batch of the reference's ``tests/test_archs.py::make_batch``:
+    random tokens, labels the tokens rolled by one, bf16 patch embeddings
+    (vlm) or frames (audio)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            (B, cfg.frontend_tokens, cfg.d_model), generator=gen).bfloat16()
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((B, S, cfg.d_model),
+                                      generator=gen).bfloat16()
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def lm_loss_and_grads(mod, params, batch, cfg):
+    import torch
+
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+
+    leaves = [x.detach().requires_grad_() for _, x in tree_leaves(params)]
+    loss = mod.loss_fn(tree_unflatten(params, leaves), batch, cfg)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def lm_grads_card_vs_cpu(arch: str, *, seed: int) -> None:
+    """``loss_fn`` and its grads in float32 on the card against the CPU from
+    the same params and batch: the loss within rtol 1e-4, each grad leaf
+    within a relative L2 error of 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    cfg = get_config(arch).reduced()
+    mod = registry.build(cfg)
+    host = tree_map(lambda t: t.float(), mod.init(cfg, seed=seed,
+                                                  device="cpu"))
+    batch = lm_batch(cfg, 2, 32, seed + 5, "cpu")
+    want_loss, want = lm_loss_and_grads(mod, host, batch, cfg)
+    got_loss, got = lm_loss_and_grads(
+        mod, tree_map(lambda t: t.cuda(), host),
+        {k: v.cuda() for k, v in batch.items()}, cfg)
+    worst = 0.0
+    for (path, _), g, w in zip(tree_leaves(host), got, want):
+        norm = float(w.norm())
+        err = float((g.cpu() - w).norm())
+        worst = max(worst, err / norm if norm else err)
+        if not err <= 1e-3 * norm:
+            fail(f"(e) {arch}: grad {path} on the card off the CPU's by a "
+                 f"relative L2 error {err / max(norm, 1e-30):.3e}")
+    gap = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+    print(f"[lm-train] (e) {arch} reduced, f32: loss card {float(got_loss):.6f}"
+          f" cpu {float(want_loss):.6f} (rel {gap:.2e}); worst grad rel L2 "
+          f"{worst:.2e} over {len(want)} leaves")
+    if not gap <= 1e-4:
+        fail(f"(e) {arch}: loss on the card off the CPU's by {gap:.3e}")
+
+
+def odd_grad_tree(*, seed: int):
+    """A stacked grad tree over 2 shards of odd leaves (a leaf with zero
+    rows, a stacked 3-D leaf, a bf16 leaf, a list, a 1-D and a small
+    leaf) on the card, and a residual for it."""
+    import torch
+
+    from repro_torch.models.common import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    emb = rnd(2, 4096, 96)
+    emb[:, ::3] = 0.0
+    grads = {"embed": emb, "stack": {"w": rnd(2, 4, 96, 160),
+                                     "wb": rnd(2, 300, 200).bfloat16()},
+             "norm": rnd(2, 96), "small": rnd(2, 16, 16),
+             "head_blocks": [{"w": rnd(2, 130, 70)}]}
+    return grads, tree_map(lambda g: 0.1 * rnd(*g.shape), grads)
+
+
+def full_grad_tree(arch: str, *, seed: int):
+    """A stacked float32 grad tree over 2 shards with ``arch``'s full-width
+    leaf shapes on the card (the embedding's rows of tokens a batch does
+    not hold are zero), and a residual for it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models.common import tree_map
+
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+
+    def rnd(p):
+        return torch.randn((2, *p.shape), generator=gen, device="cuda")
+
+    grads = tree_map(rnd, registry.build(cfg).init(cfg, seed=0,
+                                                   device="meta"))
+    grads["embed"][:, 1::2] = 0.0
+    return grads, tree_map(lambda g: 0.1 * torch.randn(
+        g.shape, generator=gen, device="cuda"), grads)
+
+
+def powersync_card_vs_plain(grads, res, *, label: str) -> None:
+    """PowerSync over 2 lockstep shards on the card, through the power-pack
+    kernels and again through their plain versions, on the stacked grad
+    tree ``grads`` with the residual ``res``: synced within 1e-6, the
+    residual exact, the sent masks equal."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core.sync import SimReducer, lockstep
+    from repro_torch.kernels.power_pack import ops as pack_ops
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.powersync import PowerSyncConfig, powersync_tree
+
+    def run():
+        red = SimReducer(2)
+        return lockstep(lambda s: powersync_tree(
+            tree_map(lambda a: a[s], grads), tree_map(lambda a: a[s], res),
+            red, PowerSyncConfig(), 2), 2, [red], device="cuda")
+
+    n0 = pack_ops.pack_rows.launches
+    got = run()
+    if pack_ops.pack_rows.launches == n0:
+        fail(f"(e) PowerSync on {label} launched no pack_rows")
+    with mock.patch.object(pack_ops, "pack_rows", pack_ops.pack_rows_plain), \
+            mock.patch.object(pack_ops, "scatter_add_rows",
+                              pack_ops.scatter_add_rows_plain):
+        want = run()
+    worst = 0.0
+    for s in range(2):
+        for (path, gs), (_, ws), (_, gr), (_, wr) in zip(
+                tree_leaves(got[s][0]), tree_leaves(want[s][0]),
+                tree_leaves(got[s][1]), tree_leaves(want[s][1])):
+            gap = float((gs.float() - ws.float()).abs().max())
+            worst = max(worst, gap)
+            if gap > 1e-6 or not torch.equal(gr, wr) or not torch.equal(
+                    gr == 0, wr == 0):
+                fail(f"(e) PowerSync {path} shard {s} on {label}: the "
+                     f"kernels differ from the plain versions (synced gap "
+                     f"{gap:.3e}, residual equal {torch.equal(gr, wr)})")
+    shapes = sorted({tuple(g.shape[1:]) for _, g in tree_leaves(grads)},
+                    key=lambda sh: -torch.Size(sh).numel())
+    print(f"[lm-train] (e) PowerSync on the card on {label} (largest "
+          f"{list(shapes[0])}), kernels against plain versions over 2 "
+          f"shards: synced max gap {worst:.3e}, residuals and sent masks "
+          f"equal")
+    del got, want
+    torch.cuda.empty_cache()
+
+
 def profile_run(fn, label: str, card: str, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the card's busy
     share of the wall time (the summed time of the events that ran on the
@@ -3675,11 +4117,13 @@ def main(argv=None) -> None:
     # driver at PUBMED width: growth, crash-resume across growth, grown
     # against fresh, the sliding stream's fences, serving after a fence
     t0 = time.time()
-    life_launches = lifecycle_slice(seed=args.seed, docs=args.driver_docs,
-                                    card=card)
-    # (e) topic recycling: the fence's host round trip in both dtypes
-    recycle_slice(seed=args.seed, docs=args.driver_docs, card=card)
-    print(f"[time] phase 10: {time.time() - t0:.1f}s")
+    with drawn_once() as drawn:
+        life_launches = lifecycle_slice(seed=args.seed,
+                                        docs=args.driver_docs, card=card)
+        # (e) topic recycling: the fence's host round trip in both dtypes
+        recycle_slice(seed=args.seed, docs=args.driver_docs, card=card)
+    print(f"[time] phase 10: {time.time() - t0:.1f}s ({len(drawn)} batches "
+          f"drawn on the host, each once)")
 
     # ---- 11. the parameter server through the driver at PUBMED width:
     # staleness 0 against --backend sim, chaos, elastic workers,
@@ -3715,6 +4159,13 @@ def main(argv=None) -> None:
     lm_slice(seed=args.seed, card=card)
     print(f"[time] phase 13: {time.time() - t0:.1f}s")
 
+    # ---- 14. LM training: smollm-360m at full width with PowerSync (its
+    # pack and scatters on the power-pack kernels), crash-resume, the
+    # dense sync, mamba2-780m, the ten ids' grads against the CPU
+    t0 = time.time()
+    lm_launches, lm_watch = lm_train_slice(seed=args.seed, card=card)
+    print(f"[time] phase 14: {time.time() - t0:.1f}s")
+
     rec["launches"] = launches
     kernels = [rec]
     # device ms a launch on the main path, from the profiled steps
@@ -3735,12 +4186,17 @@ def main(argv=None) -> None:
                    "packed_fold_kernel")}
     for name, r in train_recs.items():
         # the main path's launches: phases 6 or 7, phase 9's simulation,
-        # phase 10's grown run and phase 11's PS run (net of their warm-ups)
+        # phase 10's grown run and phase 11's PS run (net of their warm-ups),
+        # and phase 14 (a)'s LM training (PowerSync's pack and scatters)
         r["launches"] = (packed_launches if name in ("power_sweep_tokens",
                                                      "pack_rows")
                          else train_launches)[name] + sim_launches[name] + \
-            life_launches[name] + ps_launches[name]
+            life_launches[name] + ps_launches[name] + lm_launches[name]
         r["ms_main_path"] = main_ms[name]
+        if name in ("pack_rows", "scatter_add_rows"):
+            # device ms a launch in phase 14's profiled step (PowerSync's
+            # pack and scatters at the LM's leaf shapes)
+            r["ms_lm_train"] = lm_watch.get(f"{name}_kernel")
         kernels.append(r)
     # VB's statistic (phase 12 (b)) launches the word scatter too
     train_recs["word_rows_sum"]["launches"] += vb_launches["word_rows_sum"]

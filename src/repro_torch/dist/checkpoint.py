@@ -13,7 +13,10 @@ package restore in the other.  ``state/rng`` does not cross: the port
 writes a torch generator state there, where the reference writes a JAX
 PRNG key, so a training resume across packages takes a fresh seed or
 injected inits (the port's driver refuses a JAX-written ``rng``).  Leaves
-are ordered as ``jax.tree_util`` flattens a dict of dicts: by sorted key.
+are ordered and keyed as ``jax.tree_util`` flattens and ``keystr`` names
+them: dict keys sorted (``['params']``), NamedTuple fields in field order
+(``.master``), list items in order (``[0]``), so an LM trainer's state
+(params with a list of head blocks, ``AdamWState``) crosses too.
 bfloat16 leaves are decoded from their raw bytes with torch, so nothing
 here needs ``ml_dtypes``.
 
@@ -40,6 +43,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.models.common import tree_unflatten
 
 _RETAIN = 3
 _PREFIX = "step_"
@@ -97,20 +102,26 @@ def _resize_rows(arr: torch.Tensor, rows: int, what: str,
 
 
 def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(key path, leaf) pairs of ``tree`` in ``jax.tree_util``'s flatten
+    order and ``keystr`` format: a dict's keys sorted (``['k']``), a
+    NamedTuple's fields in field order (``.field``), a list's or tuple's
+    items in order (``[0]``)."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out += _flatten(tree[k], f"{prefix}[{k!r}]")
         return out
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        out = []
+        for name, v in zip(tree._fields, tree):
+            out += _flatten(v, f"{prefix}.{name}")
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, v in enumerate(tree):
+            out += _flatten(v, f"{prefix}[{i}]")
+        return out
     return [(prefix, tree)]
-
-
-def _unflatten(tree, leaves: List[Any]):
-    """``tree``'s dict structure with its leaves replaced, in `_flatten`'s
-    order, by ``leaves`` (consumed from the front)."""
-    if isinstance(tree, dict):
-        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
-    return leaves.pop(0)
 
 
 def _leaf_spec(leaf) -> Tuple[Tuple[int, ...], Optional[str]]:
@@ -144,9 +155,10 @@ def _raw_leaf(leaf) -> Tuple[np.ndarray, List[int], str]:
 
 def save(directory: str, step: int, trees: Dict[str, Any],
          extra: Optional[Dict[str, Any]] = None) -> str:
-    """Persist ``trees`` (nested dicts of tensors or arrays) and a JSON-able
-    ``extra`` dict; staged in a temporary directory and renamed into place,
-    keeping the newest three steps."""
+    """Persist ``trees`` (nested dicts, lists, tuples and NamedTuples of
+    tensors or arrays) and a JSON-able ``extra`` dict; staged in a
+    temporary directory and renamed into place, keeping the newest three
+    steps."""
     os.makedirs(directory, exist_ok=True)
     manifest = {"step": int(step), "extra": extra or {}, "leaves": []}
     payload = {}
@@ -374,5 +386,5 @@ def restore(directory: str, step: int, template: Dict[str, Any], *,
             if isinstance(leaf, torch.Tensor):
                 arr = arr.to(leaf.device)
             leaves.append(arr)
-    return (_unflatten(template, leaves), manifest.get("extra", {}),
+    return (tree_unflatten(template, leaves), manifest.get("extra", {}),
             int(manifest["step"]))

@@ -27,12 +27,25 @@ from repro_torch.models.common import (Draw, apply_rope, dense_init, rmsnorm,
 NEG_INF = -2.0e38
 
 
+def _softmax_attend(qt, kt, vt, mask, scale):
+    """The attention math on operands laid out for its two products:
+    qt [B,G,Hk,Sq,hd], kt [B,1,Hk,hd,Skv], vt [B,1,Hk,Skv,hd]; ``mask``
+    broadcasts to the scores [B,G,Hk,Sq,Skv], or is None (nothing masked).
+    Returns [B,G,Hk,Sq,hd]."""
+    scores = torch.matmul(qt, kt).float() * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, -1).to(vt.dtype)
+    return torch.matmul(w, vt)
+
+
 def _attend(q, k, v, *, mask, scale):
-    """q [B,Sq,G,Hk,hd] k/v [B,Skv,Hk,hd] (G = query groups per kv head)."""
-    scores = torch.einsum("bsghd,bthd->bghst", q, k).float() * scale
-    scores = torch.where(mask, scores, NEG_INF)
-    w = torch.softmax(scores, -1).to(v.dtype)
-    return torch.einsum("bghst,bthd->bsghd", w, v)
+    """q [B,Sq,G,Hk,hd] k/v [B,Skv,Hk,hd] (G = query groups per kv head);
+    ``mask`` broadcasts to [B,G,Hk,Sq,Skv].  Returns [B,Sq,G,Hk,hd]."""
+    out = _softmax_attend(q.permute(0, 2, 3, 1, 4),
+                          k.permute(0, 2, 3, 1)[:, None],
+                          v.permute(0, 2, 1, 3)[:, None], mask, scale)
+    return out.permute(0, 3, 1, 2, 4)
 
 
 def chunked_attend(q, k, v, *, causal: bool, window: int, scale: float,
@@ -40,26 +53,36 @@ def chunked_attend(q, k, v, *, causal: bool, window: int, scale: float,
     """Attention over query blocks of ``chunk`` rows, so the live score
     buffer is [B, G, Hk, C, Skv].  q [B,Sq,G,Hk,hd], k/v [B,Skv,Hk,hd];
     q/kv positions are absolute [0..S).  Sq is padded up to a multiple of
-    the block; the padded rows are computed and sliced away."""
+    the block; the padded rows are computed and sliced away.  The operands
+    are laid out for `_softmax_attend` and the mask is built once a call,
+    not once a block.  A causal block stops at
+    its last row's position: the keys past it would all be masked, and a
+    masked score's weight is exactly 0, so the result is the reference's
+    full-width one up to the order of the float sums."""
     B, Sq, G, Hk, hd = q.shape
     Skv = k.shape[1]
     C = min(chunk, Sq)
     pad = (-Sq) % C
     if pad:
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
-    j = torch.arange(Skv, device=q.device)
+    Sp = q.shape[1]
+    qt = q.permute(0, 2, 3, 1, 4).contiguous()          # [B, G, Hk, Sp, hd]
+    kt = k.permute(0, 2, 3, 1).contiguous()[:, None]    # [B, 1, Hk, hd, Skv]
+    vt = v.permute(0, 2, 1, 3).contiguous()[:, None]    # [B, 1, Hk, Skv, hd]
+    mask = None
+    if causal:
+        i = torch.arange(Sp, device=q.device)[:, None]
+        j = torch.arange(Skv, device=q.device)[None, :]
+        mask = j <= i
+        if window:
+            mask = mask & (j > i - window)
     outs = []
-    for start in range(0, q.shape[1], C):
-        i = start + torch.arange(C, device=q.device)
-        if causal:
-            m = j[None, :] <= i[:, None]
-            if window:
-                m = m & (j[None, :] > i[:, None] - window)
-        else:
-            m = torch.ones((C, Skv), dtype=torch.bool, device=q.device)
-        outs.append(_attend(q[:, start:start + C], k, v,
-                            mask=m[None, None, None], scale=scale))
-    return torch.cat(outs, 1)[:, :Sq]
+    for start in range(0, Sp, C):
+        end = min(start + C, Skv) if causal else Skv
+        outs.append(_softmax_attend(                      # [B, G, Hk, C, hd]
+            qt[:, :, :, start:start + C], kt[..., :end], vt[:, :, :, :end],
+            None if mask is None else mask[start:start + C, :end], scale))
+    return torch.cat(outs, 3)[:, :, :, :Sq].permute(0, 3, 1, 2, 4)
 
 
 def _write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tensor:
@@ -73,6 +96,14 @@ def _write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- GQA
+
+def _repeat_kv(t: torch.Tensor, G: int) -> torch.Tensor:
+    """[B, S, KV, hd] -> [B, S, KV * G, hd], each head repeated G times in
+    place (``repeat_interleave``'s layout), by an expand: its backward is a
+    sum over the copies in a fixed order, not a scatter with atomics."""
+    B, S, KV, hd = t.shape
+    return t[:, :, :, None].expand(B, S, KV, G, hd).reshape(B, S, KV * G, hd)
+
 
 def gqa_params(draw: Draw, cfg: ArchConfig):
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -122,9 +153,8 @@ def gqa_apply(p, x, *, cfg: ArchConfig, positions: torch.Tensor,
 
     # ---- train / prefill: causal (optionally sliding-window) attention
     # over query blocks, KV heads repeated to the H query heads
-    out = chunked_attend(q[:, :, None], k.repeat_interleave(G, dim=2),
-                         v.repeat_interleave(G, dim=2), causal=True,
-                         window=window, scale=hd ** -0.5,
+    out = chunked_attend(q[:, :, None], _repeat_kv(k, G), _repeat_kv(v, G),
+                         causal=True, window=window, scale=hd ** -0.5,
                          chunk=cfg.attn_chunk)
     out = out[:, :, 0].reshape(B, S, H * hd)
     return out @ p["wo"], {"k": k, "v": v}

@@ -43,6 +43,24 @@ def tree_leaves(tree, path: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
         yield path, tree
 
 
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure, in its own container types, with its leaves
+    replaced, in `tree_leaves`' order, by ``leaves``
+    (``jax.tree.unflatten``'s counterpart)."""
+    return _unflatten(tree, iter(leaves))
+
+
+def _unflatten(t, it):
+    # a module-level recursion: a nested one would close over itself, and
+    # that cycle would hold ``leaves`` until the garbage collector ran
+    if isinstance(t, dict):
+        return {k: _unflatten(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        vals = [_unflatten(v, it) for v in t]
+        return type(t)(*vals) if hasattr(t, "_fields") else type(t)(vals)
+    return next(it)
+
+
 def tree_stack(trees):
     """Stack same-shaped trees along a new leading axis."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)

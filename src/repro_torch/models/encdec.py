@@ -4,7 +4,10 @@
 The audio frontend is a stub: `frames` are precomputed frame embeddings
 [B, S_enc, d_model].  Encoder: bidirectional self-attn + GeLU FFN.
 Decoder: causal self-attn (cached) + cross-attn to the encoder output
-(memory k/v cached once) + GeLU FFN.
+(memory k/v cached once) + GeLU FFN.  ``mode="train"`` runs each encoder
+and decoder layer under activation checkpointing by ``cfg.remat_policy``
+(``lm._remat``) and keeps no caches; ``loss_fn`` is the training loss
+(cross-entropy, no aux term).
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (COMPUTE_DTYPE, Draw, apply_rope,
                                        dense_init, embed_init, rope_freqs,
-                                       stack_init, tree_at, tree_stack)
-from repro_torch.models.lm import (_logits, _n_layers, _norm, _norm_params,
+                                       softmax_xent, stack_init, tree_at,
+                                       tree_stack)
+from repro_torch.models.lm import (_call, _checkpointed, _logits, _n_layers,
+                                   _norm, _norm_params, _stack_loop,
                                    cross_block_apply, cross_block_params,
                                    self_block_apply, self_block_params)
 
@@ -82,13 +87,18 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]:
     }
 
 
-def encode(params, frames, cfg: ArchConfig):
+def encode(params, frames, cfg: ArchConfig, remat: bool = False):
+    """The encoder over ``frames``; with ``remat`` each layer runs under
+    activation checkpointing."""
     B, S, _ = frames.shape
     x = frames.to(COMPUTE_DTYPE)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    for i in range(_n_layers(params["enc"])):
-        x = enc_block_apply(tree_at(params["enc"], i), x, cfg=cfg,
-                            positions=positions)
+
+    def body(x, lp):
+        return enc_block_apply(lp, x, cfg=cfg, positions=positions), None, 0.0
+
+    run = _checkpointed(cfg) if remat else _call
+    x, _, _ = _stack_loop(run, body, x, params["enc"], 0.0)
     return _norm(params["ln_enc"], x, cfg)
 
 
@@ -98,17 +108,21 @@ def forward(params, tokens, frames, cfg: ArchConfig, mode: str = "train"):
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward: mode must be 'train' or 'prefill', "
                          f"got {mode!r}")
-    memory = encode(params, frames, cfg)
+    train = mode == "train"
+    memory = encode(params, frames, cfg, remat=train)
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    x = torch.nn.functional.embedding(tokens, params["embed"])
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    caches = []
-    for i in range(_n_layers(params["dec"])):
-        x, c = dec_block_apply(tree_at(params["dec"], i), x, memory, cfg=cfg,
-                               positions=positions)
-        caches.append(c)
+
+    def body(x, lp):
+        x, c = dec_block_apply(lp, x, memory, cfg=cfg, positions=positions)
+        return x, c, 0.0
+
+    run = _checkpointed(cfg) if train else _call
+    x, caches, _ = _stack_loop(run, body, x, params["dec"], 0.0)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(params, x, cfg), {"stack": tree_stack(caches)}, aux
+    return (_logits(params, x, cfg),
+            {} if train else {"stack": tree_stack(caches)}, aux)
 
 
 def decode_step(params, token, caches, pos, cfg: ArchConfig):
@@ -123,3 +137,10 @@ def decode_step(params, token, caches, pos, cfg: ArchConfig):
                                positions=positions,
                                cache=tree_at(caches["stack"], i), pos=pos)
     return _logits(params, x, cfg), caches
+
+
+def loss_fn(params, batch, cfg: ArchConfig):
+    """Mean token cross-entropy of ``forward(mode="train")``."""
+    logits, _, _ = forward(params, batch["tokens"], batch["frames"], cfg,
+                           mode="train")
+    return softmax_xent(logits, batch["labels"])

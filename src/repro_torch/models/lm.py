@@ -12,10 +12,12 @@
 
 Params and caches are stacked over [n_layers, ...] as in the reference; a
 Python loop walks the leading axis where the reference scans it.  A decode
-step writes its caches in place and returns them.  Activation
-checkpointing (the reference's ``_remat``) and ``loss_fn`` belong to
-training, which is not ported yet: ``mode="train"`` returns what
-``mode="prefill"`` returns.
+step writes its caches in place and returns them.  ``mode="train"`` wraps
+each body the reference wraps in ``jax.checkpoint`` (each stacked layer of
+dense/moe, each group of vlm and hybrid, each ssm layer) in activation
+checkpointing by ``cfg.remat_policy`` (`_remat`), and keeps no caches: it
+returns an empty cache dict.  ``mode="prefill"`` returns the caches that
+decoding continues from.  ``loss_fn`` is the training loss.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
@@ -31,8 +35,45 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (Draw, dense_init, embed_init,
-                                       layernorm, rmsnorm, stack_init,
-                                       tree_at, tree_stack)
+                                       layernorm, rmsnorm, softmax_xent,
+                                       stack_init, tree_at, tree_leaves,
+                                       tree_stack, tree_unflatten)
+
+
+# ------------------------------------------------------------------ remat
+
+# JAX's ``dots_with_no_batch_dims_saveable``: the outputs of matmuls with
+# no batch dims (the projections) are saved, everything else is
+# recomputed, attention's batched products included
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` under activation checkpointing with the configured policy
+    (the reference's ``jax.checkpoint``): ``"dots"`` saves the projections'
+    outputs and recomputes the rest in the backward pass, ``"full"``
+    saves nothing but the inputs."""
+    if cfg.remat_policy == "dots":
+        def ctx():
+            return create_selective_checkpoint_contexts(_save_dots)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=ctx)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _layers(stacked):
+    """The per-layer trees of a stacked tree: views along the leading axis
+    by ``unbind``, whose backward stacks the layers' grads in one op
+    (indexing each layer would give each layer's grad a full-size
+    [n_layers, ...] buffer of its own)."""
+    leaves = [leaf.unbind(0) for _, leaf in tree_leaves(stacked)]
+    return [tree_unflatten(stacked, [u[i] for u in leaves])
+            for i in range(_n_layers(stacked))]
 
 
 # ---------------------------------------------------------------- blocks
@@ -175,19 +216,52 @@ def _logits(params, x, cfg):
     return logits
 
 
+def _call(body, *args):
+    return body(*args)
+
+
+def _checkpointed(cfg: ArchConfig):
+    """Runs ``body(*args)`` -> (x, cache, aux) under `_remat`, the cache
+    dropped inside it: returns (x, None, aux)."""
+    def run(body, *args):
+        def no_cache(*a):
+            x, _, aux = body(*a)
+            return x, aux
+        x, aux = _remat(no_cache, cfg)(*args)
+        return x, None, aux
+    return run
+
+
+def _stack_loop(run, body, x, stacked, aux):
+    """``body(x, layer)`` -> (x, cache, aux) over the layers of ``stacked``
+    through ``run`` (the reference's ``stack_scan``): returns (x, the
+    layers' caches, aux summed)."""
+    caches = []
+    for lp in _layers(stacked):
+        x, c, a = run(body, x, lp)
+        aux = aux + a
+        caches.append(c)
+    return x, caches, aux
+
+
 def forward(params, tokens, cfg: ArchConfig, *, image_embeds=None,
             mode: str = "train"):
-    """Full-sequence forward.  Returns (logits, caches, aux_loss): the
-    caches are those ``mode="prefill"`` hands to decoding (``mode="train"``
-    returns the same)."""
+    """Full-sequence forward.  Returns (logits, caches, aux_loss).
+    ``mode="prefill"`` returns the caches decoding continues from;
+    ``mode="train"`` runs the reference's checkpointed bodies under
+    `_remat` and returns an empty cache dict."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward: mode must be 'train' or 'prefill', "
                          f"got {mode!r}")
+    train = mode == "train"
+    run = _checkpointed(cfg) if train else _call
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    # an embedding lookup, whose backward sums each row's grads in a fixed
+    # order on the card too (an index's backward scatters with atomics)
+    x = torch.nn.functional.embedding(tokens, params["embed"])
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: Dict[str, Any] = {}
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if cfg.family in ("dense", "moe"):
         head_caches = []
@@ -197,48 +271,37 @@ def forward(params, tokens, cfg: ArchConfig, *, image_embeds=None,
                                        window=cfg.sliding_window)
             head_caches.append(c)
         caches["head"] = head_caches
-        stack = []
-        for i in range(_n_layers(params["stack"])):
-            x, c, a = self_block_apply(tree_at(params["stack"], i), x,
-                                       cfg=cfg, positions=positions,
-                                       window=cfg.sliding_window)
-            aux_total = aux_total + a
-            stack.append(c)
-        caches["stack"] = tree_stack(stack)
+
+        def body(x, lp):
+            return self_block_apply(lp, x, cfg=cfg, positions=positions,
+                                    window=cfg.sliding_window)
 
     elif cfg.family == "vlm":
         memory = image_embeds.to(x.dtype)
-        stack = []
-        for i in range(_n_layers(params["stack"])):
-            gp = tree_at(params["stack"], i)
+
+        def body(x, gp):
             selfs = []
-            for j in range(_n_layers(gp["selfs"])):
-                x, c, _ = self_block_apply(tree_at(gp["selfs"], j), x,
-                                           cfg=cfg, positions=positions)
+            for sp in _layers(gp["selfs"]):
+                x, c, _ = self_block_apply(sp, x, cfg=cfg,
+                                           positions=positions)
                 selfs.append(c)
             x, mem_kv = cross_block_apply(gp["cross"], x, memory, cfg=cfg)
-            stack.append({"selfs": tree_stack(selfs), "mem_kv": mem_kv})
-        caches["stack"] = tree_stack(stack)
+            return x, None if train else {"selfs": tree_stack(selfs),
+                                          "mem_kv": mem_kv}, 0.0
 
     elif cfg.family == "ssm":
-        stack = []
-        for i in range(_n_layers(params["stack"])):
-            lp = tree_at(params["stack"], i)
+        def body(x, lp):
             y, st = ssm_mod.ssm_apply(lp["ssm"], _norm(lp["ln"], x, cfg),
                                       cfg=cfg)
-            x = x + y
-            stack.append(st)
-        caches["stack"] = tree_stack(stack)
+            return x + y, st, 0.0
 
     elif cfg.family == "hybrid":
         x_emb0 = x
         shared = params["shared_attn"]
-        stack = []
-        for i in range(_n_layers(params["stack"])):
-            gp = tree_at(params["stack"], i)
+
+        def body(x, gp):
             states = []
-            for j in range(_n_layers(gp)):
-                lp = tree_at(gp, j)
+            for lp in _layers(gp):
                 y, st = ssm_mod.ssm_apply(lp["ssm"], _norm(lp["ln"], x, cfg),
                                           cfg=cfg)
                 x = x + y
@@ -247,13 +310,16 @@ def forward(params, tokens, cfg: ArchConfig, *, image_embeds=None,
             h2, kv, _ = self_block_apply(shared["block"], h, cfg=cfg,
                                          positions=positions,
                                          window=cfg.sliding_window)
-            x = x + h2
-            stack.append({"ssm": tree_stack(states), "attn_kv": kv})
-        caches["stack"] = tree_stack(stack)
+            return x + h2, None if train else {"ssm": tree_stack(states),
+                                               "attn_kv": kv}, 0.0
     else:
         raise ValueError(cfg.family)
 
-    return _logits(params, x, cfg), caches, aux_total
+    x, stack, aux = _stack_loop(run, body, x, params["stack"], aux)
+    if train:
+        return _logits(params, x, cfg), {}, aux
+    caches["stack"] = tree_stack(stack)
+    return _logits(params, x, cfg), caches, aux
 
 
 def _n_layers(stacked) -> int:
@@ -328,3 +394,14 @@ def decode_step(params, token, caches, pos, cfg: ArchConfig, *,
         raise ValueError(cfg.family)
 
     return _logits(params, x, cfg), caches
+
+
+# -------------------------------------------------------------- training
+
+def loss_fn(params, batch, cfg: ArchConfig):
+    """Mean token cross-entropy of ``forward(mode="train")`` plus 0.01 x
+    the MoE load-balance loss."""
+    logits, _, aux = forward(params, batch["tokens"], cfg,
+                             image_embeds=batch.get("image_embeds"),
+                             mode="train")
+    return softmax_xent(logits, batch["labels"]) + 0.01 * aux

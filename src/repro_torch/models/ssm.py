@@ -105,11 +105,15 @@ def ssm_apply(p, x, *, cfg: ArchConfig, state: Optional[dict] = None):
 
     # ---- intra-chunk (dual quadratic form) ----
     CB = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)                 # [B,nc,Q,Q]
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    # the mask goes on the exponent (exp(-inf) = 0), not on the decay as
+    # in the reference: above the diagonal cum[q] - cum[k] > 0 overflows
+    # exp at full width, and the masked inf's backward is 0 x inf = NaN.
+    # The forward values are the reference's.
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    scores = (CB[..., None] * torch.where(mask[None, None, :, :, None],
-                                          decay, 0.0)
-              * dtc[:, :, None, :, :])
+    decay = torch.exp(torch.where(mask[None, None, :, :, None],
+                                  cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                                  float("-inf")))
+    scores = CB[..., None] * decay * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", scores, xc)
 
     # ---- chunk states + inter-chunk recurrence ----

@@ -4,6 +4,8 @@ JAX package restores what the port saved.  ``convert.phi_from_reference``
 carries a JAX phi into the port unchanged."""
 
 import dataclasses
+import json
+from typing import Any, NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ import torch
 from repro.dist import checkpoint as jckpt
 from repro_torch import convert
 from repro_torch.dist import checkpoint as ckpt
+from repro_torch.models.common import tree_map
 
 W, K = 150, 16
 
@@ -354,3 +357,101 @@ def test_reference_checkpoint_resumes_in_the_port(tmp_path):
     np.testing.assert_allclose(state.phi_acc.numpy(),
                                np.asarray(jstate.phi_acc), rtol=1e-4,
                                atol=1e-4)
+
+
+class _State(NamedTuple):
+    master: Any
+    m: Any
+    step: Any
+
+
+def _trainer_tree(seed, n=2):
+    """An LM trainer state's shapes of containers: a dict with a list of
+    blocks, a NamedTuple whose fields are not in sorted order, a 0-d int32
+    step, bf16 and f32 leaves."""
+    g = torch.Generator().manual_seed(seed)
+    params = {"embed": torch.randn((6, 4), generator=g).bfloat16(),
+              "head_blocks": [{"w": torch.randn((4, 4), generator=g)},
+                              {"w": torch.randn((4, 4), generator=g)}],
+              "stack": {"b": torch.randn((3, 4), generator=g)}}
+    master = tree_map(lambda x: x.float(), params)
+    return {"params": params,
+            "opt": _State(master=master, m=tree_map(torch.zeros_like, master),
+                          step=torch.tensor(3, dtype=torch.int32)),
+            "residual": {"embed": torch.zeros((n, 6, 4))}}
+
+
+def test_lists_tuples_and_namedtuples_round_trip(tmp_path):
+    tree = _trainer_tree(0)
+    tree["extra_tuple"] = (torch.ones(2), torch.zeros(3, dtype=torch.int32))
+    ckpt.save(str(tmp_path), 2, tree, extra={"next_step": 2})
+    template = _trainer_tree(1)
+    template["extra_tuple"] = (torch.zeros(2),
+                               torch.ones(3, dtype=torch.int32))
+    out, extra, step = ckpt.restore(str(tmp_path), 2, template)
+    assert step == 2 and extra == {"next_step": 2}
+    # the template's own container types come back
+    assert isinstance(out["opt"], _State)
+    assert isinstance(out["params"]["head_blocks"], list)
+    assert isinstance(out["extra_tuple"], tuple)
+    assert out["opt"].step.dim() == 0 and int(out["opt"].step) == 3
+    got, want = ckpt._flatten(out), ckpt._flatten(tree)
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (key, a), (_, b) in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), key
+
+
+def test_keys_are_the_references_keystr_keys(tmp_path):
+    """The port writes the keys ``jax.tree_util.keystr`` gives the same
+    tree in the reference (list items ``[0]``, NamedTuple fields
+    ``.master`` in field order, dict keys sorted), in its order; each
+    package restores what the other wrote."""
+    tree = _trainer_tree(2)
+    jtree = jax.tree.map(lambda t: jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else
+        jnp.int32 if t.dtype == torch.int32 else jnp.float32), tree)
+    ckpt.save(str(tmp_path / "port"), 1, tree)
+    jckpt.save(str(tmp_path / "ref"), 1, jtree)
+    keys = [rec["key"] for rec in json.loads(
+        (tmp_path / "port" / "step_0000001" / "manifest.json").read_text()
+    )["leaves"]]
+    ref_keys = [rec["key"] for rec in json.loads(
+        (tmp_path / "ref" / "step_0000001" / "manifest.json").read_text()
+    )["leaves"]]
+    assert keys == ref_keys
+    assert "['opt'].master['head_blocks'][1]['w']" in keys
+    assert keys.index("['opt'].master['embed']") < keys.index(
+        "['opt'].m['embed']") < keys.index("['opt'].step")
+    out, _, _ = ckpt.restore(str(tmp_path / "ref"), 1, _trainer_tree(3))
+    for (key, a), (_, b) in zip(ckpt._flatten(out), ckpt._flatten(tree)):
+        assert torch.equal(a, b), key
+    jout, _, _ = jckpt.restore(str(tmp_path / "port"), 1, jtree)
+    for a, b in zip(jax.tree.leaves(jout), jax.tree.leaves(jtree)):
+        np.testing.assert_array_equal(np.asarray(a, np.float32),
+                                      np.asarray(b, np.float32))
+
+
+def test_restore_holds_no_leaf_in_a_reference_cycle(tmp_path):
+    """With the garbage collector off, a restored tree's leaves are freed
+    as soon as the tree is dropped: rebuilding it (``tree_unflatten``)
+    leaves no reference cycle that holds them until a collection."""
+    import gc
+    import weakref
+
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+
+    ckpt.save(str(tmp_path), 2, _trainer_tree(0))
+    gc.collect()
+    gc.disable()
+    try:
+        out, _, _ = ckpt.restore(str(tmp_path), 2, _trainer_tree(1))
+        refs = [weakref.ref(leaf) for _, leaf in ckpt._flatten(out)]
+        del out
+        assert [r() is None for r in refs] == [True] * len(refs)
+        tree = _trainer_tree(2)
+        out = tree_unflatten(tree, [x.clone() for _, x in tree_leaves(tree)])
+        refs = [weakref.ref(leaf) for _, leaf in tree_leaves(out)]
+        del out
+        assert [r() is None for r in refs] == [True] * len(refs)
+    finally:
+        gc.enable()

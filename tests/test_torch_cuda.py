@@ -1360,3 +1360,138 @@ def test_lm_decode_on_card_matches_cpu_and_repeats(card, arch, dtype):
         assert torch.equal(x, y), i
         torch.testing.assert_close(x[..., :cfg.vocab_size],
                                    want[..., :cfg.vocab_size], **tol)
+
+
+# ------------------------------------------------------------- LM training
+
+def _lm_step_args(*extra, device="cuda"):
+    from repro_torch.launch import train
+
+    return train.build_parser().parse_args([
+        "--arch", "smollm-360m", "--reduced", "--steps", "6", "--batch", "4",
+        "--seq", "16", "--shards", "2", "--sync", "power", "--log-every",
+        "100", "--ckpt-every", "2", "--device", device, *extra])
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "deepseek-v2-lite-16b",
+                                  "mamba2-780m", "zamba2-2.7b"])
+def test_lm_train_step_on_card_matches_cpu_and_repeats(card, arch):
+    """One trainer step (2 lockstep shards, PowerSync through the
+    power-pack kernels, AdamW) on the card against the CPU from the same
+    params and batch in float32: the loss within rtol 1e-4, the synced
+    grads that the step hands to AdamW within a relative L2 error of 1e-3
+    per leaf; the step run twice on the card equal bit for bit."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import batch_at
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.powersync import PowerSyncConfig, residual_init
+
+    cfg = get_config(arch).reduced()
+    train_update = train.adamw_update
+
+    def one_step(device):
+        step, meter, mod = train.build_trainer(
+            cfg, AdamWConfig(lr=1e-3, warmup_steps=20), PowerSyncConfig(), 2,
+            "power", device)
+        params = tree_map(lambda t: t.float().to(device),
+                          mod.init(cfg, seed=1, device="cpu"))
+        residual = tree_map(lambda r: r.new_zeros((2, *r.shape)),
+                            residual_init(params))
+        batch = batch_at(0, 0, 4, 16, cfg.vocab_size, shards=2,
+                         device=device)
+        synced = []
+
+        def update(grads, opt, acfg):
+            synced.append(grads)
+            return train_update(grads, opt, acfg)
+
+        with mock.patch.object(train, "adamw_update", update):
+            loss, _, opt, residual = step(params, adamw_init(params),
+                                          residual, batch)
+        return loss.cpu(), synced[0], opt, residual
+
+    n0 = pack_ops.pack_rows.launches
+    cpu_loss, cpu_grads, _, _ = one_step("cpu")
+    a_loss, a_grads, a_opt, a_res = one_step("cuda")
+    assert pack_ops.pack_rows.launches > n0
+    b_loss, b_grads, b_opt, b_res = one_step("cuda")
+    torch.testing.assert_close(a_loss, cpu_loss, rtol=1e-4, atol=0)
+    for (path, x), (_, y), (_, want) in zip(tree_leaves(a_grads),
+                                            tree_leaves(b_grads),
+                                            tree_leaves(cpu_grads)):
+        assert torch.equal(x, y), path
+        err = float((x.cpu() - want).norm())
+        assert err <= 1e-3 * float(want.norm()), (path, err)
+    assert torch.equal(a_loss, b_loss)
+    for (path, x), (_, y) in zip(tree_leaves(a_opt.master),
+                                 tree_leaves(b_opt.master)):
+        assert torch.equal(x, y), path
+    for (path, x), (_, y) in zip(tree_leaves(a_res), tree_leaves(b_res)):
+        assert torch.equal(x, y), path
+
+
+def test_powersync_kernels_match_plain_versions_on_card(card):
+    """PowerSync over 2 lockstep shards on the card through the power-pack
+    kernels and through their plain versions: synced equal, the residual
+    equal bit for bit (each pair is selected once, so the scatter's
+    atomics land in a fixed result)."""
+    from unittest import mock
+
+    from repro_torch.core.sync import SimReducer, lockstep
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.powersync import PowerSyncConfig, powersync_tree
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    emb = rnd(2, 600, 48)
+    emb[:, ::4] = 0.0
+    grads = {"embed": emb, "stack": {"w": rnd(2, 3, 40, 64),
+                                     "wb": rnd(2, 70, 90).bfloat16()},
+             "norm": rnd(2, 48), "head_blocks": [{"w": rnd(2, 50, 90)}]}
+    res = tree_map(lambda g: 0.1 * rnd(*g.shape), grads)
+
+    def run():
+        red = SimReducer(2)
+        return lockstep(lambda s: powersync_tree(
+            tree_map(lambda a: a[s], grads), tree_map(lambda a: a[s], res),
+            red, PowerSyncConfig(lambda_rows=0.3, lambda_cols=0.4), 2), 2,
+            [red], device="cuda")
+
+    n0 = (pack_ops.pack_rows.launches, pack_ops.scatter_add_rows.launches)
+    got = run()
+    # 4 leaves past min_dense_size, a pack and two scatters each, a shard
+    assert (pack_ops.pack_rows.launches - n0[0],
+            pack_ops.scatter_add_rows.launches - n0[1]) == (8, 16)
+    with mock.patch.object(pack_ops, "pack_rows", pack_ops.pack_rows_plain), \
+            mock.patch.object(pack_ops, "scatter_add_rows",
+                              pack_ops.scatter_add_rows_plain):
+        want = run()
+    for s in range(2):
+        for i in range(2):
+            for (path, x), (_, y) in zip(tree_leaves(got[s][i]),
+                                         tree_leaves(want[s][i])):
+                assert x.dtype == y.dtype and torch.equal(x, y), (s, i, path)
+
+
+def test_lm_crash_resume_on_card(card, tmp_path):
+    """``--crash-at 5`` (a checkpoint every 2 steps) then the same command
+    again on the card: the resumed losses equal the uninterrupted run's
+    bit for bit."""
+    from repro_torch.launch import train
+
+    full, _ = train.train_loop(_lm_step_args("--ckpt-dir",
+                                             str(tmp_path / "a")))
+    with pytest.raises(SystemExit):
+        train.train_loop(_lm_step_args("--ckpt-dir", str(tmp_path / "b"),
+                                       "--crash-at", "5"))
+    resumed, _ = train.train_loop(_lm_step_args("--ckpt-dir",
+                                                str(tmp_path / "b")))
+    assert len(resumed) == 2
+    assert resumed == full[4:]

@@ -236,3 +236,28 @@ def test_lm_slice_modules_stand_alone(no_card):
             build()
     # the meta device draws nothing and needs no card
     assert lm.init(cfg, device="meta")["embed"].device.type == "meta"
+
+
+def test_lm_training_slice_modules_stand_alone(no_card):
+    """The LM trainer's modules (the ``optim`` subpackage, the token
+    stream, the driver) are among the files checked above and import
+    nothing of JAX; their entry points default to the card too."""
+    from repro_torch import optim
+    from repro_torch.data import lm_data
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw, powersync
+
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/optim/__init__.py",
+                "src/repro_torch/optim/adamw.py",
+                "src/repro_torch/optim/powersync.py"):
+        assert rel in names
+    for mod in (optim, adamw, powersync, lm_data, train):
+        rel = str(Path(mod.__file__).resolve().relative_to(ROOT))
+        assert rel in names
+        assert not [m for m in _imported_modules(Path(mod.__file__))
+                    if _forbidden(m)]
+    for build in (lambda: train.main(["--reduced", "--steps", "1"]),
+                  lambda: lm_data.batch_at(0, 0, 2, 4, 10)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            build()
