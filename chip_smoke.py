@@ -203,7 +203,26 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      before each of (a)-(d) and read right after it; each run's
      ``pack_rows`` launches must be exactly steps x 2 shards x the leaves
      PowerSync packs, its ``scatter_add_rows`` launches twice that ((c)'s
-     zero).  The JSON line's launches of the two kernels include (a)'s.
+     zero).  The JSON line's launches of the two kernels include (a)'s;
+ 15. the last modules of the JAX package (no kernel of their own): (a)
+     ``python -m repro_torch.launch.dryrun`` for three cells, each a CPU
+     process of its own (a fake process group of 512) run beside (c) and
+     (d): smollm-360m ``train_4k`` (params 361,821,120, chips 256, model
+     FLOPs 8,892,115,845,120: the in-repo reference record's), deepseek-
+     v2-lite-16b ``decode_32k`` (the decode cache's specs, the MoE island
+     on the fake mesh) and ``--lda`` at K = 2000 (the analytic bytes the
+     port's Eq. 5/6 formulas), each ``ok``, the counted terms printed beside
+     the reference record's XLA terms; (b) ``roofline.model_flops`` of phase
+     14 (a)'s step over its median times the data-sheet bf16 peak; (c) the
+     MoE's expert-parallel island at full width (deepseek-v2-lite-16b cut
+     to its dense first layer and 2 MoE layers, a prefill of 8 x 128) on a
+     1 x 1 NCCL mesh in this process and a 1 x 2 gloo mesh of two processes
+     on the one card: each MoE layer within rtol = atol = 2e-2 (aux rtol
+     1e-4) of the local path on the same input, the prefill's logits under
+     PR 24's near-tie rule, the two ranks equal bit for bit, each rank's
+     peak memory; (d) ``powersync_tree`` on an olmoe-1b-7b expert leaf of
+     2^31 float32 elements through the power-pack kernels, equal to their
+     plain versions at every pair.
 
 Phase 10 draws each host batch of its drifting streams once
 (``drawn_once``): its runs read the same batches.  Each phase prints its
@@ -219,6 +238,7 @@ import argparse
 import contextlib
 import functools
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -3347,8 +3367,8 @@ def lm_train_slice(*, seed: int, card: str) -> dict:
     depth: (a) smollm-360m, 2 shards, PowerSync, a checkpoint every 4
     steps; (b) its crash at 8 and the rerun, equal to (a); (c) (a)'s cell
     with the dense sync; (d) mamba2-780m.  Returns the kernels' launches
-    of (a), the main path, and the device ms a launch of the power-pack
-    kernels in (a)'s profiled step."""
+    of (a), the main path, the device ms a launch of the power-pack
+    kernels in (a)'s profiled step, and (a)'s median step in seconds."""
     import numpy as np
     import torch
 
@@ -3483,7 +3503,7 @@ def lm_train_slice(*, seed: int, card: str) -> dict:
     powersync_card_vs_plain(*odd_grad_tree(seed=seed), label="odd leaves")
     powersync_card_vs_plain(*full_grad_tree(arch, seed=seed),
                             label=f"{arch}'s leaves")
-    return launches, watched
+    return launches, watched, step_median_s(io_a["walls"])
 
 
 def powersync_kernel_leaves(arch: str) -> int:
@@ -3670,6 +3690,473 @@ def powersync_card_vs_plain(grads, res, *, label: str) -> None:
           f"shards: synced max gap {worst:.3e}, residuals and sent masks "
           f"equal")
     del got, want
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- phase 15
+
+# the dry run's cells, each run as `python -m repro_torch.launch.dryrun`
+DRYRUN_CELLS = (("--arch", "smollm-360m", "--shape", "train_4k"),
+                ("--arch", "deepseek-v2-lite-16b", "--shape", "decode_32k"),
+                ("--lda", "--lda-k", "2000"))
+# the reference's in-repo record of the smollm-360m cell, read (never
+# written) for its parity values and its XLA terms
+DRYRUN_RECORD = (ROOT / "benchmarks" / "results" / "dryrun" /
+                 "smollm-360m__train_4k__single.json")
+SMOLLM_PARAMS = 361_821_120
+SMOLLM_MODEL_FLOPS = 8_892_115_845_120
+# the island at full width: deepseek-v2-lite-16b cut to its dense first
+# layer and 2 MoE layers, a prefill of 8 x 128 tokens
+ISLAND_ARCH, ISLAND_MOE_LAYERS, ISLAND_TOKENS = "deepseek-v2-lite-16b", 2, \
+    (8, 128)
+ISLAND_TOL = 2e-2          # the reference's bf16 tolerance (test_archs.py)
+
+
+def start_dryruns(out: Path) -> list:
+    """Start the dry run's cells on the host's CPU, each a process of its
+    own (the fake process group is process global; this process never
+    joins it).  Returns (cell, log, process) triples."""
+    import os
+
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for i, cell in enumerate(DRYRUN_CELLS):
+        log = open(out / f"cell{i}.log", "w")
+        procs.append((cell, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *cell,
+             "--mesh", "single", "--out", str(out)], stdout=log,
+            stderr=subprocess.STDOUT, env=env, cwd=ROOT)))
+    return procs
+
+
+def finish_dryruns(procs, out: Path, timeout: float = 150.0) -> None:
+    """Phase 15 (a): wait for the dry-run cells, then gate their records:
+    every cell ``ok``; the smollm-360m cell's params, chips and model
+    FLOPs the reference record's; the LDA cells' analytic bytes the
+    port's Eq. 5/6 formulas.  The counted terms are printed beside the
+    reference record's XLA terms, not gated (the partitioners differ)."""
+    from repro_torch.core.sync import dense_sync_bytes, power_sync_bytes
+
+    t_end = time.time() + timeout
+    try:
+        for cell, log, proc in procs:
+            try:
+                rc = proc.wait(timeout=max(1.0, t_end - time.time()))
+            except subprocess.TimeoutExpired:
+                fail(f"(a) the dry run {' '.join(cell)} ran past "
+                     f"{timeout:.0f} s")
+            log.close()
+            if rc:
+                tail = Path(log.name).read_text()[-2000:]
+                fail(f"(a) the dry run {' '.join(cell)} exited {rc}: {tail}")
+    finally:
+        for _, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+    def record(tag):
+        rec = json.loads((out / f"{tag}.json").read_text())
+        if rec.get("status") != "ok":
+            fail(f"(a) dry-run cell {tag}: {rec.get('status')}")
+        return rec
+
+    rec = record("smollm-360m__train_4k__single")
+    ref = json.loads(DRYRUN_RECORD.read_text())
+    got = (rec["params_total"], rec["params_active"], rec["chips"],
+           rec["model_flops"])
+    print(f"[dryrun] (a) smollm-360m train_4k single: ok, params "
+          f"{got[0]:,} (active {got[1]:,}), chips {got[2]}, model FLOPs "
+          f"{got[3]:,.0f} a device; state bytes a device "
+          f"{rec['state_bytes_per_device']['total']:,} (the reference's "
+          f"argument bytes {ref['memory']['argument_size_in_bytes']:,.0f}); "
+          f"probes {rec['probe_s']} s")
+    if got != (SMOLLM_PARAMS, SMOLLM_PARAMS, 256, SMOLLM_MODEL_FLOPS):
+        fail(f"(a) smollm-360m record {got} is not the reference's "
+             f"({SMOLLM_PARAMS}, {SMOLLM_PARAMS}, 256, {SMOLLM_MODEL_FLOPS})")
+    print("[dryrun]     counted (port, eager, per device)  |  XLA (the "
+          "reference's record)")
+    for mine, theirs in (("counted_flops", "hlo_flops"),
+                         ("counted_bytes_unfused", "hlo_bytes")):
+        print(f"[dryrun]     {mine} {rec[mine]:.4e}  |  {theirs} "
+              f"{ref[theirs]:.4e}")
+    by_type = {k: f"{v:.3e}" for k, v in
+               rec["counted_collective_bytes"].items() if k != "total"}
+    print(f"[dryrun]     collective bytes "
+          f"{rec['counted_collective_bytes']['total']:.4e} {by_type}  |  "
+          f"{ref['collective_bytes']['total']:.4e}")
+    for term in ("compute_s", "memory_s", "collective_s", "dominant",
+                 "useful_flop_ratio", "roofline_fraction"):
+        mine = rec[term]
+        theirs = ref[term]
+        fmt = (lambda v: v) if isinstance(mine, str) else \
+            (lambda v: f"{v:.4e}")
+        print(f"[dryrun]     {term} {fmt(mine)}  |  {fmt(theirs)}")
+    print(f"[dryrun]     DTensor fallbacks: {rec['replicated_fallbacks']}")
+
+    rec = record("deepseek-v2-lite-16b__decode_32k__single")
+    print(f"[dryrun] (a) deepseek-v2-lite-16b decode_32k single (cache_specs, "
+          f"cache_pspecs, the island on the fake mesh): ok, params "
+          f"{rec['params_total']:,} (active {rec['params_active']:,}), "
+          f"state bytes a device {rec['state_bytes_per_device']}, counted "
+          f"FLOPs {rec['counted_flops']:.4e}, bytes "
+          f"{rec['counted_bytes_unfused']:.4e}, collective bytes "
+          f"{rec['counted_collective_bytes']['total']:.4e}, dominant "
+          f"{rec['dominant']}; fallbacks {rec['replicated_fallbacks']}")
+    for mode in ("power", "dense"):
+        rec = record(f"lda-pubmed-K2000__pobp_{mode}__single")
+        c = rec["cfg"]
+        want = (power_sync_bytes(c["P"], c["Pk"], c["W"]) if mode == "power"
+                else 2 * dense_sync_bytes(c["W"], c["K"] // 16))
+        loop = lda_loop_ring_bytes(mode, c, data=16, model=16)
+        print(f"[dryrun] (a) lda-pubmed-K2000 pobp_{mode}: ok, loop "
+              f"{rec['loop_coll_bytes_per_iter']:,.1f} B an iteration "
+              f"(its psums' ring bytes {loop:,.1f}; analytic "
+              f"{rec['analytic_loop_bytes_per_iter']:,}), once "
+              f"{rec['once_coll_bytes']:,.1f} B, a mini-batch at T = 200 "
+              f"{rec['minibatch_coll_bytes_T200']:,.1f} B; counted bytes an "
+              f"iteration {rec['counted_bytes_unfused_per_iter']:.4e}")
+        if rec["analytic_loop_bytes_per_iter"] != want:
+            fail(f"(a) lda {mode}: analytic bytes "
+                 f"{rec['analytic_loop_bytes_per_iter']} != the formula's "
+                 f"{want}")
+        if not math.isclose(rec["loop_coll_bytes_per_iter"], loop,
+                            rel_tol=1e-12):
+            fail(f"(a) lda {mode}: counted loop bytes "
+                 f"{rec['loop_coll_bytes_per_iter']} != its psums' ring "
+                 f"bytes {loop}")
+
+
+def lda_loop_ring_bytes(mode: str, c: dict, data: int, model: int) -> float:
+    """The link bytes of one further POBP iteration on a data x model mesh,
+    from the psums ``core/pobp.py`` issues, each at the all-reduce ring
+    factor 2 (G - 1) / G of its group.  Power: the packed d and r over the
+    data axis (a rank's Pk is at most its K / model topics) and the [P]
+    rw_delta over the model axis; Eq. 6 counts a [W] residual vector
+    there, so these bytes fall below it.  Dense: the [W, K / model]
+    scatter and r over the data axis, then the [W] residual and the
+    [D_m / data, L] normalizer over the model axis."""
+    def ring(g):
+        return 2 * (g - 1) / g
+    kl = c["K"] // model
+    if mode == "power":
+        return (2 * c["P"] * min(c["Pk"], kl) * 4 * ring(data)
+                + c["P"] * 4 * ring(model))
+    return (2 * c["W"] * kl * 4 * ring(data)
+            + (c["W"] + c["D_m"] // data * c["L"]) * 4 * ring(model))
+
+
+def step_median_s(walls, first: int = 2) -> float:
+    """The median step wall (seconds) from step ``first`` (0-based) on."""
+    s = sorted(walls[first:])
+    return s[len(s) // 2]
+
+
+def roofline_share(step_s: float, card: str) -> float:
+    """Phase 15 (b): ``roofline.model_flops`` of phase 14 (a)'s step
+    (smollm-360m, 2 lockstep shards x 4 x 4096 tokens, chips = 1) over the
+    median step times the data-sheet bf16 peak.  Printed, not gated."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import registry
+
+    arch, B, S, _ = LM_TRAIN_MAIN
+    cfg = get_config(arch)
+    active = dryrun.n_active_params(cfg, dryrun.n_params(
+        registry.build(cfg).init(cfg, seed=0, device="meta")))
+    mf = roofline.model_flops(cfg, ShapeSpec("phase14", S, B, "train"),
+                              active, 1)
+    share = mf / (step_s * roofline.HW["peak_flops"])
+    print(f"[roofline] (b) phase 14 (a)'s {arch} step: model FLOPs "
+          f"{mf:.4e} (6 x {active:,.0f} params x {B * S} tokens) in a median "
+          f"{step_s * 1e3:.1f} ms = {mf / step_s / 1e12:.2f} TFLOP/s, "
+          f"{share:.2%} of the data-sheet bf16 peak "
+          f"({roofline.HW['peak_flops'] / 1e12:.1f} TFLOP/s)  [{card}]")
+    return share
+
+
+def island_model(seed: int, device):
+    """deepseek-v2-lite-16b at full width (d_model 2048, MLA, 64 experts of
+    1408, top-6, 2 shared), its depth cut to the dense first layer and
+    ``ISLAND_MOE_LAYERS`` MoE layers; params and tokens from ``seed``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(ISLAND_ARCH)
+    cfg = dataclasses.replace(
+        cfg, n_layers=cfg.dense_first_n + ISLAND_MOE_LAYERS)
+    params = lm.init(cfg, seed=seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 15)
+    tokens = torch.randint(0, cfg.vocab_size, ISLAND_TOKENS, generator=gen,
+                           device=device)
+    return cfg, params, tokens
+
+
+class IslandLog:
+    """While open, holds each MoE layer the island runs against the local
+    path on the same input (the reference test's pair): a list of (max
+    |y gap|, within rtol = atol = ISLAND_TOL, aux island, aux local).
+    Enter it before a `RouteLog`, whose route records then hold the
+    island's choices only."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        from repro_torch.models.common import NULL_CTX
+
+        self.moe, self.island, self.layers = moe, moe._moe_apply_island, []
+        plain_top_k = moe.top_k
+
+        def spy(p, x, *, cfg, ctx):
+            import torch
+
+            y, aux = self.island(p, x, cfg=cfg, ctx=ctx)
+            routed, moe.top_k = moe.top_k, plain_top_k
+            try:
+                yl, al = moe._moe_apply_local(p, x, cfg=cfg, ctx=NULL_CTX)
+            finally:
+                moe.top_k = routed
+            a, b = y.float(), yl.float()
+            self.layers.append((float((a - b).abs().max()),
+                                bool(torch.allclose(a, b, rtol=ISLAND_TOL,
+                                                    atol=ISLAND_TOL)),
+                                float(aux), float(al)))
+            return y, aux
+        moe._moe_apply_island = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._moe_apply_island = self.island
+
+
+def island_forward(cfg, params, tokens, ctx):
+    """A prefill ``forward`` with ``ctx``: (logits, aux, the route log, the
+    island's layers against the local path)."""
+    from repro_torch.models import lm
+
+    with IslandLog() as island, RouteLog() as log:
+        logits, _, aux = lm.forward(params, tokens, cfg, ctx, mode="prefill")
+    return logits, aux, log.layers, island.layers
+
+
+def island_ctx(shape, device_type: str):
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import ShardingCtx
+
+    return ShardingCtx(active=True, batch=("data",), model="model",
+                       mesh=make_mesh(shape, ("data", "model"), device_type))
+
+
+def island_rank(rank: int, world: int, work: str, seed: int,
+                device: str) -> None:
+    """One rank of the 1 x ``world`` gloo mesh (a process a rank, all on
+    the one card): the island's prefill, saved with the route log and this
+    rank's peak memory."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        ctx = island_ctx((1, world), device)
+        cfg, params, tokens = island_model(seed, device)
+        torch.cuda.reset_peak_memory_stats()
+        logits, aux, layers, island = island_forward(cfg, params, tokens,
+                                                     ctx)
+        torch.cuda.synchronize()
+        torch.save({"logits": logits.cpu(), "aux": aux.cpu(),
+                    "layers": [(c.cpu(), m.cpu()) for c, m in layers],
+                    "island": island,
+                    "peak": torch.cuda.max_memory_allocated()},
+                   f"{work}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def island_against_local(label, got, want) -> None:
+    """The island against the local path.  Each MoE layer on the same
+    input (the reference test's pair, ``tests/test_archs.py``): y within
+    rtol = atol = ISLAND_TOL in bf16, aux within rtol 1e-4.  The whole
+    prefill: the island's partial outputs meet in a sum, so their bf16
+    roundings differ from the local path's and a later router may take a
+    near-tie the other way; PR 24's rule holds it: the first choice that
+    differs in a row must be a near-tie (``ROUTER_TIE``), the tokens
+    before it within the reference's full-forward tolerance (rtol 0.1,
+    atol 0.15), and the top-1 agreement over all tokens at least 0.9; the
+    aux is printed."""
+    import torch
+
+    (g, ga, gl, layers), (w, wa, wl, _) = got, want
+    for i, (gap, ok, a_isl, a_loc) in enumerate(layers):
+        rel = abs(a_isl - a_loc) / abs(a_loc)
+        print(f"[island] (c) {label}, MoE layer {i}: y against the local "
+              f"path on the same input max |gap| {gap:.4e} (within rtol = "
+              f"atol = {ISLAND_TOL}: {ok}), aux rel {rel:.2e}")
+        if not ok or rel > 1e-4:
+            fail(f"(c) MoE layer {i} on {label} disagrees with the local "
+                 f"path")
+    if len(layers) != ISLAND_MOE_LAYERS:
+        fail(f"(c) {label}: the island ran {len(layers)} layers, not "
+             f"{ISLAND_MOE_LAYERS}")
+    # a token whose choice differs, and every later token of its row,
+    # may differ (attention carries it forward); the first difference in
+    # a row must be a near-tie
+    B, T = g.shape[:2]
+    clean = torch.ones((B, T), dtype=torch.bool)
+    worst = 0.0
+    for (gc, gm), (wc, wm) in zip(gl, wl):
+        diff = (gc.cpu() != wc.cpu()).any(-1)
+        margin = torch.minimum(gm.cpu(), wm.cpu())
+        for b, t in diff.nonzero().tolist():
+            if clean[b, :t + 1].all():
+                worst = max(worst, float(margin[b, t]))
+            clean[b, t:] = False
+    a, b = g.float().cpu(), w.float().cpu()
+    gap = float((a - b).abs().max(-1).values[clean].max()) \
+        if clean.any() else 0.0
+    within = bool(torch.allclose(a[clean], b[clean], rtol=0.1, atol=0.15))
+    top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    print(f"[island] (c) {label}, the prefill's logits: max |gap| {gap:.4e} "
+          f"over the {int(clean.sum())} of {B * T} tokens before a row's "
+          f"first choice that differs (within rtol 0.1, atol 0.15: "
+          f"{within}), top-1 agreement {top1:.3f} over all; aux "
+          f"{float(ga):.6f} against {float(wa):.6f}"
+          + (f"; the first choices that differ in a row on a gate margin "
+             f"up to {worst:.2e} (a near-tie below {ROUTER_TIE})"
+             if not clean.all() else ""))
+    if not within or worst >= ROUTER_TIE or top1 < 0.9:
+        fail(f"(c) the island's prefill on {label} disagrees with the local "
+             f"path")
+
+
+def island_slice(*, seed: int, card: str, device: str = "cuda",
+                 backend: str = "nccl") -> None:
+    """Phase 15 (c): the MoE's expert-parallel island at full width, a
+    prefill over 8 x 128 tokens through ``lm.forward`` with an active
+    ``ShardingCtx``, on a 1 x 1 mesh in this process (``backend``, NCCL on
+    the card) and on a 1 x 2 model axis of two gloo processes on the one
+    card (32 experts a rank), each against the local path on the card;
+    the two ranks' logits equal bit for bit."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp_mp
+
+    from repro_torch.models.common import NULL_CTX
+
+    cfg, params, tokens = island_model(seed, device)
+    torch.cuda.reset_peak_memory_stats()
+    want = island_forward(cfg, params, tokens, NULL_CTX)
+    torch.cuda.synchronize()
+    print(f"[island] (c) {ISLAND_ARCH} at full width (d_model "
+          f"{cfg.d_model}, {cfg.moe.num_experts} experts of "
+          f"{cfg.moe.d_expert}, top-{cfg.moe.top_k}, {cfg.moe.num_shared} "
+          f"shared, MLA), depth cut to {cfg.n_layers} layers (the dense "
+          f"first and {ISLAND_MOE_LAYERS} MoE), prefill {ISLAND_TOKENS[0]} x "
+          f"{ISLAND_TOKENS[1]} tokens; the local path's peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    work = ROOT / "build" / "chip_smoke_island"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        dist.init_process_group(backend, init_method=f"file://{work}/store11",
+                                rank=0, world_size=1)
+        try:
+            got = island_forward(cfg, params, tokens,
+                                 island_ctx((1, 1), device))
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+        island_against_local(f"a 1 x 1 {backend} mesh in this process", got,
+                             want)
+        del got, params
+        torch.cuda.empty_cache()
+        tmp_mp.start_processes(island_rank,
+                               args=(2, str(work), seed, device), nprocs=2,
+                               join=True, start_method="spawn")
+        ranks = [torch.load(work / f"rank{r}.pt") for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    same = torch.equal(ranks[0]["logits"], ranks[1]["logits"]) and \
+        torch.equal(ranks[0]["aux"], ranks[1]["aux"])
+    print(f"[island] (c) 1 x 2 gloo mesh, two processes on the one card "
+          f"({cfg.moe.num_experts // 2} experts a rank): the ranks' logits "
+          f"and aux equal bit for bit: {same}; peak memory a rank "
+          + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in ranks)
+          + f" GiB  [{card}]")
+    if not same:
+        fail("(c) the two ranks' logits differ")
+    island_against_local("a 1 x 2 gloo mesh", (
+        ranks[0]["logits"], ranks[0]["aux"], ranks[0]["layers"],
+        ranks[0]["island"]), want)
+
+
+def powersync_big_leaf(*, seed: int, card: str) -> None:
+    """Phase 15 (d): an olmoe-1b-7b expert leaf of 2^31 float32 elements
+    ([16, 64, 2048, 1024], [2^21, 1024] in 2-D) synced by ``powersync_tree``
+    through the power-pack kernels and again through their plain versions:
+    the packed pairs (the synced leaf) and the scattered rows (the
+    residual) equal at every pair."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core.sync import LocalReducer
+    from repro_torch.kernels.power_pack import ops as pack_ops
+    from repro_torch.optim.powersync import PowerSyncConfig, powersync_tree
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    g = torch.randn((16, 64, 2048, 1024), generator=gen, device="cuda")
+    r = 0.1 * torch.randn(g.shape, generator=gen, device="cuda")
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        s, res = powersync_tree({"w": g}, {"w": r}, LocalReducer(),
+                                PowerSyncConfig(), 1)
+        torch.cuda.synchronize()
+        return (s["w"].reshape(-1, 1024), res["w"].reshape(-1, 1024),
+                time.time() - t0)
+
+    n0 = (pack_ops.pack_rows.launches, pack_ops.scatter_add_rows.launches)
+    got = run()
+    n = (pack_ops.pack_rows.launches - n0[0],
+         pack_ops.scatter_add_rows.launches - n0[1])
+    with mock.patch.object(pack_ops, "pack_rows", pack_ops.pack_rows_plain), \
+            mock.patch.object(pack_ops, "scatter_add_rows",
+                              pack_ops.scatter_add_rows_plain):
+        want = run()
+    # a sent pair whose accumulated value is exactly 0 sends a 0
+    equal, sent, zeros = True, 0, 0
+    g2, r2 = g.reshape(-1, 1024), r.reshape(-1, 1024)
+    for lo in range(0, 2 ** 21, 2 ** 18):
+        rows = slice(lo, lo + 2 ** 18)
+        for x, y in zip(got[:2], want[:2]):
+            equal &= torch.equal(x[rows], y[rows])
+        sent += int(torch.count_nonzero(want[0][rows]))
+        zeros += int(((g2[rows] + r2[rows]) == 0).sum())
+    P, Pc = round(0.2 * 2 ** 21), 512
+    print(f"[powersync] (d) a [16, 64, 2048, 1024] leaf (2^31 float32): "
+          f"pack_rows x{n[0]}, scatter_add_rows x{n[1]}; synced and "
+          f"residual equal to the plain versions at every pair: {equal}; "
+          f"{sent:,} non-zero pairs sent (P x Pc = {P * Pc:,}; {zeros} "
+          f"accumulated values exactly 0); the sync {got[2] * 1e3:.1f} ms "
+          f"through the kernels, {want[2] * 1e3:.1f} ms plain (host clock, "
+          f"a sync each end)  [{card}]")
+    if n != (1, 2) or not equal or not P * Pc - zeros <= sent <= P * Pc:
+        fail("(d) PowerSync on a leaf of 2^31 elements disagrees with the "
+             "plain versions")
+    del got, want, g, r
     torch.cuda.empty_cache()
 
 
@@ -4163,8 +4650,30 @@ def main(argv=None) -> None:
     # pack and scatters on the power-pack kernels), crash-resume, the
     # dense sync, mamba2-780m, the ten ids' grads against the CPU
     t0 = time.time()
-    lm_launches, lm_watch = lm_train_slice(seed=args.seed, card=card)
+    lm_launches, lm_watch, lm_step_s = lm_train_slice(seed=args.seed,
+                                                      card=card)
     print(f"[time] phase 14: {time.time() - t0:.1f}s")
+
+    # ---- 15. the dry run (three cells, each a CPU process of its own,
+    # run while the card works), the roofline share of phase 14's step,
+    # the MoE's expert-parallel island at full width, PowerSync on a leaf
+    # of 2^31 elements
+    t0 = time.time()
+    dry_out = ROOT / "build" / "chip_smoke_dryrun"
+    dryruns = start_dryruns(dry_out)
+    try:
+        roofline_share(lm_step_s, card)
+        island_slice(seed=args.seed, card=card)
+        powersync_big_leaf(seed=args.seed, card=card)
+        finish_dryruns(dryruns, dry_out)
+    finally:
+        for _, log, proc in dryruns:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(dry_out, ignore_errors=True)
+    print(f"[time] phase 15: {time.time() - t0:.1f}s")
 
     rec["launches"] = launches
     kernels = [rec]

@@ -124,6 +124,35 @@ def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     return [(prefix, tree)]
 
 
+def _shardings_along(template, shardings) -> List[Optional[Tuple]]:
+    """The (``DeviceMesh``, spec) pair at each leaf of ``template``, in
+    `_flatten`'s order, read from ``shardings``: a tree of the template's
+    structure with a pair where the template has a leaf, None for a leaf
+    or a subtree that is not placed."""
+    if shardings is None:
+        return [None] * len(_flatten(template))
+    if isinstance(template, dict):
+        return [s for k in sorted(template)
+                for s in _shardings_along(template[k], shardings[k])]
+    if isinstance(template, (list, tuple)):
+        return [s for i, v in enumerate(template)
+                for s in _shardings_along(v, shardings[i])]
+    return [shardings]
+
+
+def _placed(arr: torch.Tensor, sharding) -> torch.Tensor:
+    """``arr`` (which every rank read whole) as a DTensor on the
+    (``DeviceMesh``, spec) pair ``sharding``: each rank keeps its own
+    block, so nothing crosses between ranks."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist.sharding import placements
+
+    mesh, spec = sharding
+    return distribute_tensor(arr.to(mesh.device_type), mesh,
+                             placements(spec, mesh), src_data_rank=None)
+
+
 def _leaf_spec(leaf) -> Tuple[Tuple[int, ...], Optional[str]]:
     """(shape, dtype name or None) of a template leaf: a tensor, an array,
     a numpy scalar, or anything with a ``shape`` and a ``dtype``."""
@@ -230,13 +259,15 @@ def verify_step(directory: str, step: int) -> Optional[str]:
 
 def restore_phi(directory: str, step: Optional[int] = None,
                 leaf: str = "phi_acc", dtype: Optional[torch.dtype] = None,
-                w_cap: Optional[int] = None, row_remap=None
+                w_cap: Optional[int] = None, row_remap=None, sharding=None
                 ) -> Tuple[torch.Tensor, Dict[str, Any], int]:
     """Load the one leaf whose key path ends in ``leaf`` as a CPU tensor,
     shape and dtype from the manifest.  ``w_cap`` resizes its row axis
     through `_resize_rows` (zero-padded up; a shrink needs ``row_remap``,
     the fenced compaction remap); ``dtype`` casts it (a bf16-trained phi
-    serves in float32 and back).  Returns (tensor, extra, step); raises
+    serves in float32 and back).  ``sharding``, a (``DeviceMesh``, spec)
+    pair (the spec e.g. ``dist.sharding.phi_serving_spec``), places it
+    as a DTensor on that mesh instead.  Returns (tensor, extra, step); raises
     ``FileNotFoundError`` when the directory holds no complete checkpoint
     and ``ValueError`` when the leaf is missing or ambiguous."""
     if step is None:
@@ -261,6 +292,8 @@ def restore_phi(directory: str, step: Optional[int] = None,
         arr = _resize_rows(arr, int(w_cap), repr(leaf), row_remap=row_remap)
     if dtype is not None and arr.dtype != dtype:
         arr = arr.to(dtype)
+    if sharding is not None:
+        arr = _placed(arr, sharding)
     return arr, manifest.get("extra", {}), int(manifest["step"])
 
 
@@ -291,6 +324,7 @@ def peek_extra(directory: str, step: Optional[int] = None
 
 
 def restore_latest(directory: str, template: Dict[str, Any],
+                   shardings: Optional[Dict[str, Any]] = None,
                    grow_rows: Tuple[str, ...] = (),
                    cast_dtypes: Tuple[str, ...] = (),
                    row_remaps: Optional[Dict[str, Any]] = None
@@ -301,8 +335,8 @@ def restore_latest(directory: str, template: Dict[str, Any],
     Retained steps are tried newest first through `verify_step`: a corrupt
     step (torn write, truncation) warns (``RuntimeWarning``) and the next
     older one is tried.  Only corruption falls back; a template mismatch on
-    an intact step raises ``ValueError``.  ``grow_rows``, ``cast_dtypes``
-    and ``row_remaps`` as in `restore`."""
+    an intact step raises ``ValueError``.  ``shardings``, ``grow_rows``,
+    ``cast_dtypes`` and ``row_remaps`` as in `restore`."""
     skipped = 0
     for step in sorted(_all_steps(directory), reverse=True):
         bad = verify_step(directory, step)
@@ -319,12 +353,14 @@ def restore_latest(directory: str, template: Dict[str, Any],
                 f"corrupt newer checkpoint(s) — up to that many save "
                 f"intervals of work will be recomputed",
                 RuntimeWarning, stacklevel=2)
-        return restore(directory, step, template, grow_rows=grow_rows,
-                       cast_dtypes=cast_dtypes, row_remaps=row_remaps)
+        return restore(directory, step, template, shardings,
+                       grow_rows=grow_rows, cast_dtypes=cast_dtypes,
+                       row_remaps=row_remaps)
     return None
 
 
-def restore(directory: str, step: int, template: Dict[str, Any], *,
+def restore(directory: str, step: int, template: Dict[str, Any],
+            shardings: Optional[Dict[str, Any]] = None, *,
             grow_rows: Tuple[str, ...] = (),
             cast_dtypes: Tuple[str, ...] = (),
             row_remaps: Optional[Dict[str, Any]] = None
@@ -334,9 +370,12 @@ def restore(directory: str, step: int, template: Dict[str, Any], *,
     ``template`` leaves (tensors, arrays or numpy scalars) give structure,
     shape and dtype only; their values are never read.  Each restored leaf
     is a tensor on its template tensor's device (the CPU for a non-tensor
-    template leaf).  ``grow_rows`` names leaves (by key-path suffix, e.g.
-    ``"phi_acc"``) whose axis 0 may be smaller in the checkpoint than in
-    the template: the saved rows are zero-padded up.  ``cast_dtypes`` (same
+    template leaf); ``shardings`` (the template's structure, a
+    (``DeviceMesh``, spec) pair or None at each leaf) places the leaves
+    it names as DTensors on their meshes instead (the remesh path).
+    ``grow_rows`` names leaves (by key-path suffix, e.g. ``"phi_acc"``)
+    whose axis 0 may be smaller in the checkpoint than in the template:
+    the saved rows are zero-padded up.  ``cast_dtypes`` (same
     matching) allows a dtype mismatch for the named leaves: the saved leaf
     is cast to the template's dtype (phi_acc between float32 and bfloat16
     at a restore fence).  ``row_remaps`` maps leaf suffixes to a fenced
@@ -348,6 +387,7 @@ def restore(directory: str, step: int, template: Dict[str, Any], *,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     flat = _flatten(template)
+    placed = _shardings_along(template, shardings)
     recs = manifest["leaves"]
     if len(recs) != len(flat):
         raise ValueError(f"checkpoint leaf count mismatch: saved {len(recs)} "
@@ -383,7 +423,9 @@ def restore(directory: str, step: int, template: Dict[str, Any], *,
                 arr = _resize_rows(arr, want[0], key, row_remap=remap)
             if castable and rec["dtype"] != want_dtype:
                 arr = arr.to(_TORCH_DTYPES[want_dtype])
-            if isinstance(leaf, torch.Tensor):
+            if placed[i] is not None:
+                arr = _placed(arr, placed[i])
+            elif isinstance(leaf, torch.Tensor):
                 arr = arr.to(leaf.device)
             leaves.append(arr)
     return (tree_unflatten(template, leaves), manifest.get("extra", {}),

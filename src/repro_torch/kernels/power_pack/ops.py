@@ -65,15 +65,26 @@ def scatter_add_rows_plain(mat, sel_w, sel_k, vals):
     return mat
 
 
+# the kernels take P, Pk, W and K as C ints; they index with 64-bit
+# offsets, so a matrix of 2^31 elements or more is fine, a side of 2^31 is
+# not
+_MAX_SIDE = 2 ** 31
+
+
 def _check_cuda_args(mat, sel_w, sel_k, vals=None):
+    if mat.dim() != 2:
+        raise ValueError(f"mat must be [W, K], got shape {tuple(mat.shape)}")
     P, Pk = sel_k.shape
+    for name, n in (("P", P), ("Pk", Pk), ("W", mat.shape[0]),
+                    ("K", mat.shape[1])):
+        if n >= _MAX_SIDE:
+            raise ValueError(f"{name} = {n} is past the power-pack kernels' "
+                             f"int argument (< 2^31)")
     want = {"mat": (mat, torch.float32, tuple(mat.shape)),
             "sel_w": (sel_w, torch.int32, (P,)),
             "sel_k": (sel_k, torch.int32, (P, Pk))}
     if vals is not None:
         want["vals"] = (vals, torch.float32, (P, Pk))
-    if mat.dim() != 2:
-        raise ValueError(f"mat must be [W, K], got shape {tuple(mat.shape)}")
     check_args("mat", want)
 
 

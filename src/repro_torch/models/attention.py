@@ -19,7 +19,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import (Draw, apply_rope, dense_init, rmsnorm,
+from repro_torch.models.common import (NULL_CTX, Draw, ShardingCtx,
+                                       apply_rope, dense_init, rmsnorm,
                                        rope_freqs)
 
 # a finite mask value, as the reference's: a fully masked row gets a
@@ -122,7 +123,7 @@ def gqa_params(draw: Draw, cfg: ArchConfig):
 
 def gqa_apply(p, x, *, cfg: ArchConfig, positions: torch.Tensor,
               cache: Optional[dict] = None, pos: Optional[int] = None,
-              window: int = 0):
+              window: int = 0, ctx: ShardingCtx = NULL_CTX):
     """x [B, S, D].  Train/prefill: cache=None; decode: S==1 + cache."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -134,6 +135,8 @@ def gqa_apply(p, x, *, cfg: ArchConfig, positions: torch.Tensor,
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    # only the merged-head projection is hinted (always divisible)
+    q = ctx.ct(q, ctx.batch, None, ctx.model)
     q = apply_rope(q.reshape(B, S, H, hd), positions, inv_freq)
     k = apply_rope(k.reshape(B, S, KV, hd), positions, inv_freq)
     v = v.reshape(B, S, KV, hd)
@@ -156,8 +159,9 @@ def gqa_apply(p, x, *, cfg: ArchConfig, positions: torch.Tensor,
     out = chunked_attend(q[:, :, None], _repeat_kv(k, G), _repeat_kv(v, G),
                          causal=True, window=window, scale=hd ** -0.5,
                          chunk=cfg.attn_chunk)
-    out = out[:, :, 0].reshape(B, S, H * hd)
-    return out @ p["wo"], {"k": k, "v": v}
+    out = ctx.ct(out[:, :, 0].reshape(B, S, H * hd), ctx.batch, None,
+                 ctx.model)
+    return ctx.ct_seq(out @ p["wo"]), {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------- MLA
@@ -177,7 +181,7 @@ def mla_params(draw: Draw, cfg: ArchConfig):
 
 def mla_apply(p, x, *, cfg: ArchConfig, positions: torch.Tensor,
               cache: Optional[dict] = None, pos: Optional[int] = None,
-              window: int = 0):
+              window: int = 0, ctx: ShardingCtx = NULL_CTX):
     """Decode scores the query against the compressed cache (wuk folded
     into the query, wuv applied after the weighted sum); train/prefill
     materializes k/v.  Decode ignores ``window``, as the reference does."""
@@ -221,7 +225,7 @@ def mla_apply(p, x, *, cfg: ArchConfig, positions: torch.Tensor,
     out = chunked_attend(q_cat[:, :, None], k_cat, v, causal=True,
                          window=window, scale=scale, chunk=cfg.attn_chunk)
     out = out[:, :, 0].reshape(B, S, H * dv)
-    return out @ p["wo"], {"ckv": ckv, "kr": k_rope}
+    return ctx.ct_seq(out @ p["wo"]), {"ckv": ckv, "kr": k_rope}
 
 
 # --------------------------------------------------------------- cross
@@ -238,7 +242,7 @@ def cross_params(draw: Draw, cfg: ArchConfig, d_mem: Optional[int] = None):
 
 
 def cross_apply(p, x, memory, *, cfg: ArchConfig,
-                mem_kv: Optional[dict] = None):
+                mem_kv: Optional[dict] = None, ctx: ShardingCtx = NULL_CTX):
     """x [B,S,D] attends to memory [B,M,d_mem].  mem_kv caches k/v(memory)."""
     B, S, D = x.shape
     H, hd = cfg.n_heads, cfg.hd

@@ -3,18 +3,67 @@ param-tree helpers (counterpart of ``repro.models.common``).
 
 Param and cache trees are nested dicts and lists of tensors with the
 reference's keys and its stacked leading layer axes, so carrying one across
-is a tree map.  The reference's ``ShardingCtx`` is left out: its hints have
-no meaning on one device.
+is a tree map.  ``ShardingCtx`` carries the reference's activation-sharding
+hints onto a ``DeviceMesh``: they act on DTensors and leave a plain tensor
+as it is.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, Tuple
+import dataclasses
+from typing import Any, Callable, Iterator, Optional, Tuple
 
 import torch
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.bfloat16
+
+
+# --------------------------------------------------------------- sharding
+
+@dataclasses.dataclass(frozen=True)
+class ShardingCtx:
+    """Activation-sharding hints; no-ops when not ``active`` and on a plain
+    (not DTensor) tensor.
+
+    ``batch`` covers the DP axes ('pod', 'data'); ``model`` is TP/EP;
+    ``seq`` is the sequence-parallel axis of the residual stream between
+    layers (Megatron SP), set to the model axis in training.  ``mesh`` is
+    the ``torch.distributed.device_mesh.DeviceMesh`` the hints name axes
+    of; the MoE's expert-parallel island (``models/moe.py``) runs over its
+    process groups.
+    """
+
+    active: bool = False
+    batch: Optional[Tuple[str, ...]] = ("data",)
+    model: Optional[str] = "model"
+    seq: Optional[str] = None
+    mesh: Optional[object] = None
+
+    def ct(self, x: torch.Tensor, *spec):
+        """``x`` redistributed to the placements ``spec`` names on
+        ``mesh`` (the reference's ``with_sharding_constraint``): dims the
+        spec leaves out or sets to None are replicated."""
+        if not self.active:
+            return x
+        from torch.distributed.tensor import DTensor
+
+        if not isinstance(x, DTensor):
+            return x
+        from repro_torch.dist.sharding import P, placements
+
+        return x.redistribute(self.mesh, placements(P(*spec), self.mesh))
+
+    def ct_seq(self, x: torch.Tensor):
+        """Pin a [B, S, D] projection output to the sequence-parallel
+        layout before the residual add, so its row-parallel partial sum
+        becomes a reduce-scatter rather than an all-reduce."""
+        if not self.active or self.seq is None:
+            return x
+        return self.ct(x, self.batch, self.seq, None)
+
+
+NULL_CTX = ShardingCtx(active=False)
 
 
 # ------------------------------------------------------------------ trees

@@ -20,10 +20,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import (COMPUTE_DTYPE, Draw, apply_rope,
-                                       dense_init, embed_init, rope_freqs,
-                                       softmax_xent, stack_init, tree_at,
-                                       tree_stack)
+from repro_torch.models.common import (COMPUTE_DTYPE, NULL_CTX, Draw,
+                                       ShardingCtx, apply_rope, dense_init,
+                                       embed_init, rope_freqs, softmax_xent,
+                                       stack_init, tree_at, tree_stack)
 from repro_torch.models.lm import (_call, _checkpointed, _logits, _n_layers,
                                    _norm, _norm_params, _stack_loop,
                                    cross_block_apply, cross_block_params,
@@ -36,7 +36,7 @@ def enc_block_params(draw: Draw, cfg: ArchConfig):
             "mlp": mlp_mod.mlp_params(draw, cfg.d_model, cfg.d_ff, cfg.act)}
 
 
-def enc_block_apply(p, x, *, cfg, positions):
+def enc_block_apply(p, x, *, cfg, positions, ctx: ShardingCtx = NULL_CTX):
     """Bidirectional self-attention block (no mask, no cache)."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -52,7 +52,7 @@ def enc_block_apply(p, x, *, cfg, positions):
     out = out.transpose(2, 3).reshape(B, S, H * hd)
     x = x + out @ p["attn"]["wo"]
     h = _norm(p["ln2"], x, cfg)
-    return x + mlp_mod.mlp_apply(p["mlp"], h, act=cfg.act)
+    return x + mlp_mod.mlp_apply(p["mlp"], h, act=cfg.act, ctx=ctx)
 
 
 def dec_block_params(draw: Draw, cfg: ArchConfig):
@@ -61,14 +61,15 @@ def dec_block_params(draw: Draw, cfg: ArchConfig):
     return p
 
 
-def dec_block_apply(p, x, memory, *, cfg, positions, cache=None, pos=None):
+def dec_block_apply(p, x, memory, *, cfg, positions, cache=None, pos=None,
+                    ctx: ShardingCtx = NULL_CTX):
     x, kv, _ = self_block_apply({k: v for k, v in p.items() if k != "cross"},
                                 x, cfg=cfg, positions=positions,
                                 cache=None if cache is None else cache["kv"],
-                                pos=pos)
+                                pos=pos, ctx=ctx)
     x, mem_kv = cross_block_apply(p["cross"], x, memory, cfg=cfg,
                                   mem_kv=None if cache is None
-                                  else cache["mem_kv"])
+                                  else cache["mem_kv"], ctx=ctx)
     return x, {"kv": kv, "mem_kv": mem_kv}
 
 
@@ -87,7 +88,8 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]:
     }
 
 
-def encode(params, frames, cfg: ArchConfig, remat: bool = False):
+def encode(params, frames, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX,
+           remat: bool = False):
     """The encoder over ``frames``; with ``remat`` each layer runs under
     activation checkpointing."""
     B, S, _ = frames.shape
@@ -95,37 +97,41 @@ def encode(params, frames, cfg: ArchConfig, remat: bool = False):
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
 
     def body(x, lp):
-        return enc_block_apply(lp, x, cfg=cfg, positions=positions), None, 0.0
+        y = enc_block_apply(lp, x, cfg=cfg, positions=positions, ctx=ctx)
+        return ctx.ct(y, ctx.batch, ctx.seq, None), None, 0.0
 
     run = _checkpointed(cfg) if remat else _call
     x, _, _ = _stack_loop(run, body, x, params["enc"], 0.0)
     return _norm(params["ln_enc"], x, cfg)
 
 
-def forward(params, tokens, frames, cfg: ArchConfig, mode: str = "train"):
+def forward(params, tokens, frames, cfg: ArchConfig,
+            ctx: ShardingCtx = NULL_CTX, mode: str = "train"):
     """Teacher-forced decoder over `tokens` given encoder `frames`.
     Returns (logits, caches, aux_loss); ``mode`` as in ``lm.forward``."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward: mode must be 'train' or 'prefill', "
                          f"got {mode!r}")
     train = mode == "train"
-    memory = encode(params, frames, cfg, remat=train)
+    memory = encode(params, frames, cfg, ctx, remat=train)
     B, S = tokens.shape
     x = torch.nn.functional.embedding(tokens, params["embed"])
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
 
     def body(x, lp):
-        x, c = dec_block_apply(lp, x, memory, cfg=cfg, positions=positions)
-        return x, c, 0.0
+        x, c = dec_block_apply(lp, x, memory, cfg=cfg, positions=positions,
+                               ctx=ctx)
+        return ctx.ct(x, ctx.batch, ctx.seq, None), c, 0.0
 
     run = _checkpointed(cfg) if train else _call
     x, caches, _ = _stack_loop(run, body, x, params["dec"], 0.0)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return (_logits(params, x, cfg),
+    return (_logits(params, x, cfg, ctx),
             {} if train else {"stack": tree_stack(caches)}, aux)
 
 
-def decode_step(params, token, caches, pos, cfg: ArchConfig):
+def decode_step(params, token, caches, pos, cfg: ArchConfig,
+                ctx: ShardingCtx = NULL_CTX):
     """One decoder step; cross k/v and self KV cache come from `caches`,
     whose self KV slices are written in place."""
     pos = int(pos)
@@ -135,12 +141,13 @@ def decode_step(params, token, caches, pos, cfg: ArchConfig):
     for i in range(_n_layers(params["dec"])):
         x, _ = dec_block_apply(tree_at(params["dec"], i), x, None, cfg=cfg,
                                positions=positions,
-                               cache=tree_at(caches["stack"], i), pos=pos)
-    return _logits(params, x, cfg), caches
+                               cache=tree_at(caches["stack"], i), pos=pos,
+                               ctx=ctx)
+    return _logits(params, x, cfg, ctx), caches
 
 
-def loss_fn(params, batch, cfg: ArchConfig):
+def loss_fn(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
     """Mean token cross-entropy of ``forward(mode="train")``."""
-    logits, _, _ = forward(params, batch["tokens"], batch["frames"], cfg,
+    logits, _, _ = forward(params, batch["tokens"], batch["frames"], cfg, ctx,
                            mode="train")
     return softmax_xent(logits, batch["labels"])

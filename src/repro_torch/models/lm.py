@@ -34,10 +34,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (Draw, dense_init, embed_init,
-                                       layernorm, rmsnorm, softmax_xent,
-                                       stack_init, tree_at, tree_leaves,
-                                       tree_stack, tree_unflatten)
+from repro_torch.models.common import (NULL_CTX, Draw, ShardingCtx,
+                                       dense_init, embed_init, layernorm,
+                                       rmsnorm, softmax_xent, stack_init,
+                                       tree_at, tree_leaves, tree_stack,
+                                       tree_unflatten)
 
 
 # ------------------------------------------------------------------ remat
@@ -105,18 +106,18 @@ def self_block_params(draw: Draw, cfg: ArchConfig, use_moe: bool):
 
 
 def self_block_apply(p, x, *, cfg: ArchConfig, positions, cache=None,
-                     pos=None, window: int = 0):
+                     pos=None, window: int = 0, ctx: ShardingCtx = NULL_CTX):
     """Pre-norm attn + FFN.  Returns (x, cache, aux)."""
     h = _norm(p["ln1"], x, cfg)
     apply = attn.mla_apply if cfg.attn_type == "mla" else attn.gqa_apply
     a, new_cache = apply(p["attn"], h, cfg=cfg, positions=positions,
-                         cache=cache, pos=pos, window=window)
+                         cache=cache, pos=pos, window=window, ctx=ctx)
     x = x + a
     h = _norm(p["ln2"], x, cfg)
     if "moe" in p:
-        f, aux = moe_mod.moe_apply(p["moe"], h, cfg=cfg)
+        f, aux = moe_mod.moe_apply(p["moe"], h, cfg=cfg, ctx=ctx)
     else:
-        f, aux = mlp_mod.mlp_apply(p["mlp"], h, act=cfg.act), 0.0
+        f, aux = mlp_mod.mlp_apply(p["mlp"], h, act=cfg.act, ctx=ctx), 0.0
     return x + f, new_cache, aux
 
 
@@ -127,13 +128,14 @@ def cross_block_params(draw: Draw, cfg: ArchConfig):
             "gate": draw.full((1,), 0.0)}
 
 
-def cross_block_apply(p, x, memory, *, cfg, mem_kv=None):
+def cross_block_apply(p, x, memory, *, cfg, mem_kv=None,
+                      ctx: ShardingCtx = NULL_CTX):
     h = _norm(p["ln1"], x, cfg)
     a, mem_kv = attn.cross_apply(p["xattn"], h, memory, cfg=cfg,
-                                 mem_kv=mem_kv)
+                                 mem_kv=mem_kv, ctx=ctx)
     x = x + torch.tanh(p["gate"]) * a
     h = _norm(p["ln2"], x, cfg)
-    return x + mlp_mod.mlp_apply(p["mlp"], h, act=cfg.act), mem_kv
+    return x + mlp_mod.mlp_apply(p["mlp"], h, act=cfg.act, ctx=ctx), mem_kv
 
 
 def ssm_block_params(draw: Draw, cfg: ArchConfig):
@@ -203,7 +205,7 @@ def init(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]:
 
 # ------------------------------------------------------------- forward
 
-def _logits(params, x, cfg):
+def _logits(params, x, cfg, ctx: ShardingCtx = NULL_CTX):
     x = _norm(params["ln_f"], x, cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head
@@ -213,7 +215,9 @@ def _logits(params, x, cfg):
         logits = torch.where(pad_mask, logits,
                              torch.tensor(-1e30, dtype=logits.dtype,
                                           device=x.device))
-    return logits
+    if ctx.seq is not None and logits.shape[1] > 1:
+        return ctx.ct(logits, ctx.batch, ctx.seq, None)
+    return ctx.ct(logits, ctx.batch, None, ctx.model)
 
 
 def _call(body, *args):
@@ -244,12 +248,14 @@ def _stack_loop(run, body, x, stacked, aux):
     return x, caches, aux
 
 
-def forward(params, tokens, cfg: ArchConfig, *, image_embeds=None,
-            mode: str = "train"):
+def forward(params, tokens, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX,
+            *, image_embeds=None, mode: str = "train"):
     """Full-sequence forward.  Returns (logits, caches, aux_loss).
     ``mode="prefill"`` returns the caches decoding continues from;
     ``mode="train"`` runs the reference's checkpointed bodies under
-    `_remat` and returns an empty cache dict."""
+    `_remat` and returns an empty cache dict.  ``ctx`` places the
+    reference's activation hints (DTensors on a mesh) and routes MoE
+    layers through the expert-parallel island."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward: mode must be 'train' or 'prefill', "
                          f"got {mode!r}")
@@ -258,7 +264,8 @@ def forward(params, tokens, cfg: ArchConfig, *, image_embeds=None,
     B, S = tokens.shape
     # an embedding lookup, whose backward sums each row's grads in a fixed
     # order on the card too (an index's backward scatters with atomics)
-    x = torch.nn.functional.embedding(tokens, params["embed"])
+    x = ctx.ct(torch.nn.functional.embedding(tokens, params["embed"]),
+               ctx.batch, None, None)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: Dict[str, Any] = {}
@@ -268,13 +275,14 @@ def forward(params, tokens, cfg: ArchConfig, *, image_embeds=None,
         for hb in params.get("head_blocks", []):
             # head blocks are dense even in MoE archs (DeepSeek layer 0)
             x, c, _ = self_block_apply(hb, x, cfg=cfg, positions=positions,
-                                       window=cfg.sliding_window)
+                                       window=cfg.sliding_window, ctx=ctx)
             head_caches.append(c)
         caches["head"] = head_caches
 
         def body(x, lp):
-            return self_block_apply(lp, x, cfg=cfg, positions=positions,
-                                    window=cfg.sliding_window)
+            x, c, a = self_block_apply(lp, x, cfg=cfg, positions=positions,
+                                       window=cfg.sliding_window, ctx=ctx)
+            return ctx.ct(x, ctx.batch, ctx.seq, None), c, a
 
     elif cfg.family == "vlm":
         memory = image_embeds.to(x.dtype)
@@ -283,9 +291,11 @@ def forward(params, tokens, cfg: ArchConfig, *, image_embeds=None,
             selfs = []
             for sp in _layers(gp["selfs"]):
                 x, c, _ = self_block_apply(sp, x, cfg=cfg,
-                                           positions=positions)
+                                           positions=positions, ctx=ctx)
                 selfs.append(c)
-            x, mem_kv = cross_block_apply(gp["cross"], x, memory, cfg=cfg)
+            x, mem_kv = cross_block_apply(gp["cross"], x, memory, cfg=cfg,
+                                          ctx=ctx)
+            x = ctx.ct(x, ctx.batch, ctx.seq, None)
             return x, None if train else {"selfs": tree_stack(selfs),
                                           "mem_kv": mem_kv}, 0.0
 
@@ -293,7 +303,7 @@ def forward(params, tokens, cfg: ArchConfig, *, image_embeds=None,
         def body(x, lp):
             y, st = ssm_mod.ssm_apply(lp["ssm"], _norm(lp["ln"], x, cfg),
                                       cfg=cfg)
-            return x + y, st, 0.0
+            return ctx.ct(x + y, ctx.batch, ctx.seq, None), st, 0.0
 
     elif cfg.family == "hybrid":
         x_emb0 = x
@@ -309,17 +319,18 @@ def forward(params, tokens, cfg: ArchConfig, *, image_embeds=None,
             h = torch.cat([x, x_emb0], -1) @ shared["in_proj"]
             h2, kv, _ = self_block_apply(shared["block"], h, cfg=cfg,
                                          positions=positions,
-                                         window=cfg.sliding_window)
-            return x + h2, None if train else {"ssm": tree_stack(states),
-                                               "attn_kv": kv}, 0.0
+                                         window=cfg.sliding_window, ctx=ctx)
+            return (ctx.ct(x + h2, ctx.batch, ctx.seq, None),
+                    None if train else {"ssm": tree_stack(states),
+                                        "attn_kv": kv}, 0.0)
     else:
         raise ValueError(cfg.family)
 
     x, stack, aux = _stack_loop(run, body, x, params["stack"], aux)
     if train:
-        return _logits(params, x, cfg), {}, aux
+        return _logits(params, x, cfg, ctx), {}, aux
     caches["stack"] = tree_stack(stack)
-    return _logits(params, x, cfg), caches, aux
+    return _logits(params, x, cfg, ctx), caches, aux
 
 
 def _n_layers(stacked) -> int:
@@ -331,8 +342,8 @@ def _n_layers(stacked) -> int:
 
 # ---------------------------------------------------------- decode step
 
-def decode_step(params, token, caches, pos, cfg: ArchConfig, *,
-                image_embeds=None):
+def decode_step(params, token, caches, pos, cfg: ArchConfig,
+                ctx: ShardingCtx = NULL_CTX, *, image_embeds=None):
     """One decode step.  token [B, 1] int; pos the write index (an int or
     a 0-d tensor).  Caches carry [n_layers, ...] stacked KV / SSM state;
     each layer's slice is updated in place.  Returns (logits [B, 1, V],
@@ -347,12 +358,13 @@ def decode_step(params, token, caches, pos, cfg: ArchConfig, *,
         for hb, c in zip(params.get("head_blocks", []), caches["head"]):
             x, _, _ = self_block_apply(hb, x, cfg=cfg, positions=positions,
                                        cache=c, pos=pos,
-                                       window=cfg.sliding_window)
+                                       window=cfg.sliding_window, ctx=ctx)
         for i in range(_n_layers(params["stack"])):
             x, _, _ = self_block_apply(tree_at(params["stack"], i), x,
                                        cfg=cfg, positions=positions,
                                        cache=tree_at(caches["stack"], i),
-                                       pos=pos, window=cfg.sliding_window)
+                                       pos=pos, window=cfg.sliding_window,
+                                       ctx=ctx)
 
     elif cfg.family == "vlm":
         for i in range(_n_layers(params["stack"])):
@@ -361,9 +373,9 @@ def decode_step(params, token, caches, pos, cfg: ArchConfig, *,
                 x, _, _ = self_block_apply(tree_at(gp["selfs"], j), x,
                                            cfg=cfg, positions=positions,
                                            cache=tree_at(gc["selfs"], j),
-                                           pos=pos)
+                                           pos=pos, ctx=ctx)
             x, _ = cross_block_apply(gp["cross"], x, None, cfg=cfg,
-                                     mem_kv=gc["mem_kv"])
+                                     mem_kv=gc["mem_kv"], ctx=ctx)
 
     elif cfg.family == "ssm":
         for i in range(_n_layers(params["stack"])):
@@ -388,20 +400,20 @@ def decode_step(params, token, caches, pos, cfg: ArchConfig, *,
             h2, _, _ = self_block_apply(shared["block"], h, cfg=cfg,
                                         positions=positions,
                                         cache=gc["attn_kv"], pos=pos,
-                                        window=cfg.sliding_window)
+                                        window=cfg.sliding_window, ctx=ctx)
             x = x + h2
     else:
         raise ValueError(cfg.family)
 
-    return _logits(params, x, cfg), caches
+    return _logits(params, x, cfg, ctx), caches
 
 
 # -------------------------------------------------------------- training
 
-def loss_fn(params, batch, cfg: ArchConfig):
+def loss_fn(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
     """Mean token cross-entropy of ``forward(mode="train")`` plus 0.01 x
     the MoE load-balance loss."""
-    logits, _, aux = forward(params, batch["tokens"], cfg,
+    logits, _, aux = forward(params, batch["tokens"], cfg, ctx,
                              image_embeds=batch.get("image_embeds"),
                              mode="train")
     return softmax_xent(logits, batch["labels"]) + 0.01 * aux

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
-from repro_torch.models.common import Draw, dense_init
+from repro_torch.models.common import NULL_CTX, Draw, ShardingCtx, dense_init
 
 
 def mlp_params(draw: Draw, d_model: int, d_ff: int, act: str = "silu"):
@@ -16,10 +16,11 @@ def mlp_params(draw: Draw, d_model: int, d_ff: int, act: str = "silu"):
     return p
 
 
-def mlp_apply(p, x, *, act: str = "silu"):
+def mlp_apply(p, x, *, act: str = "silu", ctx: ShardingCtx = NULL_CTX):
     h = x @ p["wi"]
     if act == "silu":
         h = F.silu(x @ p["wg"]) * h
     else:
         h = F.gelu(h, approximate="tanh")    # jax.nn.gelu's default form
-    return h @ p["wo"]
+    # no hint on the hidden: the column-parallel wi/wg already shard it
+    return ctx.ct_seq(h @ p["wo"])

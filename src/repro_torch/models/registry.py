@@ -1,5 +1,6 @@
 """Family dispatch: one uniform interface over decoder and enc-dec models,
-plus the decode caches (counterpart of ``repro.models.registry``)."""
+plus the decode caches and their shapes (counterpart of
+``repro.models.registry``)."""
 
 from __future__ import annotations
 
@@ -81,3 +82,10 @@ def cache_zeros(cfg: ArchConfig, B: int, S: int, *, device="cuda"):
     dev = resolve_device(device)
     return _cache_tree(cfg, B, S, lambda shape, dt: torch.zeros(
         shape, dtype=dt, device=dev))
+
+
+def cache_specs(cfg: ArchConfig, B: int, S: int):
+    """The decode cache as meta tensors (shapes and dtypes, no
+    allocation): what the dry run shards."""
+    return _cache_tree(cfg, B, S, lambda shape, dt: torch.empty(
+        shape, dtype=dt, device="meta"))

@@ -35,9 +35,6 @@ from repro_torch.core.sync import Reducer
 from repro_torch.kernels.power_pack import ops as pack_ops
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 
-# the power-pack kernels index ``mat`` with a flat int32 row * cols + col
-_MAX_FLAT = 2 ** 31
-
 
 @dataclasses.dataclass(frozen=True)
 class PowerSyncConfig:
@@ -72,9 +69,6 @@ def powersync_tree(grads: Any, residual: Any, reducer: Reducer,
 
         a2, shape = _as_2d(acc)
         rows, cols = a2.shape
-        if rows * cols >= _MAX_FLAT:
-            raise ValueError(f"powersync: a [{rows}, {cols}] leaf is past the "
-                             f"power-pack kernels' int32 flat index")
         P = max(1, int(round(cfg.lambda_rows * rows)))
         Pc = max(1, int(round(cfg.lambda_cols * cols)))
 

@@ -455,3 +455,74 @@ def test_restore_holds_no_leaf_in_a_reference_cycle(tmp_path):
         assert [r() is None for r in refs] == [True] * len(refs)
     finally:
         gc.enable()
+
+
+_SHARDED_RESTORE = r"""
+import json, os, sys, tempfile
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.dist import checkpoint as ckpt
+from repro_torch.dist.sharding import P, phi_serving_spec
+from repro_torch.launch.mesh import make_mesh
+
+d = tempfile.mkdtemp()
+dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=0,
+                        world_size=1)
+out = {}
+mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+rng = np.random.default_rng(3)
+w = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32))
+b = torch.from_numpy(rng.standard_normal((8,)).astype(np.float32))
+ckpt.save(d, 2, {"params": {"w": w, "b": b}})
+# the reference test's remesh path: each leaf through an explicit sharding
+tree, _, step = ckpt.restore(d, 2, {"params": {"w": w, "b": b}},
+                             shardings={"params": {"w": (mesh, P("data", None)),
+                                                   "b": None}})
+out["w_type"] = type(tree["params"]["w"]).__name__
+out["w_placements"] = [str(p) for p in tree["params"]["w"].placements]
+out["w_equal"] = bool(torch.equal(tree["params"]["w"].full_tensor(), w))
+out["b_type"] = type(tree["params"]["b"]).__name__
+out["b_equal"] = bool(torch.equal(tree["params"]["b"], b))
+got = ckpt.restore_latest(d, {"params": {"w": w, "b": b}},
+                          {"params": {"w": (mesh, P(None, "model")),
+                                      "b": (mesh, P())}})
+out["latest"] = [got[2], [str(p) for p in got[0]["params"]["w"].placements],
+                 bool(torch.equal(got[0]["params"]["b"].full_tensor(), b))]
+# restore_phi under the serving spec
+phi = torch.from_numpy(rng.gamma(0.3, 20.0, (150, 16)).astype(np.float32))
+ckpt.save(d, 3, {"state": {"phi_acc": phi, "m": torch.tensor(3)}},
+          extra={"next_m": 3})
+spec = phi_serving_spec(mesh, phi)
+out["spec"] = list(spec)
+got, _, step = ckpt.restore_phi(d, sharding=(mesh, spec))
+out["phi"] = [type(got).__name__, [str(p) for p in got.placements],
+              bool(torch.equal(got.full_tensor(), phi)), step]
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_restore_with_shardings_places_dtensors_on_a_mesh(tmp_path):
+    """``tests/test_checkpoint.py:75-86``'s remesh path in the port: a
+    restore with ``shardings`` (the template's structure, a (DeviceMesh,
+    spec) pair or None a leaf) gives DTensors equal to what was saved;
+    ``restore_latest`` passes them through; ``restore_phi`` places phi by
+    ``phi_serving_spec`` (a gloo group of one, in a process of its own)."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-c", _SHARDED_RESTORE], capture_output=True,
+        text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")))
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["w_type"] == "DTensor" and out["w_equal"]
+    assert out["w_placements"] == ["S(0)", "R"]
+    assert out["b_type"] == "Tensor" and out["b_equal"]
+    assert out["latest"] == [2, ["R", "S(1)"], True]
+    assert out["spec"] == [None, "model"]
+    assert out["phi"] == ["DTensor", ["R", "S(1)"], True, 3]

@@ -1495,3 +1495,44 @@ def test_lm_crash_resume_on_card(card, tmp_path):
                                                 str(tmp_path / "b")))
     assert len(resumed) == 2
     assert resumed == full[4:]
+
+
+def test_powersync_syncs_a_leaf_of_two_to_the_31_elements_on_card(card):
+    """An olmoe-1b-7b expert leaf, [16, 64, 2048, 1024] = 2^31 float32
+    elements ([2^21, 1024] in 2-D), synced through the power-pack kernels
+    and through their plain versions on the card: a pack and two scatters
+    launched, the synced leaf and the residual equal at every pair, and
+    P x Pc pairs sent (a pair whose accumulated value is exactly 0 sends
+    a 0, so up to that many of them may read as not sent)."""
+    from unittest import mock
+
+    from repro_torch.core.sync import LocalReducer
+    from repro_torch.optim.powersync import PowerSyncConfig, powersync_tree
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g = torch.randn((16, 64, 2048, 1024), generator=gen, device="cuda")
+    r = 0.1 * torch.randn(g.shape, generator=gen, device="cuda")
+
+    def run():
+        s, res = powersync_tree({"w": g}, {"w": r}, LocalReducer(),
+                                PowerSyncConfig(), 1)
+        return s["w"].reshape(-1, 1024), res["w"].reshape(-1, 1024)
+
+    n0 = (pack_ops.pack_rows.launches, pack_ops.scatter_add_rows.launches)
+    got = run()
+    assert (pack_ops.pack_rows.launches - n0[0],
+            pack_ops.scatter_add_rows.launches - n0[1]) == (1, 2)
+    with mock.patch.object(pack_ops, "pack_rows", pack_ops.pack_rows_plain), \
+            mock.patch.object(pack_ops, "scatter_add_rows",
+                              pack_ops.scatter_add_rows_plain):
+        want = run()
+    sent, zeros = 0, 0
+    g2, r2 = g.reshape(-1, 1024), r.reshape(-1, 1024)
+    for lo in range(0, 2 ** 21, 2 ** 18):       # row blocks of 1 GiB
+        rows = slice(lo, lo + 2 ** 18)
+        for x, y in zip(got, want):
+            assert torch.equal(x[rows], y[rows]), lo
+        sent += int(torch.count_nonzero(want[0][rows]))
+        zeros += int(((g2[rows] + r2[rows]) == 0).sum())
+    P, Pc = round(0.2 * 2 ** 21), 512
+    assert P * Pc - zeros <= sent <= P * Pc, (sent, P * Pc, zeros)

@@ -261,3 +261,38 @@ def test_lm_training_slice_modules_stand_alone(no_card):
                   lambda: lm_data.batch_at(0, 0, 2, 4, 10)):
         with pytest.raises(RuntimeError, match="is_available"):
             build()
+
+
+def test_dry_run_slice_modules_stand_alone(no_card):
+    """The last slice's modules (the sharding rule table, the roofline,
+    the dry run) are among the files checked above and import nothing of
+    JAX; importing them joins no process group; and every module of the
+    JAX package now has a counterpart in the port but the Pallas kernels
+    (``kernels/*/kernel.py``, whose counterparts are ``csrc/*.cu``) and
+    their oracles (``kernels/*/ref.py``, whose counterparts are each
+    kernel's plain version in ``ops.py``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import registry
+
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in (sharding, roofline, dryrun):
+        rel = str(Path(mod.__file__).resolve().relative_to(ROOT))
+        assert rel in names
+        assert not [m for m in _imported_modules(Path(mod.__file__))
+                    if _forbidden(m)]
+    assert not dist.is_initialized()
+    ref = {str(p.relative_to(ROOT / "src" / "repro"))
+           for p in (ROOT / "src" / "repro").rglob("*.py")}
+    port = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+            for p in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    assert sorted(ref - port) == [
+        f"kernels/{k}/{f}.py" for k in ("bp_update", "power_pack",
+                                        "power_sweep")
+        for f in ("kernel", "ref")]
+    # shapes only: the meta cache needs no card
+    cache = registry.cache_specs(get_config("smollm-360m"), 2, 8)
+    assert cache["stack"]["k"].device.type == "meta"

@@ -250,8 +250,56 @@ def test_residual_init_and_dense_sync_keep_dtypes():
                                .bfloat16(), rtol=0, atol=0)
 
 
-def test_a_leaf_past_the_kernels_flat_index_is_refused():
-    g = torch.empty((2 ** 16, 2 ** 15), device="meta")
-    with pytest.raises(ValueError, match="int32 flat index"):
-        powersync_tree({"w": g}, {"w": g}, SimReducer(1),
-                       PowerSyncConfig(), 1)
+def test_a_leaf_of_two_to_the_31_elements_passes_powersyncs_checks(
+        monkeypatch):
+    """olmoe-1b-7b's expert leaves hold exactly 2^31 elements
+    ([16, 64, 2048, 1024]): PowerSync syncs them, as the reference does.
+    On meta tensors the pack and scatters are stood in for by the kernels'
+    own argument checks (which also hold the int limits) and meta
+    results, so the whole leaf's path runs without memory."""
+    from repro_torch.core.sync import LocalReducer
+    from repro_torch.kernels.power_pack import ops as pack_ops
+    from repro_torch.optim import powersync as ps_mod
+
+    calls = []
+
+    def pack(mat, sel_w, sel_k):
+        pack_ops._check_cuda_args(mat, sel_w, sel_k)
+        calls.append(("pack", tuple(mat.shape), tuple(sel_k.shape)))
+        return torch.empty(sel_k.shape, device="meta")
+
+    def scatter(mat, sel_w, sel_k, vals):
+        pack_ops._check_cuda_args(mat, sel_w, sel_k, vals)
+        calls.append(("scatter", tuple(mat.shape), tuple(sel_k.shape)))
+        return mat
+
+    monkeypatch.setattr(ps_mod.pack_ops, "pack_rows", pack)
+    monkeypatch.setattr(ps_mod.pack_ops, "scatter_add_rows", scatter)
+    g = torch.empty((16, 64, 2048, 1024), device="meta")
+    assert g.numel() == 2 ** 31
+    synced, res = powersync_tree({"w": g}, {"w": g}, LocalReducer(),
+                                 PowerSyncConfig(), 1)
+    assert synced["w"].shape == g.shape and res["w"].shape == g.shape
+    P, Pc = round(0.2 * 2 ** 21), round(0.5 * 1024)
+    assert calls == [("pack", (2 ** 21, 1024), (P, Pc)),
+                     ("scatter", (2 ** 21, 1024), (P, Pc)),
+                     ("scatter", (2 ** 21, 1024), (P, Pc))]
+
+
+@pytest.mark.parametrize("side", ["W", "K", "P", "Pk"])
+def test_the_kernels_refuse_a_side_of_two_to_the_31(side):
+    """The power-pack kernels take P, Pk, W and K as C ints: a side of
+    2^31 is refused before launch, by name."""
+    from repro_torch.kernels.power_pack import ops as pack_ops
+
+    n = {"W": 4, "K": 4, "P": 2, "Pk": 2}
+    n[side] = 2 ** 31
+    mat = torch.empty((n["W"], n["K"]), device="meta")
+    sel_w = torch.empty((n["P"],), dtype=torch.int32, device="meta")
+    sel_k = torch.empty((n["P"], n["Pk"]), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match=f"^{side} = 2147483648 is past"):
+        pack_ops._check_cuda_args(mat, sel_w, sel_k)
+    n[side] = 2 ** 31 - 1
+    if side in ("W", "K"):       # one below the limit passes
+        pack_ops._check_cuda_args(
+            torch.empty((n["W"], n["K"]), device="meta"), sel_w, sel_k)
