@@ -4,7 +4,8 @@
                           [--train-steps 3]
 
 Run from the root of a checkout on a machine with one NVIDIA H100 and the
-CUDA toolkit.  Phases, in order; any failure exits non-zero:
+CUDA toolkit.  Phases, in order (16 runs right after 9); any failure exits
+non-zero:
 
   1. build every CUDA kernel of the port from ``src/repro_torch/csrc``
      (one ``nvcc`` per source, in parallel) and print the card's name and
@@ -222,7 +223,22 @@ CUDA toolkit.  Phases, in order; any failure exits non-zero:
      PR 24's near-tie rule, the two ranks equal bit for bit, each rank's
      peak memory; (d) ``powersync_tree`` on an olmoe-1b-7b expert leaf of
      2^31 float32 elements through the power-pack kernels, equal to their
-     plain versions at every pair.
+     plain versions at every pair;
+ 16. (run right after phase 9, while phase 3's checkpoint is on disk)
+     topic-sharded serving over a mesh (the engines'
+     ``from_checkpoint(sharding=(mesh, phi_serving_spec(mesh, phi)))``)
+     from phase 3's checkpoint at PUBMED width: (a) a 1 x 1 NCCL mesh in
+     this process, ``SlabEngine`` serving phase 3's requests with one seed
+     and ``pipeline=0``: every theta equal to the unplaced engine's bit for
+     bit, the serving kernel launched steps x sweeps times (its launches in
+     the JSON line include these); (b) a 1 x 2 gloo mesh of two processes
+     on the one card, ``SlabEngine`` and ``FoldInEngine`` each serving the
+     first 256 of those requests, each rank holding its [141,044, 1000]
+     f32 block: thetas finite and summing to 1 +- 1e-5, within 1e-5 of the
+     one-process ``topic_shards=2`` engines (same seed and requests), the
+     two ranks equal bit for bit, the bytes by phase the one-process
+     engines' integer for integer, each rank's peak memory below theirs;
+     docs/s, the peaks and the theta gather's bytes printed.
 
 Phase 10 draws each host batch of its drifting streams once
 (``drawn_once``): its runs read the same batches.  Each phase prints its
@@ -4160,6 +4176,206 @@ def powersync_big_leaf(*, seed: int, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 16
+
+PLACED_REQUESTS = 256       # (b)'s requests, the first of phase 3's
+
+
+def placed_spec(mesh, W: int, K: int):
+    """``phi_serving_spec`` of a [W, K] phi on ``mesh`` (shapes only)."""
+    import torch
+
+    from repro_torch.dist.sharding import phi_serving_spec
+
+    return phi_serving_spec(mesh, torch.empty((W, K), device="meta"))
+
+
+def same_results(got, want) -> bool:
+    """Two bursts' results: the same ids, iterations and theta bits."""
+    import numpy as np
+
+    g = {r.req_id: r for r in got}
+    w = {r.req_id: r for r in want}
+    return sorted(g) == sorted(w) and all(
+        g[i].iters == w[i].iters and np.array_equal(g[i].theta, w[i].theta)
+        for i in w)
+
+
+def placed_one_by_one(ckpt_dir: Path, docs, *, seed: int, card: str,
+                      W: int, K: int) -> int:
+    """Phase 16 (a): ``SlabEngine.from_checkpoint(sharding=(mesh,
+    phi_serving_spec(mesh, phi)))`` on a 1 x 1 NCCL mesh in this process
+    against the unplaced engine, each serving ``docs`` with one seed and
+    ``pipeline=0`` (each step harvested at once, so the two admit every
+    request at the same step and draw the same init): every theta equal
+    bit for bit, the serving kernel launched steps x sweeps times.
+    Returns those launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import SlabEngine
+
+    kw = dict(seed=seed, pipeline=0, device="cuda")
+    plain = SlabEngine.from_checkpoint(str(ckpt_dir), **kw)
+    want, _ = serve_burst(plain, docs)
+    del plain
+    work = ROOT / "build" / "chip_smoke_placed11"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{work}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+            eng = SlabEngine.from_checkpoint(
+                str(ckpt_dir), sharding=(mesh, placed_spec(mesh, W, K)),
+                **kw)
+            launch_counts(reset=True)            # (a)'s path starts here
+            got, wall = serve_burst(eng, docs)
+            launches = launch_counts()["power_sweep_carry"]  # ... ends
+            steps = eng.stats()["steps"] * eng.sweeps_per_step
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    same = same_results(got, want)
+    print(f"[placed] (a) 1 x 1 NCCL mesh, phi placed by phi_serving_spec: "
+          f"{len(got)} requests, thetas and iterations equal to the "
+          f"unplaced engine's bit for bit: {same}; power_sweep_carry "
+          f"launches {launches} (steps x sweeps = {steps}); "
+          f"{len(got) / wall:.1f} docs/s  [{card}]")
+    if not same or launches != steps or launches <= 0:
+        fail("(a) the engine placed on a 1 x 1 mesh does not serve as the "
+             "unplaced engine through the serving kernel")
+    return launches
+
+
+def placed_rank(rank: int, world: int, work: str, ckpt_dir: str,
+                seed: int) -> None:
+    """One rank of phase 16 (b)'s 1 x ``world`` gloo mesh (a process a
+    rank, all on the one card): both engines placed from the checkpoint,
+    each serving ``work/docs.pt``; saves the results, the bytes, the
+    theta gather's bytes, the resident phi and this rank's peak memory."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.serve import FoldInEngine, SlabEngine
+
+        inp = torch.load(f"{work}/docs.pt", weights_only=False)
+        mesh = make_mesh((1, world), ("data", "model"), "cuda")
+        placed = (mesh, placed_spec(mesh, *inp["shape"]))
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+        for name, cls, kw in (("slab", SlabEngine, {"pipeline": 0}),
+                              ("bucket", FoldInEngine, {})):
+            eng = cls.from_checkpoint(ckpt_dir, sharding=placed, seed=seed,
+                                      device="cuda", **kw)
+            results, wall = serve_burst(eng, inp["docs"])
+            out[name] = {"results": results, "wall": wall,
+                         "bytes": eng.stats()["bytes_by_phase"],
+                         "gather": eng.theta_gather_bytes,
+                         "phi": (tuple(eng._phi.shape),
+                                 eng._phi.numel() * eng._phi.element_size())}
+            del eng
+        torch.cuda.synchronize()
+        out["peak"] = torch.cuda.max_memory_allocated()
+        torch.save(out, f"{work}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def placed_two_ranks(ckpt_dir: Path, docs, *, seed: int, card: str,
+                     W: int, K: int) -> None:
+    """Phase 16 (b): both engines placed on a 1 x 2 gloo mesh of two
+    processes on the one card, each rank holding its [W', K/2] block,
+    against the one-process ``topic_shards=2`` engines on the same
+    requests with the same seed (the slab at ``pipeline=0`` on both
+    sides): every theta finite and summing to 1 +- 1e-5, within 1e-5 of
+    the one-process engine's, the two ranks equal bit for bit, the bytes
+    by phase integer for integer, the resident phi [W', K/2] f32, and
+    each rank's peak memory below the one-process engines'."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as tmp_mp
+
+    from repro_torch.serve import FoldInEngine, SlabEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    one = {}
+    for name, cls, kw in (("slab", SlabEngine, {"pipeline": 0}),
+                          ("bucket", FoldInEngine, {})):
+        eng = cls.from_checkpoint(str(ckpt_dir), topic_shards=2, seed=seed,
+                                  device="cuda", **kw)
+        results, wall = serve_burst(eng, docs)
+        one[name] = (results, wall, eng.stats()["bytes_by_phase"])
+        del eng
+    torch.cuda.synchronize()
+    one_peak = torch.cuda.max_memory_allocated() - base
+    work = ROOT / "build" / "chip_smoke_placed12"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        torch.save({"docs": docs, "shape": (W, K)}, work / "docs.pt")
+        tmp_mp.start_processes(placed_rank,
+                               args=(2, str(work), str(ckpt_dir), seed),
+                               nprocs=2, join=True, start_method="spawn")
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ok = True
+    block = (1, W + 1, K // 2)
+    for name in ("slab", "bucket"):
+        want, want_wall, want_bytes = one[name]
+        w = {r.req_id: r for r in want}
+        got = [{r.req_id: r for r in rk[name]["results"]} for rk in ranks]
+        th = np.stack([got[0][i].theta for i in sorted(w)])
+        gap = float(np.abs(th - np.stack([w[i].theta
+                                          for i in sorted(w)])).max())
+        sums = float(np.abs(th.sum(axis=1) - 1.0).max())
+        iters = sum(got[0][i].iters == w[i].iters for i in w)
+        same = same_results(ranks[0][name]["results"],
+                            ranks[1][name]["results"])
+        by = [rk[name]["bytes"] for rk in ranks]
+        phi = [rk[name]["phi"] for rk in ranks]
+        print(f"[placed] (b) {name}: {len(w)} requests on 2 gloo ranks: "
+              f"max |theta - one process topic_shards=2| {gap:.3e} (tol "
+              f"1e-5), sums within {sums:.2e} of 1, iterations equal "
+              f"{iters}/{len(w)}; ranks equal bit for bit: {same}; bytes by "
+              f"phase equal to the one-process engine's: "
+              f"{by[0] == by[1] == want_bytes} ({want_bytes}); resident phi "
+              f"a rank {phi[0][0]} f32, {phi[0][1]:,} B; theta gathered "
+              f"{ranks[0][name]['gather']:,} B a rank; docs/s "
+              + ", ".join(f"{len(w) / rk[name]['wall']:.1f}" for rk in ranks)
+              + f" (one process {len(w) / want_wall:.1f})  [{card}]")
+        ok &= (np.isfinite(th).all() and sums <= 1e-5 and gap <= 1e-5
+               and same and by[0] == by[1] == want_bytes
+               and all(p == (block, (W + 1) * (K // 2) * 4) for p in phi))
+    peaks = [rk["peak"] for rk in ranks]
+    print(f"[placed] (b) peak device memory a rank "
+          + ", ".join(f"{p / 2**30:.3f}" for p in peaks)
+          + f" GiB against the one-process engines' {one_peak / 2**30:.3f} "
+          f"GiB  [{card}]")
+    if not ok or max(peaks) >= one_peak:
+        fail("(b) topic-sharded serving over two ranks disagrees with the "
+             "one-process engine, between the ranks, or holds more than a "
+             "rank's block")
+
+
 def profile_run(fn, label: str, card: str, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the card's busy
     share of the wall time (the summed time of the events that ran on the
@@ -4407,7 +4623,7 @@ def main(argv=None) -> None:
     from repro_torch.core import infer
 
     t0 = time.time()
-    # phase 9 serves from this checkpoint again, then deletes it
+    # phases 9 and 16 serve from this checkpoint again; phase 16 deletes it
     serve_ckpt = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(serve_ckpt, ignore_errors=True)
     engine, docs, results, wall, launches, s = serve_slice(
@@ -4593,12 +4809,25 @@ def main(argv=None) -> None:
     sim_launches, _ = sim_slice(batches, W=W, K=K, seed=args.seed,
                                 card=card, single_readings=carry_readings)
     mesh_slice(seed=args.seed, docs=args.driver_docs, card=card)
+    sharded_serve(serve_ckpt, docs[:64], seed=args.seed, card=card,
+                  phase3_dps=phase3_dps)
+    print(f"[time] phase 9: {time.time() - t0:.1f}s")
+
+    # ---- 16. topic-sharded serving over a mesh from phase 3's checkpoint:
+    # a 1 x 1 NCCL mesh against the unplaced engine, a 1 x 2 gloo mesh of
+    # two processes against the one-process topic_shards=2 engines.  Run
+    # here, right after phase 9, so the checkpoint is deleted before the
+    # later phases write theirs
+    t0 = time.time()
     try:
-        sharded_serve(serve_ckpt, docs[:64], seed=args.seed, card=card,
-                      phase3_dps=phase3_dps)
+        placed_launches = placed_one_by_one(serve_ckpt, docs,
+                                            seed=args.seed, card=card,
+                                            W=141043, K=2000)
+        placed_two_ranks(serve_ckpt, docs[:PLACED_REQUESTS], seed=args.seed,
+                         card=card, W=141043, K=2000)
     finally:
         shutil.rmtree(serve_ckpt, ignore_errors=True)
-    print(f"[time] phase 9: {time.time() - t0:.1f}s")
+    print(f"[time] phase 16: {time.time() - t0:.1f}s")
 
     # ---- 10. dynamic vocabulary and the stream lifecycle through the
     # driver at PUBMED width: growth, crash-resume across growth, grown
@@ -4675,7 +4904,8 @@ def main(argv=None) -> None:
         shutil.rmtree(dry_out, ignore_errors=True)
     print(f"[time] phase 15: {time.time() - t0:.1f}s")
 
-    rec["launches"] = launches
+    # the serving kernel's main path: phase 3's first burst and 16 (a)
+    rec["launches"] = launches + placed_launches
     kernels = [rec]
     # device ms a launch on the main path, from the profiled steps
     def summed(watch, *names):

@@ -27,6 +27,12 @@ shard, so sharded and unsharded fold-ins start from the same field.  As
 in the reference (whose Pallas path needs ``topic_shards == 1``), this
 path runs torch code, not the serving kernel, on whatever device holds
 phi.
+
+Over the ``model`` axis of a mesh (``model_group`` of M ranks), each rank
+stacks its own N/M shards, the topic columns from its ``topic_offset``,
+and the psums also all-reduce over the group (``RankStackedReducer``).
+Every rank draws the init at the global K from the same seed and keeps
+its own columns, and theta leaves the step as the rank's [D, K/M] block.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.sync import CommMeter, LocalReducer, StackedReducer
+from repro_torch.core.sync import (CommMeter, LocalReducer,
+                                   RankStackedReducer, StackedReducer)
 from repro_torch.core.types import LDAConfig, MiniBatch
 from repro_torch.kernels.power_sweep.ops import power_sweep_carry
 
@@ -75,10 +82,13 @@ def _init_messages(generator: Optional[torch.Generator], batch: MiniBatch,
     return u / u.sum(dim=-1, keepdim=True)
 
 
-def _shard_columns(x: torch.Tensor, n: int) -> torch.Tensor:
-    """[..., K] -> [N, ..., K/N]: each topic shard's columns, stacked."""
-    K = x.shape[-1]
-    return x.reshape(*x.shape[:-1], n, K // n).movedim(-2, 0)
+def _shard_columns(x: torch.Tensor, n: int, offset: int = 0,
+                   width: Optional[int] = None) -> torch.Tensor:
+    """[..., K] -> [n, ..., width]: the columns of ``n`` topic shards of
+    ``width`` (K/n when not given) from column ``offset``, stacked."""
+    width = x.shape[-1] // n if width is None else int(width)
+    x = x[..., offset:offset + n * width]
+    return x.reshape(*x.shape[:-1], n, width).movedim(-2, 0)
 
 
 def _merge_columns(x: torch.Tensor) -> torch.Tensor:
@@ -190,14 +200,18 @@ def fold_in_tokens_sharded(batch: MiniBatch, phi_shards: torch.Tensor,
                            model_reducer: Optional[StackedReducer] = None, *,
                            generator: Optional[torch.Generator] = None,
                            mu0: Optional[torch.Tensor] = None,
+                           topic_offset: int = 0,
                            device="cuda") -> FoldInResult:
-    """`fold_in_tokens` over a topic-sharded phi: ``phi_shards`` [N, W', K/N]
-    (`split_topic_shards`), the body in torch code with the shard axis
-    leading every tensor and the model psums through ``model_reducer`` (a
-    ``StackedReducer`` over N; one is made when not given).  The init
-    field (drawn at the global K, or ``mu0`` [D, L, K]) is split by topic
-    shard and normalized by the psum'd sum, as the reference's
-    ``_init_messages`` does.  theta comes back merged, [D, K]."""
+    """`fold_in_tokens` over a topic-sharded phi: ``phi_shards`` [n, W',
+    K/N] (`split_topic_shards`), the body in torch code with the shard
+    axis leading every tensor and the model psums through
+    ``model_reducer`` (a ``StackedReducer`` over n when not given; over a
+    mesh, a ``RankStackedReducer`` holding this rank's n = N/M shards).
+    The init field (drawn at the global K, or ``mu0`` [D, L, K]) is cut to
+    the shards' columns from ``topic_offset``, split by topic shard and
+    normalized by the psum'd sum, as the reference's ``_init_messages``
+    does.  theta comes back merged, [D, n K/N]: [D, K] in one process,
+    this rank's block over a mesh."""
     dev = resolve_device(device)
     phi = phi_shards.to(dev, torch.float32)
     N = phi.shape[0]
@@ -212,7 +226,8 @@ def fold_in_tokens_sharded(batch: MiniBatch, phi_shards: torch.Tensor,
     with reducer.meter.section():
         u = (_init_field(generator, batch, cfg, dev) if mu0 is None
              else mu0.to(dev, torch.float32))
-        u = _shard_columns(u, N).reshape(N, T, -1)
+        u = _shard_columns(u, N, topic_offset, phi.shape[-1]
+                           ).reshape(N, T, -1)
         mu = u / reducer.psum(u.sum(dim=-1, keepdim=True), "model_norm",
                               compress=False)
         del u
@@ -240,40 +255,69 @@ def fold_in_tokens_sharded(batch: MiniBatch, phi_shards: torch.Tensor,
 
 def make_fold_in_step(cfg: LDAConfig, fold_iters: int = 30,
                       residual_tol: float = 0.0, topic_shards: int = 1,
-                      sync_dtype=torch.float32, device="cuda"
-                      ) -> Tuple[object, CommMeter]:
+                      sync_dtype=torch.float32, device="cuda",
+                      model_group=None) -> Tuple[object, CommMeter]:
     """The bucket engine's serving step.  Returns (step, meter) with
     ``step(phi_norm, word_ids, counts, *, generator=None, mu0=None) ->
     (theta [D, K], iters, mean_r)``; phi is an argument so one copy on the
     device serves every bucket shape.  With ``topic_shards > 1`` phi is
     the [N, W, K/N] stack of `split_topic_shards` and the step runs
     `fold_in_tokens_sharded`, its model psums metered per request
-    batch."""
+    batch.  With ``model_group`` (the process group of a mesh's ``model``
+    axis, M ranks) phi is this rank's [N/M, W, K/N] stack, the psums
+    all-reduce over the group, and theta is this rank's [D, K/M] block."""
     dev = resolve_device(device)
     meter = CommMeter()
-    if topic_shards == 1:
+    ranks, rank = _group_position(model_group)
+    if topic_shards == 1 and ranks == 1:
         reducer = LocalReducer(meter=meter, sync_dtype=sync_dtype)
         fold = fold_in_tokens
+        offset = {}
     else:
-        _check_divides(cfg.num_topics, topic_shards)
-        reducer = StackedReducer(topic_shards, meter=meter,
-                                 sync_dtype=sync_dtype)
+        reducer = _sharded_reducer(cfg.num_topics, topic_shards, ranks,
+                                   model_group, meter, sync_dtype)
         fold = fold_in_tokens_sharded
+        offset = {"topic_offset": rank * cfg.num_topics // ranks}
 
     def step(phi_norm, word_ids, counts, *, generator=None, mu0=None):
         res = fold(MiniBatch(word_ids, counts), phi_norm, cfg,
                    iters=fold_iters, residual_tol=residual_tol,
                    model_reducer=reducer, generator=generator, mu0=mu0,
-                   device=dev)
+                   device=dev, **offset)
         return res.theta, res.iters, res.mean_r
 
     return step, meter
 
 
-def _check_divides(K: int, topic_shards: int) -> None:
+def _check_divides(K: int, topic_shards: int, ranks: int = 1) -> None:
+    if topic_shards % ranks:
+        raise ValueError(f"topic_shards={topic_shards} does not split over "
+                         f"the {ranks} ranks of the model axis")
     if topic_shards < 1 or K % topic_shards:
         raise ValueError(f"num_topics={K} does not divide over "
                          f"{topic_shards} topic shards")
+
+
+def _group_position(group) -> Tuple[int, int]:
+    """(ranks, this rank's index) of a model-axis process group; (1, 0)
+    for none."""
+    if group is None:
+        return 1, 0
+    import torch.distributed as dist
+
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def _sharded_reducer(K: int, topic_shards: int, ranks: int, group,
+                     meter: CommMeter, sync_dtype):
+    """The model reducer of N topic shards, this rank's N/M of them over a
+    group of M ranks (a ``StackedReducer`` when M = 1)."""
+    _check_divides(K, topic_shards, ranks)
+    if ranks == 1:
+        return StackedReducer(topic_shards, meter=meter,
+                              sync_dtype=sync_dtype)
+    return RankStackedReducer(topic_shards // ranks, group, meter=meter,
+                              sync_dtype=sync_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -313,7 +357,8 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
                    refill_cap: Optional[int] = None,
                    sweeps_per_step: int = 2, fold_iters: int = 30,
                    residual_tol: float = 1e-2, topic_shards: int = 1,
-                   sync_dtype=torch.float32, device="cuda"):
+                   sync_dtype=torch.float32, device="cuda",
+                   model_group=None):
     """Continuous-batching serving step: refill free slots, advance every
     slot ``sweeps_per_step`` fold-in sweeps, retire the converged.
 
@@ -338,7 +383,12 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
     ([N, B*L, K/N], [N, B, K/N]), and the sweeps run `_sharded_sweep`
     with the model psums metered: the refill's init normalizer over all R
     lanes in one section (as the reference's step computes it), the
-    sweeps' and theta's in the step's.
+    sweeps' and theta's in the step's.  With ``model_group`` (a mesh's
+    ``model`` axis, M ranks) phi and the state hold this rank's N/M
+    shards, the topic columns from rank x K/M: ``init_u`` and
+    ``warm_theta`` stay [.., K] (every rank draws the same field and keeps
+    its columns), the psums all-reduce over the group, and ``theta_out``
+    is this rank's [B, K/M] block.
     """
     B, L = int(slots), int(slot_len)
     R = B if refill_cap is None else int(refill_cap)
@@ -346,14 +396,22 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
         raise ValueError(f"refill_cap={R} outside [1, slots={B}]")
     if sweeps_per_step < 1:
         raise ValueError(f"sweeps_per_step must be >= 1: {sweeps_per_step}")
-    _check_divides(cfg.num_topics, topic_shards)
     dev = resolve_device(device)
     K = cfg.num_topics
     N = int(topic_shards)
     meter = CommMeter()
-    reducer = (LocalReducer(meter=meter, sync_dtype=sync_dtype) if N == 1
-               else StackedReducer(N, meter=meter, sync_dtype=sync_dtype))
-    lead = () if N == 1 else (N,)
+    ranks, rank = _group_position(model_group)
+    sharded = N > 1 or ranks > 1
+    if sharded:
+        reducer = _sharded_reducer(K, N, ranks, model_group, meter,
+                                   sync_dtype)
+    else:
+        _check_divides(K, N)
+        reducer = LocalReducer(meter=meter, sync_dtype=sync_dtype)
+    n = N // ranks                                    # this rank's shards
+    Kn = K // N
+    offset = rank * (K // ranks)
+    lead = (n,) if sharded else ()
     doc_ids = torch.arange(B, dtype=torch.int32, device=dev
                            ).repeat_interleave(L)
     doc_l = doc_ids.long()
@@ -363,9 +421,9 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
         return SlabState(
             word_rows=torch.zeros((B, L), dtype=torch.int32, device=dev),
             counts=torch.zeros((B, L), dtype=torch.float32, device=dev),
-            mu=torch.zeros(lead + (B * L, K // N), dtype=torch.float32,
+            mu=torch.zeros(lead + (B * L, Kn), dtype=torch.float32,
                            device=dev),
-            theta=torch.zeros(lead + (B, K // N), dtype=torch.float32,
+            theta=torch.zeros(lead + (B, Kn), dtype=torch.float32,
                               device=dev),
             r_doc=torch.zeros((B,), dtype=torch.float32, device=dev),
             r_prev=torch.ones((B,), dtype=torch.float32, device=dev),
@@ -378,17 +436,18 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
 
     def sharded_init(phi_norm, init_u, refill_rows, refill_cnt, warm_theta,
                      warm_mask, lane_d):
-        """The init of every refill lane over the topic shards (the
-        normalizer psum'd over them), then this step's lanes: (mu0 [N, n,
-        L, Kl], theta0 [N, n, Kl])."""
+        """The init of every refill lane over this rank's topic shards
+        (the normalizer psum'd over all of them), then this step's lanes:
+        (mu0 [n, lanes, L, Kn], theta0 [n, lanes, Kn])."""
         with meter.section():
             rows = _to_device(refill_rows, torch.long, dev)
             warm = _shard_columns(_to_device(warm_theta, torch.float32,
-                                             dev), N)
+                                             dev), n, offset, Kn)
             wmask = _to_device(warm_mask, torch.bool, dev)
             u = torch.where(wmask[:, None, None],
                             warm[:, :, None, :] * phi_norm[:, rows],
-                            _shard_columns(init_u.to(dev, torch.float32), N))
+                            _shard_columns(init_u.to(dev, torch.float32), n,
+                                           offset, Kn))
             norm0 = reducer.psum(u.sum(dim=-1, keepdim=True),
                                  "slab_init_norm", compress=False)
             mu0 = (u / norm0.clamp_min(1e-30)).index_select(1, lane_d)
@@ -408,11 +467,11 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
         slot_d = _to_device(np.asarray(refill_slot)[lanes], torch.long, dev)
         rows = _to_device(np.asarray(refill_rows)[lanes], torch.int32, dev)
         cnt = _to_device(np.asarray(refill_cnt)[lanes], torch.float32, dev)
-        if N > 1:
+        if sharded:
             mu0, theta0 = sharded_init(phi_norm, init_u, refill_rows,
                                        refill_cnt, warm_theta, warm_mask,
                                        lane_d)
-            st.mu.view(N, B, L, -1).index_copy_(1, slot_d, mu0)
+            st.mu.view(n, B, L, -1).index_copy_(1, slot_d, mu0)
             st.theta.index_copy_(1, slot_d, theta0)
         else:
             warm = _to_device(np.asarray(warm_theta)[lanes], torch.float32,
@@ -442,13 +501,13 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
             c = state.counts.view(B * L, 1)
             tok_d = state.counts.sum(dim=1)
             wid_t = state.word_rows.view(B * L)
-            if N > 1:
-                phi_tok = phi_norm[:, wid_t.long()]           # [N, T, Kl]
+            if sharded:
+                phi_tok = phi_norm[:, wid_t.long()]           # [n, T, Kn]
             else:
                 guard = torch.full_like(wid_t, phi_norm.shape[0])
             for _ in range(sweeps_per_step):
                 act_d = active_slots(state, tok_d)
-                if N > 1:
+                if sharded:
                     state.mu, state.theta, r_new = _sharded_sweep(
                         act_d[doc_l], doc_l, c, state.mu, state.theta,
                         phi_tok, cfg, reducer, B, "slab_norm_loop",
@@ -470,20 +529,22 @@ def make_slab_step(cfg: LDAConfig, *, slots: int, slot_len: int,
             th_out = th_out / reducer.psum(th_out.sum(dim=-1, keepdim=True),
                                            "slab_theta_norm", compress=False)
         state.live = still
-        return (state, retired, th_out if N == 1 else _merge_columns(th_out),
+        return (state, retired, _merge_columns(th_out) if sharded else th_out,
                 state.it.clone(), state.r_doc.clone())
 
     return init_state, step, meter
 
 
-def split_topic_shards(phi_norm_wk: torch.Tensor, topic_shards: int
-                       ) -> torch.Tensor:
+def split_topic_shards(phi_norm_wk: torch.Tensor, topic_shards: int,
+                       ranks: int = 1) -> torch.Tensor:
     """[W, K] -> [N, W, K/N] contiguous topic shards (the layout the steps
-    take with ``topic_shards = N``); N = 1 returns phi as it is."""
-    if topic_shards == 1:
+    take with ``topic_shards = N``); N = 1 returns phi as it is.  Over a
+    mesh's model axis of ``ranks`` = M > 1, ``phi_norm_wk`` is this rank's
+    [W, K/M] block and the result its [N/M, W, K/N] stack."""
+    if topic_shards == 1 and ranks == 1:
         return phi_norm_wk
-    _check_divides(phi_norm_wk.shape[1], topic_shards)
-    return _shard_columns(phi_norm_wk, topic_shards).contiguous()
+    _check_divides(phi_norm_wk.shape[1] * ranks, topic_shards, ranks)
+    return _shard_columns(phi_norm_wk, topic_shards // ranks).contiguous()
 
 
 def fold_in_dense_reference(batch: MiniBatch, phi_norm_wk: torch.Tensor,

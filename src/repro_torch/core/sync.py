@@ -16,6 +16,9 @@ handed:
   - ``MeshReducer``: ``torch.distributed.all_reduce`` over one group of a
     ``DeviceMesh`` axis, one process a mesh position, the reference's
     ``lax.psum`` over a named mesh axis;
+  - ``RankStackedReducer``: a rank's topic shards stacked as in
+    ``StackedReducer``, summed across the ranks by a ``MeshReducer``
+    (topic-sharded serving over a mesh);
   - ``PSReducer``: the parameter server's wire model around one of the
     others, which still does the sum (``--backend ps``).
 
@@ -476,6 +479,28 @@ class MeshReducer(Reducer):
         if self.shards > 1:
             dist.all_reduce(out, group=self.group)
         return out
+
+
+class RankStackedReducer(StackedReducer):
+    """A rank's topic shards stacked on a leading axis, the other ranks'
+    across a process group (topic-sharded serving over a mesh's ``model``
+    axis): the psum sums this rank's stack, all-reduces that sum over the
+    group through a `MeshReducer`, and every local shard reads the total.
+    ``num_shards`` counts the shards of every rank; the meter bills one
+    shard's payload, ``x[0]``, as a one-process `StackedReducer` over
+    them does."""
+
+    def __init__(self, num_local: int, group,
+                 meter: Optional[CommMeter] = None,
+                 sync_dtype=torch.float32):
+        self.mesh = MeshReducer(group, meter, sync_dtype)
+        super().__init__(int(num_local) * self.mesh.shards, self.mesh.meter,
+                         sync_dtype)
+        self.num_local = int(num_local)
+
+    def _sum(self, x, phase):
+        return self.mesh._sum(x.sum(dim=0, keepdim=True),
+                              phase).expand_as(x)
 
 
 class PSReducer(Reducer):

@@ -141,16 +141,32 @@ def _shardings_along(template, shardings) -> List[Optional[Tuple]]:
 
 
 def _placed(arr: torch.Tensor, sharding) -> torch.Tensor:
-    """``arr`` (which every rank read whole) as a DTensor on the
-    (``DeviceMesh``, spec) pair ``sharding``: each rank keeps its own
-    block, so nothing crosses between ranks."""
-    from torch.distributed.tensor import distribute_tensor
+    """``arr`` (which every rank read whole on the host) as a DTensor on
+    the (``DeviceMesh``, spec) pair ``sharding``.  Each rank cuts its own
+    block on the host, as ``distribute_tensor`` splits a dim (each mesh
+    dim in order, ``torch.chunk``'s blocks), and only that block goes to
+    the mesh's device: nothing crosses between ranks, and no rank holds
+    the whole array on the device."""
+    from torch.distributed.tensor import DTensor, Shard
 
     from repro_torch.dist.sharding import placements
 
     mesh, spec = sharding
-    return distribute_tensor(arr.to(mesh.device_type), mesh,
-                             placements(spec, mesh), src_data_rank=None)
+    places = placements(spec, mesh)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh it restores onto")
+    block = arr
+    for i, p in enumerate(places):
+        if isinstance(p, Shard):
+            parts = torch.chunk(block, mesh.size(i), dim=p.dim)
+            block = (parts[coord[i]] if coord[i] < len(parts)
+                     else block.narrow(p.dim, 0, 0))
+    local = torch.empty(block.shape, dtype=block.dtype,
+                        device=mesh.device_type).copy_(block)
+    stride = torch.empty(arr.shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, places, run_check=False,
+                              shape=arr.shape, stride=stride)
 
 
 def _leaf_spec(leaf) -> Tuple[Tuple[int, ...], Optional[str]]:

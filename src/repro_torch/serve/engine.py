@@ -17,6 +17,17 @@ The slab step never waits for the card: each step's outputs are copied
 into pinned host buffers behind a ``torch.cuda.Event``, and ``_harvest``
 reads a step only once its event has completed (or, once ``pipeline``
 steps are in flight, waits for the oldest).
+
+Placed on a mesh (phi a ``DTensor`` whose topics are split over the
+``model`` axis of M ranks, as ``from_checkpoint(sharding=(mesh,
+dist.sharding.phi_serving_spec(mesh, phi)))`` restores it), an engine is
+one process of M that run in step (SPMD): each rank keeps only its [W',
+K/M] topic block and folds in on it, the normalizer and residual sums
+all-reduce over the model group, and each result's theta blocks are
+all-gathered into [D, K], so every rank returns every result whole.
+Every rank must submit the same requests in the same order.  A mesh
+with no ``model`` axis, or one of size 1, replicates phi: the engine
+then serves it as an unplaced one.
 """
 
 from __future__ import annotations
@@ -72,11 +83,14 @@ class Shed:
 
 
 def _prepare_phi(phi_acc, cfg: LDAConfig, live_words: Optional[int],
-                 normalized: bool, device: torch.device
+                 normalized: bool, device: torch.device, ranks: int = 1
                  ) -> Tuple[torch.Tensor, int, int]:
     """Normalize a phi statistic for serving on ``device``: float32, at
     least one guard row above the live vocabulary (appended when phi has
-    none), beta-prior normalization over the live rows.
+    none), beta-prior normalization over the live rows.  ``phi_acc`` may
+    be a rank's [W, K/ranks] topic block: the normalization is per topic
+    column, so a block needs nothing of the other ranks, and an
+    already-normalized block's guard rows take 1/K of the global K.
 
     Returns ``(phi_norm [W', K], live, w_cap)``; the guard rows carry the
     prior mass an unseen word folds in.
@@ -89,7 +103,7 @@ def _prepare_phi(phi_acc, cfg: LDAConfig, live_words: Optional[int],
         phi = torch.cat([phi, phi.new_zeros((1, phi.shape[1]))])
     if normalized:
         out = phi.clone()
-        out[live:] = 1.0 / phi.shape[1]
+        out[live:] = 1.0 / (phi.shape[1] * ranks)
         return out, live, w_cap
     return perplexity.normalize_phi(phi, cfg.beta, live_w=live), live, w_cap
 
@@ -148,15 +162,151 @@ class OOVTrigger:
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class _Placement:
+    """Where an engine's phi lies: ``ranks`` topic blocks over ``group``
+    (a mesh's ``model`` axis), this process's the ``rank``-th; one block
+    and no group when phi is not split over ranks."""
+
+    mesh: object = None
+    placements: tuple = ()
+    ranks: int = 1
+    rank: int = 0
+    group: object = None
+
+
+def _rank_block(phi_acc, device: torch.device
+                ) -> Tuple[object, _Placement]:
+    """(this rank's block of phi, its `_Placement`).  A ``DTensor`` must
+    keep its words whole and may split its topics (dim 1) evenly over the
+    mesh's ``model`` axis only: any other placement, or a mesh on another
+    device type than ``device``, raises ``ValueError``, since serving it
+    would gather phi whole on a rank.  Anything else is one block."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(phi_acc, DTensor):
+        return phi_acc, _Placement()
+    mesh, places = phi_acc.device_mesh, tuple(phi_acc.placements)
+    names = tuple(mesh.mesh_dim_names or ())
+    if mesh.device_type != device.type:
+        raise ValueError(f"phi is placed on a {mesh.device_type} mesh, the "
+                         f"engine serves on {device}")
+    ranks, rank = 1, 0
+    for i, p in enumerate(places):
+        if isinstance(p, Replicate) or mesh.size(i) == 1:
+            continue                        # nothing split over this axis
+        if not (isinstance(p, Shard) and p.dim == 1
+                and i < len(names) and names[i] == "model"):
+            raise ValueError(
+                f"phi placed as {list(places)} on mesh axes {names}: "
+                f"serving splits only its topics (dim 1) over the 'model' "
+                f"axis and keeps its words whole; this placement would "
+                f"gather phi whole on a rank")
+        ranks, rank = mesh.size(i), mesh.get_coordinate()[i]
+    if phi_acc.shape[1] % ranks:
+        raise ValueError(f"phi's {phi_acc.shape[1]} topics do not split "
+                         f"evenly over the {ranks} ranks of the 'model' "
+                         f"axis")
+    group = None
+    if ranks > 1:
+        import torch.distributed as dist
+
+        group = mesh.get_group("model")
+        if dist.get_rank(group) != rank:
+            raise ValueError(
+                f"this rank's model-axis coordinate {rank} is not its rank "
+                f"{dist.get_rank(group)} in the model group: theta's blocks "
+                f"would be gathered out of order")
+    return phi_acc.to_local(), _Placement(mesh, places, ranks, rank, group)
+
+
+class _Placed:
+    """What both engines do with a placed phi: take its block, stack the
+    rank's topic shards, agree host decisions across the model group and
+    gather theta's blocks whole."""
+
+    def _place_phi(self, phi_acc, cfg: LDAConfig, topic_shards: int,
+                   live_words, normalized: bool) -> None:
+        block, self._place = _rank_block(phi_acc, self.device)
+        ranks = self._place.ranks
+        if ranks > 1 and block.shape[1] * ranks != cfg.num_topics:
+            raise ValueError(f"phi holds {block.shape[1] * ranks} topics, "
+                             f"cfg.num_topics is {cfg.num_topics}")
+        # N: one shard a rank for 1, else N/M stacked on each rank
+        # (`split_topic_shards` refuses an N that M does not divide)
+        self._topic_shards = (ranks if int(topic_shards) == 1
+                              else int(topic_shards))
+        self.theta_gather_bytes = 0
+        self._install_phi(block, live_words, normalized)
+
+    def _install_phi(self, block, live_words, normalized: bool) -> None:
+        phi, self.live_words, self.w_cap = _prepare_phi(
+            block, self.cfg, live_words, normalized, self.device,
+            self._place.ranks)
+        self._phi = infer.split_topic_shards(phi, self._topic_shards,
+                                             self._place.ranks)
+        self._oov_row = self.live_words
+
+    def _swap_block(self, phi_acc):
+        """The block of a swapped-in phi: a ``DTensor`` placed as the
+        engine's phi, or a whole [W, K] statistic cut to this rank's
+        columns on the host."""
+        from torch.distributed.tensor import DTensor
+
+        place = self._place
+        if isinstance(phi_acc, DTensor):
+            block, new = _rank_block(phi_acc, self.device)
+            if (new.mesh, new.placements) != (place.mesh, place.placements):
+                raise ValueError(
+                    f"swap_phi: phi placed as {list(new.placements)} on "
+                    f"another mesh or placement than the engine's "
+                    f"{list(place.placements)}")
+            return block
+        if place.ranks == 1:
+            return phi_acc
+        whole = convert.phi_from_reference(phi_acc, device="cpu")
+        width = whole.shape[1] // place.ranks
+        return whole[:, place.rank * width:(place.rank + 1) * width]
+
+    def _whole(self, theta: torch.Tensor) -> torch.Tensor:
+        """theta's [D, K/M] blocks all-gathered over the model group, in
+        rank order, into [D, K] (outside the byte meter, as the
+        reference reads theta outside it)."""
+        if self._place.group is None:
+            return theta
+        import torch.distributed as dist
+
+        block = theta.contiguous()
+        parts = [torch.empty_like(block) for _ in range(self._place.ranks)]
+        dist.all_gather(parts, block, group=self._place.group)
+        self.theta_gather_bytes += block.numel() * block.element_size()
+        return torch.cat(parts, dim=-1)
+
+    def _agree_max(self, values: Sequence[float]) -> List[float]:
+        """Host values each rank measured for itself (clocks), maxed over
+        the model group, so every rank takes the same decision from
+        them."""
+        if self._place.group is None:
+            return list(values)
+        import torch.distributed as dist
+
+        t = torch.tensor(list(values), dtype=torch.float64,
+                         device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._place.group)
+        return t.tolist()
+
+
 def _load_serving_checkpoint(ckpt_dir: str, cfg: Optional[LDAConfig],
-                             step: Optional[int], kw: dict):
-    """Restore phi for serving, pick up a dynamic-vocabulary table, and
-    (when ``cfg`` is omitted) build the config from phi's shape and the
-    saved run signature."""
+                             step: Optional[int], sharding, kw: dict):
+    """Restore phi for serving (placed as a ``DTensor`` on the
+    (``DeviceMesh``, spec) pair ``sharding`` when given), pick up a
+    dynamic-vocabulary table, and (when ``cfg`` is omitted) build the
+    config from phi's shape and the saved run signature."""
     from repro_torch.data.vocab import VocabMap
     from repro_torch.dist import checkpoint as ckpt
 
     phi_acc, extra, _ = ckpt.restore_phi(ckpt_dir, step=step,
+                                         sharding=sharding,
                                          dtype=torch.float32)
     dyn = extra.get("dyn")
     if dyn is not None:
@@ -194,7 +344,7 @@ class _Dispatch:
     phi_version: int = 0
 
 
-class FoldInEngine:
+class FoldInEngine(_Placed):
     """Serve topic mixtures with phi fixed, bucket-ladder admission.
 
     ``phi_acc`` is the trained statistic [W, K] (``normalized=True`` for an
@@ -203,6 +353,14 @@ class FoldInEngine:
     translated through ``vocab`` (external keys, lookup only) when given,
     else range-checked; unknown words fold in through the first guard row
     and are counted in ``oov_rate``.
+
+    Placed on a mesh (``phi_acc`` a ``DTensor``, see the module note), the
+    engine holds this rank's [W', K/M] block; ``topic_shards`` = 1 serves
+    one shard a rank, a multiple of M stacks N/M on each.  Every rank must
+    submit the same requests in the same order: dispatch follows the
+    queues, early exit the all-reduced residuals, and ``flush_stale`` the
+    oldest request's age maxed over the ranks, so every rank dispatches
+    the same batches.  Under gloo each all-reduce waits on the host.
     """
 
     def __init__(self, phi_acc, cfg: LDAConfig, *,
@@ -228,17 +386,13 @@ class FoldInEngine:
         self.fold_iters = int(fold_iters)
         self.residual_tol = float(residual_tol)
         self.phi_version = int(phi_version)
-        self._topic_shards = int(topic_shards)
-        phi, self.live_words, self.w_cap = _prepare_phi(
-            phi_acc, cfg, live_words, normalized, self.device)
-        self._phi = infer.split_topic_shards(phi, self._topic_shards)
-        self._oov_row = self.live_words
+        self._place_phi(phi_acc, cfg, topic_shards, live_words, normalized)
         self._vocab = vocab
         self._step, self.meter = infer.make_fold_in_step(
             cfg, fold_iters=self.fold_iters, residual_tol=self.residual_tol,
             topic_shards=self._topic_shards,
             sync_dtype=wire_dtype(sync_dtype or cfg.sync_dtype),
-            device=self.device)
+            device=self.device, model_group=self._place.group)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._queues: Dict[int, List[Tuple[int, tuple, float, float]]] = {
             b: [] for b in self.len_buckets}
@@ -258,23 +412,27 @@ class FoldInEngine:
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, cfg: Optional[LDAConfig] = None,
-                        step: Optional[int] = None, **kw) -> "FoldInEngine":
+                        step: Optional[int] = None, sharding=None,
+                        **kw) -> "FoldInEngine":
         """Checkpoint-to-serve: load phi (and, when ``cfg`` is omitted, the
         geometry from phi and the saved run signature) and build an engine
-        on ``device`` (a keyword, default ``"cuda"``)."""
-        phi_acc, cfg, kw = _load_serving_checkpoint(ckpt_dir, cfg, step, kw)
+        on ``device`` (a keyword, default ``"cuda"``).  ``sharding``, a
+        (``DeviceMesh``, spec) pair, places phi on the mesh first
+        (`dist.checkpoint.restore_phi`): each rank reads only its block
+        onto the device."""
+        phi_acc, cfg, kw = _load_serving_checkpoint(ckpt_dir, cfg, step,
+                                                    sharding, kw)
         return cls(phi_acc, cfg, **kw)
 
     def swap_phi(self, phi_acc, *, live_words: Optional[int] = None,
                  vocab=None, phi_version: Optional[int] = None) -> None:
         """Install a new (phi, vocab) generation.  Queued requests were
         admitted under the old vocabulary, so they are flushed and run on
-        the old phi first and keep the old ``phi_version`` stamp."""
+        the old phi first and keep the old ``phi_version`` stamp.  A
+        placed engine takes a ``DTensor`` placed as its phi, or a whole
+        statistic of which it keeps its block."""
         self.flush()
-        phi, self.live_words, self.w_cap = _prepare_phi(
-            phi_acc, self.cfg, live_words, False, self.device)
-        self._phi = infer.split_topic_shards(phi, self._topic_shards)
-        self._oov_row = self.live_words
+        self._install_phi(self._swap_block(phi_acc), live_words, False)
         if vocab is not None:
             self._vocab = vocab
         self.phi_version = (int(phi_version) if phi_version is not None
@@ -327,17 +485,21 @@ class FoldInEngine:
         """Dispatch buckets whose oldest request has waited at least
         ``max_age_s``; returns the number of dispatches."""
         now = time.time() if now is None else now
+        stale = self._agree_max([
+            sum(now - t >= max_age_s for _, _, t, _ in self._queues[b])
+            for b in self.len_buckets])
         n = 0
-        for b in self.len_buckets:
-            while self._queues[b] and now - self._queues[b][0][2] >= \
-                    max_age_s:
+        for b, k in zip(self.len_buckets, stale):
+            for _ in range(-(-int(k) // self.batch_docs)):
                 self._dispatch(b)
                 n += 1
         return n
 
     def _run(self, word_ids, counts):
-        return self._step(self._phi, word_ids.to(self.device),
-                          counts.to(self.device), generator=self._gen)
+        theta, iters, mean_r = self._step(
+            self._phi, word_ids.to(self.device), counts.to(self.device),
+            generator=self._gen)
+        return self._whole(theta), iters, mean_r
 
     def _dispatch(self, bucket: int) -> None:
         q = self._queues[bucket]
@@ -469,7 +631,7 @@ class _StepOut:
     ready: Optional[torch.cuda.Event]  # None on the CPU
 
 
-class SlabEngine:
+class SlabEngine(_Placed):
     """Continuous-batching serving: one persistent in-flight slab.
 
     Per slot: **admit** (translate, queue) -> **iterate** (each step runs
@@ -488,6 +650,18 @@ class SlabEngine:
 
     ``swap_phi`` pumps the slab to empty first, so every admitted request
     retires under the (phi, version) that admitted it.
+
+    Placed on a mesh (``phi_acc`` a ``DTensor``, see the module note), the
+    engine holds this rank's [W', K/M] block and its slab state's K/M
+    columns; ``topic_shards`` as in `FoldInEngine`.  Every rank must submit
+    the same requests in the same order, and every rank then decides the
+    same: freezing, retiring and the residual tail come from all-reduced
+    values; a step is harvested only when ``pipeline`` steps are in
+    flight, never when its event happens to have completed; and with
+    ``admission_slo_s`` each step's wall time is maxed over the ranks (a
+    host sync a step) before shedding reads it.  Under NCCL the step
+    still never waits for the card; under gloo each all-reduce waits on
+    the host.
     """
 
     def __init__(self, phi_acc, cfg: LDAConfig, *, slots: int = 64,
@@ -521,11 +695,7 @@ class SlabEngine:
                       if isinstance(theta_cache, int) else theta_cache)
         self.cache_mode = cache_mode
         self.trigger = oov_trigger
-        self._topic_shards = int(topic_shards)
-        phi, self.live_words, self.w_cap = _prepare_phi(
-            phi_acc, cfg, live_words, normalized, self.device)
-        self._phi = infer.split_topic_shards(phi, self._topic_shards)
-        self._oov_row = self.live_words
+        self._place_phi(phi_acc, cfg, topic_shards, live_words, normalized)
         self._vocab = vocab
         self._init_state, self._step, self.meter = infer.make_slab_step(
             cfg, slots=self.slots, slot_len=self.slot_len,
@@ -534,7 +704,7 @@ class SlabEngine:
             fold_iters=self.fold_iters, residual_tol=self.residual_tol,
             topic_shards=self._topic_shards,
             sync_dtype=wire_dtype(sync_dtype or cfg.sync_dtype),
-            device=self.device)
+            device=self.device, model_group=self._place.group)
         self._state = self._init_state()
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._queue: "deque[Tuple[_SlabReq, np.ndarray, np.ndarray]]" = \
@@ -574,10 +744,12 @@ class SlabEngine:
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, cfg: Optional[LDAConfig] = None,
-                        step: Optional[int] = None, **kw) -> "SlabEngine":
+                        step: Optional[int] = None, sharding=None,
+                        **kw) -> "SlabEngine":
         """Checkpoint-to-serve for the slab (same contract as
         `FoldInEngine.from_checkpoint`)."""
-        phi_acc, cfg, kw = _load_serving_checkpoint(ckpt_dir, cfg, step, kw)
+        phi_acc, cfg, kw = _load_serving_checkpoint(ckpt_dir, cfg, step,
+                                                    sharding, kw)
         return cls(phi_acc, cfg, **kw)
 
     # ---------------------------------------------------------- admission
@@ -720,9 +892,12 @@ class SlabEngine:
             self._phi, self._state, wid, cnt, slot, warm, wmask,
             generator=self._gen)
         self._steps += 1
-        self._pending.append(self._stage(retired, theta_out, iters, r_doc))
+        self._pending.append(self._stage(retired, self._whole(theta_out),
+                                         iters, r_doc))
         n = self._harvest(block=len(self._pending) > self._pipeline)
         dt = time.time() - t0
+        if self.admission_slo_s is not None:
+            dt, = self._agree_max([dt])
         self._step_ema_s = (dt if self._step_ema_s is None
                             else 0.8 * self._step_ema_s + 0.2 * dt)
         return n
@@ -736,8 +911,8 @@ class SlabEngine:
             if head.ready is not None:
                 if block:
                     head.ready.synchronize()
-                elif not head.ready.query():
-                    break
+                elif self._place.group is not None or not head.ready.query():
+                    break       # placed: the ranks harvest at the same steps
             self._pending.popleft()
             n += self._materialize(head)
             block = False
@@ -819,12 +994,10 @@ class SlabEngine:
     def swap_phi(self, phi_acc, *, live_words: Optional[int] = None,
                  vocab=None, phi_version: Optional[int] = None) -> None:
         """Install a new (phi, vocab) generation after pumping the slab to
-        empty, so no request observes a torn phi."""
+        empty, so no request observes a torn phi.  A placed engine takes
+        what `FoldInEngine.swap_phi` takes."""
         self.pump()
-        phi, self.live_words, self.w_cap = _prepare_phi(
-            phi_acc, self.cfg, live_words, False, self.device)
-        self._phi = infer.split_topic_shards(phi, self._topic_shards)
-        self._oov_row = self.live_words
+        self._install_phi(self._swap_block(phi_acc), live_words, False)
         if vocab is not None:
             self._vocab = vocab
         self.phi_version = (int(phi_version) if phi_version is not None

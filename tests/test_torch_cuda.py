@@ -1,6 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
 on the card, the wrappers' checks, the serving engines on the card
-against the same engines on the CPU, and the training step (carry and
+against the same engines on the CPU (and placed on a 1 x 1 NCCL mesh
+against the unplaced engine), and the training step (carry and
 packed sweep policies) on the card against the same step on the CPU.
 
 Every test here carries the ``cuda`` marker and skips without a card.
@@ -867,6 +868,52 @@ def test_topic_sharded_slab_on_card_matches_unsharded(card):
         got = res[4][rid]
         assert got.iters == want.iters and got.comm_bytes > 0
         np.testing.assert_allclose(got.theta, want.theta, atol=1e-5)
+
+
+def test_slab_placed_on_a_one_by_one_nccl_mesh_serves_as_unplaced(
+        card, tmp_path):
+    """``SlabEngine.from_checkpoint(sharding=(mesh, phi_serving_spec))`` on
+    a 1 x 1 NCCL mesh serves as the unplaced engine (one seed,
+    ``pipeline=0``): every theta and iteration equal bit for bit, the
+    serving kernel launched steps x sweeps times."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.dist.sharding import phi_serving_spec
+    from repro_torch.launch.mesh import make_mesh
+
+    W, K = 400, 64
+    docs, _, true_phi = lda_corpus(3, 40, W, K, doc_len_mean=30)
+    phi_acc = torch.from_numpy((true_phi.T * 200.0).astype(np.float32))
+    ckpt.save(str(tmp_path / "ck"), 1, {"state": {"phi_acc": phi_acc}},
+              extra={"run": {"vocab": W, "topics": K}})
+    kw = dict(slots=8, slot_len=64, sweeps_per_step=2, seed=3, pipeline=0,
+              device="cuda")
+
+    def serve(eng):
+        for d in docs:
+            eng.submit(d)
+        return {r.req_id: r for r in eng.drain()}
+
+    want = serve(SlabEngine.from_checkpoint(str(tmp_path / "ck"), **kw))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        eng = SlabEngine.from_checkpoint(
+            str(tmp_path / "ck"),
+            sharding=(mesh, phi_serving_spec(mesh, phi_acc)), **kw)
+        before = ops.power_sweep_carry.launches
+        got = serve(eng)
+        launched = ops.power_sweep_carry.launches - before
+    finally:
+        dist.destroy_process_group()
+    assert eng._place.group is None and tuple(eng._phi.shape) == (W + 1, K)
+    assert launched == eng.stats()["steps"] * 2 > 0
+    assert sorted(got) == sorted(want) == list(range(40))
+    for rid, w in want.items():
+        assert got[rid].iters == w.iters, rid
+        assert np.array_equal(got[rid].theta, w.theta), rid
 
 
 # ------------------------------------------- dynamic vocabulary (live W)
