@@ -48,6 +48,13 @@ run's seed and the batch number, never from the run's own stream.
 
 The reference's ``lax.while_loop`` is a Python loop here: each iteration
 reads the mean residual back to the host once to decide whether to go on.
+While a torch profiler records, `make_train_step`'s step is recorded in
+``repro_torch.obs``: its root ``pobp.step``; ``pobp.iter`` around each
+iteration after the dense one, with ``pobp.select``, ``pobp.sweep`` and
+``pobp.refresh`` inside it in ``power`` sync mode; ``pobp.read`` around
+each host read; and the step's counters (``iters``, ``selective_iters``,
+the counted ``tokens``, ``P``, ``Pk`` and the ``power_tokens`` that its
+selective sweeps reached).
 The port updates in place where that saves a [W, K] or [T, K] copy, and
 says so per function.
 
@@ -76,6 +83,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import power as pw
 from repro_torch.core import quantize
 from repro_torch.core.device import resolve_device
@@ -382,6 +390,12 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
     # the storage width, as the reference's phi_wire does
     phi_wire = (torch.bfloat16 if cfg.phi_acc_dtype == "bfloat16"
                 else None)
+    rec = obs.active()
+    if rec is not None:
+        # the counted tokens of each word, from its run: a selective
+        # sweep's power tokens are those of its power words
+        per_word = runs[1].diff()
+        power_tokens = torch.zeros((), dtype=torch.int64, device=dev)
 
     with reducer.meter.section():
         # ---- lines 3-8: random init, local stats, first dense update ----
@@ -410,58 +424,71 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
         def go_on(t: int, r_w: torch.Tensor) -> bool:
             # the one host read per iteration; r_w is psum'd, so every
             # shard reads the same bits and takes the same decision
-            return t < cfg.inner_iters and \
-                float(mean_residual(r_w, total_tokens)) > cfg.residual_tol
+            if t >= cfg.inner_iters:
+                return False
+            with obs.span(rec, "pobp.read"):
+                r = float(mean_residual(r_w, total_tokens))
+            return r > cfg.residual_tol
 
         t = 1
         if sync_mode == "power":
             mu_t = mu1.reshape(layout.num_slots, K)
             while go_on(t, r_w):
-                with reducer.meter.section():
-                    # a live-W selection's dead slots repeat the first
-                    # guard row, whose residual and phi rows are zero
-                    sel_w = (pw.select_power_words(r_w, P) if live_w is None
-                             else pw.select_power_words_live(
-                                 r_w, P, live_w, cfg.lambda_w))
-                    sel_k = pw.select_power_topics(r_glob, sel_w, Pk)
-                    mu_t, theta, d_pack, r_pack = selective_sweep_tokens(
-                        layout, mu_t, theta, phi_eff, phi_tot, sel_w, sel_k,
-                        cfg, policy, wbeta)
-                    # lines 23-24: sync only the power submatrices
-                    d_pack = reducer.psum(d_pack, "power", w_rows=W,
-                                          dtype=phi_wire)
-                    r_pack = reducer.psum(r_pack, "power", w_rows=W,
-                                          dtype=phi_wire)
-                    # packed-carry refresh, Eq. 9: O(P*Pk) updates, in
-                    # place.  Each row's topics are distinct and the power
-                    # words are too, but for a live-W selection's dead
-                    # slots, which all repeat the first guard row and carry
-                    # exact zeros (no token has that word).  The phi
-                    # scatter and the r_w index_add add with atomics on the
-                    # card, so the repeated row takes a sum of zeros in any
-                    # order: the same bits; the residual refresh writes the
-                    # same zeros from each dead slot.  Every other element
-                    # has one writer, so their order does not matter;
-                    # phi_tot's per-topic sums do, and topic_sum takes them
-                    # in a fixed order.  Each shard updates its own phi_eff
-                    # and r_glob (psum results are never shared between
-                    # shards)
-                    rw_delta = packed_rw_delta(r_glob, sel_w, sel_k, r_pack)
-                    pw.scatter_add_rows(phi_eff, sel_w, sel_k, d_pack)
-                    phi_tot = topic_sum(sel_k, d_pack, phi_tot)
-                    pw.scatter_set_rows(r_glob, sel_w, sel_k, r_pack)
-                    # the topic shards' share of each power word's
-                    # residual: a model psum (the data shards' is already
-                    # in r_pack)
-                    rw_delta = model.psum(rw_delta, "model_rw_loop",
-                                          compress=False, w_rows=W)
-                    r_w = r_w.index_add(0, sel_w.long(), rw_delta)
+                with obs.span(rec, "pobp.iter"), reducer.meter.section():
+                    with obs.span(rec, "pobp.select"):
+                        # a live-W selection's dead slots repeat the first
+                        # guard row, whose residual and phi rows are zero
+                        sel_w = (pw.select_power_words(r_w, P)
+                                 if live_w is None
+                                 else pw.select_power_words_live(
+                                     r_w, P, live_w, cfg.lambda_w))
+                        sel_k = pw.select_power_topics(r_glob, sel_w, Pk)
+                    with obs.span(rec, "pobp.sweep"):
+                        mu_t, theta, d_pack, r_pack = selective_sweep_tokens(
+                            layout, mu_t, theta, phi_eff, phi_tot, sel_w,
+                            sel_k, cfg, policy, wbeta)
+                    if rec is not None:
+                        # counted while the card runs the sweep
+                        power_tokens.add_(per_word.index_select(0, sel_w)
+                                          .sum())
+                    with obs.span(rec, "pobp.refresh"):
+                        # lines 23-24: sync only the power submatrices
+                        d_pack = reducer.psum(d_pack, "power", w_rows=W,
+                                              dtype=phi_wire)
+                        r_pack = reducer.psum(r_pack, "power", w_rows=W,
+                                              dtype=phi_wire)
+                        # packed-carry refresh, Eq. 9: O(P*Pk) updates, in
+                        # place.  Each row's topics are distinct and the
+                        # power words are too, but for a live-W selection's
+                        # dead slots, which all repeat the first guard row
+                        # and carry exact zeros (no token has that word).
+                        # The phi scatter and the r_w index_add add with
+                        # atomics on the card, so the repeated row takes a
+                        # sum of zeros in any order: the same bits; the
+                        # residual refresh writes the same zeros from each
+                        # dead slot.  Every other element has one writer,
+                        # so their order does not matter; phi_tot's
+                        # per-topic sums do, and topic_sum takes them in a
+                        # fixed order.  Each shard updates its own phi_eff
+                        # and r_glob (psum results are never shared between
+                        # shards)
+                        rw_delta = packed_rw_delta(r_glob, sel_w, sel_k,
+                                                   r_pack)
+                        pw.scatter_add_rows(phi_eff, sel_w, sel_k, d_pack)
+                        phi_tot = topic_sum(sel_k, d_pack, phi_tot)
+                        pw.scatter_set_rows(r_glob, sel_w, sel_k, r_pack)
+                        # the topic shards' share of each power word's
+                        # residual: a model psum (the data shards' is
+                        # already in r_pack)
+                        rw_delta = model.psum(rw_delta, "model_rw_loop",
+                                              compress=False, w_rows=W)
+                        r_w = r_w.index_add(0, sel_w.long(), rw_delta)
                 t += 1
             mu = layout.to_batch_major(mu_t)
         else:
             mu = mu1
             while go_on(t, r_w):
-                with reducer.meter.section():
+                with obs.span(rec, "pobp.iter"), reducer.meter.section():
                     mu, r_wk = dense_sweep(batch, mu, phi_eff, phi_tot, cfg,
                                            layout, model,
                                            norm_phase="model_norm_loop",
@@ -488,6 +515,10 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
             # the decay's [W, K] pass is billed once per mini-batch
             reducer.bill(phi_acc_wk, "decay", w_rows=W)
             phi_acc_new.add_(decay * phi_acc_wk)
+    if rec is not None:
+        rec.count(iters=t, selective_iters=t - 1 if sync_mode == "power"
+                  else 0, P=P, Pk=Pk)
+        rec.tally(tokens=per_word.sum(), power_tokens=power_tokens)
     return MinibatchResult(phi_acc_new=phi_acc_new, iters=t,
                            mean_r=mean_residual(r_w, total_tokens), mu=mu,
                            theta=theta)
@@ -661,12 +692,16 @@ def _lockstep_minibatch(word_ids, counts, phi_acc, delta_weight, cfg,
     dev = phi_acc.device
     inits = _shard_inits(MiniBatch(word_ids[0], counts[0]), N,
                          phi_acc.shape[1], cfg, generator, u0, dev)
-    return lockstep(
-        lambda n: pobp_shard_body(word_ids[n], counts[n], phi_acc,
-                                  delta_weight, cfg, reducer,
-                                  sync_mode=sync_mode, decay=decay,
-                                  live_w=live_w, u0=inits[n]),
-        N, [sim], dev)
+    rec = obs.active()
+
+    def body(n: int):
+        with obs.shard(rec, n):
+            return pobp_shard_body(word_ids[n], counts[n], phi_acc,
+                                   delta_weight, cfg, reducer,
+                                   sync_mode=sync_mode, decay=decay,
+                                   live_w=live_w, u0=inits[n])
+
+    return lockstep(body, N, [sim], dev)
 
 
 def make_train_step(cfg: LDAConfig, num_shards: int = 1,
@@ -726,25 +761,27 @@ def make_train_step(cfg: LDAConfig, num_shards: int = 1,
             _live_wbeta(cfg, live_w)
             _check_live_words(word_ids, live_w)
         m = state.m + 1
-        wid = word_ids.to(here, torch.int32)
-        cnt = counts.to(here, torch.float32)
-        if num_shards == 1:
-            phi, iters, mean_r, mu, theta = pobp_shard_body(
-                wid, cnt, state.phi_acc, _delta_weight(cfg, m), cfg, reducer,
-                sync_mode=sync_mode, decay=_decay_factor(cfg, m),
-                live_w=live_w, generator=state.generator, u0=u0)
-            del mu              # freed before the rounding allocates
-        else:
-            outs = _lockstep_minibatch(
-                wid, cnt, state.phi_acc, _delta_weight(cfg, m), cfg, reducer,
-                sync_mode, _decay_factor(cfg, m), state.generator, u0,
-                live_w)
-            phi, iters, mean_r = outs[0][:3]
-            theta = torch.stack([o[4] for o in outs])
-            del outs            # the other shards' phi_acc freed here
-        if storage != torch.float32:
-            phi = quantize.stochastic_round(
-                phi, storage, _sr_generator(state.generator, m))
+        with obs.step():
+            wid = word_ids.to(here, torch.int32)
+            cnt = counts.to(here, torch.float32)
+            if num_shards == 1:
+                phi, iters, mean_r, mu, theta = pobp_shard_body(
+                    wid, cnt, state.phi_acc, _delta_weight(cfg, m), cfg,
+                    reducer, sync_mode=sync_mode,
+                    decay=_decay_factor(cfg, m), live_w=live_w,
+                    generator=state.generator, u0=u0)
+                del mu          # freed before the rounding allocates
+            else:
+                outs = _lockstep_minibatch(
+                    wid, cnt, state.phi_acc, _delta_weight(cfg, m), cfg,
+                    reducer, sync_mode, _decay_factor(cfg, m),
+                    state.generator, u0, live_w)
+                phi, iters, mean_r = outs[0][:3]
+                theta = torch.stack([o[4] for o in outs])
+                del outs        # the other shards' phi_acc freed here
+            if storage != torch.float32:
+                phi = quantize.stochastic_round(
+                    phi, storage, _sr_generator(state.generator, m))
         return (LDATrainState(phi_acc=phi, m=m, generator=state.generator),
                 dict(iters=iters, mean_r=mean_r, theta=theta))
 
