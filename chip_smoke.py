@@ -42,7 +42,12 @@ non-zero:
      shared-memory caches, every draw a tie, a shuffled token order, words
      repeated in consecutive tokens and across documents, one-token
      documents and noise off 16-byte boundaries; the Philox pre-pass
-     equal to its plain version, timed with its peak memory;
+     equal to its plain version, timed with its peak memory; the
+     power-topic selection id for id against its plain version (spread
+     rows, tie rows, dead slots on an all-zero row), repeating bit for
+     bit, timed at P = 14,104, Pk = 50, K = 2000 and 10,000 with its
+     bound, all-zero rows, and the library route it replaced (the [P, K]
+     gather, then torch.topk), then at odd widths;
   3. the serving slice at PUBMED width (W = 141,043, K = 2000): a random
      phi statistic made on the card from ``--seed``, saved as a JAX-format
      checkpoint, served by ``SlabEngine.from_checkpoint`` for
@@ -900,6 +905,78 @@ def check_topic_sum(seg, gen, *, P, Pk, K, timed):
         plain_ms, bound, bound_by, library_ms)
 
 
+def topics_rows(gen, *, P, K, ties):
+    """[P + 3, K] residual rows like the training step's: a word's token
+    count times |mu' - mu| of two Dirichlet(0.1) draws; with ``ties``
+    every row quantized to four values; the last three rows all zero."""
+    import torch
+
+    conc = torch.full((P + 3, K), 0.1, device="cuda")
+    a, b = (torch._standard_gamma(conc, generator=gen) for _ in range(2))
+    counts = torch.randint(1, 400, (P + 3, 1), generator=gen, device="cuda")
+    r = counts * (a / a.sum(1, keepdim=True) - b / b.sum(1, keepdim=True)
+                  ).abs()
+    if ties:
+        r = (r / r.amax(1, keepdim=True) * 4).floor() / 4
+    r[P:] = 0.0
+    return r.contiguous()
+
+
+def check_power_topics(topics_ops, gen, *, P, K, Pk, timed):
+    """The power-topic selection against its plain version (the stable
+    sort of the rows' order keys) id for id, on rows like the step's, on
+    tie rows and with dead slots on an all-zero guard row, repeating bit
+    for bit; timed with its plain version, the library route it replaced
+    (the [P, K] gather, then ``torch.topk``) and ``torch.topk`` on rows
+    gathered beforehand, and on all-zero rows (no slow path)."""
+    import torch
+
+    for ties in (False, True):
+        r = topics_rows(gen, P=P, K=K, ties=ties)
+        W = r.shape[0]
+        sel_w = torch.randperm(W, generator=gen, device="cuda")[:P].to(
+            torch.int32)
+        sel_w[-min(P, 7):] = W - 1
+        got = topics_ops.power_topics(r, sel_w, Pk)
+        again = topics_ops.power_topics(r, sel_w, Pk)
+        want = topics_ops.power_topics_plain(r, sel_w, Pk)
+        same, exact = bool(torch.equal(got, again)), bool(torch.equal(got,
+                                                                      want))
+        print(f"[kernel] power_topics P={P} K={K} Pk={Pk} "
+              f"{'tie' if ties else 'spread'} rows: ids equal to the plain "
+              f"version {exact}; relaunch bit for bit {same}")
+        if not (exact and same):
+            fail(f"power_topics disagrees with its plain version or does "
+                 f"not repeat at P={P} K={K} Pk={Pk}")
+    if not timed:
+        return None
+    r = topics_rows(gen, P=P, K=K, ties=False)
+    sel_w = torch.randperm(r.shape[0], generator=gen, device="cuda")[:P].to(
+        torch.int32)
+    zeros = torch.zeros_like(r)
+    rows = r[sel_w.long()]
+    args = lambda: (r, sel_w, Pk)                           # noqa: E731
+    ms = time_turns({
+        "kernel": (topics_ops.power_topics, args),
+        "zeros": (topics_ops.power_topics, lambda: (zeros, sel_w, Pk)),
+        "plain": (topics_ops.power_topics_plain, args),
+        "route": (lambda m, w, k: torch.topk(m[w.long()], k, dim=1).indices
+                  .to(torch.int32), args),
+        "topk": (lambda x, k: torch.topk(x, k, dim=1), lambda: (rows, Pk))})
+    bound, bound_by = bound_ms(4 * P * (K + 1 + Pk), 0)
+    print(f"[kernel] power_topics P={P} K={K} Pk={Pk}: {ms['kernel']:.4f} ms "
+          f"(all-zero rows {ms['zeros']:.4f})  plain {ms['plain']:.4f} ms  "
+          f"bound {bound:.4f} ms ({bound_by}, {bound / ms['kernel']:.1%})  "
+          f"library: gather + torch.topk {ms['route']:.4f} ms, torch.topk "
+          f"on gathered rows {ms['topk']:.4f} ms")
+    return kernel_record(
+        "power_topics", "src/repro_torch/csrc/power_topics.cu",
+        "none (added by the port): the row gather and lax.top_k of "
+        "src/repro/core/power.py:74", 0.0, ms["kernel"], ms["plain"], bound,
+        bound_by, ms["topk"], P=P, K=K, Pk=Pk, zero_rows_ms=ms["zeros"],
+        library_route_ms=ms["route"])
+
+
 def packed_inputs(gen, *, D, L, K, P, Pk, guard_share, empty_doc,
                   skewed=False, dead=0):
     """Inputs of one packed sweep: doc-contiguous tokens with a ragged last
@@ -1335,7 +1412,8 @@ def train_slice(batches, *, W: int, K: int, seed: int, device,
             "power_sweep_tokens": sweeps if packed else 0,
             "pack_rows": sweeps if packed else 0,
             "word_rows_sum": 3 * len(batches),
-            "topic_sum": sweeps, "gibbs_sweep": 0, "gibbs_noise": 0}
+            "topic_sum": sweeps, "gibbs_sweep": 0, "gibbs_noise": 0,
+            "power_topics": sweeps}
     print(f"[{tag}] launches {launches} (steps={len(batches)}, selective "
           f"sweeps={sweeps}, sweep_policy={sweep_policy})")
     if launches != want or readings[0][1] < 2:
@@ -1506,7 +1584,7 @@ def decay_meter_check(*, seed: int, W=20000, K=256, D=64, L=64,
 # --------------------------------------------------------------- phase 8
 
 DRIVER_KERNELS = ("bp_update", "power_sweep_carry_train", "scatter_add_rows",
-                  "word_rows_sum", "topic_sum")
+                  "word_rows_sum", "topic_sum", "power_topics")
 
 
 def driver_args(ckpt_dir, *, seed: int, docs: int, extra=()):
@@ -1789,7 +1867,8 @@ def sim_slice(batches, *, W: int, K: int, seed: int, card: str,
             "power_sweep_carry_train": N * sweeps,
             "scatter_add_rows": N * sweeps, "power_sweep_tokens": 0,
             "pack_rows": 0, "word_rows_sum": N * 3 * len(batches),
-            "topic_sum": N * sweeps, "gibbs_sweep": 0, "gibbs_noise": 0}
+            "topic_sum": N * sweeps, "gibbs_sweep": 0, "gibbs_noise": 0,
+            "power_topics": N * sweeps}
     print(f"[sim] launches {launches} ({N} x the single-shard counts of "
           f"{len(batches)} steps and {sweeps} selective sweeps)")
     if launches != want:
@@ -2458,7 +2537,8 @@ def ps_slice(*, seed: int, docs: int, card: str, sim: dict, sim_walls,
         sweeps = sum(i - 1 for i in res_a["iters"])
         want = {"bp_update": n, "power_sweep_carry_train": sweeps,
                 "scatter_add_rows": sweeps, "word_rows_sum": 3 * n,
-                "topic_sum": sweeps, "power_sweep_tokens": 0, "pack_rows": 0}
+                "topic_sum": sweeps, "power_sweep_tokens": 0, "pack_rows": 0,
+                "power_topics": sweeps}
         got = {k: net[k] for k in want}
         held = abs(float(phi_a.double().sum()) - res_a["tokens"]) / \
             res_a["tokens"]
@@ -4460,13 +4540,14 @@ def main(argv=None) -> None:
     from repro_torch.kernels.gibbs_sweep import ops as gibbs_ops
     from repro_torch.kernels.power_pack import ops as pack_ops
     from repro_torch.kernels.power_sweep import ops, packed
+    from repro_torch.kernels.power_topics import ops as topics_ops
     from repro_torch.kernels.segment_sum import ops as seg_ops
 
     # ---- 1. build
     t0 = time.time()
     libs = build.build_all(["power_sweep_carry", "bp_update", "power_pack",
                             "power_sweep_tokens", "segment_sum",
-                            "gibbs_sweep"])
+                            "gibbs_sweep", "power_topics"])
     card = card_line()
     print(card)
     print(f"[build] {len(libs)} kernel(s) in {time.time() - t0:.1f}s")
@@ -4523,6 +4604,13 @@ def main(argv=None) -> None:
                                              K=2000, W=141043, timed=True),
         "topic_sum": check_topic_sum(seg_ops, gen, P=14104, Pk=50, K=2000,
                                      timed=True)}
+    # the power-topic selection at both cells' row widths, timed, then at
+    # odd widths (4-byte loads, one thread group), Pk of 1 and K
+    topics_recs = [check_power_topics(topics_ops, gen, P=14104, K=K, Pk=50,
+                                      timed=True) for K in (2000, 10000)]
+    for P, K, Pk in ((9, 1, 1), (40, 37, 5), (40, 2001, 50), (9, 300, 300),
+                     (40, 20001, 50)):
+        check_power_topics(topics_ops, gen, P=P, K=K, Pk=Pk, timed=False)
     # the fixed-order sums at odd shapes: K not a multiple of 4 (scalar
     # loads), a vocabulary of few words, K = 10,000, Pk of 1 and K
     for D, L, K, W in ((3, 7, 37, 5), (4, 16, 100, 3000), (8, 16, 10000, 50)):
@@ -4733,7 +4821,7 @@ def main(argv=None) -> None:
         "one training step (batch 1 again)", card,
         watch=("bp_update", "carry_train_kernel", "carry_dr_fold_kernel",
                "scatter_add_rows_kernel", "word_rows_sum_kernel",
-               "topic_sum_kernel"))
+               "topic_sum_kernel", "power_topics_kernel"))
     print(f"[profile] that step ran {diag['iters']} iterations")
     if "bp_update" in carry_watch:
         # the dense sweep's bound on that step's own tokens
@@ -4937,6 +5025,13 @@ def main(argv=None) -> None:
             # pack and scatters at the LM's leaf shapes)
             r["ms_lm_train"] = lm_watch.get(f"{name}_kernel")
         kernels.append(r)
+    # the selection's main path: phases 6, 9, 10 and 11 (the packed policy
+    # of phase 7 selects too, but its launches are not counted here)
+    for r in topics_recs:
+        r["launches"] = sum(x["power_topics"] for x in (
+            train_launches, sim_launches, life_launches, ps_launches))
+        r["ms_main_path"] = carry_watch.get("power_topics_kernel")
+    kernels += topics_recs
     # VB's statistic (phase 12 (b)) launches the word scatter too
     train_recs["word_rows_sum"]["launches"] += vb_launches["word_rows_sum"]
     # the chain's main path: phase 12 (a), ms a sweep at its shape, the

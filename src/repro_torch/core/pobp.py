@@ -517,7 +517,7 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
             phi_acc_new.add_(decay * phi_acc_wk)
     if rec is not None:
         rec.count(iters=t, selective_iters=t - 1 if sync_mode == "power"
-                  else 0, P=P, Pk=Pk)
+                  else 0, P=P, Pk=Pk, K=K)
         rec.tally(tokens=per_word.sum(), power_tokens=power_tokens)
     return MinibatchResult(phi_acc_new=phi_acc_new, iters=t,
                            mean_r=mean_residual(r_w, total_tokens), mu=mu,

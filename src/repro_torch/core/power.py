@@ -9,13 +9,17 @@ array.  `pack_rows` and `scatter_add_rows` run the hand-written CUDA
 kernels on a CUDA tensor (``kernels/power_pack``), their plain versions on
 a CPU tensor.
 
-Top-k ties: ``torch.topk`` does not promise ``lax.top_k``'s tie order.
-Ties arise at zero residual (words or topics no token touched); which of
-those is picked moves no statistic, because no token updates through them.
-On a capacity-laddered run (``select_power_words_live``) the dead slots
-past the live count all point at the first guard row, an all-zero row of
-the residual, so their topics are a tie over zeros too: whichever topics
-they get, they carry exact zeros into the packed buffers.
+Top-k ties.  Topic selection (`select_power_topics`) follows
+``lax.top_k``'s order exactly: values descending under the float total
+order (-0.0 below +0.0), ties to the lower topic id, on the card (the
+kernel of ``kernels/power_topics``) and on the CPU (its plain version)
+alike.  Word selection runs ``torch.topk``, which does not promise
+``lax.top_k``'s tie order.  Ties arise at zero residual (words no token
+touched); which of those is picked moves no statistic, because no token
+updates through them.  On a capacity-laddered run
+(``select_power_words_live``) the dead slots past the live count all
+point at the first guard row, an all-zero row of the residual, so their
+topics are 0 .. Pk-1 and carry exact zeros into the packed buffers.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 
 from repro_torch.kernels.power_pack.ops import pack_rows as _pack
 from repro_torch.kernels.power_pack.ops import scatter_add_rows as _scatter_add
+from repro_torch.kernels.power_topics.ops import power_topics as _topics
 
 
 def select_power_words(r_w: torch.Tensor, num_power_words: int
@@ -71,9 +76,11 @@ def select_power_words_live(r_w: torch.Tensor, num_power_words: int,
 def select_power_topics(r_wk: torch.Tensor, word_idx: torch.Tensor,
                         num_power_topics: int) -> torch.Tensor:
     """Per power word, its top-``num_power_topics`` topic ids by residual
-    (Fig. 4 lines 13/28): int32 [P, Pk]."""
-    rows = r_wk[word_idx.long()]                                 # [P, K]
-    return torch.topk(rows, num_power_topics, dim=1).indices.to(torch.int32)
+    (Fig. 4 lines 13/28): int32 [P, Pk], in ``lax.top_k``'s order exactly
+    (values descending, -0.0 below +0.0, ties to the lower topic id).  A
+    CUDA tensor runs the hand-written kernel, which reads each selected row
+    once and makes no [P, K] copy; a CPU tensor its plain version."""
+    return _topics(r_wk, word_idx, num_power_topics)
 
 
 def word_to_row(word_idx: torch.Tensor, vocab_size: int) -> torch.Tensor:

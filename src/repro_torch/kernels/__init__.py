@@ -41,13 +41,14 @@ def launch_counts(reset: bool = False) -> dict:
     from repro_torch.kernels.power_pack import ops as pack_ops
     from repro_torch.kernels.power_sweep import ops as sweep_ops
     from repro_torch.kernels.power_sweep import packed
+    from repro_torch.kernels.power_topics import ops as topics_ops
     from repro_torch.kernels.segment_sum import ops as seg_ops
 
     wrappers = (bp_ops.bp_update, sweep_ops.power_sweep_carry,
                 sweep_ops.power_sweep_carry_train, packed.power_sweep_tokens,
                 pack_ops.pack_rows, pack_ops.scatter_add_rows,
                 seg_ops.word_rows_sum, seg_ops.topic_sum, gibbs_ops.gibbs_sweep,
-                gibbs_ops.gibbs_noise)
+                gibbs_ops.gibbs_noise, topics_ops.power_topics)
     if reset:
         for fn in wrappers:
             fn.launches = 0

@@ -1,0 +1,151 @@
+"""The power-topic selection of the POBP training step: its CUDA kernel's
+wrapper and its plain PyTorch version.
+
+`power_topics` computes, for each power word ``sel_w[p]``, the ids of the
+``Pk`` largest entries of the residual row ``r_wk[sel_w[p], :]``: the
+port's counterpart of the JAX package's
+``core/power.py::select_power_topics`` (a row gather, then
+``lax.top_k``), in ``lax.top_k``'s order exactly: values descending under
+the float total order (-0.0 below +0.0), ties to the lower topic id.  On
+a CUDA tensor it launches the hand-written kernel
+(``csrc/power_topics.cu``: a CTA a power word reads its row once into
+shared memory, bounds the row's Pk-th value from below by its groups'
+maxima and ranks the few keys above the bound, with an exact radix select
+for rows of many ties; no [P, K] copy) and raises if the kernel cannot
+build, launch or take the shape; on a CPU tensor it runs the plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import build, check_args, count_launch
+
+_SOURCE = "power_topics"
+_HIST_BINS = 2 * 1024              # the kernel's two 10-bit histograms
+_CAP = 256                         # candidates the kernel ranks directly
+_MAX_THREADS = 512
+_smem_optin: dict[int, int] = {}   # device index -> usable shared memory
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(_SOURCE)
+    if lib.power_topics.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.power_topics.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        lib.power_topics.restype = ctypes.c_int
+        lib.power_topics_configure.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.power_topics_configure.restype = ctypes.c_int
+        lib.power_topics_error_string.argtypes = [ctypes.c_int]
+        lib.power_topics_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err:
+        msg = lib.power_topics_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+class TopicsPlan(NamedTuple):
+    """How the kernel runs at one row width: ``threads`` a CTA (one CTA a
+    power word), ``keys_per_thread`` of the row's keys each thread visits
+    in a pass, and ``smem_bytes`` of dynamic shared memory a CTA (the row's
+    keys, the histograms, the candidates and winners)."""
+    threads: int
+    keys_per_thread: int
+    smem_bytes: int
+
+
+def topics_launch_plan(K: int, Pk: int) -> TopicsPlan:
+    """The kernel's shape at rows of ``K`` topics and ``Pk`` winners: about
+    16 keys a thread, in a power of two of threads from 32 to 512 (128 at
+    K = 2000, 512 at K = 10,000).  Every caller runs the same algorithm;
+    only the row width differs."""
+    K, Pk = int(K), int(Pk)
+    if not 1 <= Pk <= K:
+        raise ValueError(f"power_topics needs 1 <= Pk <= K, got Pk={Pk}, "
+                         f"K={K}")
+    threads = 32
+    while threads < _MAX_THREADS and threads * 16 < K:
+        threads *= 2
+    n_cand = -(-max(_CAP, Pk) // 4) * 4
+    return TopicsPlan(threads, -(-K // threads),
+                      8 * _CAP + 4 * (_HIST_BINS + n_cand + K))
+
+
+def power_topics_plain(r_wk: torch.Tensor, sel_w: torch.Tensor,
+                       Pk: int) -> torch.Tensor:
+    """The selection in plain PyTorch ops: a stable descending sort of the
+    gathered rows' order-preserving int32 keys (``lax.top_k``'s total
+    order, -0.0 below +0.0), then the first ``Pk``: int32 [P, Pk]."""
+    rows = r_wk[sel_w.long()].to(torch.float32).contiguous()
+    keys = rows.view(torch.int32)
+    keys = torch.where(keys < 0, keys ^ 0x7FFFFFFF, keys)
+    order = torch.sort(keys, dim=1, descending=True, stable=True).indices
+    return order[:, :Pk].to(torch.int32)
+
+
+def _smem(lib: ctypes.CDLL, device: torch.device) -> int:
+    """Bytes of dynamic shared memory the kernel may use on ``device``.
+    The first call there lets the kernel opt in to all a block may have;
+    it must run with that device current."""
+    smem = _smem_optin.get(device.index)
+    if smem is None:
+        got = ctypes.c_int(0)
+        _raise_on(lib, lib.power_topics_configure(ctypes.byref(got)),
+                  f"configuring power_topics on {device}")
+        smem = _smem_optin[device.index] = got.value
+    return smem
+
+
+def power_topics(r_wk: torch.Tensor, sel_w: torch.Tensor,
+                 Pk: int) -> torch.Tensor:
+    """Per power word, the ids of its ``Pk`` largest residuals, in
+    ``lax.top_k``'s order: int32 [P, Pk].
+
+    r_wk [W, K] float32; sel_w [P] int32, each id in [0, W) (the kernel
+    reads a row outside as all zeros; the plain version raises).  A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel,
+    counted in ``power_topics.launches``, and raises on a shape it cannot
+    take (K past the rows' room in shared memory).  Exact: the same bits
+    from both, launch after launch.
+    """
+    if r_wk.device.type == "cpu":
+        return power_topics_plain(r_wk, sel_w, Pk)
+    if r_wk.device.type != "cuda":
+        raise ValueError(f"power_topics runs on CPU or CUDA tensors, not "
+                         f"{r_wk.device}")
+    if r_wk.dim() != 2 or sel_w.dim() != 1:
+        raise ValueError(f"r_wk must be [W, K] and sel_w [P], got shapes "
+                         f"{tuple(r_wk.shape)} and {tuple(sel_w.shape)}")
+    (W, K), P = r_wk.shape, sel_w.shape[0]
+    plan = topics_launch_plan(K, Pk)
+    for name, n in (("P", P), ("W", W)):
+        if n >= 2 ** 31:
+            raise ValueError(f"{name} = {n} is past the kernel's int "
+                             f"argument (< 2^31)")
+    check_args("r_wk", {"r_wk": (r_wk, torch.float32, (W, K)),
+                        "sel_w": (sel_w, torch.int32, (P,))})
+    out = torch.empty((P, Pk), dtype=torch.int32, device=r_wk.device)
+    lib = _lib()
+    with torch.cuda.device(r_wk.device):
+        room = _smem(lib, r_wk.device)
+        if plan.smem_bytes > room:
+            raise ValueError(
+                f"power_topics: K={K}, Pk={Pk} need {plan.smem_bytes} bytes "
+                f"of shared memory a block, past the {room} of "
+                f"{r_wk.device}")
+        _raise_on(lib, lib.power_topics(
+            r_wk.data_ptr(), sel_w.data_ptr(), out.data_ptr(), P, Pk, W, K,
+            plan.threads, torch.cuda.current_stream(r_wk.device).cuda_stream),
+            "power_topics kernel launch")
+    count_launch(power_topics)
+    return out
+
+
+power_topics.launches = 0

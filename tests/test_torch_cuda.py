@@ -22,6 +22,7 @@ from repro_torch.data.synthetic import lda_corpus
 from repro_torch.kernels.bp_update import ops as bp_ops
 from repro_torch.kernels.power_pack import ops as pack_ops
 from repro_torch.kernels.power_sweep import ops, packed
+from repro_torch.kernels.power_topics import ops as topics_ops
 from repro_torch.serve import FoldInEngine, SlabEngine
 
 pytestmark = pytest.mark.cuda
@@ -507,7 +508,8 @@ def test_packed_train_step_on_card_matches_cpu_step(card):
                 (pack_ops.pack_rows, "launches"),
                 (packed.power_sweep_tokens, "launches"),
                 (pack_ops.scatter_add_rows, "launches"),
-                (ops.power_sweep_carry_train, "launches"))
+                (ops.power_sweep_carry_train, "launches"),
+                (topics_ops.power_topics, "launches"))
     res = {}
     for device in ("cpu", "cuda"):
         step, _ = pobp.make_train_step(cfg, device=device)
@@ -522,8 +524,9 @@ def test_packed_train_step_on_card_matches_cpu_step(card):
                        [getattr(f, a) - b
                         for (f, a), b in zip(counters, before)])
     sweeps = sum(it - 1 for it, _ in res["cuda"][1])
-    assert res["cpu"][2] == [0, 0, 0, 0, 0]
-    assert res["cuda"][2] == [3, sweeps, sweeps, sweeps, 0] and sweeps > 0
+    assert res["cpu"][2] == [0, 0, 0, 0, 0, 0]
+    assert res["cuda"][2] == [3, sweeps, sweeps, sweeps, 0, sweeps]
+    assert sweeps > 0
     for (it_c, r_c), (it_g, r_g) in zip(res["cpu"][1], res["cuda"][1]):
         assert it_c == it_g
         assert r_g == pytest.approx(r_c, rel=1e-3)
@@ -551,7 +554,8 @@ def test_train_step_on_card_matches_cpu_step(card):
         state = pobp.init_train_state(cfg, device=device)
         before = (bp_ops.bp_update.launches,
                   ops.power_sweep_carry_train.launches,
-                  pack_ops.scatter_add_rows.launches)
+                  pack_ops.scatter_add_rows.launches,
+                  topics_ops.power_topics.launches)
         trace = []
         for mb, u0 in batches:
             state, diag = step(state, mb.word_ids, mb.counts,
@@ -559,12 +563,13 @@ def test_train_step_on_card_matches_cpu_step(card):
             trace.append((diag["iters"], float(diag["mean_r"])))
         after = (bp_ops.bp_update.launches,
                  ops.power_sweep_carry_train.launches,
-                 pack_ops.scatter_add_rows.launches)
+                 pack_ops.scatter_add_rows.launches,
+                 topics_ops.power_topics.launches)
         res[device] = (state.phi_acc.cpu(), trace,
                        [a - b for a, b in zip(after, before)])
     sweeps = sum(it - 1 for it, _ in res["cuda"][1])
-    assert res["cpu"][2] == [0, 0, 0]
-    assert res["cuda"][2] == [3, sweeps, sweeps] and sweeps > 0
+    assert res["cpu"][2] == [0, 0, 0, 0]
+    assert res["cuda"][2] == [3, sweeps, sweeps, sweeps] and sweeps > 0
     for (it_c, r_c), (it_g, r_g) in zip(res["cpu"][1], res["cuda"][1]):
         assert it_c == it_g
         assert r_g == pytest.approx(r_c, rel=1e-3)
@@ -727,6 +732,110 @@ def test_topic_sum_repeats_on_another_stream_and_refuses_a_k_past_its_memory(
                       torch.zeros(K, device="cuda"))
 
 
+# ------------------------------------------------ power-topic selection
+
+def _cell_residual_rows(P, K, seed):
+    """[P + 3, K] residual rows drawn on the card like the cells': a word's
+    token count times |mu' - mu| of two Dirichlet(0.1) draws (spread over
+    many orders of magnitude, distinct values), then rows whose top Pk is
+    decided by ties: quantized to four values, zeros in 60% of the topics
+    with -0.0 among them, and three all-zero guard rows at the end."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    conc = torch.full((P + 3, K), 0.1, device="cuda")
+    a, b = (torch._standard_gamma(conc, generator=g) for _ in range(2))
+    counts = torch.randint(1, 400, (P + 3, 1), generator=g, device="cuda")
+    r = counts * (a / a.sum(1, keepdim=True) - b / b.sum(1, keepdim=True)
+                  ).abs()
+    n = P // 20
+    r[:n] = (r[:n] / r[:n].amax(1, keepdim=True) * 4).floor() / 4
+    u = torch.rand((n, K), generator=g, device="cuda")
+    r[n:2 * n] = torch.where(u < 0.6, torch.where(u < 0.3, -0.0, 0.0),
+                             r[n:2 * n])
+    r[P:] = 0.0
+    return r.contiguous(), g
+
+
+@pytest.mark.parametrize("K", [2000, 10000])
+def test_power_topics_kernel_matches_plain_version_at_cell_shapes_on_card(
+        card, K):
+    """P = 14,104 power words, Pk = 50, from rows drawn like the cells'
+    residuals, tie rows and zero rows: the kernel gives the plain
+    version's ids id for id (lax.top_k's order), and a second launch the
+    same bits."""
+    P, Pk = 14104, 50
+    r, g = _cell_residual_rows(P, K, seed=K)
+    W = r.shape[0]
+    sel_w = torch.randperm(W, generator=g, device="cuda")[:P].to(torch.int32)
+    sel_w[-7:] = W - 1                   # dead slots on one guard row
+    before = topics_ops.power_topics.launches
+    got = topics_ops.power_topics(r, sel_w, Pk)
+    again = topics_ops.power_topics(r, sel_w, Pk)
+    assert topics_ops.power_topics.launches == before + 2
+    want = topics_ops.power_topics_plain(r, sel_w, Pk)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (P, Pk)
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    zero = torch.arange(Pk, dtype=torch.int32, device="cuda")
+    assert torch.equal(got[-7:], zero.expand(7, Pk))
+
+
+@pytest.mark.parametrize("K,Pk", [(1, 1), (3, 3), (8, 1), (8, 8), (10, 10),
+                                  (37, 5), (2000, 1), (2000, 2000),
+                                  (2001, 50), (4099, 50), (10000, 10000),
+                                  (20001, 50), (20001, 20001)])
+def test_power_topics_kernel_matches_plain_version_on_card(card, K, Pk):
+    """Every plan the row width picks, Pk from 1 to K, rows of odd width
+    (4-byte loads), on the cells' row kinds."""
+    P = 60
+    r, g = _cell_residual_rows(P, K, seed=K + Pk)
+    r[5:9] = torch.randn((4, K), generator=g, device="cuda")   # negatives
+    sel_w = torch.cat([torch.randperm(P + 3, generator=g, device="cuda"),
+                       torch.tensor([P + 1, 2], device="cuda")]).to(
+                           torch.int32)
+    got = topics_ops.power_topics(r, sel_w, Pk)
+    want = topics_ops.power_topics_plain(r.cpu(), sel_w.cpu(), Pk)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_power_topics_kernel_on_unaligned_rows_and_its_checks_on_card(card):
+    """Rows of a multiple of 4 floats that start off a 16-byte boundary
+    take the 4-byte loads and give the same ids; the wrapper refuses a
+    wrong dtype, a strided matrix and a K past its shared memory."""
+    P, K, Pk = 300, 2000, 50
+    r, g = _cell_residual_rows(P, K, seed=7)
+    flat = torch.empty(r.numel() + 1, device="cuda")
+    flat[1:] = r.reshape(-1)
+    shifted = flat[1:].view(r.shape)
+    assert shifted.data_ptr() % 16 != 0
+    sel_w = torch.randperm(P + 3, generator=g, device="cuda").to(torch.int32)
+    assert torch.equal(topics_ops.power_topics(shifted, sel_w, Pk),
+                       topics_ops.power_topics(r, sel_w, Pk))
+    with pytest.raises(ValueError, match="sel_w must be torch.int32"):
+        topics_ops.power_topics(r, sel_w.long(), Pk)
+    with pytest.raises(ValueError, match="r_wk must be contiguous"):
+        topics_ops.power_topics(r.t().contiguous().t(), sel_w, Pk)
+    with pytest.raises(ValueError, match="shared memory"):
+        topics_ops.power_topics(torch.zeros((2, 60000), device="cuda"),
+                                sel_w[:2] % 2, 50)
+
+
+def test_power_topics_launches_once_a_selective_iteration_on_card(card):
+    """One POBP step on the card: the selection kernel launches exactly
+    once in each selective iteration, and no topk copy of the rows."""
+    W, K = 3000, 128
+    cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_k_abs=16,
+                    inner_iters=30, residual_tol=0.02)
+    step, _ = pobp.make_train_step(cfg, device="cuda")
+    state = pobp.init_train_state(cfg, 3, device="cuda")
+    docs, _, _ = lda_corpus(5, 64, W, K, doc_len_mean=60)
+    mb = docs_to_padded(docs, max_len=64)
+    before = topics_ops.power_topics.launches
+    _, diag = step(state, mb.word_ids, mb.counts)
+    assert diag["iters"] > 2
+    assert topics_ops.power_topics.launches - before == diag["iters"] - 1
+
+
 def test_restored_cuda_generator_draws_the_same_init(card):
     """get_state/set_state on a CUDA generator restore its seed and offset:
     the restored generator draws what the uninterrupted one draws, and its
@@ -842,6 +951,7 @@ def test_lockstep_shards_on_card_match_cpu_and_repeat(card):
     assert set(cpu_n.values()) == {0}
     assert a_n["bp_update"] == N * len(batches)
     assert a_n["power_sweep_carry_train"] == a_n["topic_sum"] == N * sweeps
+    assert a_n["power_topics"] == N * sweeps
     assert torch.equal(a_phi, b_phi)
     torch.testing.assert_close(a_phi, cpu_phi, rtol=1e-3, atol=1e-3)
     assert a_by == cpu_by and a_by["dense"] == 2 * W * K * 4

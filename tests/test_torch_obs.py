@@ -109,7 +109,7 @@ def test_a_profiled_step_records_its_span_tree_and_counters(sync_mode):
     assert c["selective_iters"] == (c["iters"] - 1 if sync_mode == "power"
                                     else 0)
     assert c["tokens"] == int((mb.counts > 0).sum())
-    assert (c["P"], c["Pk"]) == (cfg.num_power_words, PK)
+    assert (c["P"], c["Pk"], c["K"]) == (cfg.num_power_words, PK, K)
     assert (c["power_tokens"] > 0) == (sync_mode == "power")
     [(_, spans, mine)] = list(_check_tree(rec))
     iters = [i for i, s in enumerate(spans) if s.name == "pobp.iter"]

@@ -110,9 +110,10 @@ def test_residual_helpers_match_reference():
 
 def test_select_power_words_and_topics_match_top_k_with_zero_ties():
     """Untouched words (and topics) tie at zero residual; torch.topk may
-    break those ties differently from lax.top_k, so the test pins the set
-    of selected words with a non-zero residual, and the order of the rest
-    where no ties exist."""
+    break the words' ties differently from lax.top_k, so the test pins the
+    set of selected words with a non-zero residual, and the order of the
+    rest where no ties exist.  The topics follow lax.top_k's order
+    exactly, tied tails and all-zero rows included."""
     rng = np.random.default_rng(3)
     r_w = np.zeros(W, np.float32)
     live = rng.choice(W, 20, replace=False)
@@ -133,6 +134,43 @@ def test_select_power_words_and_topics_match_top_k_with_zero_ties():
     np.testing.assert_array_equal(got_k[:20, :10], want_k[:20, :10])
     for g, w_ in zip(got_k, want_k):             # tied tails and rows
         assert len(set(g)) == len(set(w_)) == 12
+    assert got_k.dtype == np.int32
+    np.testing.assert_array_equal(got_k, want_k)  # the order, ties too
+
+
+def _tie_rows(rng, K):
+    """Residual rows of every kind the selection must order as lax.top_k
+    does: spread positives, zero ties, repeated non-zero values, negatives
+    and -0.0 beside +0.0, and all-zero guard rows."""
+    spread = rng.lognormal(-6, 3, (6, K)).astype(np.float32)
+    zero_ties = spread.copy()
+    zero_ties[:, rng.random(K) < 0.6] = 0.0
+    repeats = rng.choice(np.float32([0.5, 0.25, 2.0, 0.0]), (6, K))
+    signed = rng.standard_normal((6, K)).astype(np.float32)
+    signed[rng.random((6, K)) < 0.2] = -0.0
+    signed[rng.random((6, K)) < 0.2] = 0.0
+    signed[rng.random((6, K)) < 0.2] = -1.5
+    zeros = np.where(rng.random((2, K)) < 0.5, 0.0, -0.0).astype(np.float32)
+    guard = np.zeros((2, K), np.float32)
+    return np.concatenate([spread, zero_ties, repeats, signed, zeros, guard])
+
+
+@pytest.mark.parametrize("K,Pk", [(K_, Pk_) for K_ in (8, 10, 2000)
+                                  for Pk_ in (1, 50, K_) if Pk_ <= K_])
+def test_select_power_topics_follows_lax_top_k_order_exactly(K, Pk):
+    """The topic selection on the CPU (the kernel's plain version) against
+    the reference's ``lax.top_k``: the same ids in the same order, on ties
+    at zero and at repeated values, negatives, -0.0 and all-zero rows; rows
+    picked in any order, a guard row repeated."""
+    rng = np.random.default_rng(K + Pk)
+    r_wk = _tie_rows(rng, K)
+    W = r_wk.shape[0]
+    sel_w = np.concatenate([rng.permutation(W), [W - 1] * 3]).astype(np.int32)
+    got = power.select_power_topics(t(r_wk), t(sel_w), Pk).numpy()
+    want = jpw.select_power_topics(jnp.asarray(r_wk), jnp.asarray(sel_w), Pk)
+    assert got.dtype == np.int32 and got.shape == (len(sel_w), Pk)
+    assert jnp.array_equal(jnp.asarray(got), want)
+    np.testing.assert_array_equal(got[-3:], np.arange(Pk)[None].repeat(3, 0))
 
 
 def test_row_maps_and_packed_scatters_match_reference():
