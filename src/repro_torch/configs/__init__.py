@@ -14,7 +14,8 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import (  # noqa: F401
-    ArchConfig, ShapeSpec, SHAPES, SMOKE_SHAPES, MoESpec, MLASpec, SSMSpec)
+    ArchConfig, ShapeSpec, SHAPES, SMOKE_SHAPES, MoESpec, MLASpec, SSMSpec,
+    YaRNSpec)
 
 ARCH_IDS = (
     "granite-3-2b",

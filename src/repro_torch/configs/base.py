@@ -22,6 +22,18 @@ class MoESpec:
     # order -> partial sums + all-reduce of [T,D]: k*cf/2 x fewer bytes).
     # §Perf iteration for the MoE cells; see EXPERIMENTS.md.
     combine: str = "gather"
+    # the port's own settings, beyond the reference's (their defaults keep
+    # the reference's layer): how many of the routed experts this card
+    # holds (0: all; the router still scores all of them), whether the
+    # top-k gates are renormalised to sum 1, and a dropless layer (every
+    # held (token, choice) computed, no capacity queue)
+    experts_held: int = 0
+    norm_topk_prob: bool = True
+    dropless: bool = False
+
+    @property
+    def n_held(self) -> int:
+        return self.experts_held or self.num_experts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +42,17 @@ class MLASpec:
     qk_nope: int = 128
     qk_rope: int = 64
     v_head: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRNSpec:
+    """YaRN's RoPE scaling (DeepSeek-V2's ``rope_scaling``, type "yarn")."""
+    factor: float = 40.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    original_max_position: int = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +100,10 @@ class ArchConfig:
                                    # +10-40 GB live on >=2B archs -> only the
                                    # sub-1B configs enable it; EXPERIMENTS §Perf)
     notes: str = ""
+    # the port's own settings, beyond the reference's: YaRN's RoPE scaling
+    # of MLA's rope half (None: plain RoPE) and the layer norms' epsilon
+    rope_scaling: Optional[YaRNSpec] = None
+    norm_eps: float = 1e-5
 
     @property
     def hd(self) -> int:

@@ -39,6 +39,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.core.sync import CommMeter, LocalReducer, SimReducer, lockstep
@@ -57,7 +58,11 @@ def build_trainer(cfg, acfg: AdamWConfig, pscfg: PowerSyncConfig,
     """Returns (step, meter, mod): ``step(params, opt, residual, batch)``
     -> (loss [shards] or 0-d, new params, new AdamW state, residual).
     With ``shards`` > 1 the batch and the residual carry a leading shard
-    axis and the residual is updated in place."""
+    axis and the residual is updated in place.  While a profiler records,
+    a step is recorded in ``obs`` (root ``lm.step``; ``lm.loss``, forward
+    and backward enqueued, ``lm.sync``, ``lm.adamw``; the model's regions
+    inside ``lm.loss``; counter ``tokens``, and the MoE layers'
+    ``moe_rows``, ``moe_rows_max`` and ``dropped``)."""
     dev = resolve_device(device)
     mod = registry.build(cfg)
     meter = CommMeter()
@@ -66,28 +71,40 @@ def build_trainer(cfg, acfg: AdamWConfig, pscfg: PowerSyncConfig,
                else LocalReducer(meter=meter))
 
     def shard_body(params, residual, batch):
+        rec = obs.active()
         leaves = [leaf.detach().requires_grad_()
                   for _, leaf in tree_leaves(params)]
         with meter.section():
-            with torch.enable_grad():
+            with obs.span(rec, "lm.loss"), torch.enable_grad():
                 loss = mod.loss_fn(tree_unflatten(params, leaves), batch, cfg)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = tree_unflatten(params, [
                 torch.zeros_like(x) if g is None else g
                 for x, g in zip(leaves, grads)])
-            if sync == "power":
-                synced, residual = powersync_tree(grads, residual, reducer,
-                                                  pscfg, n)
-            else:
-                synced = dense_sync_tree(grads, reducer, n)
+            with obs.span(rec, "lm.sync"):
+                if sync == "power":
+                    synced, residual = powersync_tree(grads, residual,
+                                                      reducer, pscfg, n)
+                else:
+                    synced = dense_sync_tree(grads, reducer, n)
         return loss.detach(), synced, residual
 
     def step(params, opt, residual, batch):
+        with obs.step("lm.step") as rec:
+            if rec is not None:
+                rec.count(tokens=batch["tokens"].numel())
+            loss, synced, residual = sync_grads(params, residual, batch, rec)
+            with obs.span(rec, "lm.adamw"):
+                new_params, new_opt = adamw_update(synced, opt, acfg)
+        return loss, new_params, new_opt, residual
+
+    def sync_grads(params, residual, batch, rec):
         if shards > 1:
-            outs = lockstep(
-                lambda s: shard_body(params, tree_at(residual, s),
-                                     {k: v[s] for k, v in batch.items()}),
-                shards, [reducer], device=dev)
+            def body(s):
+                with obs.shard(rec, s):
+                    return shard_body(params, tree_at(residual, s),
+                                      {k: v[s] for k, v in batch.items()})
+            outs = lockstep(body, shards, [reducer], device=dev)
             loss = torch.stack([o[0] for o in outs])
             synced = outs[0][1]
             if sync == "power":
@@ -95,10 +112,8 @@ def build_trainer(cfg, acfg: AdamWConfig, pscfg: PowerSyncConfig,
                     tree_map(lambda dst, src: dst.copy_(src),
                              tree_at(residual, s), res)
             del outs
-        else:
-            loss, synced, residual = shard_body(params, residual, batch)
-        new_params, new_opt = adamw_update(synced, opt, acfg)
-        return loss, new_params, new_opt, residual
+            return loss, synced, residual
+        return shard_body(params, residual, batch)
 
     return step, meter, mod
 

@@ -18,10 +18,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (NULL_CTX, Draw, ShardingCtx,
                                        apply_rope, dense_init, rmsnorm,
-                                       rope_freqs)
+                                       rope_freqs, yarn_freqs, yarn_mscale)
 
 # a finite mask value, as the reference's: a fully masked row gets a
 # uniform softmax, not NaN
@@ -179,25 +180,43 @@ def mla_params(draw: Draw, cfg: ArchConfig):
     }
 
 
+def mla_rope(cfg: ArchConfig, device=None):
+    """MLA's rope half: (inverse frequencies, the cos/sin factor, the
+    softmax scale).  Plain RoPE and ``(dn + dr)^-0.5``; with
+    ``cfg.rope_scaling`` YaRN's frequencies, cos and sin scaled by
+    ``m(factor, mscale) / m(factor, mscale_all_dim)`` and the softmax
+    scale by ``m(factor, mscale_all_dim)^2`` (DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding`` and ``softmax_scale``)."""
+    m, y = cfg.mla, cfg.rope_scaling
+    scale = (m.qk_nope + m.qk_rope) ** -0.5
+    if y is None:
+        return rope_freqs(m.qk_rope, cfg.rope_theta, device), 1.0, scale
+    all_dim = yarn_mscale(y.factor, y.mscale_all_dim)
+    return (yarn_freqs(m.qk_rope, cfg.rope_theta, y, device),
+            yarn_mscale(y.factor, y.mscale) / all_dim,
+            scale * all_dim * all_dim)
+
+
 def mla_apply(p, x, *, cfg: ArchConfig, positions: torch.Tensor,
               cache: Optional[dict] = None, pos: Optional[int] = None,
               window: int = 0, ctx: ShardingCtx = NULL_CTX):
     """Decode scores the query against the compressed cache (wuk folded
     into the query, wuv applied after the weighted sum); train/prefill
-    materializes k/v.  Decode ignores ``window``, as the reference does."""
+    materializes k/v.  Decode ignores ``window``, as the reference does.
+    The rope half's frequencies and the softmax scale are `mla_rope`'s."""
     B, S, D = x.shape
     m = cfg.mla
     H = cfg.n_heads
     dn, dr, dv = m.qk_nope, m.qk_rope, m.v_head
-    scale = (dn + dr) ** -0.5
-    inv_freq = rope_freqs(dr, cfg.rope_theta, x.device)
+    inv_freq, rope_scale, scale = mla_rope(cfg, x.device)
 
     q = (x @ p["wq"]).reshape(B, S, H, dn + dr)
-    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], positions, inv_freq)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, inv_freq, rope_scale)
     dkv = x @ p["wdkv"]                                       # [B,S,lora+dr]
-    ckv = rmsnorm(dkv[..., :m.kv_lora], p["kv_norm"])
+    ckv = rmsnorm(dkv[..., :m.kv_lora], p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(dkv[..., m.kv_lora:][:, :, None, :], positions,
-                        inv_freq)[:, :, 0, :]                 # [B,S,dr] shared
+                        inv_freq, rope_scale)[:, :, 0, :]     # [B,S,dr] shared
 
     if cache is not None and pos is not None:                 # ---- decode
         ckv_c = _write(cache["ckv"], ckv, pos)
@@ -222,8 +241,10 @@ def mla_apply(p, x, *, cfg: ArchConfig, positions: torch.Tensor,
     v = (ckv @ p["wuv"]).reshape(B, S, H, dv)
     q_cat = torch.cat([q_nope, q_rope], -1)
     k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)], -1)
-    out = chunked_attend(q_cat[:, :, None], k_cat, v, causal=True,
-                         window=window, scale=scale, chunk=cfg.attn_chunk)
+    with obs.region("lm.mla.attend"):
+        out = chunked_attend(q_cat[:, :, None], k_cat, v, causal=True,
+                             window=window, scale=scale,
+                             chunk=cfg.attn_chunk)
     out = out[:, :, 0].reshape(B, S, H * dv)
     return ctx.ct_seq(out @ p["wo"]), {"ckv": ckv, "kr": k_rope}
 

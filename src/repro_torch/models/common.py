@@ -11,6 +11,7 @@ as it is.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Iterator, Optional, Tuple
 
 import torch
@@ -189,13 +190,49 @@ def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
                                          device=device) / head_dim))
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 * mscale * ln(factor) + 1`` (1 when
+    the context is not stretched)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_range(dim: int, theta: float, yarn) -> Tuple[int, int]:
+    """The dims (of the ``dim / 2`` frequencies) where YaRN's ramp starts
+    and ends: those that turn ``beta_fast`` and ``beta_slow`` times over
+    the original context, floored and ceiled, clipped to [0, dim - 1]."""
+    def at(rotations):
+        return (dim * math.log(yarn.original_max_position
+                               / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return (max(math.floor(at(yarn.beta_fast)), 0),
+            min(math.ceil(at(yarn.beta_slow)), dim - 1))
+
+
+def yarn_freqs(dim: int, theta: float, yarn, device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies (DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``): the plain ones below the ramp's
+    start, those divided by ``factor`` past its end, a linear blend
+    between."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / theta ** exps
+    inter = 1.0 / (yarn.factor * theta ** exps)
+    low, high = yarn_range(dim, theta, yarn)
+    span = (high - low) if high != low else 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device)
+             - low) / span).clamp(0, 1)
+    return inter * ramp + extra * (1 - ramp)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               inv_freq: torch.Tensor) -> torch.Tensor:
+               inv_freq: torch.Tensor, mscale: float = 1.0) -> torch.Tensor:
     """x [..., S, H, hd] (hd even), positions [..., S] -> rotated x: the
-    two halves of hd rotate as pairs (not interleaved), in float32."""
+    two halves of hd rotate as pairs (not interleaved), in float32;
+    ``mscale`` scales cos and sin (YaRN's ratio of attention factors)."""
     ang = positions[..., None].float() * inv_freq          # [..., S, hd/2]
     cos = torch.cos(ang)[..., None, :]                      # [..., S, 1, hd/2]
     sin = torch.sin(ang)[..., None, :]
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)

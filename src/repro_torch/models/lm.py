@@ -28,6 +28,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
@@ -81,8 +82,8 @@ def _layers(stacked):
 
 def _norm(params, x, cfg):
     if cfg.norm == "rms":
-        return rmsnorm(x, params["w"])
-    return layernorm(x, params["w"], params["b"])
+        return rmsnorm(x, params["w"], cfg.norm_eps)
+    return layernorm(x, params["w"], params["b"], cfg.norm_eps)
 
 
 def _norm_params(draw: Draw, cfg):
@@ -226,10 +227,17 @@ def _call(body, *args):
 
 def _checkpointed(cfg: ArchConfig):
     """Runs ``body(*args)`` -> (x, cache, aux) under `_remat`, the cache
-    dropped inside it: returns (x, None, aux)."""
+    dropped inside it: returns (x, None, aux).  The body's run again in
+    the backward pass records its spans as a replay of the step's
+    (``obs.replay``): its counters count the forward once."""
     def run(body, *args):
+        rec = obs.active()
+        calls = [0]
+
         def no_cache(*a):
-            x, _, aux = body(*a)
+            calls[0] += 1
+            with obs.replay(rec if calls[0] > 1 else None):
+                x, _, aux = body(*a)
             return x, aux
         x, aux = _remat(no_cache, cfg)(*args)
         return x, None, aux

@@ -1,16 +1,18 @@
-"""The port's span and counter record: what the host does inside the POBP
-training step, kept while a torch profiler records in this process.
+"""The port's span and counter record: what the host does inside a training
+step (POBP's, root ``pobp.step``; the LM trainer's, root ``lm.step``),
+kept while a torch profiler records in this process.
 
 A step is recorded if and only if a profiler was recording when its root
-span (`step`, opened by ``core.pobp.make_train_step``) opened, and it is
-kept whole.  A span holds its name, its start and end on ``time.time_ns()``
-(the clock of the profiler's events: a ``record_function`` range starts at
+span (`step`, opened by ``core.pobp.make_train_step`` and by
+``launch.train.build_trainer``'s step) opened, and it is kept whole.  A
+span holds its name, its start and end on ``time.time_ns()`` (the clock
+of the profiler's events: a ``record_function`` range starts at
 ``prof.profiler.kineto_results.trace_start_ns()`` plus its
 ``time_range.start`` in microseconds), the index of its parent span in the
 step (-1 for the root), the step's id and the shard that ran it.  A step's
 counters are host ints set by the code that ran it, and device scalars
-(`Recorder.tally`) summed over its shards and read back once, when the step
-closes.
+(`Recorder.tally`, summed; `Recorder.peak`, their largest) over its shards
+and calls, read back once, when the step closes.
 
 The record keeps the last `RING` steps and holds no tensor.  A recorded
 step that opens after a step that opened with the profiler off empties the
@@ -20,9 +22,14 @@ traced slice of a benchmark run, whatever ran before it in the process.
 
 With the profiler off a step costs its root one flag check, and every span
 site inside it one ``is None`` check: no device operation, no host read, no
-allocation.  The spans are not ``record_function`` ranges, so nothing of
-them reaches the profiler's device timeline.  While recording, a span adds
-numbers to flat arrays and no object that outlives it: surviving objects
+allocation.  A `span` is not a ``record_function`` range, so nothing of
+it reaches the profiler's device timeline; a `region` (the LM model's
+spans) is both, so the trace gives the device time of the operations it
+encloses.  The LM forward runs again in the backward pass under
+activation checkpointing, on autograd's thread: `replay` carries the
+step's record there, its spans recorded and its counters not (they count
+the forward once).  While recording, a span adds numbers to flat arrays
+and no object that outlives it: surviving objects
 set off the garbage collector, whose passes took ~0.3 s each under the
 profiler on an H100 machine, PERF.md §6 (`Span` objects are made only by
 `steps`).
@@ -36,7 +43,7 @@ import contextlib
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.autograd import profiler as _profiler
@@ -76,7 +83,8 @@ class _Kept:
         self.names: List[str] = []
         self.rows = array.array("q")
         self.counters: Dict[str, int] = {}
-        self.tallies: Dict[str, List[torch.Tensor]] = {}
+        # (name, 'sum' | 'max') -> the device scalars added
+        self.tallies: Dict[Tuple[str, str], List[torch.Tensor]] = {}
         self.lock = threading.Lock()
 
     def step(self) -> Step:
@@ -91,12 +99,14 @@ class Recorder:
     """One thread's handle on an open recorded step: the shard it runs and
     its stack of open spans."""
 
-    __slots__ = ("_kept", "shard", "_stack")
+    __slots__ = ("_kept", "shard", "_stack", "_counts")
 
-    def __init__(self, kept: _Kept, shard: int, stack: List[int]):
+    def __init__(self, kept: _Kept, shard: int, stack: List[int],
+                 counts: bool = True):
         self._kept = kept
         self.shard = shard
         self._stack = stack
+        self._counts = counts
 
     def _begin(self, name: str) -> int:
         k = self._kept
@@ -114,16 +124,28 @@ class Recorder:
 
     def count(self, **values: int) -> None:
         """Set host counters of the step (the same from every shard)."""
+        if not self._counts:
+            return
         with self._kept.lock:
             self._kept.counters.update(
                 {k: int(v) for k, v in values.items()})
 
     def tally(self, **values: torch.Tensor) -> None:
         """Add device scalars to the step's counters, summed over the
-        shards and read back once when the step closes."""
+        shards and calls and read back once when the step closes."""
+        self._add("sum", values)
+
+    def peak(self, **values: torch.Tensor) -> None:
+        """Device scalars whose largest over the shards and calls is the
+        step's counter, read back once when the step closes."""
+        self._add("max", values)
+
+    def _add(self, how: str, values: Dict[str, torch.Tensor]) -> None:
+        if not self._counts:
+            return
         with self._kept.lock:
             for k, v in values.items():
-                self._kept.tallies.setdefault(k, []).append(v)
+                self._kept.tallies.setdefault((k, how), []).append(v)
 
 
 class _SpanCtx:
@@ -171,8 +193,58 @@ def span(rec: Optional[Recorder], name: str):
     return _OFF if rec is None else _SpanCtx(rec, name)
 
 
+class _RegionCtx(_SpanCtx):
+    __slots__ = ("_range",)
+
+    def __enter__(self):
+        self._range = _profiler.record_function(self._name)
+        self._range.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        self._range.__exit__(*exc)
+        return False
+
+
+def region(name: str):
+    """A span named ``name`` under this thread's open span that is also a
+    ``record_function`` range of the same name; nothing when this thread
+    runs no recorded step."""
+    rec = active()
+    return _OFF if rec is None else _RegionCtx(rec, name)
+
+
+class _ReplayCtx:
+    """A replay of recorded code: its spans under the step's root, its
+    counters dropped."""
+
+    def __init__(self, rec: Recorder):
+        self._rec = Recorder(rec._kept, rec.shard, [0], counts=False)
+
+    def __enter__(self) -> Recorder:
+        self._prev = active()
+        _local.rec = self._rec
+        return self._rec
+
+    def __exit__(self, *exc):
+        _local.rec = self._prev
+        return False
+
+
+def replay(rec: Optional[Recorder]):
+    """Run the calling thread's spans as a replay of code that ran under
+    ``rec`` (a checkpointed forward run again in the backward pass, on
+    whichever thread): spans recorded under the step's root, counters not;
+    nothing when ``rec`` is None."""
+    return _OFF if rec is None else _ReplayCtx(rec)
+
+
 class _StepCtx:
     """The root span of one recorded step (see `step`)."""
+
+    def __init__(self, name: str):
+        self._name = name
 
     def __enter__(self) -> Recorder:
         r = _RECORD
@@ -183,7 +255,7 @@ class _StepCtx:
             self._kept = _Kept(r.next_id)
             r.next_id += 1
         self._rec = Recorder(self._kept, 0, [])
-        self._root = self._rec._begin("pobp.step")
+        self._root = self._rec._begin(self._name)
         _local.rec = self._rec
         return self._rec
 
@@ -191,11 +263,13 @@ class _StepCtx:
         _local.rec = None
         k = self._kept
         if exc_type is None:
-            names = list(k.tallies)
-            if names:
-                sums = torch.stack([torch.stack(k.tallies[n]).sum()
-                                    for n in names]).tolist()
-                k.counters.update(zip(names, map(int, sums)))
+            keys = list(k.tallies)
+            if keys:
+                vals = torch.stack([
+                    getattr(torch.stack(k.tallies[key]), key[1])()
+                    for key in keys]).tolist()
+                k.counters.update((key[0], int(v))
+                                  for key, v in zip(keys, vals))
             k.tallies = {}
             self._rec._end(self._root)
             with _RECORD.lock:
@@ -203,15 +277,15 @@ class _StepCtx:
         return False
 
 
-def step():
-    """The root span ``pobp.step`` of one step: yields its `Recorder`
-    (also this thread's `active` one) when a profiler records, else
-    nothing.  Device tallies are read when it closes; a step that raises is
-    not kept."""
+def step(name: str = "pobp.step"):
+    """The root span ``name`` of one step: yields its `Recorder` (also
+    this thread's `active` one) when a profiler records, else nothing.
+    Device tallies are read when it closes; a step that raises is not
+    kept."""
     if not recording():
         _RECORD.stretch_open = False
         return _OFF
-    return _StepCtx()
+    return _StepCtx(name)
 
 
 class _ShardCtx:

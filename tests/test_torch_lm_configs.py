@@ -1,5 +1,6 @@
 """The port's LM configs, param converter and decode caches against the JAX
-package's: every config field for field (full and ``reduced()``), the
+package's: every config field for field (full and ``reduced()``; the
+port's own fields beyond them at their defaults), the
 registry's lists and shapes, ``lm_params_from_reference`` (bf16 bits kept,
 wrong trees refused), ``cache_zeros``' tree and shapes for all ten ids, and
 the sliding-window cache's clamped write past its window (zamba2), decoded
@@ -35,13 +36,32 @@ def _small_tensors():
         yield
 
 
+# the port's own settings, beyond the reference's fields, and the defaults
+# at which its layers are the reference's
+PORT_ONLY = {"rope_scaling": None, "norm_eps": 1e-5}
+PORT_ONLY_MOE = {"experts_held": 0, "norm_topk_prob": True,
+                 "dropless": False}
+
+
+def _port_only_at_defaults(d: dict) -> dict:
+    """``d`` (a config's ``asdict``) without the port's own fields, each
+    checked to be at its default."""
+    for k, v in PORT_ONLY.items():
+        assert d.pop(k) == v, k
+    if d["moe"] is not None:
+        for k, v in PORT_ONLY_MOE.items():
+            assert d["moe"].pop(k) == v, k
+    return d
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_equals_reference_field_for_field(arch, reduced):
     want, got = ref_configs.get_config(arch), configs.get_config(arch)
     if reduced:
         want, got = want.reduced(), got.reduced()
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert _port_only_at_defaults(dataclasses.asdict(got)) == \
+        dataclasses.asdict(want)
     assert (got.hd, got.padded_vocab) == (want.hd, want.padded_vocab)
 
 
