@@ -25,7 +25,10 @@ non-zero:
      10,000), its register path timed in turns with its two-pass path at
      the training slice's shapes, which it may not exceed; the carry
      training sweep repeating all four outputs bit for bit (its d/r sums
-     run in a fixed order since the fold kernel); the two fixed-order sums
+     run in a fixed order since the fold kernel), and again at the k2000
+     cell's shapes and skew (a word in every document, runs of 64, 65, 1
+     and no token, the rest Zipf-like), timed with its d/r fold's own
+     device time and bound; the two fixed-order sums
      the port adds (the word-row scatter, bit for bit against its plain
      version on the CPU and timed in turns with ``index_add_`` with and
      without PyTorch's deterministic algorithms; the phi_tot refresh's
@@ -575,23 +578,47 @@ def dead_slots(sel_w, sel_k, dead: int, row: int) -> None:
 
 
 def carry_train_inputs(gen, *, D, L, K, W, P, Pk, ragged, guard_share,
-                       empty_doc=False, dead=0):
+                       empty_doc=False, dead=0, skewed=False):
     """Inputs of one training-mode selective sweep: tokens on P power rows
     or (a ``guard_share`` of them, and with ``empty_doc`` all of document
     0, whose counts are 0) the guard id P; P distinct power words of a
     [W, K] phi and Pk distinct topics for each.  With ``dead``, the last
     ``dead`` slots are a live-W selection's dead slots (`dead_slots`):
-    no token on them, their row all zeros in phi."""
+    no token on them, their row all zeros in phi.  Rows are uniform, or
+    with ``skewed`` (P >= 6) the runs of the d/r fold's edges at the
+    cells' skew: row 0 has the first slot of every document (a run of
+    about D counted tokens, like a head word), rows 1, 2 and 3 runs of
+    exactly C = FOLD_CHUNK, C + 1 and 1 counted tokens, row 4 none, and
+    the other rows are drawn Zipf-like with weight 1 / (rank + 13), so
+    that the longest of them, too, is about D tokens at L = 128."""
     import torch
+
+    from repro_torch.core.types import FOLD_CHUNK
 
     dev = "cuda"
     T = D * L
     doc_ids, counts = doc_tokens(gen, D=D, L=L, ragged=ragged)
-    p_tok = torch.randint(0, P, (T,), generator=gen, device=dev)
+    if skewed:
+        zipf = 1.0 / torch.arange(14, P + 9, device=dev, dtype=torch.float32)
+        p_tok = torch.multinomial(zipf, T, replacement=True, generator=gen) + 5
+    else:
+        p_tok = torch.randint(0, P, (T,), generator=gen, device=dev)
     guard = torch.rand(T, generator=gen, device=dev) < guard_share
     if empty_doc:
         guard |= doc_ids == 0
         counts[doc_ids == 0] = 0.0
+    if skewed:
+        C = FOLD_CHUNK
+        head = torch.arange(L, device=dev).repeat(D) == 0
+        guard &= ~head
+        p_tok[head] = 0
+        free = (~head & (counts[:, 0] > 0)).nonzero().squeeze(1)
+        pick = free[torch.randperm(free.numel(), generator=gen,
+                                   device=dev)[:2 * C + 2]]
+        p_tok[pick[:C]] = 1
+        p_tok[pick[C:2 * C + 1]] = 2
+        p_tok[pick[2 * C + 1]] = 3
+        guard[pick] = False
     p_tok = torch.where(guard, P, p_tok).to(torch.int32)
     mu = torch.rand((T, K), generator=gen, device=dev) + 0.01
     mu /= mu.sum(1, keepdim=True)
@@ -652,30 +679,47 @@ def carry_train_bound_ms(x):
     return bound_ms(nbytes, 30 * n_act * Pk)
 
 
+def carry_fold_bound_ms(x, runs):
+    """Least time for the d/r fold on these inputs, and what bounds it:
+    each counted power token's cd row of Pk floats and its run position
+    read, the [P, Pk] d/r rows written once, each power row's sel_w and
+    two starts; two adds and an abs per (token, topic)."""
+    p_tok, sel_w, sel_k = x[0], x[7], x[8]
+    P, Pk = sel_k.shape
+    n = int(runs[1].diff().index_select(0, sel_w.long()).sum())
+    return bound_ms(4 * (n * (Pk + 1) + 2 * P * Pk + 3 * P), 3 * n * Pk)
+
+
 def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
-                      timed, empty_doc=False, dead=0):
+                      timed, empty_doc=False, dead=0, skewed=False):
     """The training sweep against its plain version: mu' within 1e-5,
     theta_delta, d_pack and r_pack within rel 1e-4 (the sums' order
     differs); mu outside the power tokens' selections bit for bit as it
     was; a second launch repeats all four outputs bit for bit.  The kernel
-    is given the tokens' runs by word, as the training step gives them.
-    With ``dead`` dead slots (`dead_slots`), their d/r must be exactly
-    0."""
+    is given the tokens' runs by word and their chunks, made beforehand as
+    the training step makes them once per mini-batch.  With ``dead`` dead
+    slots (`dead_slots`), their d/r must be exactly 0; with ``skewed``
+    (`carry_train_inputs`), row 4's, whose run is empty.  Timed and
+    ``skewed``, the d/r fold's own device time a launch too (`profile_run`
+    over five calls), beside its bound (`carry_fold_bound_ms`)."""
     import torch
+
+    from repro_torch.core.types import token_chunks
 
     x = carry_train_inputs(gen, D=D, L=L, K=K, W=W, P=P, Pk=Pk,
                            ragged=ragged, guard_share=guard_share,
-                           empty_doc=empty_doc, dead=dead)
+                           empty_doc=empty_doc, dead=dead, skewed=skewed)
     runs = carry_train_runs(x, W)
-    kw = dict(alpha=0.1, beta=0.01, wbeta=141043 * 0.01)
+    kw = dict(alpha=0.1, beta=0.01, wbeta=141043 * 0.01, runs=runs,
+              chunks=token_chunks(runs[1]))
 
     def fresh():
         a = list(x)
         a[3] = x[3].clone()
         return a
 
-    got = ops.power_sweep_carry_train(*fresh(), **kw, runs=runs)
-    again = ops.power_sweep_carry_train(*fresh(), **kw, runs=runs)
+    got = ops.power_sweep_carry_train(*fresh(), **kw)
+    again = ops.power_sweep_carry_train(*fresh(), **kw)
     want = ops.power_sweep_carry_train_plain(*fresh(), **kw)
     torch.cuda.synchronize()
     err_mu = float((got[0] - want[0]).abs().max())
@@ -684,28 +728,51 @@ def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
     kept = bool(torch.equal(got[0][off], x[3][off]))
     same = all(bool(torch.equal(g, a)) for g, a in zip(got, again))
     zero = not dead or not (got[2][-dead:].any() or got[3][-dead:].any())
+    if skewed:
+        zero = zero and not (got[2][4].any() or got[3][4].any())
+    longest = int(runs[1].diff().index_select(0, x[7].long()).max())
     print(f"[kernel] power_sweep_carry_train T={D * L} D={D} K={K} P={P} "
           f"Pk={Pk} guard={guard_share}"
-          + (f" dead slots={dead}" if dead else "") + f": max|dmu'|="
+          + (f" dead slots={dead}" if dead else "")
+          + (f" skewed (longest power row's run {longest}, "
+             f"{kw['chunks'].numel()} chunks of split runs)" if skewed
+             else "") + f": max|dmu'|="
           f"{err_mu:.3e} (tol 1e-5)  "
           f"rel dtheta={rel[0]:.3e}  rel d_pack={rel[1]:.3e}  rel r_pack="
           f"{rel[2]:.3e} (tol 1e-4)  untouched bit for bit: {kept}  "
           f"relaunch bit for bit (mu', dtheta, d_pack, r_pack): {same}"
-          + (f"  dead slots' d/r exactly 0: {zero}" if dead else ""))
+          + (f"  dead slots' d/r exactly 0: {zero}" if dead else "")
+          + (f"  empty run's d/r exactly 0: {zero}" if skewed else ""))
     if not (err_mu <= 1e-5 and max(rel) <= 1e-4 and kept and same and zero):
         fail(f"power_sweep_carry_train disagrees with its plain version, or "
              f"does not repeat bit for bit, at D={D} L={L} K={K} P={P} "
              f"Pk={Pk}")
     if not timed:
         return None
-    ms = time_ms(lambda *a: ops.power_sweep_carry_train(*a, **kw, runs=runs),
-                 fresh)
+    del got, again, want
+    ms = time_ms(lambda *a: ops.power_sweep_carry_train(*a, **kw), fresh)
     plain_ms = time_ms(lambda *a: ops.power_sweep_carry_train_plain(*a, **kw),
                        fresh)
     bound, bound_by = carry_train_bound_ms(x)
-    print(f"[kernel] power_sweep_carry_train: {ms:.4f} ms  plain "
+    tag = " skewed" if skewed else ""
+    print(f"[kernel] power_sweep_carry_train{tag}: {ms:.4f} ms  plain "
           f"{plain_ms:.4f} ms  bound {bound * 1e3:.2f} us ({bound_by})  "
           f"library: none (no single PyTorch call computes this sweep)")
+    if skewed:
+        def calls():
+            for _ in range(5):
+                ops.power_sweep_carry_train(*fresh(), **kw)
+
+        fold = profile_run(calls, "5 skewed carry training sweeps",
+                           card_line(), watch=("carry_dr_fold",)
+                           )[1].get("carry_dr_fold")
+        fold_bound, fold_by = carry_fold_bound_ms(x, runs)
+        print(f"[kernel] power_sweep_carry_train{tag}: its d/r fold "
+              + (f"{fold:.4f} ms a launch" if fold is not None else
+                 "not measured (the profiler saw no device time)")
+              + f"  bound {fold_bound * 1e3:.2f} us ({fold_by})")
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "fold_ms": fold, "fold_bound_ms": fold_bound}
     return kernel_record(
         "power_sweep_carry_train", "src/repro_torch/csrc/power_sweep_carry.cu",
         "src/repro/kernels/power_sweep/kernel.py:363", err_mu, ms, plain_ms,
@@ -4677,6 +4744,14 @@ def main(argv=None) -> None:
                               timed=True, skewed=True)
     train_recs["power_sweep_tokens"].update(
         {f"{key}_skewed": skew[key] for key in ("ms", "plain_ms", "bound_ms")})
+    # the carry training sweep at the k2000 cell's shapes (D = 4096 x
+    # L = 128) and skew: a word in every document, runs of C, C + 1, 1 and
+    # none, the rest Zipf-like; timed, with its d/r fold's own time
+    skew = check_carry_train(ops, gen, D=4096, L=128, K=2000, W=141043,
+                             P=14104, Pk=50, ragged=True, guard_share=0.3,
+                             timed=True, skewed=True)
+    train_recs["power_sweep_carry_train"].update(
+        {f"{key}_skewed": skew[key] for key in skew})
     # the Gibbs chain (phase 12's comparators), injected and Philox noise:
     # timed at W = 20,000, T = 4096, K = 2000; then one topic, a warp and
     # one, past 2048 topics, the reference's K = 10,000 and a K past the

@@ -122,6 +122,31 @@ def token_runs(keys: torch.Tensor, counts: torch.Tensor, num_keys: int,
     return order, starts.to(torch.int32)
 
 
+# The most counted tokens of a run that one warp of the carry sweep's d/r
+# fold sums (``kFoldChunk`` of ``csrc/power_sweep_carry.cu``)
+FOLD_CHUNK = 64
+
+
+def token_chunks(starts: torch.Tensor) -> torch.Tensor:
+    """The runs ``starts`` [Q + 1] (of `token_runs`) cut into chunks of at
+    most `FOLD_CHUNK` counted tokens, in run order: a run of n tokens has
+    ceil(n / FOLD_CHUNK) chunks (none when it is empty), and chunk i covers
+    the run positions ``starts[q] + i * FOLD_CHUNK`` up to the next chunk's
+    or the run's end.  Returns ``split`` (int32 [E]), the first run
+    position of every chunk of the runs cut in two or more, in key and
+    chunk order: the carry fold's warps of those chunks.  Reads one size
+    back to the host."""
+    C = FOLD_CHUNK
+    per = (starts.diff().long() + C - 1) // C
+    keys = (per > 1).nonzero().squeeze(1)
+    reps = per[keys]
+    E = int(reps.sum())
+    base = torch.repeat_interleave(starts[keys].long(), reps, output_size=E)
+    at = torch.repeat_interleave(reps.cumsum(0) - reps, reps, output_size=E)
+    idx = torch.arange(E, device=starts.device) - at
+    return (base + idx * C).to(torch.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class TokenLayout:
     """Token-major view of a padded-CSR mini-batch.
@@ -160,6 +185,18 @@ class TokenLayout:
             self._runs[W] = token_runs(self.word_ids, self.counts, W,
                                        self.sweep_order)
         return self._runs[W]
+
+    @functools.cached_property
+    def _chunks(self) -> dict:
+        return {}
+
+    def word_chunks(self, vocab_size: int) -> torch.Tensor:
+        """`token_chunks` of `word_runs` over ``vocab_size`` words, made
+        once per mini-batch: the chunks of the carry sweep's d/r fold."""
+        W = int(vocab_size)
+        if W not in self._chunks:
+            self._chunks[W] = token_chunks(self.word_runs(W)[1])
+        return self._chunks[W]
 
     def to_batch_major(self, values_tk: torch.Tensor) -> torch.Tensor:
         """[T, K] token-major tensor back to the [D, L, K] batch view."""

@@ -89,21 +89,36 @@
 //     fixed order with no atomics, so they repeat bit for bit from launch to
 //     launch: the sweep writes each power token's cd [Pk] into a
 //     token-indexed [T, Pk] scratch stream (coalesced, 9.2 MB at these
-//     shapes), and a second kernel (carry_dr_fold_kernel), one warp a power
-//     row, adds the row's tokens in the sweep order the caller made once
-//     per mini-batch (TokenLayout.word_runs: counted tokens sorted by word,
-//     stable, so by token index within a word; starts[w] .. starts[w + 1]
-//     is the run of word w), the run of its word sel_w[p].  Lanes stride
-//     over Pk, each lane owning its (p, j) elements: one writer each, and
-//     every row is written, so the buffers need no zeroing.  Tokens of count 0 are
-//     outside the runs: their cd is exactly 0;
+//     shapes), and a second kernel (carry_dr_fold_kernel) adds the tokens
+//     of the run of each power row's word sel_w[p], in the sweep order the
+//     caller made once per mini-batch (TokenLayout.word_runs: counted
+//     tokens sorted by word, stable, so by token index within a word;
+//     starts[w] .. starts[w + 1] is the run of word w).  Under the Zipf word
+//     law of the training cells the head word is in almost every document,
+//     so a run reaches ~D tokens (4045 of D = 4096): one warp walking it
+//     token by token, a dependent order -> cd load each, took 1.05 ms of a
+//     4.9 ms iteration on an H100, ~0.26 us a token.  So no
+//     warp sums more than kFoldChunk = 64 tokens: a run of at most 64 is
+//     summed whole by its row's warp; a longer one is cut into chunks of 64
+//     (TokenLayout.word_chunks, made once per mini-batch: `split`, each
+//     chunk's first run position), one warp a chunk, whose partials the
+//     row's last chunk warp (a counter a row, left at 0 for the next launch)
+//     adds in chunk order.  A warp reads its chunk's tokens once, one or
+//     two a lane, and keeps 16 tokens' cd loads in flight; lanes own Pk
+//     topics in passes of 64.  Every element of a chunk is added in run
+//     order and the partials in chunk order, so the sums still repeat bit
+//     for bit; every row is written (a run with no token as zeros), so the
+//     buffers need no zeroing.  Tokens of count 0 are outside the runs:
+//     their cd is exactly 0;
 //   - theta_delta stays deterministic: each warp stages its token's cd_j in
 //     shared memory, and after the round's __syncthreads warp 0 adds the
 //     round's tokens into one [K] row in token order (double-buffered
 //     stage, one barrier a round).  The fold is not what bounds the kernel:
 //     a variant with a warp of its own for it ran no faster on an H100.
 //   The fold reads the power tokens' cd once more (9.2 MB) and writes the
-//   [P, Pk] buffers (5.6 MB) the atomics wrote before.
+//   [P, Pk] buffers (5.6 MB) the atomics wrote before; the chunks' partials
+//   (2 x chunks x Pk floats, ~0.9 MB at the training cells' shapes) pass
+//   through L2.
 //   Shared memory: 4 * (K + 2 * warps * Pk) bytes, 11.2 KB at K = 2000,
 //   Pk = 50, 8 warps; with __launch_bounds__(256, 4) (<= 64 registers) 4
 //   CTAs fit an SM, so the 512 CTAs of a training batch run in one wave.
@@ -124,7 +139,9 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kCluster = 4;          // CTAs per serving slot
 constexpr int kTrainMaxWarps = 8;
-constexpr int kFoldWarps = 8;           // power rows a fold CTA
+constexpr int kFoldWarps = 8;        // d/r fold: warps a CTA
+constexpr int kFoldChunk = 64;       // d/r fold: the most tokens a warp sums
+constexpr int kFoldAhead = 16;       // d/r fold: tokens' loads in flight
 
 __device__ __forceinline__ float warp_sum(float v) {
   // xor butterfly: a fixed order, every lane ends with the same sum
@@ -622,30 +639,136 @@ __global__ void __launch_bounds__(kTrainMaxWarps * kWarp, 4) carry_train_kernel(
     theta_delta[(size_t)d * K + k] = acc[k];
 }
 
-// d_pack[p, :] and r_pack[p, :]: one warp a power row p sums the cd rows of
-// the run of its word sel_w[p] in run order.
-__global__ void __launch_bounds__(kFoldWarps * kWarp) carry_dr_fold_kernel(
-    const int* __restrict__ order, const int* __restrict__ starts,
-    const int* __restrict__ sel_w, const float* __restrict__ cd,
-    float* __restrict__ d_pack, float* __restrict__ r_pack, int P, int Pk) {
-  const int p = blockIdx.x * kFoldWarps + threadIdx.x / kWarp;
+// One warp's sums of the cd rows of the tokens at run positions [lo, lo + n),
+// 0 <= n <= kFoldChunk, in run order: out_d[j] = sum cd[t, j], out_r[j] = sum
+// |cd[t, j]|, every j < Pk written (zeros when n = 0).  The chunk's tokens
+// are read once, one or two a lane, and handed round by shuffles; each lane
+// owns two topics of a pass of 64, and kFoldAhead tokens' loads are in
+// flight before their adds.
+__device__ __forceinline__ void fold_chunk(const int* __restrict__ order,
+                                           const float* __restrict__ cd, int lo, int n,
+                                           int Pk, float* out_d, float* out_r) {
+  constexpr int kSlots = kFoldChunk / kWarp;
   const int lane = threadIdx.x % kWarp;
-  if (p >= P) return;
-  const int key = __ldg(sel_w + p);
-  const int lo = __ldg(starts + key), hi = __ldg(starts + key + 1);
-  for (int j0 = 0; j0 < Pk; j0 += kWarp) {
-    const int j = j0 + lane;
-    float sd = 0.f, sr = 0.f;
-    if (j < Pk) {
-      for (int i = lo; i < hi; ++i) {
-        const float v = __ldg(cd + (size_t)__ldg(order + i) * Pk + j);
-        sd += v;
-        sr += fabsf(v);
+  int tok[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s)
+    tok[s] = s * kWarp + lane < n ? __ldg(order + lo + s * kWarp + lane) : 0;
+  for (int j0 = 0; j0 < Pk; j0 += 2 * kWarp) {
+    const int ja = j0 + lane, jb = ja + kWarp;
+    float da = 0.f, ra = 0.f, db = 0.f, rb = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+#pragma unroll
+      for (int h = 0; h < kWarp; h += kFoldAhead) {
+        const int u0 = s * kWarp + h;           // the chunk's token u0 + u is
+        if (u0 < n) {                           // lane h + u's tok[s]
+          float va[kFoldAhead], vb[kFoldAhead];
+#pragma unroll
+          for (int u = 0; u < kFoldAhead; ++u) {
+            const int t = __shfl_sync(0xffffffffu, tok[s], h + u);
+            va[u] = u0 + u < n && ja < Pk ? __ldg(cd + (size_t)t * Pk + ja) : 0.f;
+            vb[u] = u0 + u < n && jb < Pk ? __ldg(cd + (size_t)t * Pk + jb) : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < kFoldAhead; ++u) {
+            if (u0 + u < n) {
+              da += va[u];
+              ra += fabsf(va[u]);
+              db += vb[u];
+              rb += fabsf(vb[u]);
+            }
+          }
+        }
       }
-      d_pack[(size_t)p * Pk + j] = sd;
-      r_pack[(size_t)p * Pk + j] = sr;
+    }
+    if (ja < Pk) {
+      out_d[ja] = da;
+      out_r[ja] = ra;
+    }
+    if (jb < Pk) {
+      out_d[jb] = db;
+      out_r[jb] = rb;
     }
   }
+}
+
+// out_d[j] and out_r[j]: the sums of the partial rows s0 .. s0 + nch - 1 of
+// part_d and part_r ([*, Pk], written by other warps of this launch, so read
+// from L2), in that order, kFoldAhead rows' loads in flight.
+__device__ __forceinline__ void fold_partials(const float* part_d, const float* part_r,
+                                              int s0, int nch, int Pk, float* out_d,
+                                              float* out_r) {
+  for (int j = threadIdx.x % kWarp; j < Pk; j += kWarp) {
+    float d = 0.f, r = 0.f;
+    for (int c0 = 0; c0 < nch; c0 += kFoldAhead) {
+      float vd[kFoldAhead], vr[kFoldAhead];
+#pragma unroll
+      for (int u = 0; u < kFoldAhead; ++u) {   // a row past the last reads the last
+        const size_t at = (size_t)(s0 + min(c0 + u, nch - 1)) * Pk + j;
+        vd[u] = __ldcg(part_d + at);
+        vr[u] = __ldcg(part_r + at);
+      }
+#pragma unroll
+      for (int u = 0; u < kFoldAhead; ++u) {
+        if (c0 + u < nch) {
+          d += vd[u];
+          r += vr[u];
+        }
+      }
+    }
+    out_d[j] = d;
+    out_r[j] = r;
+  }
+}
+
+// d_pack[p, :] and r_pack[p, :], the sums of the cd rows of the run of the
+// power word sel_w[p].  Warps [0, E) take the chunks of the runs longer than
+// kFoldChunk (split[e]: the chunk's first run position), warps E + p the
+// power rows.  A row warp sums a run of at most kFoldChunk tokens whole and
+// leaves a longer one to the chunk warps.  A chunk warp finds its row
+// through its first token's p_tok (a word not selected this sweep: nothing
+// to do), writes its partial to part, and counts itself in the row's
+// counter; the row's last chunk warp sums the row's partials in chunk order
+// and sets the counter back to 0 for the next launch.
+__global__ void __launch_bounds__(kFoldWarps * kWarp) carry_dr_fold_kernel(
+    const int* __restrict__ order, const int* __restrict__ starts,
+    const int* __restrict__ split, const int* __restrict__ p_tok,
+    const int* __restrict__ sel_w, const float* __restrict__ cd,
+    float* __restrict__ d_pack, float* __restrict__ r_pack, float* part, int* counters,
+    int E, int P, int Pk) {
+  const int g = blockIdx.x * kFoldWarps + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (g >= E + P) return;
+  if (g >= E) {                                 // a power row
+    const int p = g - E;
+    const int key = __ldg(sel_w + p);
+    const int lo = __ldg(starts + key), n = __ldg(starts + key + 1) - lo;
+    if (n <= kFoldChunk)
+      fold_chunk(order, cd, lo, n, Pk, d_pack + (size_t)p * Pk, r_pack + (size_t)p * Pk);
+    return;
+  }
+  const int lo = __ldg(split + g);              // a chunk of a long run
+  const int p = __ldg(p_tok + __ldg(order + lo));
+  if (p < 0 || p >= P) return;
+  const int key = __ldg(sel_w + p);
+  const int s0 = __ldg(starts + key), s1 = __ldg(starts + key + 1);
+  const int i = (lo - s0) / kFoldChunk;
+  const int nch = (s1 - s0 + kFoldChunk - 1) / kFoldChunk;
+  float* part_d = part;
+  float* part_r = part + (size_t)E * Pk;
+  fold_chunk(order, cd, lo, min(kFoldChunk, s1 - lo), Pk, part_d + (size_t)g * Pk,
+             part_r + (size_t)g * Pk);
+  __threadfence();                              // the partial reaches L2 first
+  __syncwarp();
+  int last = 0;
+  if (lane == 0) last = atomicAdd(counters + p, 1) == nch - 1;
+  if (!__shfl_sync(0xffffffffu, last, 0)) return;
+  __threadfence();
+  // the row's chunks are split[g - i .. g - i + nch), in chunk order
+  fold_partials(part_d, part_r, g - i, nch, Pk, d_pack + (size_t)p * Pk,
+                r_pack + (size_t)p * Pk);
+  if (lane == 0) counters[p] = 0;
 }
 
 }  // namespace
@@ -703,17 +826,24 @@ int power_sweep_carry_serve(const int* p_tok, const int* doc_ids, const float* c
 // power_sweep_carry_configure allowed), then the d/r fold; allocates
 // nothing.  `order` [T] and `starts` [W + 1] are the runs by word (see the
 // note above): the counted tokens of word w are order[starts[w] ..
-// starts[w + 1]).  `cd` is a scratch of T * Pk floats.  theta_delta [D, K], d_pack and r_pack [P, Pk]
-// are written whole.  Returns the CUDA error code of the launches (0 on
-// success).
+// starts[w + 1]).  `split` [E] lists the first run position of each chunk of
+// `chunk` tokens (which must be kFoldChunk) of every run longer than that, in
+// run order; `part` is a scratch of 2 * E * Pk floats, `counters` [P] ints
+// that are zero and are left zero.  `cd` is a scratch of T * Pk floats.
+// theta_delta [D, K], d_pack and r_pack [P, Pk] are written whole.  Returns
+// the CUDA error code of the launches (0 on success).
 int power_sweep_carry_train(const int* p_tok, const int* doc_ids, const float* counts,
                             float* mu, const float* theta, const float* phi_tot,
                             const float* phi, const int* sel_w, const int* sel_k,
-                            const int* order, const int* starts,
+                            const int* order, const int* starts, const int* split,
                             float* cd, float* theta_delta, float* d_pack, float* r_pack,
-                            int T, int D, int K, int P, int Pk, float alpha, float beta,
+                            float* part, int* counters, int T, int D, int K, int P,
+                            int Pk, int E, int chunk, float alpha, float beta,
                             float wbeta, int warps, void* stream) {
-  if (warps < 1 || warps > kTrainMaxWarps) return (int)cudaErrorInvalidValue;
+  if (warps < 1 || warps > kTrainMaxWarps || chunk != kFoldChunk || E < 0 ||
+      (E > 0 && (split == nullptr || part == nullptr)) ||
+      (P > 0 && counters == nullptr))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)K + 2 * (size_t)warps * Pk);
   if (D > 0) {
     carry_train_kernel<<<D, warps * kWarp, smem, (cudaStream_t)stream>>>(
@@ -723,9 +853,11 @@ int power_sweep_carry_train(const int* p_tok, const int* doc_ids, const float* c
     if (err != cudaSuccess) return (int)err;
   }
   if (P > 0 && Pk > 0) {
-    carry_dr_fold_kernel<<<(P + kFoldWarps - 1) / kFoldWarps, kFoldWarps * kWarp, 0,
-                           (cudaStream_t)stream>>>(order, starts, sel_w, cd, d_pack,
-                                                   r_pack, P, Pk);
+    const long long warps_fold = (long long)E + P;
+    carry_dr_fold_kernel<<<(unsigned)((warps_fold + kFoldWarps - 1) / kFoldWarps),
+                           kFoldWarps * kWarp, 0, (cudaStream_t)stream>>>(
+        order, starts, split, p_tok, sel_w, cd, d_pack, r_pack, part, counters, E, P,
+        Pk);
   }
   return (int)cudaGetLastError();
 }

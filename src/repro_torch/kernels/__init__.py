@@ -5,7 +5,11 @@ from __future__ import annotations
 
 import threading
 
+import torch
+
 _COUNT_LOCK = threading.Lock()
+# (device index, stream) -> counters that every kernel taking them leaves 0
+_counters: dict = {}
 
 
 def check_args(anchor: str, want: dict) -> None:
@@ -24,6 +28,21 @@ def check_args(anchor: str, want: dict) -> None:
                              f"got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def zeroed_counters(device: torch.device, stream: int, n: int
+                    ) -> torch.Tensor:
+    """At least ``n`` int32 counters on ``device`` for a kernel's launch on
+    ``stream``, all zero: a kernel that counts its CTAs or warps in them
+    sets each back to 0 before it ends (``topic_sum``'s groups, the carry
+    fold's rows).  One tensor a stream, shared by those kernels: launches
+    on one stream run one after another."""
+    key = (device.index, stream)
+    got = _counters.get(key)
+    if got is None or got.numel() < n:
+        got = _counters[key] = torch.zeros(max(n, 1), dtype=torch.int32,
+                                           device=device)
+    return got
 
 
 def count_launch(wrapper) -> None:

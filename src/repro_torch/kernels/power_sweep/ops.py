@@ -26,7 +26,8 @@ K-blocked two passes, for any K; `serve_launch_plan` picks by K.  Training
 takes K + 2 * Pk floats of shared memory (`power_sweep_carry_train_max_k`);
 past that the wrapper raises ``ValueError``.  Both modes sum in a fixed
 order (training: a second device kernel adds the d/r rows over the tokens'
-runs), so every output repeats bit for bit from launch to launch.
+runs, a long run in chunks), so every output repeats bit for bit from
+launch to launch.
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build, check_args, count_launch
+from repro_torch.core.types import FOLD_CHUNK
+from repro_torch.kernels import (build, check_args, count_launch,
+                                 zeroed_counters)
 from repro_torch.kernels.power_sweep.packed import power_sweep_tokens_plain
 
 _SOURCE = "power_sweep_carry"
@@ -53,7 +56,7 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([ptr] * 10 + [i32] * 5 + [f32] * 3
                        + [i32] * 2 + [ptr])
         fn.restype = ctypes.c_int
-        lib.power_sweep_carry_train.argtypes = ([ptr] * 15 + [i32] * 5
+        lib.power_sweep_carry_train.argtypes = ([ptr] * 18 + [i32] * 7
                                                 + [f32] * 3 + [i32, ptr])
         lib.power_sweep_carry_train.restype = ctypes.c_int
         lib.power_sweep_carry_error_string.argtypes = [ctypes.c_int]
@@ -187,14 +190,14 @@ power_sweep_carry.launches = 0
 def power_sweep_carry_train_plain(p_tok, doc_ids, counts_t, mu_t, theta,
                                   phi_tot, phi_eff_wk, sel_w, sel_k, *,
                                   alpha: float, beta: float, wbeta: float,
-                                  runs=None):
+                                  runs=None, chunks=None):
     """The training sweep in plain PyTorch ops: phi gathered at the
     selection, then the per-token [T, Pk] gathers, update and fold-back of
     ``packed.power_sweep_tokens_plain`` (the same sweep as the reference's
     ``power_sweep_carry_ref(..., update_phi=True)`` over [P+1, K] tables,
-    read back at ``sel_k``).  ``runs`` is the kernel's visiting order, not
-    needed here.  Returns (mu_t, theta_delta [D, K], d_pack [P, Pk],
-    r_pack [P, Pk]); mu_t updated IN PLACE."""
+    read back at ``sel_k``).  ``runs`` and ``chunks`` are the kernel's
+    visiting order, not needed here.  Returns (mu_t, theta_delta [D, K],
+    d_pack [P, Pk], r_pack [P, Pk]); mu_t updated IN PLACE."""
     phi_pack = phi_eff_wk[sel_w.long()[:, None], sel_k.long()]
     return power_sweep_tokens_plain(
         p_tok, doc_ids, counts_t, mu_t, theta, phi_tot, phi_pack, sel_k,
@@ -225,7 +228,8 @@ def power_sweep_carry_train_max_k(Pk: int, device="cuda") -> int:
 
 def power_sweep_carry_train(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
                             phi_eff_wk, sel_w, sel_k, *, alpha: float,
-                            beta: float, wbeta: float, runs=None):
+                            beta: float, wbeta: float, runs=None,
+                            chunks=None):
     """One training-mode selective sweep at the (power word, power topic)
     coordinates, over the token-major [T, K] messages.
 
@@ -243,15 +247,19 @@ def power_sweep_carry_train(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     unchecked.
     ``runs`` (order [T], starts [W + 1], int32) are the tokens' runs by word
     (``TokenLayout.word_runs(W)``, made once per mini-batch): the d/r sums
-    add each power row's counted tokens in that order.  The kernel needs
-    them; the plain version does not.
+    add each power row's counted tokens in that order.  ``chunks`` (int32
+    [E]) are those runs cut into chunks of at most ``FOLD_CHUNK`` tokens
+    (``TokenLayout.word_chunks(W)``, made once per mini-batch): a run of
+    at most ``FOLD_CHUNK`` tokens is summed whole by one warp, a longer
+    one a chunk a warp, its partials then added in chunk order.  The kernel
+    needs both; the plain version needs neither.
 
     Returns (mu_t, theta_delta [D, K], d_pack [P, Pk], r_pack [P, Pk]);
     the caller forms theta + theta_delta.  A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel (the sweep, then the d/r
     fold), counted once in ``power_sweep_carry_train.launches``.  Every
-    sum runs in a fixed order, so all four outputs repeat bit for bit from
-    launch to launch.
+    sum runs in a fixed order with no atomics, so all four outputs repeat
+    bit for bit from launch to launch.
     """
     if mu_t.device.type == "cpu":
         return power_sweep_carry_train_plain(
@@ -275,13 +283,16 @@ def power_sweep_carry_train(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
                         "sel_k": (sel_k, torch.int32, (P, Pk))})
     if Pk > K:
         raise ValueError(f"Pk={Pk} power topics exceed K={K}")
-    if runs is None:
+    if runs is None or chunks is None:
         raise ValueError("power_sweep_carry_train needs the tokens' runs by "
-                         "word on CUDA (TokenLayout.word_runs)")
+                         "word and their chunks on CUDA "
+                         "(TokenLayout.word_runs, TokenLayout.word_chunks)")
     order, starts = runs
+    E = chunks.shape[0]
     check_args("mu_t", {"order": (order, torch.int32, (T,)),
                         "starts": (starts, torch.int32,
                                    (phi_eff_wk.shape[0] + 1,)),
+                        "chunks": (chunks, torch.int32, (E,)),
                         "mu_t": (mu_t, torch.float32, (T, K))})
     dev = mu_t.device
     lib = _lib()
@@ -296,14 +307,18 @@ def power_sweep_carry_train(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
         d_pack = torch.empty((P, Pk), dtype=torch.float32, device=dev)
         r_pack = torch.empty_like(d_pack)
         cd = torch.empty((T, Pk), dtype=torch.float32, device=dev)
+        part = torch.empty((2, E, Pk), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.power_sweep_carry_train(
             p_tok.data_ptr(), doc_ids.data_ptr(), counts_t.data_ptr(),
             mu_t.data_ptr(), theta.data_ptr(), phi_tot.data_ptr(),
             phi_eff_wk.data_ptr(), sel_w.data_ptr(), sel_k.data_ptr(),
-            order.data_ptr(), starts.data_ptr(), cd.data_ptr(),
-            theta_delta.data_ptr(), d_pack.data_ptr(), r_pack.data_ptr(),
-            T, D, K, P, Pk, float(alpha), float(beta), float(wbeta), warps,
-            torch.cuda.current_stream(dev).cuda_stream)
+            order.data_ptr(), starts.data_ptr(), chunks.data_ptr(),
+            cd.data_ptr(), theta_delta.data_ptr(), d_pack.data_ptr(),
+            r_pack.data_ptr(), part.data_ptr(),
+            zeroed_counters(dev, stream, P).data_ptr(), T, D, K, P, Pk, E,
+            FOLD_CHUNK, float(alpha), float(beta), float(wbeta), warps,
+            stream)
     _raise_on(lib, err, "power_sweep_carry_train kernel launch")
     count_launch(power_sweep_carry_train)
     return mu_t, theta_delta, d_pack, r_pack

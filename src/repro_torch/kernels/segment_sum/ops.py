@@ -19,14 +19,13 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, check_args, count_launch
+from repro_torch.kernels import (build, check_args, count_launch,
+                                 zeroed_counters)
 
 _SOURCE = "segment_sum"
 _MAX_TOPIC_WARPS = 8
 _TOPIC_STAGE = 1024                # topic_sum: pairs a warp stages at a time
 _smem_optin: dict[int, int] = {}   # device index -> shared memory a block may have
-# (device index, stream) -> topic_sum's group counters, zero between launches
-_topic_counters: dict = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -134,18 +133,6 @@ def _topic_plan(lib: ctypes.CDLL, device: torch.device, K: int, Pk: int):
                      f"{device} (its shared memory)")
 
 
-def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """The group counters of topic_sum's launches on ``stream``: zeros the
-    kernel leaves zero, one tensor a stream (launches on one stream run in
-    order)."""
-    key = (device.index, stream)
-    got = _topic_counters.get(key)
-    if got is None or got.numel() < n:
-        got = _topic_counters[key] = torch.zeros(n, dtype=torch.int32,
-                                                 device=device)
-    return got
-
-
 def topic_sum(sel_k, vals, base):
     """``base`` plus the per-topic sums of ``vals``: the phi_tot refresh of
     a selective iteration, ``phi_tot + zeros.index_add_(0, sel_k, d_pack)``.
@@ -180,11 +167,11 @@ def topic_sum(sel_k, vals, base):
         stream = torch.cuda.current_stream(dev).cuda_stream
         partial = torch.empty((grid + groups, K), dtype=torch.float32,
                               device=dev)
+        counters = zeroed_counters(dev, stream, sms + 2)
         err = lib.topic_sum(sel_k.data_ptr(), vals.data_ptr(),
                             base.data_ptr(), partial.data_ptr(),
-                            out.data_ptr(),
-                            _counters(dev, stream, sms + 2).data_ptr(), P, Pk,
-                            K, grid, warps, group, stage, stream)
+                            out.data_ptr(), counters.data_ptr(), P, Pk, K,
+                            grid, warps, group, stage, stream)
     _raise_on(lib, err, "topic_sum kernel launch")
     count_launch(topic_sum)
     return out

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch.core import pobp
-from repro_torch.core.types import LDAConfig, MiniBatch
+from repro_torch.core.types import FOLD_CHUNK, LDAConfig, MiniBatch
 from repro_torch.data.batching import docs_to_padded
 from repro_torch.data.synthetic import lda_corpus
 from repro_torch.kernels.bp_update import ops as bp_ops
@@ -133,7 +133,7 @@ def test_kernel_limits_on_card(card):
         plain = list(args)
         plain[3] = args[3].clone()
         got = ops.power_sweep_carry_train(*args, **kw,
-                                          runs=_word_runs(args, 7))
+                                          **_word_runs(args, 7))
         want = ops.power_sweep_carry_train_plain(*plain, **kw)
         torch.cuda.synchronize()
         torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
@@ -143,7 +143,7 @@ def test_kernel_limits_on_card(card):
         before = ops.power_sweep_carry_train.launches
         with pytest.raises(ValueError, match="training kernel takes"):
             ops.power_sweep_carry_train(*args, **kw,
-                                        runs=_word_runs(args, 7))
+                                        **_word_runs(args, 7))
         assert ops.power_sweep_carry_train.launches == before
 
 
@@ -159,8 +159,7 @@ def test_wrapper_checks_on_card(card):
     with pytest.raises(ValueError, match="phi_rows is on cpu"):
         ops.power_sweep_carry(*bad, **kw)
     targs = [x.to("cuda") for x in _train_args(0, D=2, L=4, K=8, P=3, Pk=2)]
-    tkw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3,
-               runs=_word_runs(targs, 7))
+    tkw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3, **_word_runs(targs, 7))
     bad = list(targs)
     bad[7] = torch.zeros(4, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="sel_w must have shape"):
@@ -169,8 +168,10 @@ def test_wrapper_checks_on_card(card):
     bad[8] = targs[8].long()
     with pytest.raises(ValueError, match="sel_k must be torch.int32"):
         ops.power_sweep_carry_train(*bad, **tkw)
-    with pytest.raises(ValueError, match="runs by word on CUDA"):
+    with pytest.raises(ValueError, match="runs by word and their chunks"):
         ops.power_sweep_carry_train(*targs, **dict(tkw, runs=None))
+    with pytest.raises(ValueError, match="runs by word and their chunks"):
+        ops.power_sweep_carry_train(*targs, **dict(tkw, chunks=None))
     bp = [x.to("cuda") for x in _bp_args(0, D=2, L=4, K=8, W=10)]
     bad = list(bp)
     bad[3] = bp[3].t().contiguous().t()
@@ -247,33 +248,48 @@ def _check_bp_update_on_card(D, L, K, W):
 
 
 def _word_runs(args, W):
-    """The tokens' runs by word, as the step makes them: a power token's
-    word is its row's sel_w, a guard token's a word outside the selection."""
-    from repro_torch.core.types import token_runs
+    """The tokens' runs by word and their chunks, as the step makes them
+    (keywords of ``power_sweep_carry_train``): a power token's word is its
+    row's sel_w, a guard token's a word outside the selection."""
+    from repro_torch.core.types import token_chunks, token_runs
 
     p_tok, counts, sel_w = args[0], args[2], args[7]
     P = sel_w.shape[0]
     other = int(np.setdiff1d(np.arange(W), sel_w.cpu().numpy())[0])
     words = torch.where(p_tok < P, sel_w[p_tok.clamp(max=P - 1).long()],
                         other)
-    return token_runs(words, counts, W)
+    runs = token_runs(words, counts, W)
+    return dict(runs=runs, chunks=token_chunks(runs[1]))
 
 
-def _train_args(seed, *, D, L, K, P, Pk, guard=0.5, empty_doc=False):
+def _train_args(seed, *, D, L, K, P, Pk, guard=0.5, empty_doc=False,
+                skew=False):
     """Training-mode carry inputs: tokens on power rows [0, P) or (a
     ``guard`` share) the guard id P, a ragged last document (with
     ``empty_doc``, document 1 owns no slot), P distinct power words of a
-    [W, K] phi with Pk distinct topics each."""
+    [W, K] phi with Pk distinct topics each.  With ``skew`` (P >= 6), the
+    runs of the d/r fold's edges: row 0 has the first slot of every
+    document (a run of D counted tokens), rows 1, 2 and 3 runs of exactly
+    C = FOLD_CHUNK, C + 1 and 1 counted tokens, row 4 none."""
     rng = np.random.default_rng(seed)
     T = D * L
     W = 2 * P + 1
-    p_tok = rng.integers(0, P, T).astype(np.int32)
+    p_tok = rng.integers(5 if skew else 0, P, T).astype(np.int32)
     p_tok[rng.random(T) < guard] = P
     doc_ids = np.repeat(np.arange(D), L).astype(np.int32)
     if empty_doc:
         doc_ids[doc_ids == 1] = 0
     counts = rng.integers(1, 4, (T, 1)).astype(np.float32)
     counts[(doc_ids == D - 1) & (np.tile(np.arange(L), D) >= L // 2)] = 0.0
+    if skew:
+        C = FOLD_CHUNK
+        head = np.tile(np.arange(L), D) == 0
+        p_tok[head] = 0
+        pick = rng.choice(np.flatnonzero(~head & (counts[:, 0] > 0)),
+                          2 * C + 2, replace=False)
+        p_tok[pick[:C]] = 1
+        p_tok[pick[C:2 * C + 1]] = 2
+        p_tok[pick[2 * C + 1]] = 3
     mu = rng.random((T, K)).astype(np.float32) + 0.01
     mu /= mu.sum(1, keepdims=True)
     theta = np.zeros((D, K), np.float32)
@@ -286,25 +302,31 @@ def _train_args(seed, *, D, L, K, P, Pk, guard=0.5, empty_doc=False):
             (p_tok, doc_ids, counts, mu, theta, phi_tot, phi, sel_w, sel_k)]
 
 
-@pytest.mark.parametrize("D,L,K,P,Pk,guard,empty_doc", [
-    (6, 8, 20, 9, 5, 0.5, False), (4, 12, 100, 7, 50, 0.5, False),
-    (64, 128, 2000, 1400, 50, 0.3, False),
-    (4, 6, 1, 5, 1, 0.5, False),                # K = 1
-    (5, 7, 37, 6, 37, 0.5, False),              # Pk = K = 37
-    (4, 16, 8192, 50, 50, 0.5, False),          # K = 8192
-    (6, 1, 100, 9, 5, 0.5, False),              # one token a document
-    (3, 200, 100, 20, 10, 0.3, True),           # long documents, one empty
-    (3, 8, 40, 4, 6, 1.0, False)])              # all guard tokens
+@pytest.mark.parametrize("D,L,K,P,Pk,guard,empty_doc,skew", [
+    (6, 8, 20, 9, 5, 0.5, False, False),
+    (4, 12, 100, 7, 50, 0.5, False, False),
+    (64, 128, 2000, 1400, 50, 0.3, False, False),
+    (4, 6, 1, 5, 1, 0.5, False, False),         # K = 1
+    (5, 7, 37, 6, 37, 0.5, False, False),       # Pk = K = 37
+    (4, 16, 8192, 50, 50, 0.5, False, False),   # K = 8192
+    (6, 1, 100, 9, 5, 0.5, False, False),       # one token a document
+    (3, 200, 100, 20, 10, 0.3, True, False),    # long documents, one empty
+    (3, 8, 40, 4, 6, 1.0, False, False),        # all guard tokens
+    # a word in every document, runs of C, C + 1, 1 and no token
+    (4096, 8, 50, 64, 50, 0.3, False, True),
+    (600, 4, 200, 9, 100, 0.3, False, True),    # Pk past one pass of 64
+    (100, 4, 20, 9, 5, 0.5, True, True)])       # the head run cut once
 def test_carry_training_kernel_matches_plain_version_on_card(
-        card, D, L, K, P, Pk, guard, empty_doc):
+        card, D, L, K, P, Pk, guard, empty_doc, skew):
     args = [x.to("cuda") for x in _train_args(D + K + Pk, D=D, L=L, K=K,
                                               P=P, Pk=Pk, guard=guard,
-                                              empty_doc=empty_doc)]
+                                              empty_doc=empty_doc,
+                                              skew=skew)]
     kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3)
     mu0 = args[3].clone()
     plain = list(args)
     plain[3] = mu0.clone()
-    kw["runs"] = _word_runs(args, 2 * P + 1)
+    kw.update(_word_runs(args, 2 * P + 1))
     before = ops.power_sweep_carry_train.launches
     got = ops.power_sweep_carry_train(*args, **kw)
     assert ops.power_sweep_carry_train.launches == before + 1
@@ -326,6 +348,8 @@ def test_carry_training_kernel_matches_plain_version_on_card(
     assert torch.equal(got[0][~selected], mu0[~selected])
     if empty_doc:
         assert not got[1][1].any()
+    if skew:                                    # row 4's run has no token
+        assert not got[2][4].any() and not got[3][4].any()
     # all four outputs repeat bit for bit from launch to launch
     again = list(args)
     again[3] = mu0.clone()
@@ -636,23 +660,27 @@ def test_engines_serve_on_card_with_pipelined_harvest(card):
 
 # ------------------------------------------------ the training step repeats
 
-@pytest.mark.parametrize("D,L,K,P,Pk", [
-    (512, 128, 2000, 14104, 50),                # the training slice's shapes
-    (5, 7, 37, 6, 37), (4, 16, 8192, 50, 50), (3, 8, 1, 4, 1),
-    (6, 9, 999, 13, 33)])                       # odd K and Pk
-def test_carry_training_dr_repeat_bit_for_bit_on_card(card, D, L, K, P, Pk):
+@pytest.mark.parametrize("D,L,K,P,Pk,skew", [
+    (512, 128, 2000, 14104, 50, False),         # the training slice's shapes
+    (5, 7, 37, 6, 37, False), (4, 16, 8192, 50, 50, False),
+    (3, 8, 1, 4, 1, False),
+    (6, 9, 999, 13, 33, False),                 # odd K and Pk
+    # a word in every document, runs of C, C + 1, 1 and no token
+    (4096, 8, 50, 64, 50, True), (600, 4, 200, 9, 100, True)])
+def test_carry_training_dr_repeat_bit_for_bit_on_card(card, D, L, K, P, Pk,
+                                                      skew):
     """The carry training sweep's d/r sums run in a fixed order: three
     launches with the step's runs by word give the same four outputs bit
-    for bit."""
+    for bit, a run longer than FOLD_CHUNK summed in chunks."""
     args = [x.to("cuda") for x in _train_args(D + P, D=D, L=L, K=K, P=P,
-                                              Pk=Pk, guard=0.3)]
-    runs = _word_runs(args, 2 * P + 1)
-    kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3)
+                                              Pk=Pk, guard=0.3, skew=skew)]
+    kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3,
+              **_word_runs(args, 2 * P + 1))
     outs = []
-    for r in (runs, runs, runs):
+    for _ in range(3):
         a = list(args)
         a[3] = args[3].clone()
-        outs.append(ops.power_sweep_carry_train(*a, **kw, runs=r))
+        outs.append(ops.power_sweep_carry_train(*a, **kw))
     torch.cuda.synchronize()
     for other in outs[1:]:
         assert all(torch.equal(x, y) for x, y in zip(outs[0], other))
@@ -1049,13 +1077,12 @@ def test_carry_training_kernel_dead_slots_on_card(card, D, L, K, P, Pk, dead):
     phi[guard_row] = 0.0
     args = [x.to("cuda") for x in args]
     kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3,
-              runs=_word_runs(args, phi.shape[0]))
+              **_word_runs(args, phi.shape[0]))
     mu0 = args[3].clone()
     got = ops.power_sweep_carry_train(*args, **kw)
     plain = list(args)
     plain[3] = mu0.clone()
-    want = ops.power_sweep_carry_train_plain(*plain, **{
-        k: v for k, v in kw.items() if k != "runs"})
+    want = ops.power_sweep_carry_train_plain(*plain, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
     for g, w in zip(got[1:], want[1:]):
