@@ -593,7 +593,7 @@ def carry_train_inputs(gen, *, D, L, K, W, P, Pk, ragged, guard_share,
     that the longest of them, too, is about D tokens at L = 128."""
     import torch
 
-    from repro_torch.core.types import FOLD_CHUNK
+    from repro_torch.kernels.token_order import FOLD_CHUNK
 
     dev = "cuda"
     T = D * L
@@ -643,7 +643,7 @@ def carry_train_runs(x, W):
     row's ``sel_w``, a guard token's a word outside the selection."""
     import torch
 
-    from repro_torch.core.types import token_runs
+    from repro_torch.kernels.token_order import token_runs
 
     p_tok, counts, sel_w = x[0], x[2], x[7]
     P = sel_w.shape[0]
@@ -704,7 +704,7 @@ def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
     over five calls), beside its bound (`carry_fold_bound_ms`)."""
     import torch
 
-    from repro_torch.core.types import token_chunks
+    from repro_torch.kernels.token_order import token_chunks
 
     x = carry_train_inputs(gen, D=D, L=L, K=K, W=W, P=P, Pk=Pk,
                            ragged=ragged, guard_share=guard_share,
@@ -870,7 +870,7 @@ def check_word_rows_sum(seg, gen, *, D, L, K, W, timed):
     ``index_add_``, whose atomics do not repeat."""
     import torch
 
-    from repro_torch.core.types import token_runs
+    from repro_torch.kernels.token_order import token_runs
 
     dev = "cuda"
     T = D * L
@@ -1114,7 +1114,7 @@ def check_packed_sweep(packed, gen, *, D, L, K, P, Pk, guard_share,
     exactly 0."""
     import torch
 
-    from repro_torch.core.types import sweep_order
+    from repro_torch.kernels.token_order import sweep_order
 
     x = packed_inputs(gen, D=D, L=L, K=K, P=P, Pk=Pk,
                       guard_share=guard_share, empty_doc=empty_doc,
@@ -3816,6 +3816,7 @@ def powersync_card_vs_plain(grads, res, *, label: str) -> None:
     import torch
 
     from repro_torch.core.sync import SimReducer, lockstep
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.power_pack import ops as pack_ops
     from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.optim.powersync import PowerSyncConfig, powersync_tree
@@ -3826,9 +3827,9 @@ def powersync_card_vs_plain(grads, res, *, label: str) -> None:
             tree_map(lambda a: a[s], grads), tree_map(lambda a: a[s], res),
             red, PowerSyncConfig(), 2), 2, [red], device="cuda")
 
-    n0 = pack_ops.pack_rows.launches
+    n0 = launch_counts()["pack_rows"]
     got = run()
-    if pack_ops.pack_rows.launches == n0:
+    if launch_counts()["pack_rows"] == n0:
         fail(f"(e) PowerSync on {label} launched no pack_rows")
     with mock.patch.object(pack_ops, "pack_rows", pack_ops.pack_rows_plain), \
             mock.patch.object(pack_ops, "scatter_add_rows",
@@ -4275,6 +4276,7 @@ def powersync_big_leaf(*, seed: int, card: str) -> None:
     import torch
 
     from repro_torch.core.sync import LocalReducer
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.power_pack import ops as pack_ops
     from repro_torch.optim.powersync import PowerSyncConfig, powersync_tree
 
@@ -4291,10 +4293,11 @@ def powersync_big_leaf(*, seed: int, card: str) -> None:
         return (s["w"].reshape(-1, 1024), res["w"].reshape(-1, 1024),
                 time.time() - t0)
 
-    n0 = (pack_ops.pack_rows.launches, pack_ops.scatter_add_rows.launches)
+    n0 = launch_counts()
     got = run()
-    n = (pack_ops.pack_rows.launches - n0[0],
-         pack_ops.scatter_add_rows.launches - n0[1])
+    n = launch_counts()
+    n = (n["pack_rows"] - n0["pack_rows"],
+         n["scatter_add_rows"] - n0["scatter_add_rows"])
     with mock.patch.object(pack_ops, "pack_rows", pack_ops.pack_rows_plain), \
             mock.patch.object(pack_ops, "scatter_add_rows",
                               pack_ops.scatter_add_rows_plain):

@@ -53,10 +53,8 @@ While a torch profiler records, `make_train_step`'s step is recorded in
 iteration after the dense one, with ``pobp.select``, ``pobp.sweep`` and
 ``pobp.refresh`` inside it in ``power`` sync mode; ``pobp.read`` around
 each host read; and the step's counters (``iters``, ``selective_iters``,
-the counted ``tokens``, ``P``, ``Pk``, the ``power_tokens`` that its
-selective sweeps reached and ``power_run_max``, the longest counted run of
-a sweep's power words; under the carry policy ``fold_chunks``, the chunks
-its d/r fold summed).
+the counted ``tokens``, ``P``, ``Pk``, ``K`` and the ``power_tokens`` that
+its selective sweeps reached).
 The port updates in place where that saves a [W, K] or [T, K] copy, and
 says so per function.
 
@@ -95,8 +93,8 @@ from repro_torch.core.sweep_dispatch import resolve_sweep_policy
 from repro_torch.core.sync import (CommMeter, LocalReducer, MeshReducer,
                                    PSReducer, Reducer, SimReducer, lockstep,
                                    mesh_axis_group)
-from repro_torch.core.types import (FOLD_CHUNK, LDAConfig, LDATrainState,
-                                    MiniBatch, TokenLayout)
+from repro_torch.core.types import (LDAConfig, LDATrainState, MiniBatch,
+                                    TokenLayout)
 from repro_torch.kernels.bp_update.ops import bp_update
 from repro_torch.kernels.power_sweep.ops import power_sweep_carry_train
 from repro_torch.kernels.power_sweep.packed import power_sweep_tokens
@@ -271,7 +269,8 @@ def _selective_sweep_carry(layout: TokenLayout, mu_t, theta, phi_eff_wk,
     directly where the reference builds [P+1, K] phi and mask row tables
     and reads its [P, K] delta/residual rows back at ``sel_k``; its d/r
     sums add each power word's tokens in the layout's word runs, a run
-    longer than ``FOLD_CHUNK`` in the layout's chunks."""
+    longer than ``kernels.token_order.FOLD_CHUNK`` in the layout's
+    chunks."""
     W = cfg.vocab_size
     p_tok = pw.token_power_rows(layout.word_ids, sel_w, W)
     mu_t, theta_delta, d_pack, r_pack = power_sweep_carry_train(
@@ -397,14 +396,9 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
     rec = obs.active()
     if rec is not None:
         # the counted tokens of each word, from its run: a selective
-        # sweep's power tokens are those of its power words; under the
-        # carry policy, its fold sums the chunks of their runs
+        # sweep's power tokens are those of its power words
         per_word = runs[1].diff()
         power_tokens = torch.zeros((), dtype=torch.int64, device=dev)
-        run_max = torch.zeros((), dtype=torch.int64, device=dev)
-        fold = policy != "packed"
-        if fold:
-            fold_chunks = torch.zeros((), dtype=torch.int64, device=dev)
 
     with reducer.meter.section():
         # ---- lines 3-8: random init, local stats, first dense update ----
@@ -458,12 +452,8 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
                             sel_k, cfg, policy, wbeta)
                     if rec is not None:
                         # counted while the card runs the sweep
-                        n = per_word.index_select(0, sel_w)
-                        power_tokens.add_(n.sum())
-                        torch.maximum(run_max, n.max(), out=run_max)
-                        if fold:
-                            fold_chunks.add_(((n + FOLD_CHUNK - 1)
-                                              // FOLD_CHUNK).sum())
+                        power_tokens.add_(per_word.index_select(0, sel_w)
+                                          .sum())
                     with obs.span(rec, "pobp.refresh"):
                         # lines 23-24: sync only the power submatrices
                         d_pack = reducer.psum(d_pack, "power", w_rows=W,
@@ -532,9 +522,6 @@ def pobp_minibatch(batch: MiniBatch, phi_acc_wk: torch.Tensor, total_tokens,
         rec.count(iters=t, selective_iters=t - 1 if sync_mode == "power"
                   else 0, P=P, Pk=Pk, K=K)
         rec.tally(tokens=per_word.sum(), power_tokens=power_tokens)
-        rec.peak(power_run_max=run_max)
-        if fold:
-            rec.tally(fold_chunks=fold_chunks)
     return MinibatchResult(phi_acc_new=phi_acc_new, iters=t,
                            mean_r=mean_residual(r_w, total_tokens), mu=mu,
                            theta=theta)

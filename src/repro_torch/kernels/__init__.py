@@ -1,15 +1,33 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version.  ``build`` compiles ``csrc/*.cu`` at first use."""
+version, and the one contract their wrappers launch through.
+
+``build`` compiles ``csrc/*.cu`` at first use and sets every C entry's
+signature from the source.  `launcher` makes a kernel's CUDA body into its
+wrapper: the plain version on a CPU tensor, the body on a CUDA tensor
+under the device's guard, a refusal on any other device; every launch is
+checked for a CUDA error and counted by the wrapper's name
+(`launch_counts`).  `device_int` reads a per-device limit from a library
+once.
+"""
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import importlib
+import inspect
+import pkgutil
 import threading
 
 import torch
 
+from repro_torch.kernels import build
+
 _COUNT_LOCK = threading.Lock()
 # (device index, stream) -> counters that every kernel taking them leaves 0
 _counters: dict = {}
+_launches: dict = {}     # wrapper name -> launches, under _COUNT_LOCK
+_device_ints: dict = {}  # (source, entry, device index) -> what it read
 
 
 def check_args(anchor: str, want: dict) -> None:
@@ -45,30 +63,110 @@ def zeroed_counters(device: torch.device, stream: int, n: int
     return got
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, under a lock: the shards of a
-    lockstep run launch from threads of their own."""
-    with _COUNT_LOCK:
-        wrapper.launches += 1
+def raise_on_error(source: str, err: int, what: str) -> None:
+    """Raise ``RuntimeError`` when ``err``, a return of a C entry of
+    ``csrc/<source>.cu``, is not 0, in the words of the library's own
+    ``<source>_error_string``."""
+    if err:
+        lib = build.load(source)
+        msg = getattr(lib, f"{source}_error_string")(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def device_int(source: str, entry: str, device: torch.device) -> int:
+    """What ``int entry(int* out)`` of ``csrc/<source>.cu`` writes to
+    ``out`` on ``device`` (a shared-memory opt-in, a topic limit): called
+    once per (source, entry, device) with that device current, its result
+    kept.  An entry that configures its kernel for the device does so on
+    that first call."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = (source, entry, index)
+    got = _device_ints.get(key)
+    if got is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            raise_on_error(source, getattr(build.load(source), entry)(
+                ctypes.addressof(out)), f"{entry} on cuda:{index}")
+        got = _device_ints[key] = out.value
+    return got
+
+
+class Kernel:
+    """A wrapper's hold on its library, made once when `launcher` wraps
+    it: ``lib``, the loaded ``csrc/<source>.cu`` (at the first launch),
+    and `launch`."""
+
+    __slots__ = ("name", "source", "lib")
+
+    def __init__(self, name: str, source: str):
+        self.name, self.source, self.lib = name, source, None
+
+    def launch(self, entry, *c_args) -> None:
+        """Call ``entry``, a function of ``lib``, with ``c_args``; raise on
+        a CUDA error, else count one launch of the wrapper."""
+        err = entry(*c_args)
+        if err:
+            raise_on_error(self.source, err, f"{self.name} kernel launch")
+        with _COUNT_LOCK:
+            _launches[self.name] += 1
+
+
+def launcher(source: str, anchor: str, plain):
+    """Make ``body(kernel, stream, *args, **kwargs)`` the wrapper of a
+    kernel of ``csrc/<source>.cu``, with the body's name and its arguments
+    after the first two.
+
+    The argument ``anchor`` (a tensor, or a device) decides where the call
+    runs: on the CPU the wrapper returns ``plain(*args, **kwargs)``; on any
+    device but CUDA it raises ``ValueError``; on CUDA it runs the body with
+    that device current, ``kernel`` (a `Kernel`, its library loaded) and
+    the device's current stream.  The body checks its arguments, makes
+    its outputs and launches through ``kernel.launch``, which raises
+    ``RuntimeError`` on a CUDA error and counts the launch under the
+    wrapper's name in `launch_counts`."""
+    def wrap(body):
+        kernel = Kernel(body.__name__, source)
+        with _COUNT_LOCK:
+            _launches[kernel.name] = 0
+        sig = inspect.signature(body)
+        params = list(sig.parameters.values())[2:]
+        at = [p.name for p in params].index(anchor)
+
+        @functools.wraps(body)
+        def wrapper(*args, **kwargs):
+            x = args[at] if at < len(args) else kwargs[anchor]
+            dev = x.device if isinstance(x, torch.Tensor) else torch.device(x)
+            if dev.type == "cpu":
+                return plain(*args, **kwargs)
+            if dev.type != "cuda":
+                of = "tensors" if isinstance(x, torch.Tensor) else "devices"
+                raise ValueError(f"{kernel.name} runs on CPU or CUDA {of}, "
+                                 f"not {dev}")
+            if kernel.lib is None:
+                kernel.lib = build.load(source)
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                return body(kernel, stream, *args, **kwargs)
+
+        wrapper.__signature__ = sig.replace(parameters=params)
+        return wrapper
+    return wrap
+
+
+@functools.cache
+def _import_wrappers() -> None:
+    """Import every module of the kernel subpackages: each wrapper joins
+    the launch count when its module is imported."""
+    for mod in pkgutil.walk_packages(__path__, f"{__name__}."):
+        importlib.import_module(mod.name)
 
 
 def launch_counts(reset: bool = False) -> dict:
-    """Each kernel wrapper's launch count (the plain integer on the
-    wrapper), by kernel name; every count set to 0 first when ``reset``."""
-    from repro_torch.kernels.bp_update import ops as bp_ops
-    from repro_torch.kernels.gibbs_sweep import ops as gibbs_ops
-    from repro_torch.kernels.power_pack import ops as pack_ops
-    from repro_torch.kernels.power_sweep import ops as sweep_ops
-    from repro_torch.kernels.power_sweep import packed
-    from repro_torch.kernels.power_topics import ops as topics_ops
-    from repro_torch.kernels.segment_sum import ops as seg_ops
-
-    wrappers = (bp_ops.bp_update, sweep_ops.power_sweep_carry,
-                sweep_ops.power_sweep_carry_train, packed.power_sweep_tokens,
-                pack_ops.pack_rows, pack_ops.scatter_add_rows,
-                seg_ops.word_rows_sum, seg_ops.topic_sum, gibbs_ops.gibbs_sweep,
-                gibbs_ops.gibbs_noise, topics_ops.power_topics)
-    if reset:
-        for fn in wrappers:
-            fn.launches = 0
-    return {fn.__name__: fn.launches for fn in wrappers}
+    """Each kernel wrapper's launches, by its name; every count set to 0
+    first when ``reset``."""
+    _import_wrappers()
+    with _COUNT_LOCK:
+        if reset:
+            _launches.update(dict.fromkeys(_launches, 0))
+        return dict(sorted(_launches.items()))

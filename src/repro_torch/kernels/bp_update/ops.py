@@ -17,27 +17,14 @@ row, for any K; `bp_launch_plan` picks by K.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build, check_args, count_launch
+from repro_torch.kernels import check_args, launcher
 
 _SOURCE = "bp_update"
 REGISTER_MAX_K = 2048              # 4 topics a thread x 512 threads
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load(_SOURCE)
-    fn = lib.bp_update
-    if fn.argtypes is None:
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr] * 9 + [i32] * 2 + [f32] * 3 + [i32] * 2 + [ptr]
-        fn.restype = ctypes.c_int
-        lib.bp_update_error_string.argtypes = [ctypes.c_int]
-        lib.bp_update_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 class BpPlan(NamedTuple):
@@ -90,8 +77,9 @@ def _check_cuda_args(word_ids, doc_ids, counts_t, mu_t, theta, phi_wk,
     check_args("mu_t", want)
 
 
-def bp_update(word_ids, doc_ids, counts_t, mu_t, theta, phi_wk, phi_tot, *,
-              alpha: float, beta: float, wbeta: float):
+@launcher(_SOURCE, "mu_t", bp_update_plain)
+def bp_update(kernel, stream, word_ids, doc_ids, counts_t, mu_t, theta,
+              phi_wk, phi_tot, *, alpha: float, beta: float, wbeta: float):
     """One dense (all-topic) BP update of the token-major messages.
 
     word_ids, doc_ids [T] int32 (each in range: the kernel reads
@@ -101,37 +89,19 @@ def bp_update(word_ids, doc_ids, counts_t, mu_t, theta, phi_wk, phi_tot, *,
     tensors (mu_new [T, K], r_tok [T, K]) as `bp_update_plain` documents.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel on ``bp_launch_plan(K)``, counted in ``bp_update.launches``.
+    kernel on ``bp_launch_plan(K)``, counted as ``bp_update``.
     Either path sums in a fixed order, so a launch repeats bit for bit.
     """
-    if mu_t.device.type == "cpu":
-        return bp_update_plain(word_ids, doc_ids, counts_t, mu_t, theta,
-                               phi_wk, phi_tot, alpha=alpha, beta=beta,
-                               wbeta=wbeta)
-    if mu_t.device.type != "cuda":
-        raise ValueError(f"bp_update runs on CPU or CUDA tensors, not "
-                         f"{mu_t.device}")
     _check_cuda_args(word_ids, doc_ids, counts_t, mu_t, theta, phi_wk,
                      phi_tot)
     T, K = mu_t.shape
     plan = bp_launch_plan(K)
     mu_new = torch.empty_like(mu_t)
     r_tok = torch.empty_like(mu_t)
-    lib = _lib()
-    with torch.cuda.device(mu_t.device):
-        err = lib.bp_update(
-            word_ids.data_ptr(), doc_ids.data_ptr(), counts_t.data_ptr(),
-            mu_t.data_ptr(), theta.data_ptr(), phi_wk.data_ptr(),
-            phi_tot.data_ptr(), mu_new.data_ptr(), r_tok.data_ptr(), T, K,
-            float(alpha), float(beta), float(wbeta),
-            int(plan.path == "registers"), plan.threads,
-            torch.cuda.current_stream(mu_t.device).cuda_stream)
-    if err:
-        msg = lib.bp_update_error_string(err).decode()
-        raise RuntimeError(f"bp_update kernel launch failed: CUDA error "
-                           f"{err} ({msg})")
-    count_launch(bp_update)
+    kernel.launch(
+        kernel.lib.bp_update, word_ids.data_ptr(), doc_ids.data_ptr(),
+        counts_t.data_ptr(), mu_t.data_ptr(), theta.data_ptr(),
+        phi_wk.data_ptr(), phi_tot.data_ptr(), mu_new.data_ptr(),
+        r_tok.data_ptr(), T, K, float(alpha), float(beta), float(wbeta),
+        int(plan.path == "registers"), plan.threads, stream)
     return mu_new, r_tok
-
-
-bp_update.launches = 0

@@ -3,9 +3,12 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` inside the
 package (the hash is the source's content, so an edited source rebuilds).
-Libraries are loaded with ``ctypes``.  Nothing is built when a module is
-imported: the first launch of a kernel builds it, and ``build_all`` builds
-every source at once, one ``nvcc`` process each, all started together.
+Libraries are loaded with ``ctypes``, each C entry's ``argtypes`` and
+``restype`` set from its prototype in the source's ``extern "C"`` block
+(`entries`): the source is the only statement of a signature.  Nothing is
+built when a module is imported: the first launch of a kernel builds it,
+and ``build_all`` builds every source at once, one ``nvcc`` process each,
+all started together.
 """
 
 from __future__ import annotations
@@ -13,11 +16,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -26,6 +30,15 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+# C parameter types as ctypes passes them (any pointer is a c_void_p), and
+# the return types an entry may have
+_ARG_TYPES = {"int": ctypes.c_int, "unsigned": ctypes.c_uint,
+              "long long": ctypes.c_longlong, "float": ctypes.c_float}
+_RETURN_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+                 "const char*": ctypes.c_char_p}
+_COMMENT = re.compile(r"//[^\n]*|/\*.*?\*/", re.S)
+_PROTOTYPE = re.compile(r"\s*(.*?)\s*\b(\w+)\s*\((.*)\)\s*", re.S)
 
 
 def _nvcc() -> str:
@@ -79,11 +92,66 @@ def build_all(names: Sequence[str]) -> Dict[str, Path]:
     return out
 
 
+def _c_type(name: str, entry: str, spelled: str, table: dict):
+    got = table.get(spelled)
+    if got is None:
+        raise ValueError(f"csrc/{name}.cu: {entry} has a {spelled!r}, which "
+                         f"maps to no ctypes type")
+    return got
+
+
+def entries(name: str) -> Dict[str, Tuple[object, List[object]]]:
+    """The C entries of ``csrc/<name>.cu``: each function of its
+    ``extern "C"`` block, by name, as (restype, argtypes).  Any pointer
+    passes as ``c_void_p``; ``int``, ``unsigned``, ``long long`` and
+    ``float`` as their ctypes; an entry returns ``int``, ``long long`` or
+    ``const char*``.  Raises ``ValueError`` naming the source and the entry
+    on any other type.  Reads the text only."""
+    text = _COMMENT.sub(" ", (CSRC / f"{name}.cu").read_text())
+    at = text.find('extern "C"')
+    if at < 0:
+        raise ValueError(f"csrc/{name}.cu has no extern \"C\" block")
+    out, head, depth = {}, [], 0
+    for ch in text[text.index("{", at) + 1:]:
+        if depth:                       # inside a function's body
+            depth += (ch == "{") - (ch == "}")
+        elif ch == "}":                 # the block's end
+            break
+        elif ch in "{;":                # a definition's or declaration's head
+            got = _PROTOTYPE.fullmatch("".join(head))
+            if got is None:
+                raise ValueError(f"csrc/{name}.cu: no C prototype in "
+                                 f"{''.join(head).strip()!r}")
+            ret, entry, params = got.groups()
+            argtypes = []
+            for param in filter(None, (p.strip() for p in params.split(","))):
+                if "*" in param:
+                    argtypes.append(ctypes.c_void_p)
+                elif param != "void":
+                    words = [w for w in param.split() if w != "const"]
+                    argtypes.append(_c_type(name, entry, " ".join(words[:-1]),
+                                            _ARG_TYPES))
+            ret = re.sub(r"\s*\*", "*", " ".join(ret.split()))
+            out[entry] = (_c_type(name, entry, ret, _RETURN_TYPES), argtypes)
+            head, depth = [], int(ch == "{")
+        else:
+            head.append(ch)
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use, every
+    C entry's signature set from the source (`entries`)."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            signatures = entries(name)
             lib = ctypes.CDLL(str(build_all([name])[name]))
+            for entry, (restype, argtypes) in signatures.items():
+                fn = getattr(lib, entry)
+                fn.restype, fn.argtypes = restype, argtypes
             _loaded[name] = lib
         return lib

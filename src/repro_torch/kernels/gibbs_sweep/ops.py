@@ -17,46 +17,24 @@ the plain version (for the chain, a loop over the tokens).
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from repro_torch.kernels import build, check_args, count_launch
+from repro_torch.kernels import (build, check_args, device_int, launcher,
+                                 raise_on_error)
 
 _SOURCE = "gibbs_sweep"
 _MASK = 0xFFFFFFFF
 # the pre-pass draws at most this many bytes of noise at a time; a sweep of
 # more tokens runs the pre-pass and the chain once a chunk of tokens
 NOISE_CHUNK_BYTES = 1 << 30
-_limits: dict = {}   # (name, device index) -> a topic limit of the kernel
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(_SOURCE)
-    if lib.gibbs_sweep.argtypes is None:
-        ptr, i32, u32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
-                                   ctypes.c_uint, ctypes.c_longlong,
-                                   ctypes.c_float)
-        lib.gibbs_sweep.argtypes = ([ptr] * 7 + [i64] + [i32] * 3
-                                    + [f32] * 3 + [ptr, i32, ptr])
-        lib.gibbs_sweep.restype = ctypes.c_int
-        lib.gibbs_noise.argtypes = [ptr] + [u32] * 3 + [i32] * 4 + [ptr]
-        lib.gibbs_noise.restype = ctypes.c_int
-        lib.gibbs_reduce_floor.argtypes = [ptr, i32, i32, i32, ptr]
-        lib.gibbs_reduce_floor.restype = ctypes.c_int
-        for name in ("gibbs_sweep_max_topics", "gibbs_sweep_cached_topics"):
-            getattr(lib, name).argtypes = [ctypes.POINTER(ctypes.c_int)]
-            getattr(lib, name).restype = ctypes.c_int
-        lib.gibbs_sweep_error_string.argtypes = [ctypes.c_int]
-        lib.gibbs_sweep_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err:
-        msg = lib.gibbs_sweep_error_string(err).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+def _check_seed(seed) -> int:
+    seed = int(seed)
+    if not 0 <= seed < 2 ** 64:
+        raise ValueError(f"seed must lie in [0, 2^64), got {seed}")
+    return seed
 
 
 def chain_scalars(alpha: float, beta: float, W: int):
@@ -138,24 +116,12 @@ def gibbs_sweep_plain(z, n_dk, n_wk, n_k, doc_ids, word_ids, noise_or_seed,
     return z, n_dk, n_wk, n_k
 
 
-def _topic_limit(lib: ctypes.CDLL, name: str, device: torch.device) -> int:
-    got = _limits.get((name, device.index))
-    if got is None:
-        out = ctypes.c_int(0)
-        _raise_on(lib, getattr(lib, name)(ctypes.byref(out)),
-                  f"reading {name} on {device}")
-        got = _limits[(name, device.index)] = out.value
-    return got
-
-
 def cached_topic_limit(device) -> int:
     """The largest K whose per-topic caches fit the chain's shared memory
     on ``device`` (a CUDA device); past it the chain keeps them in device
     memory."""
-    dev = torch.device(device)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        return _topic_limit(lib, "gibbs_sweep_cached_topics", dev)
+    return device_int(_SOURCE, "gibbs_sweep_cached_topics",
+                      torch.device(device))
 
 
 def block_threads(K: int) -> int:
@@ -166,45 +132,42 @@ def block_threads(K: int) -> int:
     return min(512, max(32, 1 << (-(-int(K) // 8) - 1).bit_length()))
 
 
-def gibbs_noise(seed: int, sweep: int, T: int, K: int, device, *,
-                t0: int = 0, out=None) -> torch.Tensor:
+def gibbs_noise_plain(seed: int, sweep: int, T: int, K: int, device, *,
+                      t0: int = 0, out=None) -> torch.Tensor:
+    """`philox_gumbel` into ``out`` when given: the plain version of
+    `gibbs_noise`."""
+    got = philox_gumbel(_check_seed(seed), sweep, int(T), int(K),
+                        torch.device(device), t0=t0)
+    return got if out is None else out.copy_(got)
+
+
+@launcher(_SOURCE, "device", gibbs_noise_plain)
+def gibbs_noise(kernel, stream, seed: int, sweep: int, T: int, K: int,
+                device, *, t0: int = 0, out=None) -> torch.Tensor:
     """The chain's Philox noise of tokens t0 .. t0 + T - 1 as a float32
     [T, K] tensor (into ``out`` when given).  On a CUDA device it launches
-    the pre-pass kernel, a grid over every SM, counted in
-    ``gibbs_noise.launches``; on the CPU it is `philox_gumbel`."""
+    the pre-pass kernel, a grid over every SM, counted as
+    ``gibbs_noise``; on the CPU it is `philox_gumbel`."""
     dev = torch.device(device)
-    seed, T, K = int(seed), int(T), int(K)
-    if not 0 <= seed < 2 ** 64:
-        raise ValueError(f"seed must lie in [0, 2^64), got {seed}")
-    if dev.type == "cpu":
-        got = philox_gumbel(seed, sweep, T, K, dev, t0=t0)
-        return got if out is None else out.copy_(got)
-    if dev.type != "cuda":
-        raise ValueError(f"gibbs_noise runs on CPU or CUDA devices, not {dev}")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    seed, T, K = _check_seed(seed), int(T), int(K)
     if out is None:
         out = torch.empty((T, K), dtype=torch.float32, device=dev)
     if out.device != dev:
         raise ValueError(f"out is on {out.device}, not {dev}")
     check_args("out", {"out": (out, torch.float32, (T, K))})
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.gibbs_noise(out.data_ptr(), seed & _MASK, seed >> 32,
-                              int(sweep) & _MASK, int(t0), T, K,
-                              torch.cuda.get_device_properties(dev)
-                              .multi_processor_count,
-                              torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, err, "gibbs_noise kernel launch")
-    count_launch(gibbs_noise)
+    kernel.launch(kernel.lib.gibbs_noise, out.data_ptr(), seed & _MASK,
+                  seed >> 32, int(sweep) & _MASK, int(t0), T, K,
+                  torch.cuda.get_device_properties(dev).multi_processor_count,
+                  stream)
     return out
 
 
-gibbs_noise.launches = 0
-
-
-def gibbs_sweep(z, n_dk, n_wk, n_k, doc_ids, word_ids, noise_or_seed, *,
-                alpha: float, beta: float, W: int, sweep: int = 0):
+@launcher(_SOURCE, "n_k", gibbs_sweep_plain)
+def gibbs_sweep(kernel, stream, z, n_dk, n_wk, n_k, doc_ids, word_ids,
+                noise_or_seed, *, alpha: float, beta: float, W: int,
+                sweep: int = 0):
     """One sequential collapsed-Gibbs sweep over the T tokens, IN PLACE.
 
     z [T] int32 topics in [0, K); n_dk [D, K], n_wk [W, K] and n_k [K]
@@ -213,7 +176,7 @@ def gibbs_sweep(z, n_dk, n_wk, n_k, doc_ids, word_ids, noise_or_seed, *,
     or an int in [0, 2^64) that keys the Philox noise with ``sweep``.
     Returns (z, n_dk, n_wk, n_k).  A CPU tensor runs the plain version; a
     CUDA tensor launches the chain kernel (one CTA of `block_threads(K)`
-    threads), counted in ``gibbs_sweep.launches``.
+    threads), counted as ``gibbs_sweep``.
     With a seed the `gibbs_noise` pre-pass draws the noise first, and the
     sweep runs as one pre-pass and one chain launch a chunk of
     `NOISE_CHUNK_BYTES` of noise (one of each at up to 2^28 / K tokens).
@@ -221,13 +184,6 @@ def gibbs_sweep(z, n_dk, n_wk, n_k, doc_ids, word_ids, noise_or_seed, *,
     the two agree bit for bit.  Ids and z must be in range: the kernel
     reads them unchecked.
     """
-    if n_k.device.type == "cpu":
-        return gibbs_sweep_plain(z, n_dk, n_wk, n_k, doc_ids, word_ids,
-                                 noise_or_seed, alpha=alpha, beta=beta, W=W,
-                                 sweep=sweep)
-    if n_k.device.type != "cuda":
-        raise ValueError(f"gibbs_sweep runs on CPU or CUDA tensors, not "
-                         f"{n_k.device}")
     T, (K,), D = z.shape[0], n_k.shape, n_dk.shape[0]
     want = {"z": (z, torch.int32, (T,)),
             "n_dk": (n_dk, torch.float32, (D, K)),
@@ -239,56 +195,45 @@ def gibbs_sweep(z, n_dk, n_wk, n_k, doc_ids, word_ids, noise_or_seed, *,
     if injected:
         want["noise"] = (noise_or_seed, torch.float32, (T, K))
     else:
-        seed = int(noise_or_seed)
-        if not 0 <= seed < 2 ** 64:
-            raise ValueError(f"seed must lie in [0, 2^64), got {seed}")
+        seed = _check_seed(noise_or_seed)
     check_args("n_k", want)
     threads = block_threads(K)
     dev = n_k.device
     a, b, wb = chain_scalars(alpha, beta, W)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        limit = _topic_limit(lib, "gibbs_sweep_max_topics", dev)
-        if K > limit:
-            raise ValueError(f"K={K}: gibbs_sweep takes K <= {limit}")
-        if T == 0:
-            return z, n_dk, n_wk, n_k
-        scratch = torch.empty(2 * K, dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        chunk = (T if injected
-                 else max(1, min(T, NOISE_CHUNK_BYTES // (4 * K))))
-        noise = noise_or_seed if injected else torch.empty(
-            (chunk, K), dtype=torch.float32, device=dev)
-        for t0 in range(0, T, chunk):
-            t1 = min(T, t0 + chunk)
-            if not injected:
-                gibbs_noise(seed, sweep, t1 - t0, K, dev, t0=t0,
-                            out=noise[:t1 - t0])
-            err = lib.gibbs_sweep(
-                z.data_ptr(), n_dk.data_ptr(), n_wk.data_ptr(),
-                n_k.data_ptr(), doc_ids.data_ptr(), word_ids.data_ptr(),
-                noise.data_ptr(), 0 if injected else t0, t0, t1, K, a, b,
-                wb, scratch.data_ptr(), threads, stream)
-            _raise_on(lib, err, "gibbs_sweep kernel launch")
-            count_launch(gibbs_sweep)
+    limit = device_int(_SOURCE, "gibbs_sweep_max_topics", dev)
+    if K > limit:
+        raise ValueError(f"K={K}: gibbs_sweep takes K <= {limit}")
+    if T == 0:
+        return z, n_dk, n_wk, n_k
+    scratch = torch.empty(2 * K, dtype=torch.float32, device=dev)
+    chunk = T if injected else max(1, min(T, NOISE_CHUNK_BYTES // (4 * K)))
+    noise = noise_or_seed if injected else torch.empty(
+        (chunk, K), dtype=torch.float32, device=dev)
+    for t0 in range(0, T, chunk):
+        t1 = min(T, t0 + chunk)
+        if not injected:
+            gibbs_noise(seed, sweep, t1 - t0, K, dev, t0=t0,
+                        out=noise[:t1 - t0])
+        kernel.launch(
+            kernel.lib.gibbs_sweep, z.data_ptr(), n_dk.data_ptr(),
+            n_wk.data_ptr(), n_k.data_ptr(), doc_ids.data_ptr(),
+            word_ids.data_ptr(), noise.data_ptr(), 0 if injected else t0, t0,
+            t1, K, a, b, wb, scratch.data_ptr(), threads, stream)
     return z, n_dk, n_wk, n_k
-
-
-gibbs_sweep.launches = 0
 
 
 def reduce_floor(T: int, K: int, device) -> torch.Tensor:
     """Launch the chain's skeleton on ``device`` (a CUDA device): T steps of
     the sweep's one-barrier block argmax over K topics with its block size,
     no loads and no logs; T times a step is the sweep's latency floor.  Not
-    counted in ``gibbs_sweep.launches``: it computes nothing of the chain.
-    Returns the int32 [1] tensor the last step writes."""
+    counted as ``gibbs_sweep``: it computes nothing of the chain.  Returns
+    the int32 [1] tensor the last step writes."""
     dev = torch.device(device)
     out = torch.empty(1, dtype=torch.int32, device=dev)
-    lib = _lib()
+    lib = build.load(_SOURCE)
     with torch.cuda.device(dev):
         err = lib.gibbs_reduce_floor(
             out.data_ptr(), int(T), int(K), block_threads(K),
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, err, "gibbs_reduce_floor kernel launch")
+    raise_on_error(_SOURCE, err, "gibbs_reduce_floor kernel launch")
     return out

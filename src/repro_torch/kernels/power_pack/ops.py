@@ -17,25 +17,11 @@ on a CPU tensor each runs its plain version.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import build, check_args, count_launch
+from repro_torch.kernels import check_args, launcher
 
 _SOURCE = "power_pack"
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load(_SOURCE)
-    if lib.scatter_add_rows.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.scatter_add_rows, lib.pack_rows):
-            fn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-            fn.restype = ctypes.c_int
-        lib.power_pack_error_string.argtypes = [ctypes.c_int]
-        lib.power_pack_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _flat_pairs(mat, sel_w, sel_k):
@@ -88,68 +74,37 @@ def _check_cuda_args(mat, sel_w, sel_k, vals=None):
     check_args("mat", want)
 
 
-def pack_rows(mat, sel_w, sel_k):
+@launcher(_SOURCE, "mat", pack_rows_plain)
+def pack_rows(kernel, stream, mat, sel_w, sel_k):
     """``out[p, j] = mat[sel_w[p], sel_k[p, j]]``: the [P, Pk] power
     submatrix of ``mat``, a new tensor.
 
     mat [W, K] float32; sel_w [P] int32; sel_k [P, Pk] int32.  Pairs outside
     ``mat`` pack to 0.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel, counted in ``pack_rows.launches``.  Exact: each
-    output is one element of ``mat``.
+    launches the kernel, counted as ``pack_rows``.  Exact: each output is
+    one element of ``mat``.
     """
-    if mat.device.type == "cpu":
-        return pack_rows_plain(mat, sel_w, sel_k)
-    if mat.device.type != "cuda":
-        raise ValueError(f"pack_rows runs on CPU or CUDA tensors, not "
-                         f"{mat.device}")
     _check_cuda_args(mat, sel_w, sel_k)
     (W, K), (P, Pk) = mat.shape, sel_k.shape
     out = torch.empty((P, Pk), dtype=torch.float32, device=mat.device)
-    lib = _lib()
-    with torch.cuda.device(mat.device):
-        err = lib.pack_rows(
-            mat.data_ptr(), sel_w.data_ptr(), sel_k.data_ptr(),
-            out.data_ptr(), P, Pk, W, K,
-            torch.cuda.current_stream(mat.device).cuda_stream)
-    if err:
-        msg = lib.power_pack_error_string(err).decode()
-        raise RuntimeError(f"pack_rows kernel launch failed: CUDA error "
-                           f"{err} ({msg})")
-    count_launch(pack_rows)
+    kernel.launch(kernel.lib.pack_rows, mat.data_ptr(), sel_w.data_ptr(),
+                  sel_k.data_ptr(), out.data_ptr(), P, Pk, W, K, stream)
     return out
 
 
-pack_rows.launches = 0
-
-
-def scatter_add_rows(mat, sel_w, sel_k, vals):
+@launcher(_SOURCE, "mat", scatter_add_rows_plain)
+def scatter_add_rows(kernel, stream, mat, sel_w, sel_k, vals):
     """``mat[sel_w[p], sel_k[p, j]] += vals[p, j]`` IN PLACE; returns mat.
 
     mat [W, K] float32; sel_w [P] int32; sel_k [P, Pk] int32; vals [P, Pk]
     float32.  Repeated (row, column) pairs all add; pairs outside ``mat``
     are dropped.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel, counted in ``scatter_add_rows.launches``.  The
-    kernel adds with atomics, so repeated pairs may sum in any order.
+    launches the kernel, counted as ``scatter_add_rows``.  The kernel adds
+    with atomics, so repeated pairs may sum in any order.
     """
-    if mat.device.type == "cpu":
-        return scatter_add_rows_plain(mat, sel_w, sel_k, vals)
-    if mat.device.type != "cuda":
-        raise ValueError(f"scatter_add_rows runs on CPU or CUDA tensors, not "
-                         f"{mat.device}")
     _check_cuda_args(mat, sel_w, sel_k, vals)
     (W, K), (P, Pk) = mat.shape, sel_k.shape
-    lib = _lib()
-    with torch.cuda.device(mat.device):
-        err = lib.scatter_add_rows(
-            mat.data_ptr(), sel_w.data_ptr(), sel_k.data_ptr(),
-            vals.data_ptr(), P, Pk, W, K,
-            torch.cuda.current_stream(mat.device).cuda_stream)
-    if err:
-        msg = lib.power_pack_error_string(err).decode()
-        raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA "
-                           f"error {err} ({msg})")
-    count_launch(scatter_add_rows)
+    kernel.launch(kernel.lib.scatter_add_rows, mat.data_ptr(),
+                  sel_w.data_ptr(), sel_k.data_ptr(), vals.data_ptr(), P, Pk,
+                  W, K, stream)
     return mat
-
-
-scatter_add_rows.launches = 0

@@ -7,11 +7,11 @@ counterparts of the JAX package's
 without the TPU tile padding:
 
   - `power_sweep_carry`, serving mode (``update_phi=False``, the fold-in of
-    ``core/infer.py``), counted in ``power_sweep_carry.launches``;
+    ``core/infer.py``), counted as ``power_sweep_carry``;
   - `power_sweep_carry_train`, training mode (``update_phi=True`` followed
     by the ``take_along_axis`` of the reference's
-    ``core/pobp.py::_selective_sweep_carry_pallas``), counted in
-    ``power_sweep_carry_train.launches``.  It reads the power selection
+    ``core/pobp.py::_selective_sweep_carry_pallas``), counted as
+    ``power_sweep_carry_train``.  It reads the power selection
     (``sel_w``, ``sel_k``) and phi directly: the [P+1, K] phi and mask row
     tables that the TPU kernel needs (Pallas-TPU cannot gather columns) are
     never built, and the delta/residual come back packed as [P, Pk].
@@ -32,45 +32,18 @@ launch to launch.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.types import FOLD_CHUNK
-from repro_torch.kernels import (build, check_args, count_launch,
+from repro_torch.kernels import (check_args, device_int, launcher,
                                  zeroed_counters)
 from repro_torch.kernels.power_sweep.packed import power_sweep_tokens_plain
+from repro_torch.kernels.token_order import FOLD_CHUNK
 
 _SOURCE = "power_sweep_carry"
 SERVE_REGISTER_MAX_K = 2048        # 2 float4s a thread x 256 threads
 _MAX_TRAIN_WARPS = 8
-_smem_optin: dict[int, int] = {}   # device index -> usable shared memory
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load(_SOURCE)
-    fn = lib.power_sweep_carry_serve
-    if fn.argtypes is None:
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([ptr] * 10 + [i32] * 5 + [f32] * 3
-                       + [i32] * 2 + [ptr])
-        fn.restype = ctypes.c_int
-        lib.power_sweep_carry_train.argtypes = ([ptr] * 18 + [i32] * 7
-                                                + [f32] * 3 + [i32, ptr])
-        lib.power_sweep_carry_train.restype = ctypes.c_int
-        lib.power_sweep_carry_error_string.argtypes = [ctypes.c_int]
-        lib.power_sweep_carry_error_string.restype = ctypes.c_char_p
-        lib.power_sweep_carry_configure.argtypes = [
-            ctypes.POINTER(ctypes.c_int)]
-        lib.power_sweep_carry_configure.restype = ctypes.c_int
-    return lib
-
-
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err:
-        msg = lib.power_sweep_carry_error_string(err).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
 # ------------------------------------------------------------------ serving
@@ -126,9 +99,10 @@ def power_sweep_carry_plain(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     return mu_t, theta_delta, rdoc
 
 
-def power_sweep_carry(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
-                      phi_rows, *, alpha: float, beta: float, wbeta: float,
-                      n_guard: int):
+@launcher(_SOURCE, "mu_t", power_sweep_carry_plain)
+def power_sweep_carry(kernel, stream, p_tok, doc_ids, counts_t, mu_t, theta,
+                      phi_tot, phi_rows, *, alpha: float, beta: float,
+                      wbeta: float, n_guard: int):
     """One serving sweep over the token-major [T, K] messages.
 
     p_tok [T] int32, the row of ``phi_rows`` each token reads (``n_guard``,
@@ -141,17 +115,10 @@ def power_sweep_carry(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
 
     ``mu_t`` is updated IN PLACE.  Returns (mu_t, theta_delta [D, K],
     rdoc [D]).  A CPU tensor runs the plain version; a CUDA tensor launches
-    the kernel on ``serve_launch_plan(K)`` (any K >= 1), counted in
-    ``power_sweep_carry.launches``.  The kernel sums in a fixed order on
+    the kernel on ``serve_launch_plan(K)`` (any K >= 1), counted as
+    ``power_sweep_carry``.  The kernel sums in a fixed order on
     either path, so a launch repeats bit for bit.
     """
-    if mu_t.device.type == "cpu":
-        return power_sweep_carry_plain(
-            p_tok, doc_ids, counts_t, mu_t, theta, phi_tot, phi_rows,
-            alpha=alpha, beta=beta, wbeta=wbeta, n_guard=n_guard)
-    if mu_t.device.type != "cuda":
-        raise ValueError(f"power_sweep_carry runs on CPU or CUDA tensors, "
-                         f"not {mu_t.device}")
     T, K = mu_t.shape
     D = theta.shape[0]
     n_rows = phi_rows.shape[0]
@@ -168,21 +135,15 @@ def power_sweep_carry(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     rdoc = torch.empty((D,), dtype=torch.float32, device=dev)
     part = (torch.empty((4 * D, K), dtype=torch.float32, device=dev)
             if plan.path == "kblocked" else None)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.power_sweep_carry_serve(
-            p_tok.data_ptr(), doc_ids.data_ptr(), counts_t.data_ptr(),
-            mu_t.data_ptr(), theta.data_ptr(), phi_tot.data_ptr(),
-            phi_rows.data_ptr(), theta_delta.data_ptr(), rdoc.data_ptr(),
-            None if part is None else part.data_ptr(), T, D, K, n_rows,
-            int(n_guard), float(alpha), float(beta), float(wbeta), plan.V,
-            plan.threads, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, err, "power_sweep_carry kernel launch")
-    count_launch(power_sweep_carry)
+    kernel.launch(
+        kernel.lib.power_sweep_carry_serve, p_tok.data_ptr(),
+        doc_ids.data_ptr(), counts_t.data_ptr(), mu_t.data_ptr(),
+        theta.data_ptr(), phi_tot.data_ptr(), phi_rows.data_ptr(),
+        theta_delta.data_ptr(), rdoc.data_ptr(),
+        None if part is None else part.data_ptr(), T, D, K, n_rows,
+        int(n_guard), float(alpha), float(beta), float(wbeta), plan.V,
+        plan.threads, stream)
     return mu_t, theta_delta, rdoc
-
-
-power_sweep_carry.launches = 0
 
 
 # ----------------------------------------------------------------- training
@@ -204,32 +165,24 @@ def power_sweep_carry_train_plain(p_tok, doc_ids, counts_t, mu_t, theta,
         alpha=alpha, beta=beta, wbeta=wbeta)
 
 
-def _train_smem(lib: ctypes.CDLL, device: torch.device) -> int:
+def _train_smem(device: torch.device) -> int:
     """Bytes of dynamic shared memory the training kernel may use on
     ``device``.  The first call there lets the kernel opt in to all a
-    block may have; it must run with that device current."""
-    smem = _smem_optin.get(device.index)
-    if smem is None:
-        got = ctypes.c_int(0)
-        _raise_on(lib, lib.power_sweep_carry_configure(ctypes.byref(got)),
-                  f"configuring power_sweep_carry_train on {device}")
-        smem = _smem_optin[device.index] = got.value
-    return smem
+    block may have."""
+    return device_int(_SOURCE, "power_sweep_carry_configure", device)
 
 
 def power_sweep_carry_train_max_k(Pk: int, device="cuda") -> int:
     """The largest K the training kernel takes at ``Pk`` power topics on
     ``device`` (one warp a CTA: K + 2 * Pk floats of shared memory)."""
-    dev = torch.device(device)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        return _train_smem(lib, dev) // 4 - 2 * max(Pk, 1)
+    return _train_smem(torch.device(device)) // 4 - 2 * max(Pk, 1)
 
 
-def power_sweep_carry_train(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
-                            phi_eff_wk, sel_w, sel_k, *, alpha: float,
-                            beta: float, wbeta: float, runs=None,
-                            chunks=None):
+@launcher(_SOURCE, "mu_t", power_sweep_carry_train_plain)
+def power_sweep_carry_train(kernel, stream, p_tok, doc_ids, counts_t, mu_t,
+                            theta, phi_tot, phi_eff_wk, sel_w, sel_k, *,
+                            alpha: float, beta: float, wbeta: float,
+                            runs=None, chunks=None):
     """One training-mode selective sweep at the (power word, power topic)
     coordinates, over the token-major [T, K] messages.
 
@@ -257,17 +210,10 @@ def power_sweep_carry_train(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     Returns (mu_t, theta_delta [D, K], d_pack [P, Pk], r_pack [P, Pk]);
     the caller forms theta + theta_delta.  A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel (the sweep, then the d/r
-    fold), counted once in ``power_sweep_carry_train.launches``.  Every
+    fold), counted once as ``power_sweep_carry_train``.  Every
     sum runs in a fixed order with no atomics, so all four outputs repeat
     bit for bit from launch to launch.
     """
-    if mu_t.device.type == "cpu":
-        return power_sweep_carry_train_plain(
-            p_tok, doc_ids, counts_t, mu_t, theta, phi_tot, phi_eff_wk,
-            sel_w, sel_k, alpha=alpha, beta=beta, wbeta=wbeta)
-    if mu_t.device.type != "cuda":
-        raise ValueError(f"power_sweep_carry_train runs on CPU or CUDA "
-                         f"tensors, not {mu_t.device}")
     T, K = mu_t.shape
     D = theta.shape[0]
     P, Pk = sel_k.shape
@@ -295,33 +241,25 @@ def power_sweep_carry_train(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
                         "chunks": (chunks, torch.int32, (E,)),
                         "mu_t": (mu_t, torch.float32, (T, K))})
     dev = mu_t.device
-    lib = _lib()
-    with torch.cuda.device(dev):
-        floats = _train_smem(lib, dev) // 4
-        warps = min(_MAX_TRAIN_WARPS, (floats - K) // (2 * max(Pk, 1)))
-        if warps < 1:
-            raise ValueError(
-                f"K={K}, Pk={Pk}: the training kernel takes K + 2 * Pk <= "
-                f"{floats} on {dev} (its shared memory)")
-        theta_delta = torch.empty_like(theta)
-        d_pack = torch.empty((P, Pk), dtype=torch.float32, device=dev)
-        r_pack = torch.empty_like(d_pack)
-        cd = torch.empty((T, Pk), dtype=torch.float32, device=dev)
-        part = torch.empty((2, E, Pk), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.power_sweep_carry_train(
-            p_tok.data_ptr(), doc_ids.data_ptr(), counts_t.data_ptr(),
-            mu_t.data_ptr(), theta.data_ptr(), phi_tot.data_ptr(),
-            phi_eff_wk.data_ptr(), sel_w.data_ptr(), sel_k.data_ptr(),
-            order.data_ptr(), starts.data_ptr(), chunks.data_ptr(),
-            cd.data_ptr(), theta_delta.data_ptr(), d_pack.data_ptr(),
-            r_pack.data_ptr(), part.data_ptr(),
-            zeroed_counters(dev, stream, P).data_ptr(), T, D, K, P, Pk, E,
-            FOLD_CHUNK, float(alpha), float(beta), float(wbeta), warps,
-            stream)
-    _raise_on(lib, err, "power_sweep_carry_train kernel launch")
-    count_launch(power_sweep_carry_train)
+    floats = _train_smem(dev) // 4
+    warps = min(_MAX_TRAIN_WARPS, (floats - K) // (2 * max(Pk, 1)))
+    if warps < 1:
+        raise ValueError(
+            f"K={K}, Pk={Pk}: the training kernel takes K + 2 * Pk <= "
+            f"{floats} on {dev} (its shared memory)")
+    theta_delta = torch.empty_like(theta)
+    d_pack = torch.empty((P, Pk), dtype=torch.float32, device=dev)
+    r_pack = torch.empty_like(d_pack)
+    cd = torch.empty((T, Pk), dtype=torch.float32, device=dev)
+    part = torch.empty((2, E, Pk), dtype=torch.float32, device=dev)
+    kernel.launch(
+        kernel.lib.power_sweep_carry_train, p_tok.data_ptr(),
+        doc_ids.data_ptr(), counts_t.data_ptr(), mu_t.data_ptr(),
+        theta.data_ptr(), phi_tot.data_ptr(), phi_eff_wk.data_ptr(),
+        sel_w.data_ptr(), sel_k.data_ptr(), order.data_ptr(),
+        starts.data_ptr(), chunks.data_ptr(), cd.data_ptr(),
+        theta_delta.data_ptr(), d_pack.data_ptr(), r_pack.data_ptr(),
+        part.data_ptr(), zeroed_counters(dev, stream, P).data_ptr(), T, D, K,
+        P, Pk, E, FOLD_CHUNK, float(alpha), float(beta), float(wbeta), warps,
+        stream)
     return mu_t, theta_delta, d_pack, r_pack
-
-
-power_sweep_carry_train.launches = 0

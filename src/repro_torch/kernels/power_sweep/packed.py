@@ -23,50 +23,19 @@ launch; on a CPU tensor it runs `power_sweep_tokens_plain`.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.core.types import sweep_order
-from repro_torch.kernels import build, check_args, count_launch
+from repro_torch.kernels import check_args, device_int, launcher
+from repro_torch.kernels.token_order import sweep_order
 
 _SOURCE = "power_sweep_tokens"
 _MAX_FOLD_WARPS = 4
-_smem_optin: dict[int, int] = {}   # device index -> shared memory a block may have
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(_SOURCE)
-    fn = lib.power_sweep_tokens
-    if fn.argtypes is None:
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr] * 13 + [i32] * 5 + [f32] * 3 + [i32, ptr]
-        fn.restype = ctypes.c_int
-        lib.power_sweep_tokens_error_string.argtypes = [ctypes.c_int]
-        lib.power_sweep_tokens_error_string.restype = ctypes.c_char_p
-        lib.power_sweep_tokens_smem_optin.argtypes = [
-            ctypes.POINTER(ctypes.c_int)]
-        lib.power_sweep_tokens_smem_optin.restype = ctypes.c_int
-        lib.power_sweep_tokens_scratch_words.argtypes = [i32, i32]
-        lib.power_sweep_tokens_scratch_words.restype = ctypes.c_longlong
-    return lib
-
-
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err:
-        msg = lib.power_sweep_tokens_error_string(err).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
-
-
-def _fold_warps(lib: ctypes.CDLL, device: torch.device, K: int) -> int:
+def _fold_warps(device: torch.device, K: int) -> int:
     """Warps of the theta_delta fold at K topics: each keeps a [K] row in
     shared memory, up to 4 within what a block may opt in to."""
-    optin = _smem_optin.get(device.index)
-    if optin is None:
-        got = ctypes.c_int(0)
-        _raise_on(lib, lib.power_sweep_tokens_smem_optin(ctypes.byref(got)),
-                  f"reading the shared memory of {device}")
-        optin = _smem_optin[device.index] = got.value
+    optin = device_int(_SOURCE, "power_sweep_tokens_smem_optin", device)
     warps = min(_MAX_FOLD_WARPS, optin // (4 * max(K, 1)))
     if warps < 1:
         raise ValueError(f"K={K}: the packed sweep's fold takes K <= "
@@ -106,7 +75,7 @@ def apply_token_update(doc_ids, counts_t, mu_t, theta, k_tok, mu_sel,
 
 def power_sweep_tokens_plain(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
                              phi_pack, sel_k, *, alpha: float, beta: float,
-                             wbeta: float, onehot: bool = False):
+                             wbeta: float, onehot: bool = False, order=None):
     """The packed sweep in plain PyTorch ops: the reference's
     ``_gather_selection``, the math of
     ``kernels/power_sweep/ref.py::power_sweep_tokens_ref`` and
@@ -116,9 +85,10 @@ def power_sweep_tokens_plain(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     The packed [P, Pk] delta/residual sums run as the reference's
     ``_selective_sweep_packed`` runs them: a one-hot [T, P] contraction
     when ``onehot``, else a row ``index_add_``.  Guard tokens (a row id
-    outside [0, P)) have exactly zero deltas either way.  ``mu_t`` is
-    updated IN PLACE; returns (mu_t, theta_delta [D, K], d_pack [P, Pk],
-    r_pack [P, Pk]).
+    outside [0, P)) have exactly zero deltas either way.  ``order`` is the
+    kernel's visiting order, not needed here.  ``mu_t`` is updated IN
+    PLACE; returns (mu_t, theta_delta [D, K], d_pack [P, Pk], r_pack
+    [P, Pk]).
     """
     P = sel_k.shape[0]
     p = p_tok.long()
@@ -147,9 +117,11 @@ def power_sweep_tokens_plain(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
             zeros.index_add(0, p[power], rv[power]))
 
 
-def power_sweep_tokens(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
-                       phi_pack, sel_k, *, alpha: float, beta: float,
-                       wbeta: float, onehot: bool = False, order=None):
+@launcher(_SOURCE, "mu_t", power_sweep_tokens_plain)
+def power_sweep_tokens(kernel, stream, p_tok, doc_ids, counts_t, mu_t, theta,
+                       phi_tot, phi_pack, sel_k, *, alpha: float,
+                       beta: float, wbeta: float, onehot: bool = False,
+                       order=None):
     """One packed selective sweep over the token-major messages.
 
     p_tok [T] int32: each token's row of the packed buffers, P (the guard
@@ -173,18 +145,11 @@ def power_sweep_tokens(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     Returns (mu_t, theta_delta [D, K], d_pack [P, Pk], r_pack [P, Pk]); the
     caller forms theta + theta_delta.  A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel (two device kernels), counted
-    once in ``power_sweep_tokens.launches``.  The kernel sums in a fixed
+    once as ``power_sweep_tokens``.  The kernel sums in a fixed
     order, so all four outputs repeat bit for bit from launch to launch.
     doc_ids, sel_k and order must be in range: the kernel reads them
     unchecked.
     """
-    if mu_t.device.type == "cpu":
-        return power_sweep_tokens_plain(
-            p_tok, doc_ids, counts_t, mu_t, theta, phi_tot, phi_pack, sel_k,
-            alpha=alpha, beta=beta, wbeta=wbeta, onehot=onehot)
-    if mu_t.device.type != "cuda":
-        raise ValueError(f"power_sweep_tokens runs on CPU or CUDA tensors, "
-                         f"not {mu_t.device}")
     T, K = mu_t.shape
     D = theta.shape[0]
     P, Pk = sel_k.shape
@@ -206,21 +171,13 @@ def power_sweep_tokens(p_tok, doc_ids, counts_t, mu_t, theta, phi_tot,
     theta_delta = torch.empty_like(theta)
     packs = torch.zeros((2, P, Pk), dtype=torch.float32, device=dev)
     d_pack, r_pack = packs[0], packs[1]
-    lib = _lib()
-    scratch = torch.empty(lib.power_sweep_tokens_scratch_words(T, Pk),
+    scratch = torch.empty(kernel.lib.power_sweep_tokens_scratch_words(T, Pk),
                           dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        warps = _fold_warps(lib, dev, K)
-        err = lib.power_sweep_tokens(
-            order.data_ptr(), p_tok.data_ptr(), doc_ids.data_ptr(),
-            counts_t.data_ptr(), mu_t.data_ptr(), theta.data_ptr(),
-            phi_tot.data_ptr(), phi_pack.data_ptr(), sel_k.data_ptr(),
-            scratch.data_ptr(), theta_delta.data_ptr(), d_pack.data_ptr(),
-            r_pack.data_ptr(), T, D, K, P, Pk, float(alpha), float(beta),
-            float(wbeta), warps, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, err, "power_sweep_tokens kernel launch")
-    count_launch(power_sweep_tokens)
+    kernel.launch(
+        kernel.lib.power_sweep_tokens, order.data_ptr(), p_tok.data_ptr(),
+        doc_ids.data_ptr(), counts_t.data_ptr(), mu_t.data_ptr(),
+        theta.data_ptr(), phi_tot.data_ptr(), phi_pack.data_ptr(),
+        sel_k.data_ptr(), scratch.data_ptr(), theta_delta.data_ptr(),
+        d_pack.data_ptr(), r_pack.data_ptr(), T, D, K, P, Pk, float(alpha),
+        float(beta), float(wbeta), _fold_warps(dev, K), stream)
     return mu_t, theta_delta, d_pack, r_pack
-
-
-power_sweep_tokens.launches = 0

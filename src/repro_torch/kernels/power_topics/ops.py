@@ -18,37 +18,16 @@ version.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build, check_args, count_launch
+from repro_torch.kernels import check_args, device_int, launcher
 
 _SOURCE = "power_topics"
 _HIST_BINS = 2 * 1024              # the kernel's two 10-bit histograms
 _CAP = 256                         # candidates the kernel ranks directly
 _MAX_THREADS = 512
-_smem_optin: dict[int, int] = {}   # device index -> usable shared memory
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load(_SOURCE)
-    if lib.power_topics.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.power_topics.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-        lib.power_topics.restype = ctypes.c_int
-        lib.power_topics_configure.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.power_topics_configure.restype = ctypes.c_int
-        lib.power_topics_error_string.argtypes = [ctypes.c_int]
-        lib.power_topics_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err:
-        msg = lib.power_topics_error_string(err).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
 class TopicsPlan(NamedTuple):
@@ -90,20 +69,8 @@ def power_topics_plain(r_wk: torch.Tensor, sel_w: torch.Tensor,
     return order[:, :Pk].to(torch.int32)
 
 
-def _smem(lib: ctypes.CDLL, device: torch.device) -> int:
-    """Bytes of dynamic shared memory the kernel may use on ``device``.
-    The first call there lets the kernel opt in to all a block may have;
-    it must run with that device current."""
-    smem = _smem_optin.get(device.index)
-    if smem is None:
-        got = ctypes.c_int(0)
-        _raise_on(lib, lib.power_topics_configure(ctypes.byref(got)),
-                  f"configuring power_topics on {device}")
-        smem = _smem_optin[device.index] = got.value
-    return smem
-
-
-def power_topics(r_wk: torch.Tensor, sel_w: torch.Tensor,
+@launcher(_SOURCE, "r_wk", power_topics_plain)
+def power_topics(kernel, stream, r_wk: torch.Tensor, sel_w: torch.Tensor,
                  Pk: int) -> torch.Tensor:
     """Per power word, the ids of its ``Pk`` largest residuals, in
     ``lax.top_k``'s order: int32 [P, Pk].
@@ -111,15 +78,10 @@ def power_topics(r_wk: torch.Tensor, sel_w: torch.Tensor,
     r_wk [W, K] float32; sel_w [P] int32, each id in [0, W) (the kernel
     reads a row outside as all zeros; the plain version raises).  A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel,
-    counted in ``power_topics.launches``, and raises on a shape it cannot
-    take (K past the rows' room in shared memory).  Exact: the same bits
-    from both, launch after launch.
+    counted as ``power_topics``, and raises on a shape it cannot take (K
+    past the rows' room in shared memory).  Exact: the same bits from
+    both, launch after launch.
     """
-    if r_wk.device.type == "cpu":
-        return power_topics_plain(r_wk, sel_w, Pk)
-    if r_wk.device.type != "cuda":
-        raise ValueError(f"power_topics runs on CPU or CUDA tensors, not "
-                         f"{r_wk.device}")
     if r_wk.dim() != 2 or sel_w.dim() != 1:
         raise ValueError(f"r_wk must be [W, K] and sel_w [P], got shapes "
                          f"{tuple(r_wk.shape)} and {tuple(sel_w.shape)}")
@@ -132,20 +94,13 @@ def power_topics(r_wk: torch.Tensor, sel_w: torch.Tensor,
     check_args("r_wk", {"r_wk": (r_wk, torch.float32, (W, K)),
                         "sel_w": (sel_w, torch.int32, (P,))})
     out = torch.empty((P, Pk), dtype=torch.int32, device=r_wk.device)
-    lib = _lib()
-    with torch.cuda.device(r_wk.device):
-        room = _smem(lib, r_wk.device)
-        if plan.smem_bytes > room:
-            raise ValueError(
-                f"power_topics: K={K}, Pk={Pk} need {plan.smem_bytes} bytes "
-                f"of shared memory a block, past the {room} of "
-                f"{r_wk.device}")
-        _raise_on(lib, lib.power_topics(
-            r_wk.data_ptr(), sel_w.data_ptr(), out.data_ptr(), P, Pk, W, K,
-            plan.threads, torch.cuda.current_stream(r_wk.device).cuda_stream),
-            "power_topics kernel launch")
-    count_launch(power_topics)
+    # the first call on a device lets the kernel opt in to all the shared
+    # memory a block may have
+    room = device_int(_SOURCE, "power_topics_configure", r_wk.device)
+    if plan.smem_bytes > room:
+        raise ValueError(
+            f"power_topics: K={K}, Pk={Pk} need {plan.smem_bytes} bytes "
+            f"of shared memory a block, past the {room} of {r_wk.device}")
+    kernel.launch(kernel.lib.power_topics, r_wk.data_ptr(), sel_w.data_ptr(),
+                  out.data_ptr(), P, Pk, W, K, plan.threads, stream)
     return out
-
-
-power_topics.launches = 0

@@ -16,13 +16,15 @@ import pytest
 import torch
 
 from repro_torch.core import pobp
-from repro_torch.core.types import FOLD_CHUNK, LDAConfig, MiniBatch
+from repro_torch.core.types import LDAConfig, MiniBatch
 from repro_torch.data.batching import docs_to_padded
 from repro_torch.data.synthetic import lda_corpus
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels.bp_update import ops as bp_ops
 from repro_torch.kernels.power_pack import ops as pack_ops
 from repro_torch.kernels.power_sweep import ops, packed
 from repro_torch.kernels.power_topics import ops as topics_ops
+from repro_torch.kernels.token_order import FOLD_CHUNK
 from repro_torch.serve import FoldInEngine, SlabEngine
 
 pytestmark = pytest.mark.cuda
@@ -95,11 +97,11 @@ def _check_serving_on_card(D, L, K, W):
     mu0 = args[3].clone()
     plain_args = list(args)
     plain_args[3] = mu0.clone()
-    before = ops.power_sweep_carry.launches
+    before = launch_counts()["power_sweep_carry"]
     got = ops.power_sweep_carry(*args, **kw)
-    assert ops.power_sweep_carry.launches == before + 1
+    assert launch_counts()["power_sweep_carry"] == before + 1
     want = ops.power_sweep_carry_plain(*plain_args, **kw)
-    assert ops.power_sweep_carry.launches == before + 1
+    assert launch_counts()["power_sweep_carry"] == before + 1
     torch.cuda.synchronize()
     assert got[0].data_ptr() == args[3].data_ptr()        # mu in place
     for g, w in zip(got, want):
@@ -140,11 +142,11 @@ def test_kernel_limits_on_card(card):
         torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
         args = [x.to("cuda") for x in _train_args(K, D=2, L=4, K=K + 1, P=3,
                                                    Pk=Pk)]
-        before = ops.power_sweep_carry_train.launches
+        before = launch_counts()["power_sweep_carry_train"]
         with pytest.raises(ValueError, match="training kernel takes"):
             ops.power_sweep_carry_train(*args, **kw,
                                         **_word_runs(args, 7))
-        assert ops.power_sweep_carry_train.launches == before
+        assert launch_counts()["power_sweep_carry_train"] == before
 
 
 def test_wrapper_checks_on_card(card):
@@ -235,9 +237,9 @@ def _check_bp_update_on_card(D, L, K, W):
     args = [x.to("cuda") for x in _bp_args(D + K, D=D, L=L, K=K, W=W,
                                            junk_pad_mu=True)]
     kw = dict(alpha=ALPHA, beta=0.01, wbeta=W * 0.01)
-    before = bp_ops.bp_update.launches
+    before = launch_counts()["bp_update"]
     got = bp_ops.bp_update(*args, **kw)
-    assert bp_ops.bp_update.launches == before + 1
+    assert launch_counts()["bp_update"] == before + 1
     want = bp_ops.bp_update_plain(*args, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
@@ -251,7 +253,7 @@ def _word_runs(args, W):
     """The tokens' runs by word and their chunks, as the step makes them
     (keywords of ``power_sweep_carry_train``): a power token's word is its
     row's sel_w, a guard token's a word outside the selection."""
-    from repro_torch.core.types import token_chunks, token_runs
+    from repro_torch.kernels.token_order import token_chunks, token_runs
 
     p_tok, counts, sel_w = args[0], args[2], args[7]
     P = sel_w.shape[0]
@@ -327,11 +329,11 @@ def test_carry_training_kernel_matches_plain_version_on_card(
     plain = list(args)
     plain[3] = mu0.clone()
     kw.update(_word_runs(args, 2 * P + 1))
-    before = ops.power_sweep_carry_train.launches
+    before = launch_counts()["power_sweep_carry_train"]
     got = ops.power_sweep_carry_train(*args, **kw)
-    assert ops.power_sweep_carry_train.launches == before + 1
+    assert launch_counts()["power_sweep_carry_train"] == before + 1
     want = ops.power_sweep_carry_train_plain(*plain, **kw)
-    assert ops.power_sweep_carry_train.launches == before + 1
+    assert launch_counts()["power_sweep_carry_train"] == before + 1
     torch.cuda.synchronize()
     assert got[0].data_ptr() == args[3].data_ptr()        # mu in place
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
@@ -374,9 +376,9 @@ def test_scatter_add_rows_kernel_matches_plain_version_on_card(card, W, K,
     mat, sel_w, sel_k, vals = [x.to("cuda") for x in
                                _pack_args(W + K, W=W, K=K, P=P, Pk=Pk)]
     want = pack_ops.scatter_add_rows_plain(mat.clone(), sel_w, sel_k, vals)
-    before = pack_ops.scatter_add_rows.launches
+    before = launch_counts()["scatter_add_rows"]
     got = pack_ops.scatter_add_rows(mat, sel_w, sel_k, vals)
-    assert got is mat and pack_ops.scatter_add_rows.launches == before + 1
+    assert got is mat and launch_counts()["scatter_add_rows"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, want)              # unique pairs: exact
     # repeated rows with values all add
@@ -434,11 +436,11 @@ def test_power_sweep_tokens_kernel_matches_plain_version_on_card(
     theta0 = args[4].clone()
     plain = list(args)
     plain[3] = mu0.clone()
-    before = packed.power_sweep_tokens.launches
+    before = launch_counts()["power_sweep_tokens"]
     got = packed.power_sweep_tokens(*args, **kw)
-    assert packed.power_sweep_tokens.launches == before + 1
+    assert launch_counts()["power_sweep_tokens"] == before + 1
     want = packed.power_sweep_tokens_plain(*plain, **kw)
-    assert packed.power_sweep_tokens.launches == before + 1
+    assert launch_counts()["power_sweep_tokens"] == before + 1
     torch.cuda.synchronize()
     assert got[0].data_ptr() == args[3].data_ptr()          # mu in place
     assert torch.equal(args[4], theta0)                     # theta read only
@@ -474,9 +476,9 @@ def test_pack_rows_kernel_matches_plain_version_on_card(card, W, K, P, Pk):
         sel_k[3, 0] = K                     # a column outside mat packs to 0
         sel_k[2, -1] = -1                   # so does one before column 0
         sel_w[4] = W                        # and every pair of a row past W
-    before = pack_ops.pack_rows.launches
+    before = launch_counts()["pack_rows"]
     got = pack_ops.pack_rows(mat, sel_w, sel_k)
-    assert pack_ops.pack_rows.launches == before + 1
+    assert launch_counts()["pack_rows"] == before + 1
     want = pack_ops.pack_rows_plain(mat, sel_w, sel_k)
     torch.cuda.synchronize()
     assert torch.equal(got, want)                          # exact
@@ -528,25 +530,21 @@ def test_packed_train_step_on_card_matches_cpu_step(card):
     W, K = 500, 64
     cfg = LDAConfig(vocab_size=W, num_topics=K, lambda_k_abs=8,
                     inner_iters=8, residual_tol=0.05, sweep_policy="packed")
-    counters = ((bp_ops.bp_update, "launches"),
-                (pack_ops.pack_rows, "launches"),
-                (packed.power_sweep_tokens, "launches"),
-                (pack_ops.scatter_add_rows, "launches"),
-                (ops.power_sweep_carry_train, "launches"),
-                (topics_ops.power_topics, "launches"))
+    counters = ("bp_update", "pack_rows", "power_sweep_tokens",
+                "scatter_add_rows", "power_sweep_carry_train", "power_topics")
     res = {}
     for device in ("cpu", "cuda"):
         step, _ = pobp.make_train_step(cfg, device=device)
         state = pobp.init_train_state(cfg, device=device)
-        before = [getattr(f, a) for f, a in counters]
+        before = launch_counts()
         trace = []
         for mb, u0 in _numpy_batches(W, K):
             state, diag = step(state, mb.word_ids, mb.counts,
                                u0=torch.from_numpy(u0))
             trace.append((diag["iters"], float(diag["mean_r"])))
+        after = launch_counts()
         res[device] = (state.phi_acc.cpu(), trace,
-                       [getattr(f, a) - b
-                        for (f, a), b in zip(counters, before)])
+                       [after[k] - before[k] for k in counters])
     sweeps = sum(it - 1 for it, _ in res["cuda"][1])
     assert res["cpu"][2] == [0, 0, 0, 0, 0, 0]
     assert res["cuda"][2] == [3, sweeps, sweeps, sweeps, 0, sweeps]
@@ -576,21 +574,17 @@ def test_train_step_on_card_matches_cpu_step(card):
     for device in ("cpu", "cuda"):
         step, _ = pobp.make_train_step(cfg, device=device)
         state = pobp.init_train_state(cfg, device=device)
-        before = (bp_ops.bp_update.launches,
-                  ops.power_sweep_carry_train.launches,
-                  pack_ops.scatter_add_rows.launches,
-                  topics_ops.power_topics.launches)
+        before = launch_counts()
         trace = []
         for mb, u0 in batches:
             state, diag = step(state, mb.word_ids, mb.counts,
                                u0=torch.from_numpy(u0))
             trace.append((diag["iters"], float(diag["mean_r"])))
-        after = (bp_ops.bp_update.launches,
-                 ops.power_sweep_carry_train.launches,
-                 pack_ops.scatter_add_rows.launches,
-                 topics_ops.power_topics.launches)
+        after = launch_counts()
         res[device] = (state.phi_acc.cpu(), trace,
-                       [a - b for a, b in zip(after, before)])
+                       [after[k] - before[k] for k in (
+                           "bp_update", "power_sweep_carry_train",
+                           "scatter_add_rows", "power_topics")])
     sweeps = sum(it - 1 for it, _ in res["cuda"][1])
     assert res["cpu"][2] == [0, 0, 0, 0]
     assert res["cuda"][2] == [3, sweeps, sweeps, sweeps] and sweeps > 0
@@ -643,7 +637,7 @@ def test_engines_serve_on_card_with_pipelined_harvest(card):
     docs, _, true_phi = lda_corpus(2, 48, W, K, doc_len_mean=25)
     phi_acc = (true_phi.T * 200.0).astype(np.float32)
     cfg = LDAConfig(vocab_size=W, num_topics=K)
-    before = ops.power_sweep_carry.launches
+    before = launch_counts()["power_sweep_carry"]
     slab = SlabEngine(phi_acc, cfg, slots=8, slot_len=64, pipeline=4,
                       device="cuda")
     bucket = FoldInEngine(phi_acc, cfg, len_buckets=(32, 64), batch_docs=8,
@@ -655,7 +649,7 @@ def test_engines_serve_on_card_with_pipelined_harvest(card):
         th = np.stack([r.theta for r in res])
         assert np.isfinite(th).all()
         np.testing.assert_allclose(th.sum(axis=1), 1.0, atol=1e-5)
-    assert ops.power_sweep_carry.launches > before
+    assert launch_counts()["power_sweep_carry"] > before
 
 
 # ------------------------------------------------ the training step repeats
@@ -689,7 +683,7 @@ def test_carry_training_dr_repeat_bit_for_bit_on_card(card, D, L, K, P, Pk,
 @pytest.mark.parametrize("T,K,W", [(65536, 2000, 141043), (21, 37, 5),
                                    (256, 10000, 50)])
 def test_word_rows_sum_matches_cpu_bit_for_bit_on_card(card, T, K, W):
-    from repro_torch.core.types import token_runs
+    from repro_torch.kernels.token_order import token_runs
     from repro_torch.kernels.segment_sum import ops as seg
 
     rng = np.random.default_rng(T + K)
@@ -699,12 +693,12 @@ def test_word_rows_sum_matches_cpu_bit_for_bit_on_card(card, T, K, W):
     values = counts * rng.random((T, K)).astype(np.float32)
     runs = token_runs(torch.from_numpy(words), torch.from_numpy(counts), W)
     want = seg.word_rows_sum_plain(*runs, torch.from_numpy(values), W)
-    before = seg.word_rows_sum.launches
+    before = launch_counts()["word_rows_sum"]
     got = seg.word_rows_sum(*[r.cuda() for r in runs],
                             torch.from_numpy(values).cuda(), W)
     again = seg.word_rows_sum(*[r.cuda() for r in runs],
                               torch.from_numpy(values).cuda(), W)
-    assert seg.word_rows_sum.launches == before + 2
+    assert launch_counts()["word_rows_sum"] == before + 2
     assert torch.equal(got.cpu(), want) and torch.equal(got, again)
 
 
@@ -728,9 +722,9 @@ def test_topic_sum_matches_plain_version_on_card(card, P, Pk, K):
     again = seg.topic_sum(sel_k.cuda(), vals.cuda(), base.cuda())
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
     assert torch.equal(got, again)
-    before = seg.topic_sum.launches
+    before = launch_counts()["topic_sum"]
     seg.topic_sum(sel_k.cuda(), vals.cuda(), base.cuda())
-    assert seg.topic_sum.launches == before + 1
+    assert launch_counts()["topic_sum"] == before + 1
 
 
 def test_topic_sum_repeats_on_another_stream_and_refuses_a_k_past_its_memory(
@@ -795,10 +789,10 @@ def test_power_topics_kernel_matches_plain_version_at_cell_shapes_on_card(
     W = r.shape[0]
     sel_w = torch.randperm(W, generator=g, device="cuda")[:P].to(torch.int32)
     sel_w[-7:] = W - 1                   # dead slots on one guard row
-    before = topics_ops.power_topics.launches
+    before = launch_counts()["power_topics"]
     got = topics_ops.power_topics(r, sel_w, Pk)
     again = topics_ops.power_topics(r, sel_w, Pk)
-    assert topics_ops.power_topics.launches == before + 2
+    assert launch_counts()["power_topics"] == before + 2
     want = topics_ops.power_topics_plain(r, sel_w, Pk)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and got.shape == (P, Pk)
@@ -858,10 +852,10 @@ def test_power_topics_launches_once_a_selective_iteration_on_card(card):
     state = pobp.init_train_state(cfg, 3, device="cuda")
     docs, _, _ = lda_corpus(5, 64, W, K, doc_len_mean=60)
     mb = docs_to_padded(docs, max_len=64)
-    before = topics_ops.power_topics.launches
+    before = launch_counts()["power_topics"]
     _, diag = step(state, mb.word_ids, mb.counts)
     assert diag["iters"] > 2
-    assert topics_ops.power_topics.launches - before == diag["iters"] - 1
+    assert launch_counts()["power_topics"] - before == diag["iters"] - 1
 
 
 def test_restored_cuda_generator_draws_the_same_init(card):
@@ -1041,9 +1035,9 @@ def test_slab_placed_on_a_one_by_one_nccl_mesh_serves_as_unplaced(
         eng = SlabEngine.from_checkpoint(
             str(tmp_path / "ck"),
             sharding=(mesh, phi_serving_spec(mesh, phi_acc)), **kw)
-        before = ops.power_sweep_carry.launches
+        before = launch_counts()["power_sweep_carry"]
         got = serve(eng)
-        launched = ops.power_sweep_carry.launches - before
+        launched = launch_counts()["power_sweep_carry"] - before
     finally:
         dist.destroy_process_group()
     assert eng._place.group is None and tuple(eng._phi.shape) == (W + 1, K)
@@ -1321,12 +1315,14 @@ def test_gibbs_sweep_kernel_matches_plain_version_on_card(card, T, D, K, W,
     for draw, sweep in ((noise, 0), (987654321987654321, 3)):
         got = [x.clone() for x in state]
         want = [x.clone() for x in state]
-        before = (gops.gibbs_sweep.launches, gops.gibbs_noise.launches)
+        before = launch_counts()
         gops.gibbs_sweep(*got, d, w, draw, **kw, sweep=sweep)
         gops.gibbs_sweep_plain(*want, d, w, draw, **kw, sweep=sweep)
         torch.cuda.synchronize()
-        assert (gops.gibbs_sweep.launches, gops.gibbs_noise.launches) == \
-            (before[0] + 1, before[1] + (draw is not noise))
+        after = launch_counts()
+        assert (after["gibbs_sweep"], after["gibbs_noise"]) == \
+            (before["gibbs_sweep"] + 1,
+             before["gibbs_noise"] + (draw is not noise))
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         _check_counts(*got, T)
@@ -1375,9 +1371,9 @@ def test_gibbs_noise_pre_pass_equals_philox_gumbel_on_card(card):
     from repro_torch.kernels.gibbs_sweep import ops as gops
 
     for T, K, t0 in ((300, 2000, 0), (17, 33, 5), (5, 10000, 100)):
-        before = gops.gibbs_noise.launches
+        before = launch_counts()["gibbs_noise"]
         got = gops.gibbs_noise(1234567890123, 3, T, K, "cuda", t0=t0)
-        assert gops.gibbs_noise.launches == before + 1
+        assert launch_counts()["gibbs_noise"] == before + 1
         assert torch.equal(got, gops.philox_gumbel(1234567890123, 3, T, K,
                                                    "cuda", t0=t0))
     cfg, d, w, state, _ = _gibbs_case(2, T=300, D=6, K=64, W=90)
@@ -1387,10 +1383,11 @@ def test_gibbs_noise_pre_pass_equals_philox_gumbel_on_card(card):
     chunk = gops.NOISE_CHUNK_BYTES
     gops.NOISE_CHUNK_BYTES = 64 * 4 * 100              # 100 tokens a chunk
     try:
-        before = (gops.gibbs_sweep.launches, gops.gibbs_noise.launches)
+        before = launch_counts()
         gops.gibbs_sweep(*got, d, w, 77, **kw, sweep=2)
-        assert (gops.gibbs_sweep.launches, gops.gibbs_noise.launches) == \
-            (before[0] + 3, before[1] + 3)
+        after = launch_counts()
+        assert (after["gibbs_sweep"], after["gibbs_noise"]) == \
+            (before["gibbs_sweep"] + 3, before["gibbs_noise"] + 3)
     finally:
         gops.NOISE_CHUNK_BYTES = chunk
     gops.gibbs_sweep_plain(*want, d, w, 77, **kw, sweep=2)
@@ -1429,24 +1426,23 @@ def test_gibbs_philox_draws_repeat_on_card(card):
 
 def test_run_gibbs_on_card_repeats_and_launches_once_a_sweep(card):
     from repro_torch.core import gibbs
-    from repro_torch.kernels.gibbs_sweep import ops as gops
 
     docs, _, _ = lda_corpus(3, 64, 500, 20, doc_len_mean=60)
     mb = docs_to_padded(docs)
     cfg = LDAConfig(vocab_size=500, num_topics=20)
     runs, seen = [], []
     for _ in range(2):
-        before = gops.gibbs_sweep.launches
+        before = launch_counts()["gibbs_sweep"]
         runs.append(gibbs.run_gibbs(
             torch.Generator(device="cuda").manual_seed(7), mb, cfg, 3,
             callback=lambda s, *st: seen.append(
                 bool(torch.equal(st[3], st[2].sum(0))))))
-        assert gops.gibbs_sweep.launches == before + 3
+        assert launch_counts()["gibbs_sweep"] == before + 3
     assert all(seen) and len(seen) == 6
     # the Philox noise: one pre-pass launch a sweep
-    before = gops.gibbs_noise.launches
+    before = launch_counts()["gibbs_noise"]
     gibbs.run_gibbs(torch.Generator(device="cuda").manual_seed(7), mb, cfg, 2)
-    assert gops.gibbs_noise.launches == before + 2
+    assert launch_counts()["gibbs_noise"] == before + 2
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
     T = float(mb.counts.sum())
@@ -1466,17 +1462,16 @@ def test_vb_on_card_repeats_bit_for_bit_and_tracks_cpu(card):
     those ulps (4 iterations at these shapes part by up to 1.2e-3 at small
     entries), so the run is held to itself, not to the CPU."""
     from repro_torch.core import vb
-    from repro_torch.kernels.segment_sum import ops as seg
 
     docs, _, _ = lda_corpus(4, 48, 800, 16, doc_len_mean=50)
     mb = docs_to_padded(docs)
     cfg = LDAConfig(vocab_size=800, num_topics=16)
     lam0 = 0.01 + 0.5 + torch.rand((800, 16),
                                    generator=torch.Generator().manual_seed(0))
-    before = seg.word_rows_sum.launches
+    before = launch_counts()["word_rows_sum"]
     a = vb.run_vb(None, mb, cfg, 4, lam0=lam0)
     b = vb.run_vb(None, mb, cfg, 4, lam0=lam0)
-    assert seg.word_rows_sum.launches == before + 8
+    assert launch_counts()["word_rows_sum"] == before + 8
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert bool(torch.isfinite(a[1]).all())
     card_mb = MiniBatch(mb.word_ids.cuda(), mb.counts.cuda())
@@ -1598,10 +1593,10 @@ def test_lm_train_step_on_card_matches_cpu_and_repeats(card, arch):
                                           residual, batch)
         return loss.cpu(), synced[0], opt, residual
 
-    n0 = pack_ops.pack_rows.launches
+    n0 = launch_counts()["pack_rows"]
     cpu_loss, cpu_grads, _, _ = one_step("cpu")
     a_loss, a_grads, a_opt, a_res = one_step("cuda")
-    assert pack_ops.pack_rows.launches > n0
+    assert launch_counts()["pack_rows"] > n0
     b_loss, b_grads, b_opt, b_res = one_step("cuda")
     torch.testing.assert_close(a_loss, cpu_loss, rtol=1e-4, atol=0)
     for (path, x), (_, y), (_, want) in zip(tree_leaves(a_grads),
@@ -1648,11 +1643,12 @@ def test_powersync_kernels_match_plain_versions_on_card(card):
             red, PowerSyncConfig(lambda_rows=0.3, lambda_cols=0.4), 2), 2,
             [red], device="cuda")
 
-    n0 = (pack_ops.pack_rows.launches, pack_ops.scatter_add_rows.launches)
+    n0 = launch_counts()
     got = run()
+    n = launch_counts()
     # 4 leaves past min_dense_size, a pack and two scatters each, a shard
-    assert (pack_ops.pack_rows.launches - n0[0],
-            pack_ops.scatter_add_rows.launches - n0[1]) == (8, 16)
+    assert (n["pack_rows"] - n0["pack_rows"],
+            n["scatter_add_rows"] - n0["scatter_add_rows"]) == (8, 16)
     with mock.patch.object(pack_ops, "pack_rows", pack_ops.pack_rows_plain), \
             mock.patch.object(pack_ops, "scatter_add_rows",
                               pack_ops.scatter_add_rows_plain):
@@ -1702,10 +1698,11 @@ def test_powersync_syncs_a_leaf_of_two_to_the_31_elements_on_card(card):
                                 PowerSyncConfig(), 1)
         return s["w"].reshape(-1, 1024), res["w"].reshape(-1, 1024)
 
-    n0 = (pack_ops.pack_rows.launches, pack_ops.scatter_add_rows.launches)
+    n0 = launch_counts()
     got = run()
-    assert (pack_ops.pack_rows.launches - n0[0],
-            pack_ops.scatter_add_rows.launches - n0[1]) == (1, 2)
+    n = launch_counts()
+    assert (n["pack_rows"] - n0["pack_rows"],
+            n["scatter_add_rows"] - n0["scatter_add_rows"]) == (1, 2)
     with mock.patch.object(pack_ops, "pack_rows", pack_ops.pack_rows_plain), \
             mock.patch.object(pack_ops, "scatter_add_rows",
                               pack_ops.scatter_add_rows_plain):

@@ -26,6 +26,7 @@ from repro.kernels.power_pack import ops as jpack
 from repro.kernels.power_pack.ref import scatter_add_rows_ref
 from repro.kernels.power_sweep.ref import power_sweep_carry_kblocked_ref
 from repro.core import power as jpw
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels.bp_update import ops as bp_ops
 from repro_torch.kernels.power_pack import ops as pack_ops
 from repro_torch.kernels.power_sweep import ops as sweep_ops
@@ -59,11 +60,11 @@ def _bp_case(seed, *, D, L, K, W):
 def _port_bp(case, wbeta):
     t = torch.from_numpy
     word_ids, doc_ids, counts, mu, theta, phi, phi_tot = case
-    before = bp_ops.bp_update.launches
+    before = launch_counts()["bp_update"]
     out = bp_ops.bp_update(t(word_ids), t(doc_ids), t(counts), t(mu.copy()),
                            t(theta), t(phi), t(phi_tot), alpha=ALPHA,
                            beta=BETA, wbeta=wbeta)
-    assert bp_ops.bp_update.launches == before      # CPU: plain, no launch
+    assert launch_counts()["bp_update"] == before      # CPU: plain, no launch
     return [x.numpy() for x in out]
 
 
@@ -163,9 +164,9 @@ def test_scatter_add_rows_matches_pallas_kernel_and_reference(W, K, P, Pk,
                                          dup_zero_rows=dup)
     t = torch.from_numpy
     m = t(mat.copy())
-    before = pack_ops.scatter_add_rows.launches
+    before = launch_counts()["scatter_add_rows"]
     out = pack_ops.scatter_add_rows(m, t(sel_w), t(sel_k), t(vals))
-    assert out is m and pack_ops.scatter_add_rows.launches == before
+    assert out is m and launch_counts()["scatter_add_rows"] == before
     args = [jnp.asarray(x) for x in (mat, sel_w, sel_k, vals)]
     for want in (jpack.scatter_add_rows(*args),        # Pallas, interpret
                  jpw.scatter_add_rows(*args), scatter_add_rows_ref(*args)):
@@ -258,11 +259,11 @@ def test_carry_training_plain_matches_kblocked_oracle(D, L, K, P, Pk, guard,
         np.take_along_axis(np.asarray(r), sel_k, axis=1) for r in ref[2:4]]
     t = torch.from_numpy
     mu_t = t(mu0.copy())
-    before = sweep_ops.power_sweep_carry_train.launches
+    before = launch_counts()["power_sweep_carry_train"]
     got = sweep_ops.power_sweep_carry_train(
         t(p_tok), t(doc_ids), t(counts), mu_t, *[t(x) for x in case[4:]],
         **kw)
-    assert sweep_ops.power_sweep_carry_train.launches == before
+    assert launch_counts()["power_sweep_carry_train"] == before
     assert got[0] is mu_t                                   # in place
     for name, g, r in zip(("mu", "theta_delta", "d_pack", "r_pack"), got,
                           want):

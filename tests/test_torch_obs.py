@@ -21,7 +21,7 @@ from unittest import mock
 
 from repro_torch import obs
 from repro_torch.core import pobp, power
-from repro_torch.core.types import FOLD_CHUNK, LDAConfig
+from repro_torch.core.types import LDAConfig
 from repro_torch.data.batching import docs_to_padded
 from repro_torch.data.synthetic import lda_corpus
 
@@ -128,8 +128,9 @@ def test_a_profiled_step_records_its_span_tree_and_counters(sync_mode):
     assert top[1::2] == ["pobp.iter"] * len(top[1::2])
 
 
-def test_power_tokens_count_the_selected_words_counted_tokens():
-    cfg = _cfg()
+@pytest.mark.parametrize("policy", ["auto", "packed"])
+def test_power_tokens_count_the_selected_words_counted_tokens(policy):
+    cfg = _cfg(sweep_policy=policy)
     step, _ = pobp.make_train_step(cfg, device="cpu")
     mb = _batch(seed=5)
     seen = []
@@ -153,47 +154,6 @@ def test_power_tokens_count_the_selected_words_counted_tokens():
     per_word = torch.unique(words, return_counts=True)[1]
     rarest = int(torch.sort(per_word).values[:cfg.num_power_words].sum())
     assert rarest * len(seen) <= c["power_tokens"] <= c["tokens"] * len(seen)
-
-
-@pytest.mark.parametrize("policy", ["auto", "packed"])
-def test_fold_chunks_and_run_max_count_the_selected_words_runs(policy):
-    """``power_run_max`` is the longest counted run of a sweep's power
-    words; ``fold_chunks`` the carry fold's chunks of their runs, at most
-    FOLD_CHUNK tokens each, over the step's sweeps (none under the packed
-    policy, which has no such fold).  A step run with nothing recording
-    leaves neither."""
-    cfg = _cfg(sweep_policy=policy)
-    step, _ = pobp.make_train_step(cfg, device="cpu")
-    docs, _, _ = lda_corpus(1, 300, W, K, doc_len_mean=40)
-    mb = docs_to_padded(docs, max_len=32)       # head runs past FOLD_CHUNK
-    step(pobp.init_train_state(cfg, device="cpu"), mb.word_ids, mb.counts)
-    assert obs.steps() == []
-    seen = []
-    real = power.select_power_words
-
-    def spy(r_w, P):
-        sel = real(r_w, P)
-        seen.append(sel.clone())
-        return sel
-
-    with mock.patch.object(power, "select_power_words", spy):
-        _profiled(lambda: step(pobp.init_train_state(cfg, device="cpu"),
-                               mb.word_ids, mb.counts))
-    [rec] = obs.steps()
-    c = rec.counters
-    per_word = torch.bincount(mb.word_ids[mb.counts > 0].long(), minlength=W)
-    runs = [per_word[sel.long()] for sel in seen]
-    assert len(seen) == c["selective_iters"] > 0
-    assert c["power_run_max"] == max(int(n.max()) for n in runs)
-    assert c["power_run_max"] > FOLD_CHUNK
-    if policy == "packed":
-        assert "fold_chunks" not in c
-        return
-    chunks = sum(int(((n + FOLD_CHUNK - 1) // FOLD_CHUNK).sum())
-                 for n in runs)
-    assert c["fold_chunks"] == chunks
-    # more chunks than non-empty power rows: the long runs were cut
-    assert c["fold_chunks"] > sum(int((n > 0).sum()) for n in runs)
 
 
 def test_recording_changes_no_bit_of_the_step():

@@ -42,6 +42,7 @@ from repro.launch import lda_train as jcli
 from repro_torch.core import pobp, power
 from repro_torch.core.sweep_dispatch import POLICIES, resolve_sweep_policy
 from repro_torch.core.types import LDAConfig, MiniBatch
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels.power_pack import ops as pack_ops
 from repro_torch.kernels.power_sweep import packed
 from repro_torch.launch import lda_train as cli
@@ -76,9 +77,9 @@ def _pack_case(seed, *, W, K, P, Pk):
                                         (30, 130, 6, 130)])
 def test_pack_rows_plain_matches_oracle_and_pallas_kernel(W_, K_, P, Pk):
     mat, sel_w, sel_k = _pack_case(W_ + K_, W=W_, K=K_, P=P, Pk=Pk)
-    before = pack_ops.pack_rows.launches
+    before = launch_counts()["pack_rows"]
     got = pack_ops.pack_rows(t(mat), t(sel_w), t(sel_k))
-    assert pack_ops.pack_rows.launches == before       # CPU: plain, no launch
+    assert launch_counts()["pack_rows"] == before       # CPU: plain, no launch
     assert got.shape == (P, Pk) and got.dtype == torch.float32
     args = [jnp.asarray(x) for x in (mat, sel_w, sel_k)]
     for want in (pack_rows_ref(*args), jpack.pack_rows(*args)):   # Pallas
@@ -180,12 +181,12 @@ def test_power_sweep_tokens_plain_matches_reference_composition(
     wbeta = 0.3
     want = _reference_composition(case, wbeta)
     mu_t, theta_t = t(mu), t(theta)
-    before = packed.power_sweep_tokens.launches
+    before = launch_counts()["power_sweep_tokens"]
     got = packed.power_sweep_tokens(
         t(p_tok), t(doc_ids), t(counts), mu_t, theta_t, t(phi_tot),
         t(phi_pack), t(sel_k), alpha=ALPHA, beta=BETA, wbeta=wbeta,
         onehot=onehot)
-    assert packed.power_sweep_tokens.launches == before
+    assert launch_counts()["power_sweep_tokens"] == before
     assert got[0] is mu_t                                  # in place
     np.testing.assert_array_equal(theta_t.numpy(), theta)  # theta read only
     _close(got[0], want[0], RTOL, ATOL, "mu")
@@ -416,12 +417,10 @@ def test_selective_sweep_packed_matches_reference(crossover):
     jb, tb, arrays = _selective_inputs(7)
     want = jp._selective_sweep_packed(jb.token_layout(),
                                       *[jnp.asarray(a) for a in arrays], jcfg)
-    before = (pack_ops.pack_rows.launches,
-              packed.power_sweep_tokens.launches)
+    before = launch_counts()
     got = pobp._selective_sweep_packed(tb.token_layout(),
                                        *[t(a) for a in arrays], cfg)
-    assert (pack_ops.pack_rows.launches,
-            packed.power_sweep_tokens.launches) == before
+    assert launch_counts() == before
     for name, g, w in zip(("mu", "theta", "d_pack", "r_pack"), got, want):
         _close(g, w, RTOL, 1e-5, name)
     # the policy dispatch reaches the same formulation

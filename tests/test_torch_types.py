@@ -1,15 +1,17 @@
-"""The port's run tables (``repro_torch.core.types``): `token_runs`, the
-counted tokens grouped by key in token order, and `token_chunks`, those
-runs cut into chunks of at most ``FOLD_CHUNK`` tokens for the carry sweep's
-d/r fold, each made once per mini-batch and cached on the `TokenLayout`.
-The file imports neither ``jax`` nor ``repro``."""
+"""The port's run tables (``repro_torch.kernels.token_order``):
+`token_runs`, the counted tokens grouped by key in token order, and
+`token_chunks`, those runs cut into chunks of at most ``FOLD_CHUNK`` tokens
+for the carry sweep's d/r fold, each made once per mini-batch and cached on
+the `TokenLayout` of ``repro_torch.core.types``.  The file imports neither
+``jax`` nor ``repro``."""
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.types import (FOLD_CHUNK, MiniBatch, token_chunks,
-                                    token_runs)
+from repro_torch.core.types import MiniBatch
+from repro_torch.kernels.token_order import (FOLD_CHUNK, token_chunks,
+                                             token_runs)
 
 C = FOLD_CHUNK
 
