@@ -27,8 +27,11 @@ non-zero:
      training sweep repeating all four outputs bit for bit (its d/r sums
      run in a fixed order since the fold kernel), and again at the k2000
      cell's shapes and skew (a word in every document, runs of 64, 65, 1
-     and no token, the rest Zipf-like), timed with its d/r fold's own
-     device time and bound; the two fixed-order sums
+     and no token, the rest Zipf-like), then at both cells' shapes (D =
+     4096 at K = 2000, D = 2048 at K = 10,000) with their padding (~45% of
+     the slots, count 0 on power row 0), each timed with its sweep's and
+     its d/r fold's own device time and the fold's bound; the two
+     fixed-order sums
      the port adds (the word-row scatter, bit for bit against its plain
      version on the CPU and timed in turns with ``index_add_`` with and
      without PyTorch's deterministic algorithms; the phi_tot refresh's
@@ -578,7 +581,7 @@ def dead_slots(sel_w, sel_k, dead: int, row: int) -> None:
 
 
 def carry_train_inputs(gen, *, D, L, K, W, P, Pk, ragged, guard_share,
-                       empty_doc=False, dead=0, skewed=False):
+                       empty_doc=False, dead=0, skewed=False, padded=False):
     """Inputs of one training-mode selective sweep: tokens on P power rows
     or (a ``guard_share`` of them, and with ``empty_doc`` all of document
     0, whose counts are 0) the guard id P; P distinct power words of a
@@ -590,7 +593,12 @@ def carry_train_inputs(gen, *, D, L, K, W, P, Pk, ragged, guard_share,
     about D counted tokens, like a head word), rows 1, 2 and 3 runs of
     exactly C = FOLD_CHUNK, C + 1 and 1 counted tokens, row 4 none, and
     the other rows are drawn Zipf-like with weight 1 / (rank + 13), so
-    that the longest of them, too, is about D tokens at L = 128."""
+    that the longest of them, too, is about D tokens at L = 128.  With
+    ``padded`` every document is ragged as the training cells' batches
+    are (``portbench/gen.py::padded``): log-normal lengths of mean ~71
+    counted slots (sigma 0.5, at least 4), the slots past a document's
+    length of count 0 on power row 0, the head word's, so ~45% of the
+    slots at L = 128 are padding that the sweep updates."""
     import torch
 
     from repro_torch.kernels.token_order import FOLD_CHUNK
@@ -598,6 +606,11 @@ def carry_train_inputs(gen, *, D, L, K, W, P, Pk, ragged, guard_share,
     dev = "cuda"
     T = D * L
     doc_ids, counts = doc_tokens(gen, D=D, L=L, ragged=ragged)
+    if padded:
+        z = torch.randn(D, generator=gen, device=dev)
+        lens = torch.exp(math.log(71.0) - 0.125 + 0.5 * z).round().clamp(4, L)
+        pad = torch.arange(L, device=dev).repeat(D) >= lens.repeat_interleave(L)
+        counts[pad] = 0.0
     if skewed:
         zipf = 1.0 / torch.arange(14, P + 9, device=dev, dtype=torch.float32)
         p_tok = torch.multinomial(zipf, T, replacement=True, generator=gen) + 5
@@ -620,6 +633,8 @@ def carry_train_inputs(gen, *, D, L, K, W, P, Pk, ragged, guard_share,
         p_tok[pick[2 * C + 1]] = 3
         guard[pick] = False
     p_tok = torch.where(guard, P, p_tok).to(torch.int32)
+    if padded:
+        p_tok[pad] = 0
     mu = torch.rand((T, K), generator=gen, device=dev) + 0.01
     mu /= mu.sum(1, keepdim=True)
     theta = torch.zeros((D, K), device=dev).index_add_(0, doc_ids.long(),
@@ -691,7 +706,8 @@ def carry_fold_bound_ms(x, runs):
 
 
 def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
-                      timed, empty_doc=False, dead=0, skewed=False):
+                      timed, empty_doc=False, dead=0, skewed=False,
+                      padded=False):
     """The training sweep against its plain version: mu' within 1e-5,
     theta_delta, d_pack and r_pack within rel 1e-4 (the sums' order
     differs); mu outside the power tokens' selections bit for bit as it
@@ -699,16 +715,19 @@ def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
     is given the tokens' runs by word and their chunks, made beforehand as
     the training step makes them once per mini-batch.  With ``dead`` dead
     slots (`dead_slots`), their d/r must be exactly 0; with ``skewed``
-    (`carry_train_inputs`), row 4's, whose run is empty.  Timed and
-    ``skewed``, the d/r fold's own device time a launch too (`profile_run`
-    over five calls), beside its bound (`carry_fold_bound_ms`)."""
+    (`carry_train_inputs`), row 4's, whose run is empty; ``padded``, the
+    cells' padding on power row 0 (`carry_train_inputs`).  Timed and
+    ``skewed``, the sweep's and the d/r fold's own device time a launch
+    too (`profile_run` over five calls), the fold beside its bound
+    (`carry_fold_bound_ms`)."""
     import torch
 
     from repro_torch.kernels.token_order import token_chunks
 
     x = carry_train_inputs(gen, D=D, L=L, K=K, W=W, P=P, Pk=Pk,
                            ragged=ragged, guard_share=guard_share,
-                           empty_doc=empty_doc, dead=dead, skewed=skewed)
+                           empty_doc=empty_doc, dead=dead, skewed=skewed,
+                           padded=padded)
     runs = carry_train_runs(x, W)
     kw = dict(alpha=0.1, beta=0.01, wbeta=141043 * 0.01, runs=runs,
               chunks=token_chunks(runs[1]))
@@ -722,10 +741,15 @@ def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
     again = ops.power_sweep_carry_train(*fresh(), **kw)
     want = ops.power_sweep_carry_train_plain(*fresh(), **kw)
     torch.cuda.synchronize()
-    err_mu = float((got[0] - want[0]).abs().max())
+    # row blocks of mu at a time: at K = 10,000 a [T, K] temporary is 10 GB
+    err_mu = max(float((g - w).abs().max()) for g, w in
+                 zip(got[0].split(1 << 14), want[0].split(1 << 14)))
     rel = [rel_err(g, w) for g, w in zip(got[1:], want[1:])]
     off = ~selected_mask(x[3], x[0], x[8], P)
-    kept = bool(torch.equal(got[0][off], x[3][off]))
+    kept = not any(bool(((g != m) & o).any()) for g, m, o in
+                   zip(got[0].split(1 << 14), x[3].split(1 << 14),
+                       off.split(1 << 14)))
+    del off
     same = all(bool(torch.equal(g, a)) for g, a in zip(got, again))
     zero = not dead or not (got[2][-dead:].any() or got[3][-dead:].any())
     if skewed:
@@ -734,6 +758,8 @@ def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
     print(f"[kernel] power_sweep_carry_train T={D * L} D={D} K={K} P={P} "
           f"Pk={Pk} guard={guard_share}"
           + (f" dead slots={dead}" if dead else "")
+          + (f" padded ({int((x[2] == 0).sum())} count-0 slots on row 0)"
+             if padded else "")
           + (f" skewed (longest power row's run {longest}, "
              f"{kw['chunks'].numel()} chunks of split runs)" if skewed
              else "") + f": max|dmu'|="
@@ -754,7 +780,7 @@ def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
     plain_ms = time_ms(lambda *a: ops.power_sweep_carry_train_plain(*a, **kw),
                        fresh)
     bound, bound_by = carry_train_bound_ms(x)
-    tag = " skewed" if skewed else ""
+    tag = (" skewed" if skewed else "") + (" padded" if padded else "")
     print(f"[kernel] power_sweep_carry_train{tag}: {ms:.4f} ms  plain "
           f"{plain_ms:.4f} ms  bound {bound * 1e3:.2f} us ({bound_by})  "
           f"library: none (no single PyTorch call computes this sweep)")
@@ -763,16 +789,20 @@ def check_carry_train(ops, gen, *, D, L, K, W, P, Pk, ragged, guard_share,
             for _ in range(5):
                 ops.power_sweep_carry_train(*fresh(), **kw)
 
-        fold = profile_run(calls, "5 skewed carry training sweeps",
-                           card_line(), watch=("carry_dr_fold",)
-                           )[1].get("carry_dr_fold")
+        watched = profile_run(calls, f"5{tag} carry training sweeps",
+                              card_line(),
+                              watch=("carry_train_kernel", "carry_dr_fold"))[1]
+        sweep, fold = (watched.get(k) for k in ("carry_train_kernel",
+                                                  "carry_dr_fold"))
         fold_bound, fold_by = carry_fold_bound_ms(x, runs)
-        print(f"[kernel] power_sweep_carry_train{tag}: its d/r fold "
-              + (f"{fold:.4f} ms a launch" if fold is not None else
+        print(f"[kernel] power_sweep_carry_train{tag}: its sweep "
+              + (f"{sweep:.4f} ms, its d/r fold {fold:.4f} ms a launch"
+                 if sweep is not None and fold is not None else
                  "not measured (the profiler saw no device time)")
-              + f"  bound {fold_bound * 1e3:.2f} us ({fold_by})")
+              + f"  fold bound {fold_bound * 1e3:.2f} us ({fold_by})")
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                "fold_ms": fold, "fold_bound_ms": fold_bound}
+                "sweep_ms": sweep, "fold_ms": fold,
+                "fold_bound_ms": fold_bound}
     return kernel_record(
         "power_sweep_carry_train", "src/repro_torch/csrc/power_sweep_carry.cu",
         "src/repro/kernels/power_sweep/kernel.py:363", err_mu, ms, plain_ms,
@@ -4755,6 +4785,15 @@ def main(argv=None) -> None:
                              timed=True, skewed=True)
     train_recs["power_sweep_carry_train"].update(
         {f"{key}_skewed": skew[key] for key in skew})
+    # and at both cells' shapes (D = 4096 at K = 2000, D = 2048 at K =
+    # 10,000) with their padding: the slots past each document's length,
+    # ~45%, on power row 0 with count 0, updated as the cells update them
+    for D, K in ((4096, 2000), (2048, 10000)):
+        pad = check_carry_train(ops, gen, D=D, L=128, K=K, W=141043, P=14104,
+                                Pk=50, ragged=True, guard_share=0.3,
+                                timed=True, skewed=True, padded=True)
+        train_recs["power_sweep_carry_train"].update(
+            {f"{key}_padded_k{K}": pad[key] for key in pad})
     # the Gibbs chain (phase 12's comparators), injected and Philox noise:
     # timed at W = 20,000, T = 4096, K = 2000; then one topic, a warp and
     # one, past 2048 topics, the reference's K = 10,000 and a K past the

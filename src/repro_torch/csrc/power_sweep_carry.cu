@@ -79,25 +79,45 @@
 // topics (18.4 MB), read theta at the selected (document, topic) pairs
 // (<= 4.1 MB) and write theta_delta (4.1 MB), write d_pack and r_pack
 // (5.6 MB) and read the per-token ids and counts (0.8 MB): ~38 MB, ~12 us
-// at 3.35 TB/s; ~30 f32 operations per (token, topic) are ~1 us.  Bound by
-// bytes, so the work per token is Pk elements, never K:
-//   - one CTA per document; warps take the document's tokens in rounds of
-//     one token each, lanes stride over the token's Pk topics (any Pk from
-//     1 to K), sel_k and phi are read by index, theta and phi_tot at the
-//     Pk topics from global memory (L1/L2);
+// at 3.35 TB/s; ~30 f32 operations per (token, topic) are ~1 us.  But each
+// (token, topic) element of mu and phi lies in a 32-byte sector of its own
+// at a random place in HBM (8x the bytes counted), so what bounds the sweep
+// is the rate of scattered requests, above all mu's: so each input of an
+// element is read once, and the work per token is Pk elements, never K:
+//   - one CTA per document, 8 warps; the document's theta row is read once,
+//     whole (16-byte loads where aligned), into shared memory.  Warps take
+//     the document's tokens t0 + warp, t0 + warp + 8, ... with no barrier
+//     between them; a guard token reads and writes nothing;
+//   - a power token's update is one pass by its warp: a lane holds its
+//     topics j = lane + 32 i (i < J = ceil(Pk / 32) <= 4, a template
+//     argument, so each J is a kernel of its own name) in registers from
+//     the loads of k_j, mu, phi_tot and phi through the two warp sums to
+//     the writes of mu' and cd.  A lane adds its topics in ascending j and
+//     the warp sums by the same butterfly as the strided loop, so u, the
+//     sums and mu' are that loop's bits.  Scattered requests an element:
+//     mu, phi_tot and phi read once and mu written once, theta from shared
+//     memory (before: mu, theta, phi_tot and phi read twice, two passes,
+//     and mu written: 8 loads and a store).  Past Pk = 128 (J = 0) lanes
+//     stride over the topics in two passes, as before, theta still from
+//     shared memory;
+//   - theta_delta stays deterministic: each power token's cd [Pk] goes to a
+//     token-indexed [T, Pk] scratch (coalesced, 9.2 MB at these shapes);
+//     after the last token and one barrier the shared theta row is zeroed
+//     and becomes theta_delta[d], and warp 0 adds the document's cd rows
+//     into it in token order, read back from L2 (the loads of a few tokens
+//     in flight before their adds), so each topic's sum runs in token
+//     order, as when warp 0 added each round's staged rows;
 //   - d_pack and r_pack are sums over each power row's tokens, taken in one
 //     fixed order with no atomics, so they repeat bit for bit from launch to
-//     launch: the sweep writes each power token's cd [Pk] into a
-//     token-indexed [T, Pk] scratch stream (coalesced, 9.2 MB at these
-//     shapes), and a second kernel (carry_dr_fold_kernel) adds the tokens
-//     of the run of each power row's word sel_w[p], in the sweep order the
-//     caller made once per mini-batch (TokenLayout.word_runs: counted
-//     tokens sorted by word, stable, so by token index within a word;
-//     starts[w] .. starts[w + 1] is the run of word w).  Under the Zipf word
-//     law of the training cells the head word is in almost every document,
-//     so a run reaches ~D tokens (4045 of D = 4096): one warp walking it
-//     token by token, a dependent order -> cd load each, took 1.05 ms of a
-//     4.9 ms iteration on an H100, ~0.26 us a token.  So no
+//     launch: a second kernel (carry_dr_fold_kernel) adds the cd rows of
+//     the tokens of the run of each power row's word sel_w[p], in the sweep
+//     order the caller made once per mini-batch (TokenLayout.word_runs:
+//     counted tokens sorted by word, stable, so by token index within a
+//     word; starts[w] .. starts[w + 1] is the run of word w).  Under the
+//     Zipf word law of the training cells the head word is in almost every
+//     document, so a run reaches ~D tokens (4045 of D = 4096): one warp
+//     walking it token by token, a dependent order -> cd load each, took
+//     1.05 ms of a 4.9 ms iteration on an H100, ~0.26 us a token.  So no
 //     warp sums more than kFoldChunk = 64 tokens: a run of at most 64 is
 //     summed whole by its row's warp; a longer one is cut into chunks of 64
 //     (TokenLayout.word_chunks, made once per mini-batch: `split`, each
@@ -109,24 +129,36 @@
 //     order and the partials in chunk order, so the sums still repeat bit
 //     for bit; every row is written (a run with no token as zeros), so the
 //     buffers need no zeroing.  Tokens of count 0 are outside the runs:
-//     their cd is exactly 0;
-//   - theta_delta stays deterministic: each warp stages its token's cd_j in
-//     shared memory, and after the round's __syncthreads warp 0 adds the
-//     round's tokens into one [K] row in token order (double-buffered
-//     stage, one barrier a round).  The fold is not what bounds the kernel:
-//     a variant with a warp of its own for it ran no faster on an H100.
-//   The fold reads the power tokens' cd once more (9.2 MB) and writes the
-//   [P, Pk] buffers (5.6 MB) the atomics wrote before; the chunks' partials
-//   (2 x chunks x Pk floats, ~0.9 MB at the training cells' shapes) pass
-//   through L2.
-//   Shared memory: 4 * (K + 2 * warps * Pk) bytes, 11.2 KB at K = 2000,
-//   Pk = 50, 8 warps; with __launch_bounds__(256, 4) (<= 64 registers) 4
-//   CTAs fit an SM, so the 512 CTAs of a training batch run in one wave.
-//   Each (token, topic) element of mu and phi lies in a 32-byte sector of
-//   its own at a random place in HBM: 8x the bytes the bound counts.
-//   Limit: K + 2 * Pk floats within the shared memory a block may opt in to
-//   (232,448 B on an H100 less 64 B static: K + 2 * Pk <= 58,096); warps =
-//   min(8, (budget / 4 - K) / (2 * Pk)).
+//     their cd is exactly 0.  The fold reads the power tokens' cd once
+//     more and writes the [P, Pk] buffers; the chunks' partials (2 x chunks
+//     x Pk floats, ~0.9 MB at the training cells' shapes) pass through L2.
+//   Measured on an H100 (80 GB HBM3, 700 W) on the training cells' own
+//   inputs (D = 4096, K = 2000 and D = 2048, K = 10,000; L = 128, Pk = 50;
+//   460k and 239k power slots, about half of them the count-0 padding of
+//   power row 0): 1.87-1.92 -> 1.49-1.52 ms a launch at K = 2000 and
+//   2.18 -> 1.24 ms at K = 10,000, every output bit for bit the two-pass
+//   kernel's.  What is left is mu: with phi and phi_tot not loaded 1.39 /
+//   1.11 ms, with mu not stored 0.87 / 0.66 ms; 32- or 128-byte L2 fetches,
+//   L2 evict-first on mu or evict-last on phi, and the next token's indices
+//   loaded ahead ran no faster.  The K gap: theta read from global memory
+//   instead of shared took 1.61 / 1.38 ms (+2% / +11%), so the L1 that the
+//   [K] rows left free covered theta at K = 2000 and not at 10,000; the
+//   rest of the gap is mu's own (0.060 / 0.093 ns an update with only mu
+//   loaded), where a document's rows span 5 MB at K = 10,000 and 1 MB at
+//   K = 2000: 8 CTAs of 4 warps an SM (more documents in flight) took 1.53
+//   ms at K = 10,000 and 2 of 16 warps 1.21 ms, at K = 2000 1.54 / 1.55.
+//   Layout: theta alone in shared memory during the sweep, then the same
+//   row as the accumulator (above), chosen over both rows side by side
+//   (16 KB at K = 2000, 80 KB and 2 CTAs an SM at K = 10,000), which took
+//   1.45-1.55 / 1.26 ms at the cells' share and 0.83-0.87 / 0.82-0.83 ms
+//   with the padding made guard tokens (this layout: 0.81-0.83 /
+//   0.68-0.69 ms).
+//   Occupancy: __launch_bounds__(256, 4) (<= 64 registers, no spill at any
+//   J); 4 CTAs an SM at both cells' K (8 / 40 KB of shared memory), and
+//   shared memory padded to hold 3 or 2 CTAs an SM ran 21-36% slower.
+//   Limit: K floats of shared memory whatever Pk, within what a block may
+//   opt in to (232,448 B on an H100: K <= 58,112; before, K + 2 x warps x
+//   Pk floats less 64 B); theta always fits where the sweep runs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -138,7 +170,8 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kCluster = 4;          // CTAs per serving slot
-constexpr int kTrainMaxWarps = 8;
+constexpr int kTrainWarps = 8;       // training sweep: warps a CTA
+constexpr int kTrainMaxJ = 4;        // training sweep: most topics a lane holds
 constexpr int kFoldWarps = 8;        // d/r fold: warps a CTA
 constexpr int kFoldChunk = 64;       // d/r fold: the most tokens a warp sums
 constexpr int kFoldAhead = 16;       // d/r fold: tokens' loads in flight
@@ -565,79 +598,202 @@ __device__ __forceinline__ float update_u(float th, float pt, float m, float c, 
   return (th - cm + alpha) * (ph - cm + beta) / (pt - cm + wbeta);
 }
 
-__global__ void __launch_bounds__(kTrainMaxWarps * kWarp, 4) carry_train_kernel(
+// One power token's update by its warp, its topics j = lane + 32 i (i < J)
+// held in registers from the loads through the two warp sums to the writes:
+// each input of a (token, topic) element is read once.  th_s is theta[d] in
+// shared memory.  A lane adds its topics in ascending j, then the butterfly,
+// so u, the sums and mu' are the strided loop's bits.
+template <int J>
+__device__ __forceinline__ void train_token(const int* __restrict__ ks,
+                                            const float* __restrict__ ph, float* mu_t,
+                                            const float* th_s,
+                                            const float* __restrict__ phi_tot,
+                                            float* co, float c, int Pk, float alpha,
+                                            float beta, float wbeta) {
+  const int lane = threadIdx.x % kWarp;
+  int k[J];
+  float m[J], th[J], pt[J], pw[J], u[J];
+#pragma unroll
+  for (int i = 0; i < J; ++i) k[i] = lane + kWarp * i < Pk ? __ldg(ks + lane + kWarp * i) : 0;
+#pragma unroll
+  for (int i = 0; i < J; ++i) {
+    m[i] = th[i] = pt[i] = pw[i] = 0.f;
+    if (lane + kWarp * i < Pk) {
+      m[i] = mu_t[k[i]];
+      pt[i] = __ldg(phi_tot + k[i]);
+      pw[i] = __ldg(ph + k[i]);
+      th[i] = th_s[k[i]];
+    }
+  }
+  float su = 0.f, sm = 0.f;
+#pragma unroll
+  for (int i = 0; i < J; ++i) {
+    u[i] = 0.f;
+    if (lane + kWarp * i < Pk) {
+      u[i] = update_u(th[i], pt[i], m[i], c, pw[i], alpha, beta, wbeta);
+      su += u[i];
+      sm += m[i];
+    }
+  }
+  su = warp_sum(su);
+  sm = warp_sum(sm);
+  const float denom = fmaxf(su, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < J; ++i) {
+    const int j = lane + kWarp * i;
+    if (j < Pk) {
+      const float mn = u[i] * sm / denom;
+      mu_t[k[i]] = mn;
+      co[j] = c * (mn - m[i]);
+    }
+  }
+}
+
+// The same update for any Pk (past kTrainMaxJ * 32 topics): lanes stride
+// over the topics twice, the sums first, then the update, reading the
+// token's inputs again.
+__device__ __forceinline__ void train_token_loop(const int* __restrict__ ks,
+                                                 const float* __restrict__ ph,
+                                                 float* mu_t, const float* th_s,
+                                                 const float* __restrict__ phi_tot,
+                                                 float* co, float c, int Pk,
+                                                 float alpha, float beta, float wbeta) {
+  const int lane = threadIdx.x % kWarp;
+  float su = 0.f, sm = 0.f;
+  for (int j = lane; j < Pk; j += kWarp) {
+    const int k = __ldg(ks + j);
+    const float m = mu_t[k];
+    su += update_u(th_s[k], __ldg(phi_tot + k), m, c, __ldg(ph + k), alpha, beta, wbeta);
+    sm += m;
+  }
+  su = warp_sum(su);
+  sm = warp_sum(sm);
+  const float denom = fmaxf(su, 1e-30f);
+  for (int j = lane; j < Pk; j += kWarp) {
+    const int k = __ldg(ks + j);
+    const float m = mu_t[k];
+    const float mn = update_u(th_s[k], __ldg(phi_tot + k), m, c, __ldg(ph + k), alpha,
+                              beta, wbeta) * sm / denom;
+    mu_t[k] = mn;
+    co[j] = c * (mn - m);
+  }
+}
+
+// acc[k] += the cd rows of the power tokens t0 .. t1 - 1 at their topics, by
+// one warp, token after token: a token's topics are distinct, so its adds
+// run at once, and each topic's adds run in token order.  The topics and cd
+// of G tokens are loaded before their adds; cd was written by this CTA's
+// warps before a barrier, so it is read from L2.
+template <int J>
+__device__ __forceinline__ void fold_theta_delta(float* acc, const int* __restrict__ p_tok,
+                                                 const int* __restrict__ sel_k,
+                                                 const float* cd, int t0, int t1, int P,
+                                                 int Pk) {
+  constexpr int JJ = J > 0 ? J : 1;
+  constexpr int G = J > 0 ? (J > 2 ? 2 : 8 / J) : 1;
+  const int lane = threadIdx.x % kWarp;
+  for (int base = t0; base < t1; base += kWarp) {
+    const int n = min(kWarp, t1 - base);
+    int p = lane < n ? __ldg(p_tok + base + lane) : -1;
+    if (p < 0 || p >= P) p = -1;
+    for (int s = 0; s < n; s += G) {
+      if constexpr (J > 0) {
+        int k[G][JJ];
+        float v[G][JJ];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const int q = __shfl_sync(0xffffffffu, p, (s + g) % kWarp);
+          const bool on = s + g < n && q >= 0;
+          const int* ks = sel_k + (size_t)max(q, 0) * Pk;
+          const float* row = cd + (size_t)(base + s + g) * Pk;
+#pragma unroll
+          for (int i = 0; i < J; ++i) {
+            const int j = lane + kWarp * i;
+            k[g][i] = on && j < Pk ? __ldg(ks + j) : -1;
+            v[g][i] = on && j < Pk ? __ldcg(row + j) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+#pragma unroll
+          for (int i = 0; i < J; ++i)
+            if (k[g][i] >= 0) acc[k[g][i]] += v[g][i];
+          __syncwarp();                       // the next token may share topics
+        }
+      } else {
+        const int q = __shfl_sync(0xffffffffu, p, s);
+        if (q >= 0) {
+          const int* ks = sel_k + (size_t)q * Pk;
+          const float* row = cd + (size_t)(base + s) * Pk;
+          for (int j = lane; j < Pk; j += kWarp) acc[__ldg(ks + j)] += __ldcg(row + j);
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
+// One CTA a document.  Its theta row is read once, whole, into shared
+// memory; warps then take the document's tokens t0 + warp, t0 + warp + 8,
+// ... with no barrier between them, each power token updated by train_token
+// (J > 0) or train_token_loop (J = 0), its cd [Pk] written to cd_out.  After
+// the last token and one barrier the same shared row becomes theta_delta[d]:
+// warp 0 zeroes it, folds the document's cd rows into it in token order and
+// writes it out.
+template <int J>
+__global__ void __launch_bounds__(kTrainWarps * kWarp, 4) carry_train_kernel(
     const int* __restrict__ p_tok, const int* __restrict__ doc_ids,
     const float* __restrict__ counts, float* mu, const float* __restrict__ theta,
     const float* __restrict__ phi_tot, const float* __restrict__ phi,
     const int* __restrict__ sel_w, const int* __restrict__ sel_k,
-    float* __restrict__ theta_delta, float* __restrict__ cd_out, int T, int K, int P,
-    int Pk, float alpha, float beta, float wbeta) {
-  extern __shared__ float smem[];
-  __shared__ int stage_p[2][kTrainMaxWarps];  // each warp's row this round, -1 none
+    float* __restrict__ theta_delta, float* cd_out, int T, int K, int P, int Pk,
+    float alpha, float beta, float wbeta) {
+  extern __shared__ float4 row4[];
+  float* row = reinterpret_cast<float*>(row4);  // [K] theta[d], then theta_delta[d]
   const int nw = blockDim.x / kWarp;
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int d = blockIdx.x;
-  float* acc = smem;                          // [K] theta_delta[d]
-  float* stage = smem + K;                    // [2][nw][Pk] the rounds' cd
-  for (int k = threadIdx.x; k < K; k += blockDim.x) acc[k] = 0.f;
+  // 16-byte loads and stores where the rows lie on 16-byte boundaries
+  const bool vec = K % 4 == 0 && (((uintptr_t)theta | (uintptr_t)theta_delta) & 15) == 0;
+  const int n4 = vec ? K / 4 : 0;
+  const float* th = theta + (size_t)d * K;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    row4[i] = __ldg(reinterpret_cast<const float4*>(th) + i);
+  for (int k = 4 * n4 + threadIdx.x; k < K; k += blockDim.x) row[k] = __ldg(th + k);
   const int t0 = lower_bound(doc_ids, T, d);
   const int t1 = lower_bound(doc_ids, T, d + 1);
-  const float* th = theta + (size_t)d * K;
   __syncthreads();
 
-  for (int base = t0, buf = 0; base < t1; base += nw, buf ^= 1) {
-    const int t = base + warp;
-    int p = t < t1 ? __ldg(p_tok + t) : -1;
-    if (p < 0 || p >= P) p = -1;              // guard: nothing read or written
-    if (p >= 0) {
-      const float c = __ldg(counts + t);
-      const int* ks = sel_k + (size_t)p * Pk;
-      const float* ph = phi + (size_t)__ldg(sel_w + p) * K;
-      float* mu_t = mu + (size_t)t * K;
-      float su = 0.f, sm = 0.f;
-      for (int j = lane; j < Pk; j += kWarp) {
-        const int k = __ldg(ks + j);
-        const float m = mu_t[k];
-        su += update_u(__ldg(th + k), __ldg(phi_tot + k), m, c, __ldg(ph + k), alpha,
-                       beta, wbeta);
-        sm += m;
-      }
-      su = warp_sum(su);
-      sm = warp_sum(sm);
-      const float denom = fmaxf(su, 1e-30f);
-      float* st = stage + (size_t)(buf * nw + warp) * Pk;
-      float* co = cd_out + (size_t)t * Pk;
-      for (int j = lane; j < Pk; j += kWarp) {
-        const int k = __ldg(ks + j);
-        const float m = mu_t[k];
-        const float mn = update_u(__ldg(th + k), __ldg(phi_tot + k), m, c, __ldg(ph + k),
-                                  alpha, beta, wbeta) * sm / denom;
-        const float cd = c * (mn - m);
-        mu_t[k] = mn;
-        st[j] = cd;
-        co[j] = cd;
-      }
-    }
-    if (lane == 0) stage_p[buf][warp] = p;
-    __syncthreads();
-    // warp 0 folds the round into theta_delta in token order while the other
-    // warps start the next round in the other stage buffer
-    if (warp == 0) {
-      for (int w = 0; w < nw; ++w) {
-        const int q = stage_p[buf][w];
-        if (q < 0) continue;
-        const int* ks = sel_k + (size_t)q * Pk;
-        const float* st = stage + (size_t)(buf * nw + w) * Pk;
-        for (int j = lane; j < Pk; j += kWarp) acc[__ldg(ks + j)] += st[j];
-        __syncwarp();                         // the next token may share topics
-      }
-    }
+  for (int t = t0 + warp; t < t1; t += nw) {
+    const int p = __ldg(p_tok + t);
+    if (p < 0 || p >= P) continue;            // guard: nothing read or written
+    const float c = __ldg(counts + t);
+    const int* ks = sel_k + (size_t)p * Pk;
+    const float* ph = phi + (size_t)__ldg(sel_w + p) * K;
+    float* mu_t = mu + (size_t)t * K;
+    float* co = cd_out + (size_t)t * Pk;
+    if constexpr (J > 0)
+      train_token<J>(ks, ph, mu_t, row, phi_tot, co, c, Pk, alpha, beta, wbeta);
+    else
+      train_token_loop(ks, ph, mu_t, row, phi_tot, co, c, Pk, alpha, beta, wbeta);
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    theta_delta[(size_t)d * K + k] = acc[k];
+  __syncthreads();                            // theta[d] is read no more
+  if (warp != 0) return;
+  for (int i = lane; i < n4; i += kWarp) row4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = 4 * n4 + lane; k < K; k += kWarp) row[k] = 0.f;
+  __syncwarp();
+  fold_theta_delta<J>(row, p_tok, sel_k, cd_out, t0, t1, P, Pk);
+  float* out = theta_delta + (size_t)d * K;
+  for (int i = lane; i < n4; i += kWarp) reinterpret_cast<float4*>(out)[i] = row4[i];
+  for (int k = 4 * n4 + lane; k < K; k += kWarp) out[k] = row[k];
 }
+
+// the training kernel's instantiations, by J
+using TrainKernel = decltype(&carry_train_kernel<0>);
+const TrainKernel kTrainKernels[kTrainMaxJ + 1] = {
+    carry_train_kernel<0>, carry_train_kernel<1>, carry_train_kernel<2>,
+    carry_train_kernel<3>, carry_train_kernel<4>};
 
 // One warp's sums of the cd rows of the tokens at run positions [lo, lo + n),
 // 0 <= n <= kFoldChunk, in run order: out_d[j] = sum cd[t, j], out_r[j] = sum
@@ -780,17 +936,24 @@ extern "C" {
 // that many bytes in *smem_bytes.  Called once per device, before the first
 // training launch there.  Returns the CUDA error code (0 on success).
 int power_sweep_carry_configure(int* smem_bytes) {
-  int device = 0, optin = 0;
-  cudaFuncAttributes attr;
+  int device = 0, optin = 0, most = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, carry_train_kernel);
+  for (TrainKernel kernel : kTrainKernels) {
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess && (int)attr.sharedSizeBytes > most)
+      most = (int)attr.sharedSizeBytes;
+  }
   if (err != cudaSuccess) return (int)err;
-  *smem_bytes = optin - (int)attr.sharedSizeBytes;
-  return (int)cudaFuncSetAttribute(carry_train_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   *smem_bytes);
+  *smem_bytes = optin - most;
+  for (TrainKernel kernel : kTrainKernels) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               *smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // Launches one serving sweep on `stream` by the caller's plan (V float4s a
@@ -821,9 +984,9 @@ int power_sweep_carry_serve(const int* p_tok, const int* doc_ids, const float* c
   return (int)(err != cudaSuccess ? err : last);
 }
 
-// Launches one training sweep on `stream` with `warps` warps a CTA (1 to 8,
-// leaving 4 * (K + 2 * warps * Pk) bytes within what
-// power_sweep_carry_configure allowed), then the d/r fold; allocates
+// Launches one training sweep on `stream` with J topics a lane (1 to 4,
+// Pk <= 32 * J; 0 for any Pk), taking 4 * K bytes of shared memory within
+// what power_sweep_carry_configure allowed, then the d/r fold; allocates
 // nothing.  `order` [T] and `starts` [W + 1] are the runs by word (see the
 // note above): the counted tokens of word w are order[starts[w] ..
 // starts[w + 1]).  `split` [E] lists the first run position of each chunk of
@@ -839,14 +1002,15 @@ int power_sweep_carry_train(const int* p_tok, const int* doc_ids, const float* c
                             float* cd, float* theta_delta, float* d_pack, float* r_pack,
                             float* part, int* counters, int T, int D, int K, int P,
                             int Pk, int E, int chunk, float alpha, float beta,
-                            float wbeta, int warps, void* stream) {
-  if (warps < 1 || warps > kTrainMaxWarps || chunk != kFoldChunk || E < 0 ||
-      (E > 0 && (split == nullptr || part == nullptr)) ||
+                            float wbeta, int J, void* stream) {
+  if (J < 0 || J > kTrainMaxJ || (J > 0 && Pk > kWarp * J) || chunk != kFoldChunk ||
+      E < 0 || (E > 0 && (split == nullptr || part == nullptr)) ||
       (P > 0 && counters == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)K + 2 * (size_t)warps * Pk);
+  const size_t smem = sizeof(float) * (size_t)K;
+  const cudaStream_t s = (cudaStream_t)stream;
   if (D > 0) {
-    carry_train_kernel<<<D, warps * kWarp, smem, (cudaStream_t)stream>>>(
+    kTrainKernels[J]<<<D, kTrainWarps * kWarp, smem, s>>>(
         p_tok, doc_ids, counts, mu, theta, phi_tot, phi, sel_w, sel_k, theta_delta, cd,
         T, K, P, Pk, alpha, beta, wbeta);
     const cudaError_t err = cudaGetLastError();
@@ -855,7 +1019,7 @@ int power_sweep_carry_train(const int* p_tok, const int* doc_ids, const float* c
   if (P > 0 && Pk > 0) {
     const long long warps_fold = (long long)E + P;
     carry_dr_fold_kernel<<<(unsigned)((warps_fold + kFoldWarps - 1) / kFoldWarps),
-                           kFoldWarps * kWarp, 0, (cudaStream_t)stream>>>(
+                           kFoldWarps * kWarp, 0, s>>>(
         order, starts, split, p_tok, sel_w, cd, d_pack, r_pack, part, counters, E, P,
         Pk);
   }

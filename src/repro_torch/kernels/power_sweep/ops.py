@@ -23,8 +23,10 @@ K-blocked kernel by whether its tables fit VMEM; the CUDA source reads
 rows by index from HBM and has its own two serving paths: threads that keep
 their topics of a row in registers (K <= ``SERVE_REGISTER_MAX_K``), and the
 K-blocked two passes, for any K; `serve_launch_plan` picks by K.  Training
-takes K + 2 * Pk floats of shared memory (`power_sweep_carry_train_max_k`);
-past that the wrapper raises ``ValueError``.  Both modes sum in a fixed
+keeps a power token's topics in registers up to ``TRAIN_REGISTER_MAX_PK``
+and loops past it, and takes K floats of shared memory
+(`train_launch_plan`, `power_sweep_carry_train_max_k`); past that the
+wrapper raises ``ValueError``.  Both modes sum in a fixed
 order (training: a second device kernel adds the d/r rows over the tokens'
 runs, a long run in chunks), so every output repeats bit for bit from
 launch to launch.
@@ -43,7 +45,7 @@ from repro_torch.kernels.token_order import FOLD_CHUNK
 
 _SOURCE = "power_sweep_carry"
 SERVE_REGISTER_MAX_K = 2048        # 2 float4s a thread x 256 threads
-_MAX_TRAIN_WARPS = 8
+TRAIN_REGISTER_MAX_PK = 128        # 4 topics a lane x 32 lanes
 
 
 # ------------------------------------------------------------------ serving
@@ -165,6 +167,33 @@ def power_sweep_carry_train_plain(p_tok, doc_ids, counts_t, mu_t, theta,
         alpha=alpha, beta=beta, wbeta=wbeta)
 
 
+class TrainPlan(NamedTuple):
+    """How the training kernel runs at (K, Pk): each lane keeps ``J`` of a
+    power token's topics in registers (0: the strided loop that reads
+    them twice, past ``TRAIN_REGISTER_MAX_PK``), and a CTA takes ``smem``
+    bytes of shared memory, its document's theta row and then the same row
+    as its theta_delta."""
+    J: int
+    smem: int
+
+
+def train_launch_plan(K: int, Pk: int, smem_bytes: int) -> TrainPlan:
+    """The training kernel's plan at ``K`` topics, ``Pk`` power topics and
+    ``smem_bytes`` of shared memory a CTA may take: J = ceil(Pk / 32) up to
+    ``TRAIN_REGISTER_MAX_PK``, the loop path past it; K floats of shared
+    memory, whatever Pk.  Raises ``ValueError`` when Pk exceeds K or K
+    floats do not fit."""
+    K, Pk = int(K), int(Pk)
+    if Pk > K:
+        raise ValueError(f"Pk={Pk} power topics exceed K={K}")
+    floats = int(smem_bytes) // 4
+    if K > floats:
+        raise ValueError(f"K={K}, Pk={Pk}: the training kernel takes K <= "
+                         f"{floats} (its shared memory)")
+    J = -(-Pk // 32) if Pk <= TRAIN_REGISTER_MAX_PK else 0
+    return TrainPlan(J, 4 * K)
+
+
 def _train_smem(device: torch.device) -> int:
     """Bytes of dynamic shared memory the training kernel may use on
     ``device``.  The first call there lets the kernel opt in to all a
@@ -174,8 +203,8 @@ def _train_smem(device: torch.device) -> int:
 
 def power_sweep_carry_train_max_k(Pk: int, device="cuda") -> int:
     """The largest K the training kernel takes at ``Pk`` power topics on
-    ``device`` (one warp a CTA: K + 2 * Pk floats of shared memory)."""
-    return _train_smem(torch.device(device)) // 4 - 2 * max(Pk, 1)
+    ``device``: K floats of shared memory, whatever Pk."""
+    return _train_smem(torch.device(device)) // 4
 
 
 @launcher(_SOURCE, "mu_t", power_sweep_carry_train_plain)
@@ -227,8 +256,6 @@ def power_sweep_carry_train(kernel, stream, p_tok, doc_ids, counts_t, mu_t,
                                        (phi_eff_wk.shape[0], K)),
                         "sel_w": (sel_w, torch.int32, (P,)),
                         "sel_k": (sel_k, torch.int32, (P, Pk))})
-    if Pk > K:
-        raise ValueError(f"Pk={Pk} power topics exceed K={K}")
     if runs is None or chunks is None:
         raise ValueError("power_sweep_carry_train needs the tokens' runs by "
                          "word and their chunks on CUDA "
@@ -241,12 +268,7 @@ def power_sweep_carry_train(kernel, stream, p_tok, doc_ids, counts_t, mu_t,
                         "chunks": (chunks, torch.int32, (E,)),
                         "mu_t": (mu_t, torch.float32, (T, K))})
     dev = mu_t.device
-    floats = _train_smem(dev) // 4
-    warps = min(_MAX_TRAIN_WARPS, (floats - K) // (2 * max(Pk, 1)))
-    if warps < 1:
-        raise ValueError(
-            f"K={K}, Pk={Pk}: the training kernel takes K + 2 * Pk <= "
-            f"{floats} on {dev} (its shared memory)")
+    plan = train_launch_plan(K, Pk, _train_smem(dev))
     theta_delta = torch.empty_like(theta)
     d_pack = torch.empty((P, Pk), dtype=torch.float32, device=dev)
     r_pack = torch.empty_like(d_pack)
@@ -260,6 +282,6 @@ def power_sweep_carry_train(kernel, stream, p_tok, doc_ids, counts_t, mu_t,
         starts.data_ptr(), chunks.data_ptr(), cd.data_ptr(),
         theta_delta.data_ptr(), d_pack.data_ptr(), r_pack.data_ptr(),
         part.data_ptr(), zeroed_counters(dev, stream, P).data_ptr(), T, D, K,
-        P, Pk, E, FOLD_CHUNK, float(alpha), float(beta), float(wbeta), warps,
+        P, Pk, E, FOLD_CHUNK, float(alpha), float(beta), float(wbeta), plan.J,
         stream)
     return mu_t, theta_delta, d_pack, r_pack

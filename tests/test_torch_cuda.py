@@ -265,14 +265,17 @@ def _word_runs(args, W):
 
 
 def _train_args(seed, *, D, L, K, P, Pk, guard=0.5, empty_doc=False,
-                skew=False):
+                skew=False, padded=False):
     """Training-mode carry inputs: tokens on power rows [0, P) or (a
     ``guard`` share) the guard id P, a ragged last document (with
     ``empty_doc``, document 1 owns no slot), P distinct power words of a
     [W, K] phi with Pk distinct topics each.  With ``skew`` (P >= 6), the
     runs of the d/r fold's edges: row 0 has the first slot of every
     document (a run of D counted tokens), rows 1, 2 and 3 runs of exactly
-    C = FOLD_CHUNK, C + 1 and 1 counted tokens, row 4 none."""
+    C = FOLD_CHUNK, C + 1 and 1 counted tokens, row 4 none.  With
+    ``padded``, every document is ragged as the training cells' batches
+    are: the slots past its length carry count 0 on power row 0, the head
+    word's."""
     rng = np.random.default_rng(seed)
     T = D * L
     W = 2 * P + 1
@@ -283,6 +286,11 @@ def _train_args(seed, *, D, L, K, P, Pk, guard=0.5, empty_doc=False,
         doc_ids[doc_ids == 1] = 0
     counts = rng.integers(1, 4, (T, 1)).astype(np.float32)
     counts[(doc_ids == D - 1) & (np.tile(np.arange(L), D) >= L // 2)] = 0.0
+    if padded:
+        pad = np.tile(np.arange(L), D) >= np.repeat(rng.integers(1, L + 1, D),
+                                                    L)
+        counts[pad] = 0.0
+        p_tok[pad] = 0
     if skew:
         C = FOLD_CHUNK
         head = np.tile(np.arange(L), D) == 0
@@ -320,10 +328,52 @@ def _train_args(seed, *, D, L, K, P, Pk, guard=0.5, empty_doc=False,
     (100, 4, 20, 9, 5, 0.5, True, True)])       # the head run cut once
 def test_carry_training_kernel_matches_plain_version_on_card(
         card, D, L, K, P, Pk, guard, empty_doc, skew):
-    args = [x.to("cuda") for x in _train_args(D + K + Pk, D=D, L=L, K=K,
-                                              P=P, Pk=Pk, guard=guard,
-                                              empty_doc=empty_doc,
-                                              skew=skew)]
+    _check_carry_training_on_card(
+        _train_args(D + K + Pk, D=D, L=L, K=K, P=P, Pk=Pk, guard=guard,
+                    empty_doc=empty_doc, skew=skew), empty_doc=empty_doc,
+        skew=skew)
+
+
+@pytest.mark.parametrize("Pk", [1, 31, 32, 33, 50, 64, 65, 128, 129])
+def test_carry_training_kernel_each_topic_path_on_card(card, Pk):
+    """Each count of topics a lane holds (J = 1 to 4: Pk up to 32, 64, 96,
+    128) at its edges, and the strided loop past 128, on ragged documents
+    whose padding sits on a power row."""
+    _check_carry_training_on_card(
+        _train_args(Pk, D=24, L=32, K=300, P=40, Pk=Pk, guard=0.3,
+                    padded=True))
+
+
+@pytest.mark.parametrize("D,L,K,P,Pk", [
+    (64, 128, 2000, 1400, 50),      # the k2000 cell's widths
+    (16, 128, 10000, 700, 50),      # the k10000 cell's widths
+    (64, 128, 2000, 1400, 129)])    # the loop path
+def test_carry_training_kernel_on_padding_of_a_power_row_on_card(
+        card, D, L, K, P, Pk):
+    """The cells' batches: every document ragged, its padding slots (count
+    0) on power row 0, so they are updated as power tokens and add exact
+    zeros to theta_delta."""
+    _check_carry_training_on_card(
+        _train_args(D + K, D=D, L=L, K=K, P=P, Pk=Pk, guard=0.2,
+                    padded=True))
+
+
+@pytest.mark.parametrize("Pk", [1, 50, 129])
+def test_carry_training_kernel_at_its_largest_k_on_card(card, Pk):
+    """K at ``power_sweep_carry_train_max_k(Pk)``: the document's theta
+    row fills the shared memory a CTA may take."""
+    K = ops.power_sweep_carry_train_max_k(Pk)
+    _check_carry_training_on_card(
+        _train_args(K + Pk, D=3, L=6, K=K, P=4, Pk=Pk, guard=0.2))
+
+
+def _check_carry_training_on_card(host_args, *, empty_doc=False, skew=False):
+    """The training sweep on the card against its plain version: mu' within
+    1e-5, theta_delta and the packs within rel 1e-4 of their scale, mu
+    in place and bit for bit as it was outside the power tokens' topics, a
+    second launch repeating all four outputs bit for bit."""
+    args = [x.to("cuda") for x in host_args]
+    P = args[7].shape[0]
     kw = dict(alpha=ALPHA, beta=0.01, wbeta=0.3)
     mu0 = args[3].clone()
     plain = list(args)

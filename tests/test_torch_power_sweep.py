@@ -109,6 +109,44 @@ def test_serve_launch_plan_covers_every_k(K, path):
         assert plan == ops.ServePlan("kblocked", 0, 256)
 
 
+H100_SMEM = 232_448    # the shared memory a block of an H100 may opt in to
+
+
+@pytest.mark.parametrize("K,Pk,J", [
+    (1, 1, 1), (37, 31, 1), (37, 32, 1), (100, 33, 2), (2000, 50, 2),
+    (2000, 64, 2), (2000, 65, 3), (2000, 96, 3), (2000, 97, 4),
+    (2000, 128, 4), (2000, 129, 0), (10000, 50, 2), (10000, 10000, 0)])
+def test_train_launch_plan_picks_topics_a_lane_by_pk(K, Pk, J):
+    """A lane keeps ceil(Pk / 32) of a power token's topics in registers
+    up to 128 topics; past that the strided loop (J = 0) takes any Pk.
+    A CTA takes K floats of shared memory, whatever Pk."""
+    plan = ops.train_launch_plan(K, Pk, H100_SMEM)
+    assert plan == ops.TrainPlan(J, 4 * K)
+    if J:
+        assert 32 * (J - 1) < Pk <= 32 * J <= ops.TRAIN_REGISTER_MAX_PK
+    else:
+        assert Pk > ops.TRAIN_REGISTER_MAX_PK
+
+
+@pytest.mark.parametrize("smem", [48 * 1024, 101_376, H100_SMEM - 64,
+                                  H100_SMEM])
+@pytest.mark.parametrize("Pk", [1, 32, 50, 128, 129, 2000])
+def test_train_max_k_never_below_the_round_staged_kernel(monkeypatch, smem,
+                                                          Pk):
+    """The largest K the training kernel takes is its shared memory in
+    floats, whatever Pk: never below the K + 2 * Pk floats a CTA of the
+    kernel that staged each round's cd needed.  The plan takes that K and
+    refuses one more before any launch."""
+    monkeypatch.setattr(ops, "_train_smem", lambda device: smem)
+    top = ops.power_sweep_carry_train_max_k(Pk)
+    assert top == smem // 4 >= smem // 4 - 2 * max(Pk, 1)
+    assert ops.train_launch_plan(top, Pk, smem).smem == 4 * top <= smem
+    with pytest.raises(ValueError, match="training kernel takes"):
+        ops.train_launch_plan(top + 1, Pk, smem)
+    with pytest.raises(ValueError, match="power topics exceed"):
+        ops.train_launch_plan(Pk - 1, Pk, smem)
+
+
 def test_serving_sweep_updates_mu_in_place():
     p_tok, doc_ids, counts, mu, theta, phi = _case(3, D=4, L=6, K=16, W=30)
     mu_t = torch.from_numpy(mu.copy())
